@@ -23,6 +23,26 @@ caught):
    launch count over that run must be 16 per decode step.
 6. ``slice_kernel_vs_gather``: the same path in f32 at two layers with
    ``paged_impl="kernel"`` and ``"gather"``; greedy tokens must agree.
+7. ``flash_case``: the flash kernels (forward, dQ, dK/dV) against their
+   plain versions on the card (bf16 flagship geometry, f32 GQA, a
+   window across tiles, non-causal, a ragged S=1000, bf16 D=64); bf16
+   outputs are held row by row (:data:`FLASH_TOL`).
+8. ``flash_timing``: the three kernels, their plain versions and
+   ``scaled_dot_product_attention`` as a yardstick at the flagship
+   training shape (B=8, S=2048, H=8, D=128, bf16, causal), beside the
+   operation bound.
+9. ``train_flagship``: ``SyncTrainer(loss_fn(model), adamw(1e-4))`` on
+   the flagship at full width (f32 master weights, bf16 compute, flash
+   attention), one warm-up and two timed ``multi_step`` of K=4 on a
+   [4, 8, 2048] batch; losses finite and falling, 16 launches of each
+   flash kernel per step, tokens/s, mfu, peak memory.
+10. ``train_kernel_vs_dot``: three SGD steps in f32 at two layers with
+    ``attention_impl="flash"`` and ``"dot"``; losses agree, and every
+    weight leaf agrees to a fraction of how far the steps moved it.
+11. ``train_to_serve``: the trained weights through ``serving_builder``
+    and ``predict_rows(schedule="continuous")``.
+12. ``optimizer_timing``: one update of the port's AdamW beside
+    ``torch.optim.AdamW(fused=True)`` over the flagship's parameters.
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit
 line, and as the last line ``{"ok": true, "device": {...}}``.  Without a
@@ -311,16 +331,12 @@ def pct(values, q):
     return float(np.percentile(np.asarray(list(values), np.float64), q))
 
 
-def phase_slice_flagship():
-    from tensorflowonspark_tpu_torch import convert
+def phase_slice_flagship(params, init_s):
     from tensorflowonspark_tpu_torch.models.transformer import (
         TransformerConfig,
     )
 
     cfg = TransformerConfig(**FLAGSHIP)
-    t0 = time.perf_counter()
-    params = convert.init_params_tree(cfg, seed=0)
-    init_s = time.perf_counter() - t0
     rows = make_requests(np.random.default_rng(2), REQUESTS,
                          cfg.vocab_size, 16, SERVING["max_prompt_len"])
     out, stats, wall, launches = serve(FLAGSHIP, SERVING, params, rows)
@@ -391,6 +407,504 @@ def phase_kernel_vs_gather():
             runs["kernel"][1], runs["gather"][1]))
 
 
+#: flash kernels against their plain versions.  f32 O to 1e-5 and f32
+#: dQ/dK/dV to 1e-4 absolute (the same f32 products summed in another
+#: order over up to S keys).  lse is f32 in both types: 1e-5 absolute
+#: (about ten f32 ulps at |lse| <= 16).  bf16 O/dQ/dK/dV: every element
+#: to 2^-5 of |ref| + the RMS of its row of D values
+#: (:func:`row_relative_error`; bf16 output
+#: rounding, up to 2^-7 of |ref|, plus p and ds rounded to bf16 on
+#: either side of a rounding boundary).  The row's own RMS holds the
+#: late rows, whose values are ~50x smaller than the first rows', as
+#: tightly as the first: a kernel that skips a key tile fails.
+FLASH_TOL = {"f32_out": 1e-5, "f32_grad": 1e-4, "lse": 1e-5,
+             "bf16_row_rel": 2 ** -5}
+FLASH_CASES = [
+    ("flagship_bf16_causal", dict(b=2, s=2048, h=8, hkv=8, d=128,
+                                  dtype=torch.bfloat16, causal=True)),
+    ("f32_gqa", dict(b=2, s=512, h=8, hkv=2, d=128, dtype=torch.float32,
+                     causal=True)),
+    ("f32_window_300", dict(b=1, s=1024, h=4, hkv=4, d=128,
+                            dtype=torch.float32, causal=True, window=300)),
+    ("f32_non_causal", dict(b=2, s=256, h=4, hkv=4, d=128,
+                            dtype=torch.float32, causal=False)),
+    ("f32_ragged_s1000", dict(b=1, s=1000, h=4, hkv=2, d=128,
+                              dtype=torch.float32, causal=True)),
+    ("bf16_d64_gqa", dict(b=2, s=1024, h=8, hkv=4, d=64,
+                          dtype=torch.bfloat16, causal=True)),
+]
+#: H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
+BF16_FLOPS_PER_SEC = 989e12
+
+
+def make_flash_case(gen, *, b, s, h, hkv, d, dtype, causal, window=0):
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    return dict(q=rnd(b, s, h, d), k=rnd(b, s, hkv, d), v=rnd(b, s, hkv, d),
+                dout=rnd(b, s, h, d), scale=d ** -0.5, causal=causal,
+                window=window)
+
+
+def flash_outputs(c):
+    """Each kernel's outputs and its plain version's on one case; the
+    backward of both takes the plain forward's O and lse."""
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, dout = c["q"], c["k"], c["v"], c["dout"]
+    kw = dict(scale=c["scale"], causal=c["causal"], window=c["window"])
+    ref_out, ref_lse = fa.flash_forward_reference(q, k, v, **kw)
+    delta = fa._delta(ref_out, dout)
+    args = (q, k, v, dout, ref_lse, delta)
+    pos = (kw["scale"], kw["causal"], kw["window"])
+    got = dict(zip(("out", "lse"), fa._launch_fwd(q, k, v, *pos)))
+    got["dq"] = fa._launch_dq(*args, *pos)
+    got["dk"], got["dv"] = fa._launch_dkv(*args, *pos)
+    torch.cuda.synchronize()
+    ref = dict(out=ref_out, lse=ref_lse,
+               dq=fa.flash_dq_reference(*args, **kw))
+    ref["dk"], ref["dv"] = fa.flash_dkv_reference(*args, **kw)
+    return got, ref
+
+
+def row_relative_error(got, ref):
+    """Largest ``|got - ref| / (|ref| + RMS of ref's row + 2^-6 RMS of
+    ref)`` over the elements, a row being the last dimension.  The last
+    term holds a row whose exact value cancels to 0 (causal row 0's dQ:
+    p = 1 there, so dP equals delta) to the f32 rounding noise of the
+    cancellation rather than to nothing."""
+    rms = ref.square().mean(dim=-1, keepdim=True).sqrt()
+    floor = 2 ** -6 * ref.square().mean().sqrt()
+    return ((got - ref).abs() / (ref.abs() + rms + floor).clamp_min(1e-30)) \
+        .max().item()
+
+
+def flash_errors(got, ref, dtype):
+    """``{output: (max abs err, checked err, tolerance)}``: the checked
+    error is the max abs error for f32 outputs and lse, and
+    :func:`row_relative_error` for bf16 O/dQ/dK/dV."""
+    out = {}
+    for name in ("out", "lse", "dq", "dk", "dv"):
+        g, r = got[name].float(), ref[name].float()
+        err = (g - r).abs().max().item()
+        if name == "lse":
+            checked, tol = err, FLASH_TOL["lse"]
+        elif dtype == torch.bfloat16:
+            checked = row_relative_error(g, r)
+            tol = FLASH_TOL["bf16_row_rel"]
+        else:
+            checked = err
+            tol = FLASH_TOL["f32_out" if name == "out" else "f32_grad"]
+        if not torch.isfinite(g).all().item():
+            err = checked = float("inf")
+        out[name] = (err, checked, tol)
+    return out
+
+
+def flash_ok(errs):
+    return all(c <= t for _, c, t in errs.values())
+
+
+def flash_case_errors():
+    """``(name, dtype, errors, plain outputs)`` for each of
+    :data:`FLASH_CASES`, inputs drawn on the card from one seed."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    for name, spec in FLASH_CASES:
+        got, ref = flash_outputs(make_flash_case(gen, **spec))
+        yield name, spec["dtype"], flash_errors(got, ref, spec["dtype"]), ref
+
+
+def phase_flash_cases():
+    for name, dtype, errs, _ in flash_case_errors():
+        ok = flash_ok(errs)
+        emit("flash_case", case=name, dtype=str(dtype),
+             max_abs_err={n: e for n, (e, _, _) in errs.items()},
+             checked_err={n: c for n, (_, c, _) in errs.items()},
+             tol={n: t for n, (_, _, t) in errs.items()}, ok=ok)
+        if not ok:
+            raise AssertionError("flash case {0}: {1}".format(name, errs))
+
+
+def flash_bounds(b, s, h, d, itemsize, causal=True):
+    """Least bytes (each input read once, each output written once) and
+    tensor-core flop of K2, K3 and K4 at one shape (MHA): one product
+    over the visible (query, key) pairs is 2 * D flop per pair."""
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    product = 2 * d * pairs
+    t = b * s * h * d * itemsize  # one [B, S, H, D] tensor
+    rows = b * h * s * 4  # one f32 [B, H, S] tensor
+    return {
+        "fwd": (4 * t + rows, 2 * product),   # q, k, v -> o, lse
+        "dq": (5 * t + 2 * rows, 3 * product),  # q, k, v, dO, lse, delta -> dq
+        "dkv": (6 * t + 2 * rows, 4 * product),  # ... -> dk, dv
+    }
+
+
+def phase_flash_timing():
+    """K2, K3 and K4 at the flagship training shape, beside their plain
+    versions, the bound, and scaled_dot_product_attention as a yardstick."""
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    b, s, h, d = 8, 2048, 8, 128
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    c = make_flash_case(gen, b=b, s=s, h=h, hkv=h, d=d,
+                        dtype=torch.bfloat16, causal=True)
+    got, ref = flash_outputs(c)
+    errs = flash_errors(got, ref, torch.bfloat16)
+    if not flash_ok(errs):
+        raise AssertionError("flash kernels at the flagship training shape: "
+                             "{0}".format(errs))
+    q, k, v, dout = c["q"], c["k"], c["v"], c["dout"]
+    lse, delta = ref["lse"], fa._delta(ref["out"], dout)
+    pos = (c["scale"], True, 0)
+    kw = dict(scale=c["scale"], causal=True, window=0)
+    args = (q, k, v, dout, lse, delta)
+    runs = {
+        "fwd": (lambda _: fa._launch_fwd(q, k, v, *pos),
+                lambda _: fa.flash_forward_reference(q, k, v, **kw)),
+        "dq": (lambda _: fa._launch_dq(*args, *pos),
+               lambda _: fa.flash_dq_reference(*args, **kw)),
+        "dkv": (lambda _: fa._launch_dkv(*args, *pos),
+                lambda _: fa.flash_dkv_reference(*args, **kw)),
+    }
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    dot_ = dout.transpose(1, 2)
+
+    def lib_fwd(_):
+        with torch.no_grad():
+            return sdpa(qt, kt, vt, is_causal=True)
+
+    def lib_fwd_bwd(_):
+        return torch.autograd.grad(sdpa(qt, kt, vt, is_causal=True),
+                                   (qt, kt, vt), dot_)
+
+    lib_fwd_ms = time_ms(lib_fwd, [None], reps=20, warmup=3)
+    lib_bwd_ms = time_ms(lib_fwd_bwd, [None], reps=20, warmup=3) - lib_fwd_ms
+    # SDPA's backward is one call for dQ, dK and dV: its time stands on
+    # the dq row alone
+    library = {
+        "fwd": (lib_fwd_ms, "scaled_dot_product_attention(is_causal=True) "
+                "forward"),
+        "dq": (lib_bwd_ms, "SDPA's backward (forward+backward minus "
+               "forward), one call computing dQ, dK and dV: compare with "
+               "flash_dq + flash_dkv"),
+        "dkv": (None, "SDPA's backward covers dK and dV; its time stands "
+                "on flash_dq"),
+    }
+    bounds = flash_bounds(b, s, h, d, 2)
+    err_of = {"fwd": max(errs["out"][0], errs["lse"][0]),
+              "dq": errs["dq"][0], "dkv": max(errs["dk"][0], errs["dv"][0])}
+    res = {}
+    for name, (kernel, plain) in runs.items():
+        nbytes, flops = bounds[name]
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_SEC
+        ops_ms = 1e3 * flops / BF16_FLOPS_PER_SEC
+        res[name] = dict(
+            ms=time_ms(kernel, [None], reps=20, warmup=3),
+            plain_ms=time_ms(plain, [None], reps=3, warmup=1),
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            bytes=nbytes, flops=flops, max_abs_err=err_of[name],
+            library_ms=library[name][0], library_note=library[name][1],
+        )
+        res[name]["tflops"] = flops / res[name]["ms"] / 1e9
+    emit("flash_timing", shape=dict(B=b, S=s, H=h, Hkv=h, D=d,
+                                    dtype="bfloat16", causal=True), **res)
+    return res
+
+
+TRAIN_K, TRAIN_B, TRAIN_S = 4, 8, 2048
+#: f32 flash vs dot training after three SGD steps: losses to rtol 1e-4;
+#: in every parameter leaf, what max|theta_flash - theta_dot| exceeds
+#: one f32 ulp of the weight by, under 1e-3 of how far the dot run
+#: moved that leaf (max|theta_dot - theta_0|), so a wrong gradient
+#: fails however small the leaf's steps are (the same f32 gradients
+#: summed in another order differ by far less; a weight whose exact
+#: update falls on the other side of a rounding boundary differs by
+#: one ulp)
+TRAIN_VS_DOT_TOL = {"loss_rtol": 1e-4, "param_rel_to_move": 1e-3}
+
+
+def flagship_tree():
+    """``(tree, seconds)``: the flagship's random Flax-layout weights from
+    seed 0 (the serving and training phases share one) and the time it
+    took to make them."""
+    from tensorflowonspark_tpu_torch import convert
+    from tensorflowonspark_tpu_torch.models import transformer
+
+    t0 = time.perf_counter()
+    tree = convert.init_params_tree(transformer.TransformerConfig(**FLAGSHIP),
+                                    seed=0)
+    return tree, time.perf_counter() - t0
+
+
+def flagship_trainer(tree):
+    """The bench flagship for training at full width: f32 master weights,
+    bf16 compute, flash attention, ``SyncTrainer(loss_fn(model),
+    adamw(1e-4))``, and one stacked [4, 8, 2048] token batch on the card."""
+    from tensorflowonspark_tpu_torch import convert, optim
+    from tensorflowonspark_tpu_torch.models import transformer
+    from tensorflowonspark_tpu_torch.parallel import dp
+
+    cfg = transformer.TransformerConfig(**dict(FLAGSHIP,
+                                               attention_impl="flash"))
+    model = convert.params_from_flax(tree, cfg, param_dtype=torch.float32)
+    trainer = dp.SyncTrainer(transformer.loss_fn(model), optim.adamw(1e-4))
+    state = trainer.create_state(dict(model.named_parameters()))
+    rng = np.random.default_rng(7)
+    tokens = rng.integers(0, cfg.vocab_size, (TRAIN_K, TRAIN_B, TRAIN_S))
+    stacked = {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(
+        trainer.batch_sharding())}
+    return cfg, model, trainer, state, stacked
+
+
+def phase_train_flagship(tree, flash_timing):
+    """One warm-up and two timed ``multi_step`` of K=4 of
+    :func:`flagship_trainer` on its stacked batch."""
+    from tensorflowonspark_tpu_torch.ops.flash_attention import (
+        flash_attention,
+    )
+
+    cfg, model, trainer, state, stacked = flagship_trainer(tree)
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
+    losses, walls = [], []
+    for _ in range(3):  # warm-up, then two timed groups
+        t0 = time.perf_counter()
+        state, metrics = trainer.multi_step_on_device(state, stacked)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"])
+    launches = dict(flash_attention.launches)
+    losses = torch.cat(losses).float().cpu().numpy()
+    steps = len(losses)
+    peak = torch.cuda.max_memory_allocated()
+    dtypes = sorted({str(p.dtype) for p in model.parameters()})
+    best = min(walls[1:])
+    step_ms = 1e3 * best / TRAIN_K
+    tokens_per_sec = TRAIN_K * TRAIN_B * TRAIN_S / best
+    flops_per_token = 6.0 * n_params + 12.0 * cfg.num_layers * \
+        cfg.num_heads * cfg.head_dim * TRAIN_S
+    res = dict(
+        model="L16 H8 Dh128 Dm1024 V32000 bf16 compute, f32 masters",
+        params=n_params, batch=[TRAIN_K, TRAIN_B, TRAIN_S], steps=steps,
+        losses=losses.tolist(), warmup_sec=walls[0], timed_sec=walls[1:],
+        step_ms=step_ms, tokens_per_sec=tokens_per_sec,
+        mfu=tokens_per_sec * flops_per_token / BF16_FLOPS_PER_SEC,
+        flops_per_token=flops_per_token, peak_memory_bytes=peak,
+        launches=launches, param_dtypes=dtypes,
+        kernel_share_of_step={
+            name: cfg.num_layers * flash_timing[name]["ms"] / step_ms
+            for name in ("fwd", "dq", "dkv")},
+        device=torch.cuda.get_device_name(0),
+    )
+    emit("train_flagship", **res)
+    if not np.isfinite(losses).all():
+        raise AssertionError("non-finite loss: {0}".format(losses))
+    if not losses[-1] < losses[0]:
+        raise AssertionError("loss did not fall: {0}".format(losses))
+    for name, n in launches.items():
+        if n != cfg.num_layers * steps:
+            raise AssertionError(
+                "flash {0} launches {1} != {2} layers x {3} steps".format(
+                    name, n, cfg.num_layers, steps))
+    if dtypes != ["torch.float32"]:
+        raise AssertionError("master parameters are {0}".format(dtypes))
+    return res, model
+
+
+def phase_train_kernel_vs_dot():
+    """The flagship width in f32 at two layers, S=512, B=4: three SGD
+    steps from the same weights with flash (the kernels) and dot
+    attention (plain PyTorch), both on the card."""
+    from tensorflowonspark_tpu_torch import convert, optim
+    from tensorflowonspark_tpu_torch.models import transformer
+    from tensorflowonspark_tpu_torch.ops.flash_attention import (
+        flash_attention,
+    )
+    from tensorflowonspark_tpu_torch.parallel import dp
+
+    base = dict(FLAGSHIP, dtype="float32", num_layers=2, max_seq_len=512)
+    tree = convert.init_params_tree(transformer.TransformerConfig(**base),
+                                    seed=8)
+    tokens = np.random.default_rng(9).integers(
+        0, base["vocab_size"], (3, 4, 512)).astype(np.int32)
+    runs = {}
+    for impl in ("flash", "dot"):
+        cfg = transformer.TransformerConfig(**dict(base, attention_impl=impl))
+        model = convert.params_from_flax(tree, cfg,
+                                         param_dtype=torch.float32)
+        trainer = dp.SyncTrainer(transformer.loss_fn(model),
+                                 optim.sgd(0.01, momentum=0.9))
+        state = trainer.create_state(dict(model.named_parameters()))
+        flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
+        state, metrics = trainer.multi_step(state, {"tokens": tokens})
+        runs[impl] = (metrics["loss"].cpu().numpy(),
+                      convert._flatten(convert.tree_from_model(model)),
+                      dict(flash_attention.launches))
+        del model, trainer, state
+    loss_f, params_f, launches_f = runs["flash"]
+    loss_d, params_d, launches_d = runs["dot"]
+    init = convert._flatten(tree)
+    loss_rel = float(np.max(np.abs(loss_f - loss_d) / np.abs(loss_d)))
+    moved, diff, rel = {}, {}, {}
+    for p in params_d:
+        d = params_d[p]
+        moved[p] = float(np.max(np.abs(d.astype(np.float64) - init[p])))
+        gap = np.abs(params_f[p].astype(np.float64) - d)
+        diff[p] = float(np.max(gap))
+        # what exceeds one f32 rounding of the weight itself
+        excess = float(np.max(np.maximum(gap - np.spacing(np.abs(d)), 0)))
+        rel[p] = excess / moved[p] if moved[p] else \
+            (0.0 if excess == 0 else float("inf"))
+    worst = max(rel, key=rel.get)
+    ok = (loss_rel <= TRAIN_VS_DOT_TOL["loss_rtol"]
+          and rel[worst] <= TRAIN_VS_DOT_TOL["param_rel_to_move"]
+          and min(launches_f.values()) > 0 and max(launches_d.values()) == 0)
+    emit("train_kernel_vs_dot", model="L2 H8 Dh128 Dm1024 f32 S512 B4",
+         losses_flash=loss_f.tolist(), losses_dot=loss_d.tolist(),
+         loss_max_rel_diff=loss_rel, param_max_abs_diff=max(diff.values()),
+         param_moved_by_leaf=moved, param_diff_rel_to_move=rel,
+         worst_leaf=worst, tol=TRAIN_VS_DOT_TOL, launches_flash=launches_f,
+         launches_dot=launches_d, ok=ok)
+    if not ok:
+        raise AssertionError("flash vs dot training disagree")
+
+
+def phase_train_to_serve(model):
+    """The trained flagship weights through slice 1's serving path."""
+    from tensorflowonspark_tpu_torch import convert
+
+    tree = convert.tree_from_model(model)
+    serving_cfg = dict(SERVING, max_new_tokens=16, max_prompt_len=64)
+    rows = make_requests(np.random.default_rng(10), 4, FLAGSHIP["vocab_size"],
+                         16, 64)
+    out, stats, wall, launches = serve(FLAGSHIP, serving_cfg, tree, rows)
+    gen = [np.asarray(r["generated"]) for r in out]
+    ok = (len(gen) == 4 and all(
+        g.shape == (16,) and g.min() >= 0 and g.max() < FLAGSHIP["vocab_size"]
+        for g in gen) and launches > 0)
+    emit("train_to_serve", requests=len(gen), tokens_out=stats["tokens_out"],
+         wall_sec=wall, paged_attention_launches=launches,
+         first_tokens=[g[:4].tolist() for g in gen], ok=ok)
+    if not ok:
+        raise AssertionError("trained weights did not serve: {0}".format(gen))
+
+
+def phase_optimizer_timing(model):
+    """One AdamW update over parameters of the flagship's shapes (f32):
+    the port's ``optim.adamw``, which follows optax's op order and
+    rounding, beside ``torch.optim.AdamW(fused=True)`` with the same
+    hyperparameters, a one-pass yardstick the port does not call (its
+    update equals optax's up to a few ulp).  The bound reads p, g, m, v
+    and writes p, m, v once.  Gates nothing."""
+    from tensorflowonspark_tpu_torch import optim
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    shapes = {n: p.shape for n, p in model.named_parameters()}
+
+    def rnd():
+        return {n: torch.randn(s, generator=gen, device="cuda") * 0.02
+                for n, s in shapes.items()}
+
+    params, grads = rnd(), list(rnd().values())
+    port = optim.adamw(1e-4)
+    state = port.init(params)
+    port_ms = time_ms(lambda _: port.update(state, params, grads), [None],
+                      reps=5, warmup=2)
+    del state
+    fused = torch.optim.AdamW(list(params.values()), lr=1e-4,
+                              betas=(0.9, 0.999), eps=1e-8,
+                              weight_decay=1e-4, fused=True)
+    for p, g in zip(params.values(), grads):
+        p.grad = g
+    fused_ms = time_ms(lambda _: fused.step(), [None], reps=5, warmup=2)
+    n = sum(p.numel() for p in params.values())
+    emit("optimizer_timing", params=n, port_adamw_ms=port_ms,
+         fused_adamw_ms=fused_ms,
+         bound_ms=1e3 * 7 * 4 * n / HBM_BYTES_PER_SEC, bound_by="bytes",
+         device=torch.cuda.get_device_name(0))
+
+
+#: lower-case kernel-name fragments -> class, first match wins, for the
+#: profile of a training step
+KERNEL_CLASSES = (
+    ("flash_", "flash attention (K2-K4)"),
+    ("gemm", "matmul"), ("xmma", "matmul"), ("cutlass", "matmul"),
+    ("nvjet", "matmul"), ("cublas", "matmul"),
+    ("multi_tensor", "optimizer"), ("foreach", "optimizer"),
+    ("softmax", "cross-entropy"), ("nll_loss", "cross-entropy"),
+    ("reduce", "reductions"), ("copy", "casts and copies"),
+    ("memcpy", "casts and copies"), ("memset", "casts and copies"),
+    ("elementwise", "elementwise"),
+)
+
+
+def phase_train_profile():
+    """Device time of the flagship's training step by kernel class, from
+    ``torch.profiler`` over one ``multi_step`` of K=4 after a warm-up.
+    Not run by :func:`main`; run it alone with ``python3 -c "import
+    chip_smoke as c; c.phase_env(); c.phase_build();
+    c.phase_train_profile()"``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, _, trainer, state, stacked = flagship_trainer(flagship_tree()[0])
+    state, _ = trainer.multi_step_on_device(state, stacked)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = trainer.multi_step_on_device(state, stacked)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    classes, kernels = {}, []
+    for e in prof.key_averages():
+        # device-side ranges of user annotations (the optimizer's step)
+        # span kernels counted on their own
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)
+                or e.key.startswith("Optimizer.")):
+            continue
+        us = float(getattr(e, "self_device_time_total", 0.0)
+                   or getattr(e, "self_cuda_time_total", 0.0))
+        name = e.key.lower()
+        kind = next((c for frag, c in KERNEL_CLASSES if frag in name),
+                    "other")
+        classes[kind] = classes.get(kind, 0.0) + us
+        kernels.append((us, e.count, e.key[:120]))
+    device_ms = sum(classes.values()) / 1e3
+    per_step = {k: v / 1e3 / TRAIN_K for k, v in sorted(
+        classes.items(), key=lambda kv: -kv[1])}
+    emit("train_profile", steps=TRAIN_K, wall_ms_per_step=1e3 * wall / TRAIN_K,
+         device_ms_per_step=device_ms / TRAIN_K,
+         device_busy_share=device_ms / (1e3 * wall) if wall else None,
+         device_ms_per_step_by_class=per_step,
+         top_kernels=[dict(ms_per_step=us / 1e3 / TRAIN_K,
+                           calls_per_step=n / TRAIN_K, name=name)
+                      for us, n, name in sorted(kernels, reverse=True)[:25]],
+         note="wall includes the profiler's own overhead",
+         device=torch.cuda.get_device_name(0))
+
+
+def kernel_entry(name, replaces, launches, timing):
+    return dict(
+        name=name, route="cuda",
+        source="tensorflowonspark_tpu_torch/csrc/flash_attention.cu",
+        replaces=replaces, launches=launches,
+        max_abs_err=timing["max_abs_err"], ms=timing["ms"],
+        plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
+        bound_by=timing["bound_by"], library_ms=timing["library_ms"],
+        library_note=timing["library_note"],
+    )
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -402,8 +916,18 @@ def main():
     phase_build()
     phase_kernel_cases()
     timing = phase_kernel_timing()
-    flagship = phase_slice_flagship()
+    tree, init_s = flagship_tree()
+    flagship = phase_slice_flagship(tree, init_s)
     phase_kernel_vs_gather()
+    phase_flash_cases()
+    flash = phase_flash_timing()
+    train, model = phase_train_flagship(tree, flash)
+    del tree
+    phase_train_kernel_vs_dot()
+    phase_train_to_serve(model)
+    phase_optimizer_timing(model)
+    del model
+    jax_flash = "tensorflowonspark_tpu/ops/flash_attention.py:"
     print(json.dumps({"kernels": [dict(
         name="paged_attention", route="cuda",
         source="tensorflowonspark_tpu_torch/csrc/paged_attention.cu",
@@ -412,7 +936,14 @@ def main():
         max_abs_err=timing["max_abs_err"], ms=timing["kernel_ms"],
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
         bound_by=timing["bound_by"], library_ms=timing["library_ms"],
-    )]}), flush=True)
+    )] + [
+        kernel_entry("flash_fwd", jax_flash + "132",
+                     train["launches"]["fwd"], flash["fwd"]),
+        kernel_entry("flash_dq", jax_flash + "198",
+                     train["launches"]["dq"], flash["dq"]),
+        kernel_entry("flash_dkv", jax_flash + "256",
+                     train["launches"]["dkv"], flash["dkv"]),
+    ]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,15 +20,14 @@ Flax leaf                      shape         port
 (``H`` is ``num_kv_heads`` for ``k``/``v``.)  Transposes land in
 ``nn.Linear``'s ``[out, in]`` layout.  Any missing, extra or misshapen
 leaf raises ``ValueError``; fused-QKV and MoE leaves raise
-``NotImplementedError``.
+``NotImplementedError``.  :func:`tree_from_model` is the inverse: a
+model's weights as a tree of f32 numpy arrays in the Flax layout.
 """
 
 from collections.abc import Mapping
 
 import numpy as np
 import torch
-
-from tensorflowonspark_tpu_torch.compat import resolve_device
 
 
 def _not_ported(what, item):
@@ -40,7 +39,7 @@ def _not_ported(what, item):
 
 def _check_ported(cfg):
     if cfg.fused_qkv:
-        raise _not_ported("fused_qkv projections", "training slice")
+        raise _not_ported("fused_qkv projections", "fused_qkv")
     if cfg.num_experts > 0:
         raise _not_ported("MoE (num_experts > 0)", "MoE with K5-K7")
 
@@ -87,18 +86,22 @@ def _port_name(path):
     return path.replace("/", ".")
 
 
-def params_from_flax(tree, cfg, device=None):
-    """A :class:`Transformer` over ``cfg`` holding ``tree``'s weights
-    (cast to ``cfg.dtype``; norm scales stay f32) on ``device``
-    (default ``cuda``; raises without a GPU)."""
-    from tensorflowonspark_tpu_torch.models.transformer import Transformer
+def params_from_flax(tree, cfg, device=None, param_dtype=None):
+    """A :class:`Transformer` over ``cfg`` holding ``tree``'s weights on
+    ``device`` (default ``cuda``; raises without a GPU).  The embedding
+    and dense weights are stored in ``param_dtype`` (default
+    ``cfg.dtype``, the serving layout; ``torch.float32`` keeps f32
+    master weights for training); norm scales stay f32."""
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        Transformer, model_device,
+    )
 
     _check_ported(cfg)
     leaves = _flatten(tree)
     for path in leaves:
         if "/attn/qkv/" in path:
             raise _not_ported(
-                "fused_qkv leaf {0!r}".format(path), "training slice"
+                "fused_qkv leaf {0!r}".format(path), "fused_qkv"
             )
         if "/moe/" in path:
             raise _not_ported(
@@ -115,7 +118,7 @@ def params_from_flax(tree, cfg, device=None):
     # shell on the meta device, then assign the loaded tensors (no
     # second copy of the weights is ever allocated)
     model = Transformer(cfg, device="meta")
-    dev = resolve_device(device)
+    dev = model_device(cfg, device)
     state = {}
     for path, shape in want.items():
         arr = np.asarray(leaves[path])
@@ -126,7 +129,7 @@ def params_from_flax(tree, cfg, device=None):
                 )
             )
         dtype = torch.float32 if path.endswith("/scale") else \
-            cfg.torch_dtype
+            (param_dtype or cfg.torch_dtype)
         # a copy: the model never aliases the caller's arrays
         t = torch.tensor(arr, dtype=dtype, device=dev)
         if path.endswith("/kernel"):
@@ -136,6 +139,27 @@ def params_from_flax(tree, cfg, device=None):
         state[_port_name(path)] = t
     model.load_state_dict(state, strict=True, assign=True)
     return model
+
+
+def tree_from_model(model):
+    """``model``'s parameters as a Flax-layout tree of f32 numpy arrays
+    (the inverse of :func:`params_from_flax`): what the JAX model's
+    ``params`` would hold, e.g. to compare trained weights or to hand
+    them to ``serving_builder``."""
+    state = model.state_dict()
+    tree = {}
+    for path, shape in tree_shapes(model.cfg).items():
+        t = state[_port_name(path)].detach().to(torch.float32)
+        if path.endswith("/kernel"):
+            t = t.t()
+        # a copy: the tree never aliases the model's storage
+        leaf = np.array(t.cpu().numpy()).reshape(shape)
+        node = tree
+        *parents, name = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = leaf
+    return tree
 
 
 def init_params_tree(cfg, seed=0):

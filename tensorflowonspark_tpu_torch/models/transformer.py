@@ -2,13 +2,22 @@
 the JAX package's ``models/transformer.py``).
 
 Ported so far: the forward (``TransformerConfig``, ``rope``,
-``RMSNorm``, ``Attention`` with the plain ``dot`` path and the paged
-decode path, ``MLP``, ``Block``, ``Transformer``), ``sample_logits``,
-the paged-layout ``SlotDecoder`` and ``serving_builder`` for
-``mode="generate"`` with ``kv_layout="paged"``.  Contiguous-cache
-decode, static ``generate``, speculative decoding, MoE, remat, weight
-quantization, the prefix cache, TP meshes and disaggregation raise
-``NotImplementedError`` naming their ROADMAP item.
+``RMSNorm``, ``Attention`` with the ``dot`` and ``flash`` paths and the
+paged decode path, ``MLP``, ``Block``, ``Transformer``), ``loss_fn``,
+``sample_logits``, the paged-layout ``SlotDecoder`` and
+``serving_builder`` for ``mode="generate"`` with ``kv_layout="paged"``.
+Contiguous-cache decode, static ``generate``, speculative decoding,
+MoE, remat, fused QKV, weight quantization, the prefix cache, TP meshes
+and disaggregation raise ``NotImplementedError`` naming their ROADMAP
+item.
+
+Parameters and compute types: the Flax model keeps f32 parameters and
+casts them to ``cfg.dtype`` at each use.  ``Transformer(cfg,
+param_dtype=torch.float32)`` does the same (the training layout: f32
+master weights, compute in ``cfg.dtype``); the default
+``param_dtype=None`` stores the weights in ``cfg.dtype`` already (the
+serving layout, no cast at use).  Norm scales are always f32 and logits
+are returned in f32.
 
 Layouts follow the reference: activations ``[B, S, H, D]`` inside
 attention, weights loaded from the Flax tree by :mod:`..convert`.
@@ -27,6 +36,9 @@ from torch import nn
 
 from tensorflowonspark_tpu_torch.compat import resolve_device
 from tensorflowonspark_tpu_torch.ops.attention import attention
+from tensorflowonspark_tpu_torch.ops.flash_attention import (
+    check_flash_shapes,
+)
 from tensorflowonspark_tpu_torch.ops.paged_attention import (
     check_tiles,
     paged_attention,
@@ -127,13 +139,22 @@ class RMSNorm(nn.Module):
         return (normed * self.scale).to(x.dtype)
 
 
-def _linear(fan_in, fan_out, cfg, device):
-    return nn.Linear(fan_in, fan_out, bias=False, device=device,
-                     dtype=cfg.torch_dtype)
+class _Linear(nn.Linear):
+    """Bias-free dense layer whose weight (stored in ``param_dtype``) is
+    cast to ``cfg.dtype`` at use, as Flax's ``Dense(dtype=...)`` casts
+    its f32 kernel; a no-op cast when the two types agree."""
+
+    def __init__(self, fan_in, fan_out, cfg, device, param_dtype):
+        super().__init__(fan_in, fan_out, bias=False, device=device,
+                         dtype=param_dtype or cfg.torch_dtype)
+        self.compute_dtype = cfg.torch_dtype
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(self.compute_dtype))
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, param_dtype=None):
         super().__init__()
         h, d = cfg.num_heads, cfg.head_dim
         hkv = cfg.num_kv_heads or h
@@ -144,12 +165,13 @@ class Attention(nn.Module):
                 )
             )
         if cfg.fused_qkv:
-            raise _not_ported("fused_qkv", "training slice")
+            raise _not_ported("fused_qkv", "fused_qkv")
         self.cfg = cfg
-        self.q = _linear(cfg.embed_dim, h * d, cfg, device)
-        self.k = _linear(cfg.embed_dim, hkv * d, cfg, device)
-        self.v = _linear(cfg.embed_dim, hkv * d, cfg, device)
-        self.out = _linear(h * d, cfg.embed_dim, cfg, device)
+        dense = dict(cfg=cfg, device=device, param_dtype=param_dtype)
+        self.q = _Linear(cfg.embed_dim, h * d, **dense)
+        self.k = _Linear(cfg.embed_dim, hkv * d, **dense)
+        self.v = _Linear(cfg.embed_dim, hkv * d, **dense)
+        self.out = _Linear(h * d, cfg.embed_dim, **dense)
 
     def forward(self, x, positions, decode=False, block_tables=None,
                 cache=None):
@@ -170,7 +192,8 @@ class Attention(nn.Module):
         else:
             out = attention(
                 q, k, v, impl=cfg.attention_impl, causal=True,
-                mesh=cfg.mesh, window=cfg.attention_window,
+                mesh=cfg.mesh, seq_axis=cfg.seq_axis, block_q=cfg.block_q,
+                block_k=cfg.block_k, window=cfg.attention_window,
             )
         return self.out(out.reshape(b, s, h * d))
 
@@ -220,23 +243,24 @@ class Attention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, param_dtype=None):
         super().__init__()
-        self.wi = _linear(cfg.embed_dim, cfg.mlp_dim, cfg, device)
-        self.wg = _linear(cfg.embed_dim, cfg.mlp_dim, cfg, device)
-        self.wo = _linear(cfg.mlp_dim, cfg.embed_dim, cfg, device)
+        dense = dict(cfg=cfg, device=device, param_dtype=param_dtype)
+        self.wi = _Linear(cfg.embed_dim, cfg.mlp_dim, **dense)
+        self.wg = _Linear(cfg.embed_dim, cfg.mlp_dim, **dense)
+        self.wo = _Linear(cfg.mlp_dim, cfg.embed_dim, **dense)
 
     def forward(self, x):
         return self.wo(F.silu(self.wg(x)) * self.wi(x))
 
 
 class Block(nn.Module):
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, param_dtype=None):
         super().__init__()
         self.ln1 = RMSNorm(cfg.embed_dim, device=device)
-        self.attn = Attention(cfg, device=device)
+        self.attn = Attention(cfg, device=device, param_dtype=param_dtype)
         self.ln2 = RMSNorm(cfg.embed_dim, device=device)
-        self.mlp = MLP(cfg, device=device)
+        self.mlp = MLP(cfg, device=device, param_dtype=param_dtype)
 
     def forward(self, x, positions, decode=False, block_tables=None,
                 cache=None):
@@ -247,10 +271,16 @@ class Block(nn.Module):
         return x + self.mlp(self.ln2(x))
 
 
-def _model_device(device):
+def model_device(cfg, device):
+    """The device a model over ``cfg`` is built on (``"meta"`` kept as
+    is); a ``flash`` model on the GPU checks its head dim and type
+    against the kernels here, once, before any weight is allocated."""
     if device is not None and torch.device(device).type == "meta":
         return torch.device("meta")
-    return resolve_device(device)
+    device = resolve_device(device)
+    if cfg.attention_impl == "flash" and device.type == "cuda":
+        check_flash_shapes(cfg.head_dim, cfg.torch_dtype)
+    return device
 
 
 class Transformer(nn.Module):
@@ -260,32 +290,39 @@ class Transformer(nn.Module):
     ``ln_f``, ``lm_head``) so :mod:`..convert` maps one to the other
     leaf by leaf.  ``device`` defaults to ``cuda`` (raises without a
     GPU); ``"meta"`` builds a shell for :meth:`with_config`.
+    ``param_dtype`` is the storage type of the embedding and the dense
+    weights (default ``cfg.dtype``; ``torch.float32`` for f32 master
+    weights, see the module docstring).  A ``flash`` model built on the
+    GPU checks its head dim and type against the kernels
+    (:func:`~..ops.flash_attention.check_flash_shapes`).
     """
 
-    def __init__(self, cfg, device=None):
+    def __init__(self, cfg, device=None, param_dtype=None):
         super().__init__()
         if cfg.num_experts > 0:
             raise _not_ported("MoE (num_experts > 0)", "MoE with K5-K7")
         if cfg.remat:
-            raise _not_ported("remat", "training slice")
+            raise _not_ported("remat", "remat")
         if cfg.cache_dtype == "int8":
             raise _not_ported(
                 "the int8 KV cache write path", "int8/int4 weights, int8 "
                 "KV cache and quantize"
             )
         cfg.torch_dtype  # validates the dtype name
-        device = _model_device(device)
+        device = model_device(cfg, device)
         self.cfg = cfg
         self.embedding = nn.Parameter(
             torch.empty(cfg.vocab_size, cfg.embed_dim, device=device,
-                        dtype=cfg.torch_dtype)
+                        dtype=param_dtype or cfg.torch_dtype)
         )
         if device.type != "meta":
             nn.init.normal_(self.embedding, std=0.02)
         for i in range(cfg.num_layers):
-            self.add_module("block_%d" % i, Block(cfg, device=device))
+            self.add_module("block_%d" % i, Block(cfg, device=device,
+                                                  param_dtype=param_dtype))
         self.ln_f = RMSNorm(cfg.embed_dim, device=device)
-        self.lm_head = _linear(cfg.embed_dim, cfg.vocab_size, cfg, device)
+        self.lm_head = _Linear(cfg.embed_dim, cfg.vocab_size, cfg, device,
+                               param_dtype)
 
     @property
     def blocks(self):
@@ -317,7 +354,9 @@ class Transformer(nn.Module):
                 "slot_positions/block_tables/cache are decode-path "
                 "arguments"
             )
-        x = self.embedding[tokens]
+        # gathered in the storage type, then cast (the reference's
+        # emb[tokens].astype(dtype))
+        x = self.embedding[tokens].to(cfg.torch_dtype)
         s = tokens.shape[1]
         steps = torch.arange(s, device=tokens.device)
         if decode:
@@ -335,6 +374,28 @@ class Transformer(nn.Module):
                 cache=None if cache is None else cache[i],
             )
         return self.lm_head(self.ln_f(x)).to(torch.float32)
+
+
+def loss_fn(model):
+    """Next-token cross-entropy; batch = ``dict(tokens=[B, S] int)``.
+
+    Returns ``loss(params, batch, rng)`` (the reference's signature):
+    ``params`` maps ``model``'s parameter names to tensors (its own,
+    ``dict(model.named_parameters())``, or others of the same shapes),
+    the log-softmax runs in f32 and the loss is the mean over
+    ``B * (S - 1)`` targets.  ``rng`` is accepted and unused, as in the
+    reference."""
+
+    def _loss(params, batch, rng):
+        tokens = batch["tokens"].to(torch.int64)
+        logits = torch.func.functional_call(model, params, (tokens,))
+        targets = tokens[:, 1:]
+        logits = logits[:, :-1].to(torch.float32)
+        return F.cross_entropy(
+            logits.reshape(-1, logits.shape[-1]), targets.reshape(-1)
+        )
+
+    return _loss
 
 
 def init_cache(model):

@@ -33,6 +33,12 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+#: the tail every flash entry shares: B, S, H, Hkv, D, scale, causal,
+#: window, is_bf16, stream
+_FLASH_TAIL = [_I] * 5 + [_F] + [_I] * 3 + [_P]
 
 #: library name -> (source file under csrc/, {C function: (argtypes, restype)})
 KERNELS = {
@@ -40,9 +46,17 @@ KERNELS = {
         "paged_attention.cu",
         {
             "tfos_paged_attention": (
-                [_P] * 8 + [_I] * 7 + [ctypes.c_float] + [_I] * 3 + [_P],
+                [_P] * 8 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
                 _I,
             ),
+        },
+    ),
+    "flash_attention": (
+        "flash_attention.cu",
+        {
+            "tfos_flash_fwd": ([_P] * 5 + [_L] * 9 + _FLASH_TAIL, _I),
+            "tfos_flash_dq": ([_P] * 7 + [_L] * 12 + _FLASH_TAIL, _I),
+            "tfos_flash_dkv": ([_P] * 8 + [_L] * 12 + _FLASH_TAIL, _I),
         },
     ),
 }

@@ -2,12 +2,15 @@
 
 Shapes follow the reference's ``[batch, seq, heads, head_dim]``
 convention so the port's public functions compare like with like.
-Only the plain ``dot`` implementation is ported so far; ``flash``
-(TPU kernels K2-K4), ``ring`` and ``ulysses`` raise
-``NotImplementedError`` until the training slice ports them.
+``dot`` is the plain implementation; ``flash`` dispatches to
+:func:`.flash_attention.flash_attention` (the hand-written kernels
+K2-K4 on the GPU).  ``ring`` and ``ulysses`` (sequence parallelism)
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 import torch
+
+from tensorflowonspark_tpu_torch.ops.flash_attention import flash_attention
 
 _IMPLS = ("dot", "flash", "ring", "ulysses")
 
@@ -82,20 +85,26 @@ def dot_attention(q, k, v, causal=True, scale=None, mask=None, window=0,
 def attention(q, k, v, impl="dot", causal=True, scale=None, mesh=None,
               seq_axis="seq", block_q=1024, block_k=1024,
               ring_impl="flash", window=0):
-    """Dispatch to an attention implementation.  Only ``dot`` is ported."""
+    """Dispatch to an attention implementation: ``dot`` or ``flash``
+    (``block_q``/``block_k`` keep the reference's flash tiling rule)."""
     if impl not in _IMPLS:
         raise ValueError(
             "unknown attention impl {0!r}; one of {1}".format(impl, _IMPLS)
         )
-    if impl != "dot":
+    if impl in ("ring", "ulysses"):
         raise NotImplementedError(
             "attention impl {0!r} is not ported yet (ROADMAP queue A: "
-            "training slice with kernels K2-K4; ring/ulysses under "
-            "parallelism)".format(impl)
+            "ring/Ulysses sequence parallelism over K2-K4 with "
+            "q_offset)".format(impl)
         )
     if mesh is not None:
         raise NotImplementedError(
-            "sequence-parallel meshes are not ported yet (ROADMAP "
-            "queue A: parallelism)"
+            "sequence-parallel meshes are not ported yet (ROADMAP queue A: "
+            "ring/Ulysses sequence parallelism over K2-K4 with q_offset)"
+        )
+    if impl == "flash":
+        return flash_attention(
+            q, k, v, causal=causal, scale=scale, block_q=block_q,
+            block_k=block_k, window=window,
         )
     return dot_attention(q, k, v, causal=causal, scale=scale, window=window)

@@ -103,7 +103,7 @@ def test_misshapen_leaf_raises():
 
 @pytest.mark.parametrize("block,item", [
     ({"qkv": {"kernel": np.zeros((32, 3, 4, 8), np.float32)}},
-     "training slice"),
+     "queue A: fused_qkv"),
     ({"moe": {"router": np.zeros((32, 4), np.float32)}}, "MoE"),
 ], ids=["fused_qkv", "moe"])
 def test_unported_leaves_raise(block, item):
@@ -118,7 +118,7 @@ def test_unported_leaves_raise(block, item):
 
 
 @pytest.mark.parametrize("field,item", [
-    ({"fused_qkv": True}, "training slice"),
+    ({"fused_qkv": True}, "queue A: fused_qkv"),
     ({"num_experts": 4}, "MoE"),
 ])
 def test_unported_configs_raise(field, item):
@@ -126,3 +126,51 @@ def test_unported_configs_raise(field, item):
         convert.params_from_flax(_tree(),
                                  ttr.TransformerConfig(**dict(TINY, **field)),
                                  device="cpu")
+
+
+def test_tree_from_model_round_trips_exactly():
+    cfg = ttr.TransformerConfig(**dict(TINY, num_kv_heads=2))
+    tree = convert.init_params_tree(cfg, seed=7)
+    model = convert.params_from_flax(tree, cfg, device="cpu",
+                                     param_dtype=torch.float32)
+    back = convert.tree_from_model(model)
+    assert _leaf_paths(back) == _leaf_paths(tree)
+    for path, leaf in convert._flatten(tree).items():
+        got = convert._flatten(back)[path]
+        assert got.dtype == np.float32
+        np.testing.assert_array_equal(got, leaf, err_msg=path)
+    # a copy: training the model later does not change the tree
+    with torch.no_grad():
+        model.embedding.add_(1.0)
+    np.testing.assert_array_equal(back["embedding"], tree["embedding"])
+
+
+@pytest.mark.parametrize("impl", ["dot", "flash"])
+def test_bf16_f32_master_logits_match_jax_bf16_model(impl):
+    """A bf16 config over f32 master weights (cast at use, as Flax's
+    ``Dense(dtype=bfloat16)`` casts its f32 kernel) against the JAX bf16
+    model's logits.  Tolerance 3% of the largest logit: a few bf16 ulps
+    (2^-8 relative) where XLA and PyTorch round two layers' bf16
+    intermediates on other sides of a boundary.  The f32-master forward
+    equals the bf16-stored serving forward exactly."""
+    cfg_kw = dict(TINY, head_dim=16, embed_dim=64, mlp_dim=128,
+                  num_kv_heads=2, dtype="bfloat16", attention_impl=impl)
+    model, params, tree = _jax_tree(cfg_kw)
+    assert {str(x.dtype) for x in jax.tree.leaves(params)} == {"float32"}
+    tokens = np.random.RandomState(2).randint(
+        0, cfg_kw["vocab_size"], (2, 32)).astype(np.int32)
+    ref = np.asarray(jax.jit(model.apply)({"params": params},
+                                          jnp.asarray(tokens)))
+    cfg = ttr.TransformerConfig(**cfg_kw)
+    master = convert.params_from_flax(tree, cfg, device="cpu",
+                                      param_dtype=torch.float32)
+    stored = convert.params_from_flax(tree, cfg, device="cpu")
+    assert master.lm_head.weight.dtype == torch.float32
+    assert stored.lm_head.weight.dtype == torch.bfloat16
+    with torch.no_grad():
+        got = master(torch.from_numpy(tokens).long())
+        same = stored(torch.from_numpy(tokens).long())
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    assert torch.equal(got, same)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=3e-2 * np.abs(ref).max())

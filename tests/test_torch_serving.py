@@ -176,11 +176,12 @@ def test_import_loads_no_jax():
     code = (
         "import sys\n"
         "import tensorflowonspark_tpu_torch\n"
-        "from tensorflowonspark_tpu_torch import compat, convert, "
+        "from tensorflowonspark_tpu_torch import compat, convert, optim, "
         "prefix_cache, serving, serving_engine\n"
         "from tensorflowonspark_tpu_torch.models import transformer\n"
         "from tensorflowonspark_tpu_torch.ops import _build, attention, "
-        "paged_attention\n"
+        "flash_attention, paged_attention\n"
+        "from tensorflowonspark_tpu_torch.parallel import dp\n"
         "from tensorflowonspark_tpu_torch.planner import knobs\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'tensorflowonspark_tpu'))\n"

@@ -211,7 +211,7 @@ class TestForwardPieces:
         assert bool((top5 == draws[:, None]).any(dim=-1).all())
 
     @pytest.mark.parametrize("field,item", [
-        ({"remat": True}, "training slice"),
+        ({"remat": True}, "queue A: remat"),
         ({"cache_dtype": "int8"}, "int8"),
         ({"num_experts": 2}, "MoE"),
     ])
