@@ -1,5 +1,5 @@
-"""Planted faults in the flash kernels, to show that the checks of
-``chip_smoke.py`` catch them.
+"""Planted faults in the flash and grouped-matmul kernels, to show that
+the checks of ``chip_smoke.py`` catch them.
 
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit (``nvcc``)::
@@ -8,9 +8,10 @@ toolkit (``nvcc``)::
     python3 chip_mutants.py diag       # one
 
 Each mutant copies ``chip_smoke.py``, this file and the port's package
-into a temporary directory, rewrites a few lines of
-``csrc/flash_attention.cu`` there, builds the kernels in that copy and
-runs the ``chip_smoke.py`` check it names.  It prints one JSON line per
+into a temporary directory, rewrites a few lines of its kernel source
+there (``csrc/flash_attention.cu``, or ``csrc/gmm.cu`` for the mutants
+in :data:`SOURCES`), builds the kernels in that copy and runs the
+``chip_smoke.py`` check it names.  It prints one JSON line per
 case and one per mutant; the last line lists the mutants that survived,
 and the exit code is 0 only when every mutant was caught.  The
 repository itself is never modified.
@@ -24,6 +25,7 @@ import tempfile
 from pathlib import Path
 
 SOURCE = "tensorflowonspark_tpu_torch/csrc/flash_attention.cu"
+GMM_SOURCE = "tensorflowonspark_tpu_torch/csrc/gmm.cu"
 
 #: name -> (what it breaks, [(source text, replacement)], check)
 MUTANTS = {
@@ -43,7 +45,14 @@ MUTANTS = {
           "0.f * dq[n][2 * r + 1]);")],
         "train_kernel_vs_dot",
     ),
+    "tgmm_last_tile": (
+        "K7 drops the last row tile of each expert's run",
+        [("    k_end = (last + 1) * a.bm;", "    k_end = last * a.bm;")],
+        "gmm_case+moe_train_dropless_vs_gather",
+    ),
 }
+#: mutants of another source than :data:`SOURCE`
+SOURCES = {"tgmm_last_tile": GMM_SOURCE}
 
 
 def mutate(text, subs):
@@ -89,14 +98,55 @@ def check_train_kernel_vs_dot():
     return False
 
 
+def check_gmm_cases():
+    """``gmm_case``'s comparison over every case, not stopping at the
+    first failure.  True when any case fails."""
+    import chip_smoke as c
+
+    caught_any = False
+    for name, _, errs, absent_dw in c.gmm_case_results():
+        caught = not c.gmm_case_ok(errs, absent_dw)
+        caught_any |= caught
+        print(json.dumps(dict(
+            case=name, caught=caught,
+            max_abs_err={n: e for n, (e, _, _) in errs.items()},
+            checked_err={n: x for n, (_, x, _) in errs.items()},
+            tol={n: t for n, (_, _, t) in errs.items()},
+            absent_expert_max_abs_dw=absent_dw,
+        )), flush=True)
+    return caught_any
+
+
+def check_moe_dropless_vs_gather():
+    """True when ``moe_train_dropless_vs_gather`` fails."""
+    import chip_smoke as c
+
+    try:
+        c.phase_moe_dropless_vs_gather()
+    except AssertionError:
+        return True
+    return False
+
+
+def check_gmm_and_moe_training():
+    """Both ``gmm_case`` and ``moe_train_dropless_vs_gather``; True only
+    when each of them catches the fault."""
+    caught = [check_gmm_cases(), check_moe_dropless_vs_gather()]
+    print(json.dumps(dict(gmm_case=caught[0],
+                          moe_train_dropless_vs_gather=caught[1])),
+          flush=True)
+    return all(caught)
+
+
 CHECKS = {"flash_case": check_flash_cases,
-          "train_kernel_vs_dot": check_train_kernel_vs_dot}
+          "train_kernel_vs_dot": check_train_kernel_vs_dot,
+          "gmm_case+moe_train_dropless_vs_gather": check_gmm_and_moe_training}
 
 
 def run_in_copy(name):
     """In a copy: plant ``name``, build, run its check.  0 if caught."""
     what, subs, check = MUTANTS[name]
-    src = Path(SOURCE)
+    src = Path(SOURCES.get(name, SOURCE))
     src.write_text(mutate(src.read_text(), subs))
     import chip_smoke as c
 

@@ -43,10 +43,35 @@ caught):
     and ``predict_rows(schedule="continuous")``.
 12. ``optimizer_timing``: one update of the port's AdamW beside
     ``torch.optim.AdamW(fused=True)`` over the flagship's parameters.
+13. ``gmm_case``: the grouped-matmul kernels (K5 forward, K6 dX, K7 dW)
+    against their plain versions on the card, on dropless layouts from
+    a skewed router (one heavy expert, one absent): bf16 at the MoE
+    flagship's shapes in both directions (D=1024 -> F=4096 and back),
+    and f32 with ragged counts and edges (:data:`GMM_TOL`).
+14. ``gmm_timing``: the three kernels, their plain versions and a
+    library yardstick at the MoE flagship's training shape, beside the
+    operation bound.
+15. ``moe_train_flagship``: the JAX package's MoE bench model (L4 H8
+    Dh128 Dm1024 Dff4096 V32000, 8 experts top-2, dropless, remat
+    ``block``, flash attention, bf16 compute over f32 masters) under
+    ``SyncTrainer(moe_loss_fn(model), adamw(1e-4), has_aux=True)``, one
+    warm-up and two timed ``multi_step`` of K=4 on a [4, 4, 2048] batch;
+    losses finite and falling, 24/12/12 launches of K5/K6/K7 and 8/4/4
+    of K2/K3/K4 per step, tokens/s, active-parameter mfu, peak memory.
+16. ``moe_train_dropless_vs_gather``: three SGD steps in f32 at the MoE
+    flagship's widths (two layers, S=512, B=2) with ``dropless`` (the
+    kernels) and ``gather`` at capacity factor E/k (plain PyTorch, where
+    nothing can drop); losses agree, and every weight leaf agrees to a
+    fraction of how far the steps moved it.
+17. ``moe_train_to_serve``: the trained MoE weights through
+    ``serving_builder`` and ``predict_rows(schedule="continuous")`` (K5
+    in every prefill and decode step, K1 in every decode step).
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit
 line, and as the last line ``{"ok": true, "device": {...}}``.  Without a
 CUDA device the script exits non-zero before printing any result.
+``phase_train_profile`` (not run by :func:`main`) breaks a training step
+down by kernel class for the dense or the MoE flagship.
 """
 
 import json
@@ -751,18 +776,9 @@ def phase_train_kernel_vs_dot():
         del model, trainer, state
     loss_f, params_f, launches_f = runs["flash"]
     loss_d, params_d, launches_d = runs["dot"]
-    init = convert._flatten(tree)
     loss_rel = float(np.max(np.abs(loss_f - loss_d) / np.abs(loss_d)))
-    moved, diff, rel = {}, {}, {}
-    for p in params_d:
-        d = params_d[p]
-        moved[p] = float(np.max(np.abs(d.astype(np.float64) - init[p])))
-        gap = np.abs(params_f[p].astype(np.float64) - d)
-        diff[p] = float(np.max(gap))
-        # what exceeds one f32 rounding of the weight itself
-        excess = float(np.max(np.maximum(gap - np.spacing(np.abs(d)), 0)))
-        rel[p] = excess / moved[p] if moved[p] else \
-            (0.0 if excess == 0 else float("inf"))
+    moved, diff, rel = leaf_agreement(convert._flatten(tree), params_f,
+                                      params_d)
     worst = max(rel, key=rel.get)
     ok = (loss_rel <= TRAIN_VS_DOT_TOL["loss_rtol"]
           and rel[worst] <= TRAIN_VS_DOT_TOL["param_rel_to_move"]
@@ -775,6 +791,24 @@ def phase_train_kernel_vs_dot():
          launches_dot=launches_d, ok=ok)
     if not ok:
         raise AssertionError("flash vs dot training disagree")
+
+
+def leaf_agreement(init, got, want):
+    """``(moved, diff, rel)`` per leaf of two trained trees from the same
+    ``init``: how far ``want`` moved each leaf, the largest gap between
+    the two, and what that gap exceeds one f32 rounding of the weight by,
+    as a fraction of the move."""
+    moved, diff, rel = {}, {}, {}
+    for p in want:
+        d = want[p]
+        moved[p] = float(np.max(np.abs(d.astype(np.float64) - init[p])))
+        gap = np.abs(got[p].astype(np.float64) - d)
+        diff[p] = float(np.max(gap))
+        # what exceeds one f32 rounding of the weight itself
+        excess = float(np.max(np.maximum(gap - np.spacing(np.abs(d)), 0)))
+        rel[p] = excess / moved[p] if moved[p] else \
+            (0.0 if excess == 0 else float("inf"))
+    return moved, diff, rel
 
 
 def phase_train_to_serve(model):
@@ -837,6 +871,7 @@ def phase_optimizer_timing(model):
 #: profile of a training step
 KERNEL_CLASSES = (
     ("flash_", "flash attention (K2-K4)"),
+    ("gmm_kernel", "grouped matmul (K5-K7)"),
     ("gemm", "matmul"), ("xmma", "matmul"), ("cutlass", "matmul"),
     ("nvjet", "matmul"), ("cublas", "matmul"),
     ("multi_tensor", "optimizer"), ("foreach", "optimizer"),
@@ -847,15 +882,19 @@ KERNEL_CLASSES = (
 )
 
 
-def phase_train_profile():
+def phase_train_profile(moe=False):
     """Device time of the flagship's training step by kernel class, from
-    ``torch.profiler`` over one ``multi_step`` of K=4 after a warm-up.
-    Not run by :func:`main`; run it alone with ``python3 -c "import
+    ``torch.profiler`` over one ``multi_step`` of K=4 after a warm-up;
+    ``moe=True`` profiles the MoE flagship (:func:`moe_trainer`).  Not
+    run by :func:`main`; run it alone with ``python3 -c "import
     chip_smoke as c; c.phase_env(); c.phase_build();
-    c.phase_train_profile()"``."""
+    c.phase_train_profile()"`` (or ``phase_train_profile(moe=True)``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    _, _, trainer, state, stacked = flagship_trainer(flagship_tree()[0])
+    if moe:
+        _, _, trainer, state, stacked = moe_trainer(moe_tree())
+    else:
+        _, _, trainer, state, stacked = flagship_trainer(flagship_tree()[0])
     state, _ = trainer.multi_step_on_device(state, stacked)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -882,7 +921,8 @@ def phase_train_profile():
     device_ms = sum(classes.values()) / 1e3
     per_step = {k: v / 1e3 / TRAIN_K for k, v in sorted(
         classes.items(), key=lambda kv: -kv[1])}
-    emit("train_profile", steps=TRAIN_K, wall_ms_per_step=1e3 * wall / TRAIN_K,
+    emit("train_profile", model="moe" if moe else "dense", steps=TRAIN_K,
+         wall_ms_per_step=1e3 * wall / TRAIN_K,
          device_ms_per_step=device_ms / TRAIN_K,
          device_busy_share=device_ms / (1e3 * wall) if wall else None,
          device_ms_per_step_by_class=per_step,
@@ -893,10 +933,410 @@ def phase_train_profile():
          device=torch.cuda.get_device_name(0))
 
 
-def kernel_entry(name, replaces, launches, timing):
+#: the JAX package's MoE bench model (``python bench.py moe``, its
+#: "dropless" row): 485M parameters, 183M active per token
+MOE_FLAGSHIP = dict(
+    vocab_size=32000, num_layers=4, num_heads=8, head_dim=128,
+    embed_dim=1024, mlp_dim=4096, max_seq_len=2048, dtype="bfloat16",
+    num_experts=8, expert_k=2, expert_dispatch="dropless",
+)
+MOE_TRAIN_B = 4
+#: kernel launches per layer and training step under remat "block":
+#: each block's forward runs twice (K5 for wi, wg, wo; K2) and its
+#: backward once (K6 and K7 for each projection; K3, K4)
+MOE_LAUNCHES_PER_LAYER = {"gmm": 6, "gmm_dxt": 3, "tgmm": 3,
+                          "fwd": 2, "dq": 1, "dkv": 1}
+GMM_SRC = "tensorflowonspark_tpu_torch/csrc/gmm.cu"
+#: grouped-matmul kernels against their plain versions.  f32: max abs
+#: error within 1e-5 of the output's max |ref| (the same f32 products
+#: summed in another order, over up to a few thousand rows for dW).
+#: bf16: every element within 2^-6 of |ref| + the RMS of its row
+#: (:func:`row_relative_error`): both sides sum in f32 and round once,
+#: so they differ by at most one bf16 ulp (2^-7 of |ref|).  An absent
+#: expert's dW must be exactly 0.
+GMM_TOL = {"f32_rel": 1e-5, "bf16_row_rel": 2 ** -6}
+GMM_CASES = [
+    ("flagship_bf16_d1024_f4096", dict(
+        g=8192, k=2, e=8, d=1024, f=4096, bm=256, dtype=torch.bfloat16,
+        heavy=0, absent=7)),
+    ("flagship_bf16_f4096_d1024", dict(
+        g=8192, k=2, e=8, d=4096, f=1024, bm=256, dtype=torch.bfloat16,
+        heavy=3, absent=5)),
+    ("f32_ragged_absent_bm256", dict(
+        g=1000, k=2, e=6, d=200, f=392, bm=256, dtype=torch.float32,
+        heavy=1, absent=2)),
+]
+GMM_KERNELS = ("gmm", "gmm_dxt", "tgmm")
+
+
+def make_gmm_case(gen, *, g, k, e, d, f, bm, dtype, heavy=0, absent=None,
+                  skew=2.0):
+    """A dropless layout from a router that favours expert ``heavy`` and
+    never picks ``absent``; tokens ``[G, D]`` gathered into it, expert
+    weights ``[E, D, F]``, and an upstream gradient ``[NP, F]`` that is 0
+    on pad rows, as the backward hands it over."""
+    from tensorflowonspark_tpu_torch.ops import moe
+
+    logits = torch.randn((g, e), generator=gen, device="cuda")
+    logits[:, heavy] += skew
+    if absent is not None:
+        logits[:, absent] = -1e4
+    experts, _, _ = moe.dropless_topk(logits, k=k)
+    layout = moe.dropless_layout(experts, e, bm=bm)
+    tokens = torch.randn((g, d), generator=gen, device="cuda").to(dtype)
+    x = moe.dispatch_sorted(tokens, layout)
+    live = (layout.slot_token < g)[:, None].float()
+    dy = torch.randn((x.shape[0], f), generator=gen, device="cuda") * live
+    w = torch.randn((e, d, f), generator=gen, device="cuda") * d ** -0.5
+    return dict(x=x, w=w.to(dtype), dy=dy.to(dtype), te=layout.tile_expert,
+                bm=bm, e=e, routed=g * k, absent=absent)
+
+
+def gmm_outputs(c):
+    """Each kernel's output and its plain version's on one case."""
+    from tensorflowonspark_tpu_torch.ops import gmm
+
+    x, w, dy, te, bm, e = (c[n] for n in ("x", "w", "dy", "te", "bm", "e"))
+    got = dict(gmm=gmm.gmm_call(x, w, te, bm=bm),
+               gmm_dxt=gmm.gmm_dxt_call(dy, w, te, bm=bm),
+               tgmm=gmm.tgmm_call(x, dy, te, e, bm=bm))
+    torch.cuda.synchronize()
+    ref = dict(gmm=gmm.gmm_plain(x, w, te, bm=bm),
+               gmm_dxt=gmm.gmm_dxt_plain(dy, w, te, bm=bm),
+               tgmm=gmm.tgmm_plain(x, dy, te, e, bm=bm))
+    return got, ref
+
+
+def gmm_errors(got, ref, dtype):
+    """``{kernel: (max abs err, checked err, tolerance)}``."""
+    out = {}
+    for name in GMM_KERNELS:
+        g, r = got[name].float(), ref[name].float()
+        err = (g - r).abs().max().item()
+        if dtype == torch.bfloat16:
+            checked, tol = row_relative_error(g, r), GMM_TOL["bf16_row_rel"]
+        else:
+            checked = err / max(r.abs().max().item(), 1e-30)
+            tol = GMM_TOL["f32_rel"]
+        if not torch.isfinite(g).all().item():
+            err = checked = float("inf")
+        out[name] = (err, checked, tol)
+    return out
+
+
+def gmm_case_results():
+    """``(name, dtype, errors, absent expert's max |dW|)`` for each of
+    :data:`GMM_CASES`, inputs drawn on the card from one seed."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    for name, spec in GMM_CASES:
+        c = make_gmm_case(gen, **spec)
+        got, ref = gmm_outputs(c)
+        absent = got["tgmm"][c["absent"]].float().abs().max().item()
+        yield name, spec["dtype"], gmm_errors(got, ref, spec["dtype"]), absent
+
+
+def gmm_case_ok(errs, absent_dw):
+    return all(c <= t for _, c, t in errs.values()) and absent_dw == 0.0
+
+
+def phase_gmm_cases():
+    for name, dtype, errs, absent_dw in gmm_case_results():
+        ok = gmm_case_ok(errs, absent_dw)
+        emit("gmm_case", case=name, dtype=str(dtype),
+             max_abs_err={n: e for n, (e, _, _) in errs.items()},
+             checked_err={n: c for n, (_, c, _) in errs.items()},
+             tol={n: t for n, (_, _, t) in errs.items()},
+             absent_expert_max_abs_dw=absent_dw, ok=ok)
+        if not ok:
+            raise AssertionError("gmm case {0}: {1}, absent expert dW "
+                                 "{2}".format(name, errs, absent_dw))
+
+
+def gmm_library(c):
+    """One PyTorch call per kernel over the same expert runs (the
+    yardstick; the port never calls it): ``torch._grouped_mm`` where this
+    PyTorch has it, else a loop of ``torch.matmul`` over the experts.
+    The runs' offsets are read from ``tile_expert`` here, outside any
+    timed region."""
+    x, w, dy, te, bm, e = (c[n] for n in ("x", "w", "dy", "te", "bm", "e"))
+    rows = torch.bincount(te.long(), minlength=e) * bm
+    if hasattr(torch, "_grouped_mm"):
+        offs = torch.cumsum(rows, 0).to(torch.int32)
+        gm = torch._grouped_mm
+        return {
+            "gmm": lambda _: gm(x, w, offs=offs),
+            "gmm_dxt": lambda _: gm(dy, w.transpose(-2, -1), offs=offs),
+            "tgmm": lambda _: gm(x.t(), dy, offs=offs),
+        }, "torch._grouped_mm over the layout's expert runs"
+    ends = torch.cumsum(rows, 0).tolist()
+    runs = [(end - n, end) for n, end in zip(rows.tolist(), ends)]
+
+    def fwd(_):
+        return [x[a:b] @ w[i] for i, (a, b) in enumerate(runs)]
+
+    def dxt(_):
+        return [dy[a:b] @ w[i].t() for i, (a, b) in enumerate(runs)]
+
+    def tg(_):
+        return [x[a:b].t() @ dy[a:b] for i, (a, b) in enumerate(runs)]
+
+    return {"gmm": fwd, "gmm_dxt": dxt, "tgmm": tg}, \
+        "a loop of torch.matmul over the experts' runs"
+
+
+def phase_gmm_timing():
+    """K5, K6 and K7 at the MoE flagship's training shape (8192 tokens,
+    top-2 of 8 experts, D=1024, F=4096, bf16), beside their plain
+    versions, the bound over the routed rows and the library yardstick."""
+    from tensorflowonspark_tpu_torch.ops import gmm
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    c = make_gmm_case(gen, g=8192, k=2, e=8, d=1024, f=4096, bm=256,
+                      dtype=torch.bfloat16, skew=0.0)
+    got, ref = gmm_outputs(c)
+    errs = gmm_errors(got, ref, torch.bfloat16)
+    if not all(x <= t for _, x, t in errs.values()):
+        raise AssertionError("gmm kernels at the flagship shape: {0}".format(
+            errs))
+    x, w, dy, te, bm, e = (c[n] for n in ("x", "w", "dy", "te", "bm", "e"))
+    runs = {
+        "gmm": (lambda _: gmm.gmm_call(x, w, te, bm=bm),
+                lambda _: gmm.gmm_plain(x, w, te, bm=bm)),
+        "gmm_dxt": (lambda _: gmm.gmm_dxt_call(dy, w, te, bm=bm),
+                    lambda _: gmm.gmm_dxt_plain(dy, w, te, bm=bm)),
+        "tgmm": (lambda _: gmm.tgmm_call(x, dy, te, e, bm=bm),
+                 lambda _: gmm.tgmm_plain(x, dy, te, e, bm=bm)),
+    }
+    library, note = gmm_library(c)
+    n_rows, d = x.shape
+    f = w.shape[2]
+    routed = c["routed"]
+    present = int(torch.unique(te).numel())
+    # least work: the routed rows only (NP adds each run's padding and
+    # the tail tiles), each operand read once and each output written once
+    flops = 2 * routed * d * f
+    nbytes = 2 * (routed * d + present * d * f + routed * f)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_SEC
+    ops_ms = 1e3 * flops / BF16_FLOPS_PER_SEC
+    res = {}
+    for name, (kernel, plain) in runs.items():
+        ms = time_ms(kernel, [None], reps=20, warmup=3)
+        res[name] = dict(
+            ms=ms, plain_ms=time_ms(plain, [None], reps=3, warmup=1),
+            library_ms=time_ms(library[name], [None], reps=20, warmup=3),
+            library_note=note, bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            bytes=nbytes, flops=flops, flops_over_np=2 * n_rows * d * f,
+            tflops=flops / ms / 1e9, max_abs_err=errs[name][0],
+        )
+    emit("gmm_timing", shape=dict(tokens=8192, k=2, E=8, D=d, F=f, bm=bm,
+                                  routed_rows=routed, NP=n_rows,
+                                  dtype="bfloat16"), **res)
+    return res
+
+
+def moe_tree():
+    """The MoE flagship's random Flax-layout weights from seed 14."""
+    from tensorflowonspark_tpu_torch import convert
+    from tensorflowonspark_tpu_torch.models import transformer
+
+    return convert.init_params_tree(
+        transformer.TransformerConfig(**MOE_FLAGSHIP), seed=14)
+
+
+def moe_trainer(tree):
+    """The MoE bench model for training as the JAX package's bench runs
+    it: f32 master weights, bf16 compute, flash attention, remat
+    ``block``, ``SyncTrainer(moe_loss_fn(model), adamw(1e-4),
+    has_aux=True)``, and one stacked [4, 4, 2048] token batch on the
+    card."""
+    from tensorflowonspark_tpu_torch import convert, optim
+    from tensorflowonspark_tpu_torch.models import moe, transformer
+    from tensorflowonspark_tpu_torch.parallel import dp
+
+    cfg = transformer.TransformerConfig(**dict(
+        MOE_FLAGSHIP, attention_impl="flash", remat=True,
+        remat_policy="block"))
+    model = convert.params_from_flax(tree, cfg, param_dtype=torch.float32)
+    trainer = dp.SyncTrainer(moe.moe_loss_fn(model), optim.adamw(1e-4),
+                             has_aux=True)
+    state = trainer.create_state(dict(model.named_parameters()))
+    tokens = np.random.default_rng(15).integers(
+        0, cfg.vocab_size, (TRAIN_K, MOE_TRAIN_B, TRAIN_S))
+    stacked = {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(
+        trainer.batch_sharding())}
+    return cfg, model, trainer, state, stacked
+
+
+def reset_launches():
+    """Every kernel launch count of the port to 0."""
+    from tensorflowonspark_tpu_torch.ops import flash_attention, gmm
+
+    flash_attention.flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
+    gmm.grouped_matmul.launches = {n: 0 for n in GMM_KERNELS}
+
+
+def read_launches():
+    from tensorflowonspark_tpu_torch.ops import flash_attention, gmm
+
+    return dict(gmm.grouped_matmul.launches,
+                **flash_attention.flash_attention.launches)
+
+
+def phase_moe_train_flagship(gmm_timing, flash_timing):
+    """One warm-up and two timed ``multi_step`` of K=4 of
+    :func:`moe_trainer` on its stacked batch."""
+    cfg, model, trainer, state, stacked = moe_trainer(moe_tree())
+    n_params = sum(p.numel() for p in model.parameters())
+    expert = sum(p.numel() for n, p in model.named_parameters()
+                 if ".moe." in n and not n.endswith(".router"))
+    n_active = n_params - expert + expert * cfg.expert_k // cfg.num_experts
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    metrics, walls = [], []
+    for _ in range(3):  # warm-up, then two timed groups
+        t0 = time.perf_counter()
+        state, m = trainer.multi_step_on_device(state, stacked)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        metrics.append(m)
+    launches = read_launches()
+    per_step = {k: torch.cat([m[k] for m in metrics]).float().cpu().numpy()
+                for k in ("loss", "ce", "moe_aux")}
+    losses = per_step["loss"]
+    steps = len(losses)
+    peak = torch.cuda.max_memory_allocated()
+    best = min(walls[1:])
+    step_ms = 1e3 * best / TRAIN_K
+    tokens_per_sec = TRAIN_K * MOE_TRAIN_B * TRAIN_S / best
+    flops_per_token = 6.0 * n_active + 12.0 * cfg.num_layers * \
+        cfg.num_heads * cfg.head_dim * TRAIN_S
+    # per-step device time of each kernel at the timing phases' shapes
+    # (the flash timing ran at B=8; this batch is B=4)
+    per_launch_ms = {n: gmm_timing[n]["ms"] for n in GMM_KERNELS}
+    per_launch_ms.update({n: flash_timing[n]["ms"] * MOE_TRAIN_B / TRAIN_B
+                          for n in ("fwd", "dq", "dkv")})
+    want = {n: c * cfg.num_layers * steps
+            for n, c in MOE_LAUNCHES_PER_LAYER.items()}
+    res = dict(
+        model="L4 H8 Dh128 Dm1024 Dff4096 V32000 E8 top-2 dropless, remat "
+              "block, flash, bf16 compute, f32 masters",
+        params=n_params, active_params=n_active,
+        batch=[TRAIN_K, MOE_TRAIN_B, TRAIN_S], steps=steps,
+        losses=losses.tolist(), ce=per_step["ce"].tolist(),
+        moe_aux=per_step["moe_aux"].tolist(), warmup_sec=walls[0],
+        timed_sec=walls[1:], step_ms=step_ms, tokens_per_sec=tokens_per_sec,
+        mfu_active=tokens_per_sec * flops_per_token / BF16_FLOPS_PER_SEC,
+        flops_per_token=flops_per_token, peak_memory_bytes=peak,
+        launches=launches, launches_expected=want,
+        launches_per_step={n: v / steps for n, v in launches.items()},
+        kernel_share_of_step_est={
+            n: launches[n] / steps * ms / step_ms
+            for n, ms in per_launch_ms.items()},
+        device=torch.cuda.get_device_name(0),
+    )
+    emit("moe_train_flagship", **res)
+    if not np.isfinite(losses).all():
+        raise AssertionError("non-finite loss: {0}".format(losses))
+    if not losses[-1] < losses[0]:
+        raise AssertionError("loss did not fall: {0}".format(losses))
+    if launches != want:
+        raise AssertionError("launches {0} != {1}".format(launches, want))
+    return res, model
+
+
+def phase_moe_dropless_vs_gather():
+    """The MoE flagship's widths in f32 at two layers, S=512, B=2: three
+    SGD steps from the same weights with ``dropless`` (the kernels) and
+    with ``gather`` at capacity factor E/k (plain PyTorch, nothing
+    dropped), both on the card (dot attention in both), held to
+    :data:`TRAIN_VS_DOT_TOL` (the same f32 products in another order)."""
+    from tensorflowonspark_tpu_torch import convert, optim
+    from tensorflowonspark_tpu_torch.models import moe, transformer
+    from tensorflowonspark_tpu_torch.parallel import dp
+
+    base = dict(MOE_FLAGSHIP, dtype="float32", num_layers=2,
+                max_seq_len=512, capacity_factor=MOE_FLAGSHIP["num_experts"]
+                / MOE_FLAGSHIP["expert_k"])
+    tree = convert.init_params_tree(transformer.TransformerConfig(**base),
+                                    seed=16)
+    tokens = np.random.default_rng(17).integers(
+        0, base["vocab_size"], (3, 2, 512)).astype(np.int32)
+    runs = {}
+    for dispatch in ("dropless", "gather"):
+        cfg = transformer.TransformerConfig(**dict(base,
+                                                   expert_dispatch=dispatch))
+        model = convert.params_from_flax(tree, cfg,
+                                         param_dtype=torch.float32)
+        trainer = dp.SyncTrainer(moe.moe_loss_fn(model),
+                                 optim.sgd(0.01, momentum=0.9), has_aux=True)
+        state = trainer.create_state(dict(model.named_parameters()))
+        reset_launches()
+        state, metrics = trainer.multi_step(state, {"tokens": tokens})
+        runs[dispatch] = (metrics["loss"].cpu().numpy(),
+                          convert._flatten(convert.tree_from_model(model)),
+                          {n: read_launches()[n] for n in GMM_KERNELS})
+        del model, trainer, state
+    loss_k, params_k, launches_k = runs["dropless"]
+    loss_g, params_g, launches_g = runs["gather"]
+    loss_rel = float(np.max(np.abs(loss_k - loss_g) / np.abs(loss_g)))
+    moved, diff, rel = leaf_agreement(convert._flatten(tree), params_k,
+                                      params_g)
+    worst = max(rel, key=rel.get)
+    ok = (loss_rel <= TRAIN_VS_DOT_TOL["loss_rtol"]
+          and rel[worst] <= TRAIN_VS_DOT_TOL["param_rel_to_move"]
+          and min(launches_k.values()) > 0 and max(launches_g.values()) == 0)
+    emit("moe_train_dropless_vs_gather",
+         model="L2 H8 Dh128 Dm1024 Dff4096 E8 top-2 f32 S512 B2",
+         capacity_factor=base["capacity_factor"],
+         losses_dropless=loss_k.tolist(), losses_gather=loss_g.tolist(),
+         loss_max_rel_diff=loss_rel, param_max_abs_diff=max(diff.values()),
+         param_moved_by_leaf=moved, param_diff_rel_to_move=rel,
+         worst_leaf=worst, tol=TRAIN_VS_DOT_TOL,
+         launches_dropless=launches_k, launches_gather=launches_g, ok=ok)
+    if not ok:
+        raise AssertionError("dropless vs gather MoE training disagree")
+
+
+def phase_moe_train_to_serve(model):
+    """The trained MoE weights through slice 1's serving path: K5 in
+    every prefill and decode forward of every layer, K1 in every decode
+    step."""
+    from tensorflowonspark_tpu_torch import convert
+
+    tree = convert.tree_from_model(model)
+    serving_cfg = dict(SERVING, max_new_tokens=16, max_prompt_len=64)
+    rows = make_requests(np.random.default_rng(18), 4,
+                         MOE_FLAGSHIP["vocab_size"], 16, 64)
+    reset_launches()
+    out, stats, wall, paged = serve(MOE_FLAGSHIP, serving_cfg, tree, rows)
+    launches = {n: read_launches()[n] for n in GMM_KERNELS}
+    layers = MOE_FLAGSHIP["num_layers"]
+    steps = stats["chunks"] * serving_cfg["chunk_size"]
+    want = {"gmm": 3 * layers * (stats["admitted"] + steps), "gmm_dxt": 0,
+            "tgmm": 0}
+    gen = [np.asarray(r["generated"]) for r in out]
+    vocab = MOE_FLAGSHIP["vocab_size"]
+    ok = (len(gen) == 4 and all(g.shape == (16,) and g.min() >= 0
+                                and g.max() < vocab for g in gen)
+          and launches == want and paged == layers * steps)
+    emit("moe_train_to_serve", requests=len(gen),
+         tokens_out=stats["tokens_out"], wall_sec=wall, decode_steps=steps,
+         prefills=stats["admitted"], gmm_launches=launches,
+         gmm_launches_expected=want, paged_attention_launches=paged,
+         first_tokens=[g[:4].tolist() for g in gen], ok=ok)
+    if not ok:
+        raise AssertionError("trained MoE weights did not serve: {0} "
+                             "{1}".format(launches, gen))
+
+
+def kernel_entry(name, replaces, launches, timing,
+                 source="tensorflowonspark_tpu_torch/csrc/flash_attention.cu"):
     return dict(
-        name=name, route="cuda",
-        source="tensorflowonspark_tpu_torch/csrc/flash_attention.cu",
+        name=name, route="cuda", source=source,
         replaces=replaces, launches=launches,
         max_abs_err=timing["max_abs_err"], ms=timing["ms"],
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
@@ -927,7 +1367,14 @@ def main():
     phase_train_to_serve(model)
     phase_optimizer_timing(model)
     del model
+    phase_gmm_cases()
+    gmm_timing = phase_gmm_timing()
+    moe, moe_model = phase_moe_train_flagship(gmm_timing, flash)
+    phase_moe_dropless_vs_gather()
+    phase_moe_train_to_serve(moe_model)
+    del moe_model
     jax_flash = "tensorflowonspark_tpu/ops/flash_attention.py:"
+    jax_gmm = "tensorflowonspark_tpu/ops/gmm.py:"
     print(json.dumps({"kernels": [dict(
         name="paged_attention", route="cuda",
         source="tensorflowonspark_tpu_torch/csrc/paged_attention.cu",
@@ -943,6 +1390,11 @@ def main():
                      train["launches"]["dq"], flash["dq"]),
         kernel_entry("flash_dkv", jax_flash + "256",
                      train["launches"]["dkv"], flash["dkv"]),
+    ] + [
+        kernel_entry(name, jax_gmm + line, moe["launches"][name],
+                     gmm_timing[name], source=GMM_SRC)
+        for name, line in (("gmm", "71"), ("gmm_dxt", "144"),
+                           ("tgmm", "219"))
     ]}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

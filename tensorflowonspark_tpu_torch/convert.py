@@ -13,13 +13,18 @@ Flax leaf                      shape         port
 ``block_i/attn/out/kernel``    ``[H, D, E]`` ``[H*D, E]``, transposed
 ``block_i/mlp/{wi,wg}/kernel`` ``[E, F]``    transposed
 ``block_i/mlp/wo/kernel``      ``[F, E]``    transposed
+``block_i/moe/router``         ``[E, X]``    as is (f32)
+``block_i/moe/{wi,wg}``        ``[X, E, F]`` as is
+``block_i/moe/wo``             ``[X, F, E]`` as is
 ``*/ln1|ln2|ln_f/scale``       ``[E]``       as is (f32)
 ``lm_head/kernel``             ``[E, V]``    transposed
 =============================  ============  =============================
 
-(``H`` is ``num_kv_heads`` for ``k``/``v``.)  Transposes land in
-``nn.Linear``'s ``[out, in]`` layout.  Any missing, extra or misshapen
-leaf raises ``ValueError``; fused-QKV and MoE leaves raise
+(``H`` is ``num_kv_heads`` for ``k``/``v``; ``X`` is ``num_experts``,
+and a MoE block has ``moe/`` leaves in place of ``mlp/``.)  Transposes
+land in ``nn.Linear``'s ``[out, in]`` layout; the expert stacks keep
+the layout the grouped-matmul kernels read.  Any missing, extra or
+misshapen leaf raises ``ValueError``; fused-QKV leaves raise
 ``NotImplementedError``.  :func:`tree_from_model` is the inverse: a
 model's weights as a tree of f32 numpy arrays in the Flax layout.
 """
@@ -40,16 +45,15 @@ def _not_ported(what, item):
 def _check_ported(cfg):
     if cfg.fused_qkv:
         raise _not_ported("fused_qkv projections", "fused_qkv")
-    if cfg.num_experts > 0:
-        raise _not_ported("MoE (num_experts > 0)", "MoE with K5-K7")
 
 
 def tree_shapes(cfg):
-    """``{tree path: shape}`` of every leaf the dense model has."""
+    """``{tree path: shape}`` of every leaf the model has."""
     _check_ported(cfg)
     e, f, v = cfg.embed_dim, cfg.mlp_dim, cfg.vocab_size
     h, d = cfg.num_heads, cfg.head_dim
     hkv = cfg.num_kv_heads or h
+    x = cfg.num_experts
     out = {"embedding": (v, e), "ln_f/scale": (e,), "lm_head/kernel": (e, v)}
     for i in range(cfg.num_layers):
         blk = "block_%d/" % i
@@ -60,10 +64,20 @@ def tree_shapes(cfg):
             blk + "attn/k/kernel": (e, hkv, d),
             blk + "attn/v/kernel": (e, hkv, d),
             blk + "attn/out/kernel": (h, d, e),
-            blk + "mlp/wi/kernel": (e, f),
-            blk + "mlp/wg/kernel": (e, f),
-            blk + "mlp/wo/kernel": (f, e),
         })
+        if x > 0:
+            out.update({
+                blk + "moe/router": (e, x),
+                blk + "moe/wi": (x, e, f),
+                blk + "moe/wg": (x, e, f),
+                blk + "moe/wo": (x, f, e),
+            })
+        else:
+            out.update({
+                blk + "mlp/wi/kernel": (e, f),
+                blk + "mlp/wg/kernel": (e, f),
+                blk + "mlp/wo/kernel": (f, e),
+            })
     return out
 
 
@@ -91,7 +105,8 @@ def params_from_flax(tree, cfg, device=None, param_dtype=None):
     ``device`` (default ``cuda``; raises without a GPU).  The embedding
     and dense weights are stored in ``param_dtype`` (default
     ``cfg.dtype``, the serving layout; ``torch.float32`` keeps f32
-    master weights for training); norm scales stay f32."""
+    master weights for training); norm scales and MoE routers stay
+    f32."""
     from tensorflowonspark_tpu_torch.models.transformer import (
         Transformer, model_device,
     )
@@ -102,10 +117,6 @@ def params_from_flax(tree, cfg, device=None, param_dtype=None):
         if "/attn/qkv/" in path:
             raise _not_ported(
                 "fused_qkv leaf {0!r}".format(path), "fused_qkv"
-            )
-        if "/moe/" in path:
-            raise _not_ported(
-                "MoE leaf {0!r}".format(path), "MoE with K5-K7"
             )
     want = tree_shapes(cfg)
     missing = sorted(set(want) - set(leaves))
@@ -128,8 +139,8 @@ def params_from_flax(tree, cfg, device=None, param_dtype=None):
                     path, tuple(arr.shape), shape
                 )
             )
-        dtype = torch.float32 if path.endswith("/scale") else \
-            (param_dtype or cfg.torch_dtype)
+        dtype = torch.float32 if path.endswith(("/scale", "/router")) \
+            else (param_dtype or cfg.torch_dtype)
         # a copy: the model never aliases the caller's arrays
         t = torch.tensor(arr, dtype=dtype, device=dev)
         if path.endswith("/kernel"):
@@ -164,18 +175,20 @@ def tree_from_model(model):
 
 def init_params_tree(cfg, seed=0):
     """Random weights in the Flax layout, drawn with numpy from
-    ``seed``: embedding ``N(0, 0.02)`` and dense kernels
-    ``N(0, 1/fan_in)`` (the scales of the JAX model's initialisers,
-    untruncated), norm scales 1.  f32 leaves."""
+    ``seed``: embedding and MoE routers ``N(0, 0.02)``, dense kernels
+    ``N(0, 1/fan_in)`` and expert stacks ``N(0, 1/(E * fan_in))`` (the
+    scales of the JAX model's initialisers, untruncated: its
+    ``variance_scaling`` counts the expert axis in a 3-D leaf's fan-in),
+    norm scales 1.  f32 leaves."""
     rng = np.random.default_rng(seed)
     tree = {}
     for path, shape in tree_shapes(cfg).items():
         if path.endswith("/scale"):
             leaf = np.ones(shape, np.float32)
         else:
-            if path == "embedding":
+            if path == "embedding" or path.endswith("/router"):
                 std = 0.02
-            elif path.endswith("out/kernel"):
+            elif path.endswith("out/kernel") or "/moe/" in path:
                 std = (shape[0] * shape[1]) ** -0.5
             else:
                 std = shape[0] ** -0.5

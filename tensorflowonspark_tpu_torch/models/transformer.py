@@ -3,13 +3,22 @@ the JAX package's ``models/transformer.py``).
 
 Ported so far: the forward (``TransformerConfig``, ``rope``,
 ``RMSNorm``, ``Attention`` with the ``dot`` and ``flash`` paths and the
-paged decode path, ``MLP``, ``Block``, ``Transformer``), ``loss_fn``,
-``sample_logits``, the paged-layout ``SlotDecoder`` and
-``serving_builder`` for ``mode="generate"`` with ``kv_layout="paged"``.
-Contiguous-cache decode, static ``generate``, speculative decoding,
-MoE, remat, fused QKV, weight quantization, the prefix cache, TP meshes
-and disaggregation raise ``NotImplementedError`` naming their ROADMAP
-item.
+paged decode path, ``MLP``, MoE blocks (:class:`..models.moe.MoEMLP`),
+``Block``, ``Transformer`` with remat), ``loss_fn``, ``sample_logits``,
+the paged-layout ``SlotDecoder`` and ``serving_builder`` for
+``mode="generate"`` with ``kv_layout="paged"``.  Contiguous-cache
+decode, static ``generate``, speculative decoding, fused QKV, weight
+quantization, the prefix cache, TP meshes and disaggregation raise
+``NotImplementedError`` naming their ROADMAP item.
+
+Remat (``cfg.remat``) checkpoints each block in training
+(``torch.utils.checkpoint``, non-reentrant): ``remat_policy="block"``
+recomputes the whole block in the backward; ``"dots"`` saves the
+outputs of matrix products without batch dimensions (``mm``/``addmm``:
+the dense projections and the router, what JAX's
+``dots_with_no_batch_dims_saveable`` keeps) and recomputes the rest,
+the kernels' outputs included, as ``pallas_call`` outputs are
+recomputed under that policy.  Decode never checkpoints.
 
 Parameters and compute types: the Flax model keeps f32 parameters and
 casts them to ``cfg.dtype`` at each use.  ``Transformer(cfg,
@@ -26,6 +35,7 @@ replaces the reference's donated buffers).
 """
 
 import dataclasses
+import functools
 import math
 from collections.abc import Mapping
 
@@ -33,8 +43,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from tensorflowonspark_tpu_torch.compat import resolve_device
+from tensorflowonspark_tpu_torch.models.moe import MoEMLP
 from tensorflowonspark_tpu_torch.ops.attention import attention
 from tensorflowonspark_tpu_torch.ops.flash_attention import (
     check_flash_shapes,
@@ -255,12 +267,31 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
+    """Attention + feed-forward (``mlp``, or ``moe`` when
+    ``cfg.num_experts > 0``); ``forward`` returns ``(x, aux)`` with
+    ``aux`` the MoE load-balancing loss, ``None`` for a dense block."""
+
     def __init__(self, cfg, device=None, param_dtype=None):
         super().__init__()
         self.ln1 = RMSNorm(cfg.embed_dim, device=device)
         self.attn = Attention(cfg, device=device, param_dtype=param_dtype)
         self.ln2 = RMSNorm(cfg.embed_dim, device=device)
-        self.mlp = MLP(cfg, device=device, param_dtype=param_dtype)
+        if cfg.num_experts > 0:
+            axes = set(getattr(cfg.mesh, "axis_names", ()) or ())
+            if cfg.expert_dispatch == "dropless" and axes & {"expert",
+                                                             "model"}:
+                raise ValueError(
+                    "expert_dispatch='dropless' does not compose with an "
+                    "expert- or model-sharded mesh; use 'gather'"
+                )
+            self.moe = MoEMLP(
+                cfg.num_experts, cfg.mlp_dim, cfg.embed_dim,
+                k=cfg.expert_k, capacity_factor=cfg.capacity_factor,
+                dtype=cfg.torch_dtype, dispatch=cfg.expert_dispatch,
+                device=device, param_dtype=param_dtype,
+            )
+        else:
+            self.mlp = MLP(cfg, device=device, param_dtype=param_dtype)
 
     def forward(self, x, positions, decode=False, block_tables=None,
                 cache=None):
@@ -268,7 +299,35 @@ class Block(nn.Module):
             self.ln1(x), positions, decode=decode,
             block_tables=block_tables, cache=cache,
         )
-        return x + self.mlp(self.ln2(x))
+        h = self.ln2(x)
+        if hasattr(self, "moe"):
+            ff, aux, _ = self.moe(h)
+            return x + ff, aux
+        return x + self.mlp(h), None
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy="dots"``: keep the
+    outputs of matrix products without batch dimensions."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _call_block(block, params, x, positions):
+    # the block over the weights it was given when the step ran, so the
+    # recompute in the backward sees them too (a functional_call around
+    # the model has restored the module's own by then)
+    return torch.func.functional_call(block, params, (x, positions))
+
+
+def _checkpointed_block(block, x, positions, policy):
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _save_dots)
+    return ckpt.checkpoint(_call_block, block, dict(block.named_parameters()),
+                           x, positions, use_reentrant=False, **kw)
 
 
 def model_device(cfg, device):
@@ -299,10 +358,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg, device=None, param_dtype=None):
         super().__init__()
-        if cfg.num_experts > 0:
-            raise _not_ported("MoE (num_experts > 0)", "MoE with K5-K7")
-        if cfg.remat:
-            raise _not_ported("remat", "remat")
         if cfg.cache_dtype == "int8":
             raise _not_ported(
                 "the int8 KV cache write path", "int8/int4 weights, int8 "
@@ -341,11 +396,15 @@ class Transformer(nn.Module):
         return twin
 
     def forward(self, tokens, decode=False, slot_positions=None,
-                block_tables=None, cache=None):
+                block_tables=None, cache=None, return_aux=False):
         """``decode=True`` is slot mode: ``slot_positions [B]`` are the
         per-slot write pointers, ``block_tables [B, NB]`` address the
         per-layer page pools in ``cache`` (a list of ``{"k", "v"}``
-        dicts, :func:`init_cache`), which are updated in place."""
+        dicts, :func:`init_cache`), which are updated in place.
+
+        ``return_aux=True`` returns ``(logits, aux_losses)``, the list of
+        the MoE blocks' load-balancing losses (the reference's
+        ``"losses"`` collection; empty for a dense model)."""
         cfg = self.cfg
         if not decode and (slot_positions is not None
                            or block_tables is not None
@@ -368,12 +427,27 @@ class Transformer(nn.Module):
             positions = slot_positions[:, None].to(torch.int64) + steps
         else:
             positions = steps[None, :].expand(tokens.shape)
-        for i, block in enumerate(self.blocks):
-            x = block(
-                x, positions, decode=decode, block_tables=block_tables,
-                cache=None if cache is None else cache[i],
+        if cfg.remat and cfg.remat_policy not in ("block", "dots"):
+            raise ValueError(
+                "remat_policy must be 'block' or 'dots', got {0!r}".format(
+                    cfg.remat_policy)
             )
-        return self.lm_head(self.ln_f(x)).to(torch.float32)
+        # remat is a training trade (recompute in the backward)
+        remat = cfg.remat and not decode and torch.is_grad_enabled()
+        aux_losses = []
+        for i, block in enumerate(self.blocks):
+            if remat:
+                x, aux = _checkpointed_block(block, x, positions,
+                                             cfg.remat_policy)
+            else:
+                x, aux = block(
+                    x, positions, decode=decode, block_tables=block_tables,
+                    cache=None if cache is None else cache[i],
+                )
+            if aux is not None:
+                aux_losses.append(aux)
+        logits = self.lm_head(self.ln_f(x)).to(torch.float32)
+        return (logits, aux_losses) if return_aux else logits
 
 
 def loss_fn(model):

@@ -59,6 +59,12 @@ KERNELS = {
             "tfos_flash_dkv": ([_P] * 8 + [_L] * 12 + _FLASH_TAIL, _I),
         },
     ),
+    # a, b, tile_expert, out, N, D, F, E, bm, is_bf16, stream
+    "gmm": (
+        "gmm.cu",
+        {name: ([_P] * 4 + [_I] * 6 + [_P], _I)
+         for name in ("tfos_gmm", "tfos_gmm_dxt", "tfos_tgmm")},
+    ),
 }
 
 _lock = threading.Lock()

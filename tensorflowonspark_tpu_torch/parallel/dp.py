@@ -127,7 +127,9 @@ class SyncTrainer(object):
         grads = torch.autograd.grad(loss, list(params.values()))
         # in place: parameters and moments are the long-lived state
         self.optimizer.update(state.opt_state, params, grads)
-        metrics = dict(aux)
+        # detached: a metric keeps no autograd graph alive across steps
+        metrics = {name: torch.as_tensor(v).detach()
+                   for name, v in aux.items()}
         metrics["loss"] = loss.detach()
         return state.replace(step=state.step + 1), metrics
 

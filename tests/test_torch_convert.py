@@ -101,28 +101,31 @@ def test_misshapen_leaf_raises():
                                  device="cpu")
 
 
-@pytest.mark.parametrize("block,item", [
+@pytest.mark.parametrize("block,exc,item", [
     ({"qkv": {"kernel": np.zeros((32, 3, 4, 8), np.float32)}},
-     "queue A: fused_qkv"),
-    ({"moe": {"router": np.zeros((32, 4), np.float32)}}, "MoE"),
+     NotImplementedError, "queue A: fused_qkv"),
+    # MoE leaves are ported: in a dense config's tree they are extra
+    ({"moe": {"router": np.zeros((32, 4), np.float32)}}, ValueError,
+     r"extra \['block_0/moe/router'\]"),
 ], ids=["fused_qkv", "moe"])
-def test_unported_leaves_raise(block, item):
+def test_unported_leaves_raise(block, exc, item):
     tree = _tree()
     if "qkv" in block:
         tree["block_0"]["attn"].update(block)
     else:
         tree["block_0"].update(block)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(exc, match=item):
         convert.params_from_flax(tree, ttr.TransformerConfig(**TINY),
                                  device="cpu")
 
 
-@pytest.mark.parametrize("field,item", [
-    ({"fused_qkv": True}, "queue A: fused_qkv"),
-    ({"num_experts": 4}, "MoE"),
-])
-def test_unported_configs_raise(field, item):
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.mark.parametrize("field,exc,item", [
+    ({"fused_qkv": True}, NotImplementedError, "queue A: fused_qkv"),
+    # a MoE config is ported: a dense tree misses its expert leaves
+    ({"num_experts": 4}, ValueError, r"missing \['block_0/moe/router'"),
+], ids=["fused_qkv", "moe"])
+def test_unported_configs_raise(field, exc, item):
+    with pytest.raises(exc, match=item):
         convert.params_from_flax(_tree(),
                                  ttr.TransformerConfig(**dict(TINY, **field)),
                                  device="cpu")

@@ -178,9 +178,9 @@ def test_import_loads_no_jax():
         "import tensorflowonspark_tpu_torch\n"
         "from tensorflowonspark_tpu_torch import compat, convert, optim, "
         "prefix_cache, serving, serving_engine\n"
-        "from tensorflowonspark_tpu_torch.models import transformer\n"
+        "from tensorflowonspark_tpu_torch.models import moe, transformer\n"
         "from tensorflowonspark_tpu_torch.ops import _build, attention, "
-        "flash_attention, paged_attention\n"
+        "flash_attention, gmm, moe, paged_attention\n"
         "from tensorflowonspark_tpu_torch.parallel import dp\n"
         "from tensorflowonspark_tpu_torch.planner import knobs\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

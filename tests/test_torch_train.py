@@ -267,11 +267,11 @@ def test_train_on_feed_is_not_ported():
 
 
 @pytest.mark.parametrize("field,item", [
-    ({"remat": True}, "queue A: remat"),
+    ({"cache_dtype": "int8"}, "int8"),
     ({"fused_qkv": True}, "queue A: fused_qkv"),
     ({"attention_impl": "ring"}, "ring/Ulysses"),
     ({"attention_impl": "ulysses"}, "ring/Ulysses"),
-], ids=["remat", "fused_qkv", "ring", "ulysses"])
+], ids=["int8_cache", "fused_qkv", "ring", "ulysses"])
 def test_unported_model_knobs_raise(field, item):
     with pytest.raises(NotImplementedError, match=item):
         model = ttr.Transformer(ttr.TransformerConfig(**dict(TINY, **field)),

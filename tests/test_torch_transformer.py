@@ -211,14 +211,15 @@ class TestForwardPieces:
         assert bool((top5 == draws[:, None]).any(dim=-1).all())
 
     @pytest.mark.parametrize("field,item", [
-        ({"remat": True}, "queue A: remat"),
+        ({"fused_qkv": True}, "queue A: fused_qkv"),
         ({"cache_dtype": "int8"}, "int8"),
-        ({"num_experts": 2}, "MoE"),
-    ])
+        ({"attention_impl": "ring"}, "ring/Ulysses"),
+    ], ids=["fused_qkv", "int8_cache", "ring"])
     def test_unported_model_options_raise(self, field, item):
         with pytest.raises(NotImplementedError, match=item):
-            ttr.Transformer(ttr.TransformerConfig(**dict(TINY, **field)),
-                            device="cpu")
+            model = ttr.Transformer(
+                ttr.TransformerConfig(**dict(TINY, **field)), device="cpu")
+            model(torch.zeros((1, 8), dtype=torch.long))
 
     def test_shared_counter_decode_is_not_ported(self):
         model = ttr.Transformer(ttr.TransformerConfig(**TINY), device="cpu")
