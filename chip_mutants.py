@@ -11,7 +11,10 @@ Each mutant copies ``chip_smoke.py``, this file and the port's package
 into a temporary directory, rewrites a few lines of its kernel source
 there (``csrc/flash_attention.cu``, or ``csrc/gmm.cu`` for the mutants
 in :data:`SOURCES`), builds the kernels in that copy and runs the
-``chip_smoke.py`` check it names.  It prints one JSON line per
+``chip_smoke.py`` check it names.  ``diag``, ``zero_dq`` and
+``tgmm_last_tile`` break the ``mma.sync`` kernels (f32 K2 and K7, both
+types of K3 and K4); ``fwd_wgmma_diag`` and ``tgmm_wgmma_last_tile``
+break the bf16 Hopper kernels ``flash_fwd_wgmma`` and ``tgmm_wgmma``.  It prints one JSON line per
 case and one per mutant; the last line lists the mutants that survived,
 and the exit code is 0 only when every mutant was caught.  The
 repository itself is never modified.
@@ -50,9 +53,24 @@ MUTANTS = {
         [("    k_end = (last + 1) * a.bm;", "    k_end = last * a.bm;")],
         "gmm_case+moe_train_dropless_vs_gather",
     ),
+    "fwd_wgmma_diag": (
+        "the bf16 K2 (flash_fwd_wgmma) skips its diagonal key tile for q "
+        "tiles at or past position 512",
+        [("  const int j_hi = a.causal ? q_last / kWgKeys : (a.S - 1) / "
+          "kWgKeys;",
+          "  const int j_hi = a.causal ? q_last / kWgKeys - (q0 >= 512) : "
+          "(a.S - 1) / kWgKeys;")],
+        "flash_case",
+    ),
+    "tgmm_wgmma_last_tile": (
+        "the bf16 K7 (tgmm_wgmma) drops each expert's last 64-row stage",
+        [("  it.row_end = (last[it.e] + 1) * a.bm;",
+          "  it.row_end = (last[it.e] + 1) * a.bm - kTgDepth;")],
+        "gmm_case",
+    ),
 }
 #: mutants of another source than :data:`SOURCE`
-SOURCES = {"tgmm_last_tile": GMM_SOURCE}
+SOURCES = {"tgmm_last_tile": GMM_SOURCE, "tgmm_wgmma_last_tile": GMM_SOURCE}
 
 
 def mutate(text, subs):
@@ -140,6 +158,7 @@ def check_gmm_and_moe_training():
 
 CHECKS = {"flash_case": check_flash_cases,
           "train_kernel_vs_dot": check_train_kernel_vs_dot,
+          "gmm_case": check_gmm_cases,
           "gmm_case+moe_train_dropless_vs_gather": check_gmm_and_moe_training}
 
 

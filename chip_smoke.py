@@ -11,7 +11,10 @@ caught):
 1. ``env``: torch, the card, its power limit.
 2. ``build``: compiles every kernel source under
    ``tensorflowonspark_tpu_torch/csrc/`` with ``nvcc`` (one process per
-   source, all started together).
+   source, all started together), and fails unless ``cuobjdump -sass``
+   shows ``HGMMA`` and ``UTMALDG`` in the bf16 Hopper kernels
+   (:data:`WGMMA_KERNELS`) and ``-Xptxas=-v`` reports no spills for
+   them.
 3. ``kernel_case``: the paged-decode kernel against its plain PyTorch
    version on the card, case by case (bf16 flagship geometry, f32 GQA,
    sliding window, int8 pools with scales, a length-1 slot).
@@ -24,9 +27,9 @@ caught):
 6. ``slice_kernel_vs_gather``: the same path in f32 at two layers with
    ``paged_impl="kernel"`` and ``"gather"``; greedy tokens must agree.
 7. ``flash_case``: the flash kernels (forward, dQ, dK/dV) against their
-   plain versions on the card (bf16 flagship geometry, f32 GQA, a
-   window across tiles, non-causal, a ragged S=1000, bf16 D=64); bf16
-   outputs are held row by row (:data:`FLASH_TOL`).
+   plain versions on the card (bf16 flagship geometry, bf16 D=64 GQA, and
+   in both types a window across tiles, non-causal, a ragged S=1000 with
+   GQA); bf16 outputs are held row by row (:data:`FLASH_TOL`).
 8. ``flash_timing``: the three kernels, their plain versions and
    ``scaled_dot_product_attention`` as a yardstick at the flagship
    training shape (B=8, S=2048, H=8, D=128, bf16, causal), beside the
@@ -47,10 +50,10 @@ caught):
     against their plain versions on the card, on dropless layouts from
     a skewed router (one heavy expert, one absent): bf16 at the MoE
     flagship's shapes in both directions (D=1024 -> F=4096 and back),
-    and f32 with ragged counts and edges (:data:`GMM_TOL`).
+    and both types with ragged counts and edges (:data:`GMM_TOL`).
 14. ``gmm_timing``: the three kernels, their plain versions and a
     library yardstick at the MoE flagship's training shape, beside the
-    operation bound.
+    operation bound; K7 and its yardstick again on a skewed layout.
 15. ``moe_train_flagship``: the JAX package's MoE bench model (L4 H8
     Dh128 Dm1024 Dff4096 V32000, 8 experts top-2, dropless, remat
     ``block``, flash attention, bf16 compute over f32 masters) under
@@ -75,6 +78,9 @@ down by kernel class for the dense or the MoE flagship.
 """
 
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -121,13 +127,92 @@ def phase_env():
          nvidia_smi=nvidia_smi())
 
 
+#: library -> the Hopper kernel built in it whose SASS must hold every
+#: instruction of :data:`SASS_MUST_HOLD`, with no spills in ``-Xptxas=-v``
+WGMMA_KERNELS = {"flash_attention": "flash_fwd_wgmma", "gmm": "tgmm_wgmma"}
+#: warpgroup MMA (``wgmma``) and TMA tile loads (``cp.async.bulk.tensor``)
+SASS_MUST_HOLD = ("HGMMA", "UTMALDG")
+
+
+def cuda_tool(name):
+    """A CUDA toolkit program: ``PATH``, then ``$CUDA_HOME/bin``."""
+    return shutil.which(name) or os.path.join(
+        os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", name)
+
+
+def sass_functions(library):
+    """``{mangled function name: SASS text}`` of a built library, from
+    ``cuobjdump -sass``."""
+    text = subprocess.run(
+        [cuda_tool("cuobjdump"), "-sass", library], check=True,
+        capture_output=True, text=True, timeout=300).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    return {n: "\n".join(lines) for n, lines in funcs.items()}
+
+
+def ptxas_functions(report):
+    """``{mangled function name: {registers, stack, spill_stores,
+    spill_loads}}`` from an ``-Xptxas=-v`` report."""
+    funcs, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name is not None:
+            funcs[name].update(stack=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            funcs[name]["registers"] = int(m.group(1))
+    return funcs
+
+
+def wgmma_sass_check(library, kernel, report):
+    """What the SASS and the compiler report say of one Hopper kernel:
+    each of its instantiations must hold :data:`SASS_MUST_HOLD` and spill
+    nothing."""
+    sass = {n: t for n, t in sass_functions(library).items() if kernel in n}
+    ptxas = {n: f for n, f in ptxas_functions(report).items() if kernel in n}
+    found = {n: {op: op in t for op in SASS_MUST_HOLD}
+             for n, t in sass.items()}
+    warnings = [line.strip() for line in report.splitlines()
+                if "warning" in line.lower()]
+    ok = (bool(sass) and set(sass) == set(ptxas)
+          and all(all(v.values()) for v in found.values())
+          and all(f.get("spill_stores", 1) == 0 and f.get("spill_loads", 1)
+                  == 0 for f in ptxas.values()))
+    return dict(kernel=kernel, instructions=found, ptxas=ptxas,
+                ptxas_warnings=warnings, ok=ok)
+
+
 def phase_build():
     from tensorflowonspark_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     secs = _build.build()
+    reports = {name: _build.build_report(name) for name in secs}
+    checks = {name: wgmma_sass_check(_build.library_path(name), kernel,
+                                     reports[name])
+              for name, kernel in WGMMA_KERNELS.items()}
     emit("build", seconds=time.perf_counter() - t0, per_library=secs,
-         ptxas={name: _build.build_report(name) for name in secs})
+         ptxas=reports, sass_check=checks)
+    bad = [c for c in checks.values() if not c["ok"]]
+    if bad:
+        raise AssertionError(
+            "Hopper kernels without {0} in their SASS, or spilling: "
+            "{1}".format("/".join(SASS_MUST_HOLD), bad))
 
 
 def make_paged_case(gen, *, b, h, hkv, d, t, nb, lengths, dtype,
@@ -457,6 +542,12 @@ FLASH_CASES = [
                               dtype=torch.float32, causal=True)),
     ("bf16_d64_gqa", dict(b=2, s=1024, h=8, hkv=4, d=64,
                           dtype=torch.bfloat16, causal=True)),
+    ("bf16_window_300", dict(b=1, s=1024, h=4, hkv=4, d=128,
+                             dtype=torch.bfloat16, causal=True, window=300)),
+    ("bf16_non_causal", dict(b=2, s=256, h=4, hkv=4, d=128,
+                             dtype=torch.bfloat16, causal=False)),
+    ("bf16_ragged_s1000_gqa", dict(b=1, s=1000, h=4, hkv=2, d=128,
+                                   dtype=torch.bfloat16, causal=True)),
 ]
 #: H100 SXM dense bf16 tensor-core peak, NVIDIA data sheet
 BF16_FLOPS_PER_SEC = 989e12
@@ -965,6 +1056,9 @@ GMM_CASES = [
     ("f32_ragged_absent_bm256", dict(
         g=1000, k=2, e=6, d=200, f=392, bm=256, dtype=torch.float32,
         heavy=1, absent=2)),
+    ("bf16_ragged_absent_bm256", dict(
+        g=1000, k=2, e=6, d=200, f=392, bm=256, dtype=torch.bfloat16,
+        heavy=1, absent=2)),
 ]
 GMM_KERNELS = ("gmm", "gmm_dxt", "tgmm")
 
@@ -1131,10 +1225,47 @@ def phase_gmm_timing():
             bytes=nbytes, flops=flops, flops_over_np=2 * n_rows * d * f,
             tflops=flops / ms / 1e9, max_abs_err=errs[name][0],
         )
+    res["tgmm_skewed"] = tgmm_skewed_timing(gen)
     emit("gmm_timing", shape=dict(tokens=8192, k=2, E=8, D=d, F=f, bm=bm,
                                   routed_rows=routed, NP=n_rows,
                                   dtype="bfloat16"), **res)
     return res
+
+
+def tgmm_skewed_timing(gen):
+    """K7 and its library call at the same shape on a skewed layout: the
+    ``gmm_case`` router with expert 0's logits raised by 2, so the runs
+    differ several-fold in length."""
+    from tensorflowonspark_tpu_torch.ops import gmm
+
+    c = make_gmm_case(gen, g=8192, k=2, e=8, d=1024, f=4096, bm=256,
+                      dtype=torch.bfloat16, skew=2.0)
+    x, dy, te, bm, e = (c[n] for n in ("x", "dy", "te", "bm", "e"))
+    got = gmm.tgmm_call(x, dy, te, e, bm=bm)
+    torch.cuda.synchronize()
+    ref = gmm.tgmm_plain(x, dy, te, e, bm=bm)
+    checked = row_relative_error(got.float(), ref.float())
+    if not checked <= GMM_TOL["bf16_row_rel"]:
+        raise AssertionError("tgmm on the skewed layout: {0}".format(checked))
+    d, f = x.shape[1], dy.shape[1]
+    rows = (torch.bincount(te.long(), minlength=e) * bm).tolist()
+    flops = 2 * c["routed"] * d * f
+    present = sum(1 for r in rows if r)
+    nbytes = 2 * (c["routed"] * d + present * d * f + c["routed"] * f)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_SEC
+    ops_ms = 1e3 * flops / BF16_FLOPS_PER_SEC
+    ms = time_ms(lambda _: gmm.tgmm_call(x, dy, te, e, bm=bm), [None],
+                 reps=20, warmup=3)
+    library, _ = gmm_library(c)
+    return dict(
+        ms=ms, library_ms=time_ms(library["tgmm"], [None], reps=20,
+                                  warmup=3),
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+        tflops=flops / ms / 1e9, expert_rows=rows,
+        max_abs_err=(got.float() - ref.float()).abs().max().item(),
+        checked_err=checked, skew=2.0,
+    )
 
 
 def moe_tree():

@@ -1,7 +1,8 @@
 // Flash attention forward and backward for Hopper (sm_90a): three kernels.
 //
-//   K2 flash_fwd_kernel  replaces `_fwd_kernel` (the JAX package's
-//      ops/flash_attention.py:132, pallas_call at :409): O and lse.
+//   K2 flash_fwd_wgmma (bf16) and flash_fwd_kernel (f32) replace
+//      `_fwd_kernel` (the JAX package's ops/flash_attention.py:132,
+//      pallas_call at :409): O and lse.
 //   K3 flash_dq_kernel   replaces `_dq_kernel` (:198, call :491): dQ.
 //   K4 flash_dkv_kernel  replaces `_dkv_kernel` (:256, call :523): dK, dV.
 //
@@ -34,6 +35,9 @@
 // grid dimension with the softmax state in VMEM scratch; GPU blocks run
 // in no order, so each block owns one output tile and loops over the
 // tiles it needs itself, with the state in registers:
+//  - K2 in bf16 (flash_fwd_wgmma, below): warp-specialised wgmma fed by
+//    TMA; see its own note.  The rest of this list describes the
+//    mma.sync kernels: K2 in f32, K3 and K4 in both types.
 //  - K2 and K3: one block per (q tile of 64 rows, head, batch); the loop
 //    runs over the key tiles from the first one the window can touch to
 //    the diagonal (causal) or the last (non-causal).  Tiles outside are
@@ -54,12 +58,17 @@
 //    K/V (or Q/dO) tile are staged in shared memory with 16-byte loads,
 //    rows padded by 16 bytes against bank conflicts, and the ragged tail
 //    past S is zero-filled and masked.
-// Later work toward the bound: wgmma with TMA-fed, double-buffered tile
-// rings and warp specialisation.
+// Later work toward the bound: K3 and K4 on the same wgmma/TMA machinery
+// (hopper.cuh); for K2, 64-key tiles, so that the next tile's Q.K^T fits
+// in the registers beside a softmax (see the bf16 K2's note).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -436,6 +445,269 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------- K2, bf16: wgmma + TMA
+//
+// One block per (head, batch, 128-row q tile), 384 threads: warpgroup 0
+// is the producer (one thread starts every TMA load), warpgroups 1 and 2
+// each own 64 query rows.  Q lands once; K and V tiles of 128 keys stream
+// through a 2-stage ring each (full/empty mbarrier pairs), so the next
+// tiles load while the current ones are used.  S = Q.K^T is a wgmma with
+// both operands in shared memory (K-major); P is rounded to bf16 straight
+// from the S accumulator into the register A operand of O += P.V (V is
+// MN-major: the transpose bit).  Key tiles run from the diagonal down, so
+// the masked tiles come first; only the diagonal, the window's edge and
+// the ragged tail are masked.  The q tiles run heaviest first across the
+// whole grid (the slowest grid dimension counts down), which shortens the
+// causal tail.  Nothing but O, m and l is carried from one key tile to
+// the next: ptxas allocates the consumers within the 168 registers of
+// the 384-thread launch bound (setmaxnreg moves registers at run time,
+// not in the allocation), and at D = 128 one tile's O, S and P fill
+// them, so the next tile's Q.K^T cannot be in flight during a softmax.
+// Exponentials are ex2.approx of the logits scaled by scale * log2(e) in
+// one FFMA (lse 1e-5 of the plain version's on the card).
+
+constexpr int kWgRows = 128;    // query rows per block (2 x 64)
+constexpr int kWgKeys = 128;    // keys per K/V tile
+constexpr int kWgStages = 2;    // depth of the K and V rings
+constexpr int kWgThreads = 384;  // producer + two consumer warpgroups
+constexpr uint32_t kWgBox = kWgKeys * 128;  // one [128][64] bf16 box
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct FwdWgSmem {
+  static constexpr int kBoxes = D / 64;  // 64-wide boxes across D
+  static constexpr uint32_t kTile = kBoxes * kWgBox;  // [128][D]
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kK = kQ + kTile;
+  static constexpr uint32_t kV = kK + kWgStages * kTile;
+  static constexpr uint32_t kBar = kV + kWgStages * kTile;
+  // barriers: Q full, then per stage K full, V full, K empty, V empty
+  static constexpr size_t bytes = kBar + 8 * (1 + 4 * kWgStages) + 1024;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// S = Q.K^T of one key tile over D, 16 columns a step, both operands
+// K-major: sQw is the warpgroup's 64 rows of the Q boxes, sKs the tile's
+// K boxes.  One commit group.
+template <int D>
+__device__ __forceinline__ void fwd_start_qk(float (&sc)[64], uint32_t sQw,
+                                             uint32_t sKs) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk >> 2) * kWgBox + (kk & 3) * 32;
+    hopper::wgmma_m64n128_ss<0, 0>(sc, hopper::desc_sw128(sQw + off, 16, 1024),
+                                   hopper::desc_sw128(sKs + off, 16, 1024),
+                                   kk > 0);
+  }
+  hopper::wgmma_commit();
+}
+
+// O += P.V of one key tile: P from registers (four per 16 keys), the
+// tile's V boxes at sVs, MN-major.  One commit group.
+template <int D>
+__device__ __forceinline__ void fwd_start_pv(float (&o)[D / 2],
+                                             const uint32_t (&p)[32],
+                                             uint32_t sVs) {
+#pragma unroll
+  for (int kk = 0; kk < kWgKeys / 16; ++kk) {
+    const uint64_t dv = hopper::desc_sw128(sVs + kk * 2048, kWgBox, 1024);
+    if constexpr (D == 128)
+      hopper::wgmma_m64n128_rs<1>(o, p + 4 * kk, dv, 1);
+    else
+      hopper::wgmma_m64n64_rs<1>(o, p + 4 * kk, dv, 1);
+  }
+  hopper::wgmma_commit();
+}
+
+// 2^x on the MUFU unit (ex2.approx.ftz: about 2 ulp, subnormal results
+// flushed to 0, which rounds to 0 in bf16 and in l's f32 sum anyway)
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The online softmax of one S tile (a warpgroup's 64 rows from r0, keys
+// from k0, accumulator layout), in place: masked only where some pair of
+// the tile is not visible; the row max m (of the raw logits q.k) and
+// sum l updated, the rescale of O in alpha, and sc = exp(scale * (S -
+// m)) in f32, computed as 2^(S * scale * log2(e) - m * scale * log2(e))
+// with one FFMA and one ex2 an element.
+__device__ __forceinline__ void fwd_softmax(float (&sc)[64], float (&m)[2],
+                                            float (&l)[2],
+                                            float (&alpha)[2], int k0, int r0,
+                                            const int (&row)[2], int t,
+                                            float scale_log2,
+                                            const FlashArgs& a) {
+  const bool masked = k0 + kWgKeys > a.S ||
+                      (a.causal && k0 + kWgKeys - 1 > r0) ||
+                      (a.window > 0 && k0 <= r0 + 63 - a.window);
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int e = 0; e < 64; ++e) {
+    const int rr = (e >> 1) & 1;
+    if (masked && !visible(row[rr], k0 + 8 * (e >> 2) + 2 * t + (e & 1), a))
+      sc[e] = kNegInf;
+    mx[rr] = fmaxf(mx[rr], sc[e]);
+  }
+  float sum[2] = {0.f, 0.f}, ms[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], quad_max(mx[r]));
+    alpha[r] = ex2_approx((m[r] - m_new) * scale_log2);
+    m[r] = m_new;
+    ms[r] = m_new * scale_log2;
+  }
+#pragma unroll
+  for (int e = 0; e < 64; ++e) {
+    const float pe = ex2_approx(fmaf(sc[e], scale_log2, -ms[(e >> 1) & 1]));
+    sum[(e >> 1) & 1] += pe;
+    sc[e] = pe;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + quad_sum(sum[r]);
+}
+
+// p rounded to v's type as the A fragments of P.V: element pairs of the
+// S accumulator, four registers per 16 keys.
+__device__ __forceinline__ void fwd_pack_p(const float (&sc)[64],
+                                           uint32_t (&p)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) p[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const FlashArgs a) {
+  using L = FwdWgSmem<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // swizzled boxes start on 1024-byte boundaries
+  const uint32_t base = (hopper::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
+  const uint32_t q_full = base + L::kBar;
+  const uint32_t k_full = q_full + 8, v_full = k_full + 8 * kWgStages;
+  const uint32_t k_empty = v_full + 8 * kWgStages;
+  const uint32_t v_empty = k_empty + 8 * kWgStages;
+
+  const int nq = (a.S + kWgRows - 1) / kWgRows;
+  const int q0 = (nq - 1 - (int)blockIdx.z) * kWgRows;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / (a.H / a.Hkv);
+  // key tiles: from the first the window can touch to the diagonal
+  // (causal) or the last; walked from the top down
+  const int q_last = min(a.S, q0 + kWgRows) - 1;
+  const int j_hi = a.causal ? q_last / kWgKeys : (a.S - 1) / kWgKeys;
+  const int j_lo =
+      (a.causal && a.window > 0) ? max(0, q0 - a.window + 1) / kWgKeys : 0;
+  const int n_tiles = j_hi - j_lo + 1;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < kWgStages; ++s) {
+      hopper::mbar_init(k_full + 8 * s, 1);
+      hopper::mbar_init(v_full + 8 * s, 1);
+      hopper::mbar_init(k_empty + 8 * s, 8);  // every consumer warp
+      hopper::mbar_init(v_empty + 8 * s, 8);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------------------------------------------- producer
+    hopper::reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_arrive_expect_tx(q_full, L::kTile);
+      for (int x = 0; x < L::kBoxes; ++x)
+        hopper::tma_load_4d(sQ + x * kWgBox, &tm_q, q_full, 64 * x, q0, h, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kWgStages, k0 = (j_hi - it) * kWgKeys;
+        const uint32_t free_parity = ((it / kWgStages) & 1) ^ 1;
+        hopper::mbar_wait(k_empty + 8 * s, free_parity);
+        hopper::mbar_arrive_expect_tx(k_full + 8 * s, L::kTile);
+        for (int x = 0; x < L::kBoxes; ++x)
+          hopper::tma_load_4d(sK + s * L::kTile + x * kWgBox, &tm_k,
+                              k_full + 8 * s, 64 * x, k0, hk, b);
+        hopper::mbar_wait(v_empty + 8 * s, free_parity);
+        hopper::mbar_arrive_expect_tx(v_full + 8 * s, L::kTile);
+        for (int x = 0; x < L::kBoxes; ++x)
+          hopper::tma_load_4d(sV + s * L::kTile + x * kWgBox, &tm_v,
+                              v_full + 8 * s, 64 * x, k0, hk, b);
+      }
+    }
+  } else {
+    // ---------------------------------------------------- consumers
+    hopper::reg_alloc<240>();
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = q0 + 64 * (wg - 1);  // this warpgroup's first row
+    const int row[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
+    const uint32_t sQw = sQ + (wg - 1) * 64 * 128;  // its rows of each box
+    constexpr int NO = D / 2;  // the m64nD accumulator of O
+    float o[NO];
+#pragma unroll
+    for (int i = 0; i < NO; ++i) o[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    const float scale_log2 = a.scale * kLog2e;
+
+    auto release = [&](uint32_t bar) {  // one arrival per warp
+      if (lane == 0) hopper::mbar_arrive(bar);
+    };
+
+    hopper::mbar_wait(q_full, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kWgStages, k0 = (j_hi - it) * kWgKeys;
+      const uint32_t parity = (it / kWgStages) & 1;
+      float sc[64];
+      hopper::mbar_wait(k_full + 8 * s, parity);
+      hopper::wgmma_fence();
+      fwd_start_qk<D>(sc, sQw, sK + s * L::kTile);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(sc);
+      release(k_empty + 8 * s);
+
+      float alpha[2];
+      fwd_softmax(sc, m, l, alpha, k0, r0, row, t, scale_log2, a);
+#pragma unroll
+      for (int i = 0; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];
+      uint32_t p[32];
+      fwd_pack_p(sc, p);
+
+      hopper::mbar_wait(v_full + 8 * s, parity);
+      hopper::wgmma_fence();
+      fwd_start_pv<D>(o, p, sV + s * L::kTile);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+      hopper::fence_regs(p);
+      release(v_empty + 8 * s);
+    }
+
+    bf16* out = static_cast<bf16*>(a.out);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (row[r] >= a.S) continue;
+      const float l_safe = fmaxf(l[r], 1e-30f), inv = 1.f / l_safe;
+      bf16* dst = out + (((long long)b * a.S + row[r]) * a.H + h) * D;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c) {
+        store2(dst + 8 * c + 2 * t, o[4 * c + 2 * r] * inv,
+               o[4 * c + 2 * r + 1] * inv);
+      }
+      if (t == 0) {
+        a.lse_out[((long long)b * a.H + h) * a.S + row[r]] =
+            m[r] * a.scale + logf(l_safe);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------- K3
 
 template <typename T, int D>
@@ -657,13 +929,50 @@ __global__ void __launch_bounds__(kThreads)
 
 enum Which { kFwd, kDq, kDkv };
 
+// A tensor map of q, k or v read from its strides as (D, S, H, B), boxes
+// of [128 rows][64]; rows at or past S load as zeros.
+int encode_bshd(CUtensorMap* map, const void* p, int B, int S, int H, int D,
+                long long sb, long long ss, long long sh) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * sizeof(bf16),
+                                 (cuuint64_t)sh * sizeof(bf16),
+                                 (cuuint64_t)sb * sizeof(bf16)};
+  const cuuint32_t box[4] = {64, kWgRows, 1, 1};
+  return hopper::encode_bf16(map, p, 4, dims, strides, box);
+}
+
+template <int D>
+int launch_fwd_wgmma(const FlashArgs& a, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = encode_bshd(&tq, a.q, a.B, a.S, a.H, D, a.q_sb, a.q_ss, a.q_sh);
+  if (err == 0)
+    err = encode_bshd(&tk, a.k, a.B, a.S, a.Hkv, D, a.k_sb, a.k_ss, a.k_sh);
+  if (err == 0)
+    err = encode_bshd(&tv, a.v, a.B, a.S, a.Hkv, D, a.v_sb, a.v_ss, a.v_sh);
+  if (err != 0) return err;
+  constexpr size_t smem = FwdWgSmem<D>::bytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(a.H, a.B, (a.S + kWgRows - 1) / kWgRows);
+  flash_fwd_wgmma<D><<<grid, kWgThreads, smem, stream>>>(tq, tk, tv, a);
+  return (int)cudaGetLastError();
+}
+
+// The mma.sync kernels: K2 in f32 (bf16 K2 is flash_fwd_wgmma), K3 and K4.
 template <typename T, int D>
 int launch(Which which, const FlashArgs& a, cudaStream_t stream) {
   void (*kernel)(const FlashArgs);
   size_t smem;
   dim3 grid;
   if (which == kFwd) {
-    kernel = flash_fwd_kernel<T, D>;
+    if constexpr (std::is_same<T, bf16>::value) {
+      return (int)cudaErrorInvalidValue;
+    } else {
+      kernel = flash_fwd_kernel<T, D>;
+    }
     smem = Smem<T, D>::fwd;
     grid = dim3((a.S + kBM - 1) / kBM, a.H, a.B);
   } else if (which == kDq) {
@@ -686,7 +995,10 @@ int dispatch(Which which, const FlashArgs& a, int D, int is_bf16,
              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (a.Hkv <= 0 || a.H % a.Hkv != 0) return (int)cudaErrorInvalidValue;
-  if (is_bf16) {
+  if (is_bf16 && which == kFwd) {
+    if (D == 64) return launch_fwd_wgmma<64>(a, s);
+    if (D == 128) return launch_fwd_wgmma<128>(a, s);
+  } else if (is_bf16) {
     if (D == 64) return launch<bf16, 64>(which, a, s);
     if (D == 128) return launch<bf16, 128>(which, a, s);
   } else {

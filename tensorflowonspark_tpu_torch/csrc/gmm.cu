@@ -11,6 +11,8 @@
 //                                 stored [E, D, F] layout (no transposed copy)
 //   K7 tgmm     replaces `_tgmm_kernel` (:219, call :295):
 //                                 dw[e] = sum_{t: te[t] = e} x[t]^T dy[t]
+//               bf16: tgmm_wgmma (wgmma fed by TMA, below); f32: the
+//               mma.sync template
 //
 // They compute what the TPU kernels compute, with the same rounding
 // points: products accumulate in f32 and round once, y to x's type, dx to
@@ -47,12 +49,16 @@
 //    is stored with the reduction dimension outermost (K5's and K7's w/dy
 //    tiles, K7's x tile).  f32 computes the same accumulator layout with
 //    FMAs (no TF32), so the f32 tolerances hold.
-// Later work toward the bound: wgmma with TMA-fed tile rings, warp
-// specialisation, and skipping the layout's all-pad tail tiles.
+// The list above describes the mma.sync template, which keeps K5 and K6
+// in both types and K7 in f32; bf16 K7 is tgmm_wgmma, with its own note.
+// Later work toward the bound: K5 and K6 on the wgmma/TMA machinery of
+// hopper.cuh, and skipping the layout's all-pad tail tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -370,6 +376,215 @@ __global__ void __launch_bounds__(kThreads) gmm_kernel(const GmmArgs a) {
   }
 }
 
+// ------------------------------------------------- K7, bf16: wgmma + TMA
+//
+// A persistent grid (one block per SM at most) walks the work items
+// (expert, 128-row tile of D, 256-column tile of F), experts in order of
+// decreasing run length, so a skewed router's heavy experts start first
+// and the light ones fill the tail.  384 threads: warpgroup 0 is the
+// producer (one thread starts every TMA load), warpgroups 1 and 2 each own
+// 64 rows of the dW tile.  A stage is 64 rows of the expert's run: x^T
+// (two [64][64] boxes, MN-major) and dy (four boxes, MN-major), through a
+// 4-stage ring of full/empty mbarriers that runs on across work items, so
+// the next item's loads overlap this item's last products and its
+// epilogue.  Each consumer keeps its 64 x 256 f32 sum of the whole run in
+// registers (m64n256k16 wgmma, both transpose bits set), keeps one group
+// of products in flight while it waits for the next stage, and rounds
+// once to x's type.  No split-K, no atomics on dW: runs are
+// bit-reproducible.  Ragged D/F edges load as zeros (TMA) and are clipped
+// on the store; a box wholly past D or F is not loaded at all.
+
+constexpr int kTgRows = 128;     // dW rows (of D) per work item: 2 x 64
+constexpr int kTgCols = 256;     // dW columns (of F) per work item
+constexpr int kTgDepth = 64;     // x/dy rows per stage
+constexpr int kTgStages = 4;
+constexpr int kTgThreads = 384;  // producer + two consumer warpgroups
+constexpr uint32_t kTgBox = kTgDepth * 128;  // one [64][64] bf16 box
+constexpr uint32_t kTgA = (kTgRows / 64) * kTgBox;              // x^T
+constexpr uint32_t kTgStage = kTgA + (kTgCols / 64) * kTgBox;   // + dy
+constexpr uint32_t kTgBar = kTgStages * kTgStage;
+constexpr size_t kMaxSmem = 232448;
+
+// ring, full and empty barriers, then each expert's first and last row
+// tile and the experts' order, one int each
+size_t tgmm_smem_bytes(int E) {
+  return kTgBar + 16 * kTgStages + 3 * sizeof(int) * (size_t)E + 1024;
+}
+
+struct TgItem {
+  int e, m0, n0, row_begin, row_end;
+};
+
+// Work item i: the expert of rank i / (tiles per expert) by run length,
+// its tile of dW, and the rows of its run (empty for an absent expert).
+__device__ __forceinline__ TgItem tg_item(int i, const GmmArgs& a,
+                                          const int* first, const int* last,
+                                          const int* order) {
+  const int n_tiles = (a.F + kTgCols - 1) / kTgCols;
+  const int per_expert = n_tiles * ((a.D + kTgRows - 1) / kTgRows);
+  TgItem it;
+  it.e = order[i / per_expert];
+  const int rem = i % per_expert;
+  it.m0 = (rem / n_tiles) * kTgRows;
+  it.n0 = (rem % n_tiles) * kTgCols;
+  it.row_begin = first[it.e] * a.bm;
+  it.row_end = (last[it.e] + 1) * a.bm;
+  return it;
+}
+
+__global__ void __launch_bounds__(kTgThreads, 1)
+    tgmm_wgmma(const __grid_constant__ CUtensorMap tm_x,
+               const __grid_constant__ CUtensorMap tm_dy, const GmmArgs a) {
+  extern __shared__ __align__(1024) unsigned char smem_tg[];
+  // swizzled boxes start on 1024-byte boundaries
+  const uint32_t raw = hopper::smem_u32(smem_tg);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t full = base + kTgBar, empty = full + 8 * kTgStages;
+  int* first = reinterpret_cast<int*>(smem_tg + (base - raw) + kTgBar +
+                                      16 * kTgStages);
+  int* last = first + a.E;
+  int* order = last + a.E;
+  const int tiles = a.N / a.bm;
+
+  for (int e = threadIdx.x; e < a.E; e += blockDim.x) {
+    first[e] = tiles;
+    last[e] = -1;
+  }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTgStages; ++s) {
+      hopper::mbar_init(full + 8 * s, 1);
+      hopper::mbar_init(empty + 8 * s, 8);  // every consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  // each expert's contiguous run of row tiles (tile_expert is
+  // non-decreasing); none for an expert that owns no tile
+  for (int t = threadIdx.x; t < tiles; t += blockDim.x) {
+    const int owner = min(max(a.te[t], 0), a.E - 1);
+    atomicMin(first + owner, t);
+    atomicMax(last + owner, t);
+  }
+  __syncthreads();
+  // experts by decreasing run length, the lower index first on a tie
+  for (int e = threadIdx.x; e < a.E; e += blockDim.x) {
+    const int len = max(0, last[e] - first[e] + 1);
+    int rank = 0;
+    for (int o = 0; o < a.E; ++o) {
+      const int lo = max(0, last[o] - first[o] + 1);
+      rank += lo > len || (lo == len && o < e);
+    }
+    order[rank] = e;
+  }
+  __syncthreads();
+
+  const int items = a.E * ((a.D + kTgRows - 1) / kTgRows) *
+                    ((a.F + kTgCols - 1) / kTgCols);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------------------------------------------- producer
+    hopper::reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      int kt = 0;  // stages started so far: the ring's position and phase
+      for (int i = blockIdx.x; i < items; i += gridDim.x) {
+        const TgItem it = tg_item(i, a, first, last, order);
+        int boxes = 0;
+        for (int x = 0; x < kTgRows / 64; ++x) boxes += it.m0 + 64 * x < a.D;
+        for (int x = 0; x < kTgCols / 64; ++x) boxes += it.n0 + 64 * x < a.F;
+        for (int k0 = it.row_begin; k0 < it.row_end; k0 += kTgDepth, ++kt) {
+          const int s = kt % kTgStages;
+          const uint32_t st = base + s * kTgStage, bar = full + 8 * s;
+          hopper::mbar_wait(empty + 8 * s, ((kt / kTgStages) & 1) ^ 1);
+          hopper::mbar_arrive_expect_tx(bar, boxes * kTgBox);
+          for (int x = 0; x < kTgRows / 64; ++x)
+            if (it.m0 + 64 * x < a.D)
+              hopper::tma_load_2d(st + x * kTgBox, &tm_x, bar, it.m0 + 64 * x,
+                                  k0);
+          for (int x = 0; x < kTgCols / 64; ++x)
+            if (it.n0 + 64 * x < a.F)
+              hopper::tma_load_2d(st + kTgA + x * kTgBox, &tm_dy, bar,
+                                  it.n0 + 64 * x, k0);
+        }
+      }
+    }
+  } else {
+    // ---------------------------------------------------- consumers
+    hopper::reg_alloc<232>();
+    const int w = wg - 1, tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+    bf16* out = static_cast<bf16*>(a.out);
+    int kt = 0;
+    for (int i = blockIdx.x; i < items; i += gridDim.x) {
+      const TgItem it = tg_item(i, a, first, last, order);
+      float acc[128];
+#pragma unroll
+      for (int j = 0; j < 128; ++j) acc[j] = 0.f;
+      int held = -1;  // the stage whose products may still be running
+      for (int k0 = it.row_begin; k0 < it.row_end; k0 += kTgDepth, ++kt) {
+        const int s = kt % kTgStages;
+        const uint32_t st = base + s * kTgStage;
+        hopper::mbar_wait(full + 8 * s, (kt / kTgStages) & 1);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kTgDepth / 16; ++kk) {
+          hopper::wgmma_m64n256_ss<1, 1>(
+              acc, hopper::desc_sw128(st + w * kTgBox + kk * 2048, kTgBox, 1024),
+              hopper::desc_sw128(st + kTgA + kk * 2048, kTgBox, 1024), 1);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();  // the previous stage's products are done
+        if (held >= 0 && lane == 0) hopper::mbar_arrive(empty + 8 * held);
+        held = s;
+      }
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(acc);
+      if (held >= 0 && lane == 0) hopper::mbar_arrive(empty + 8 * held);
+
+      // the f32 sum over the whole run, rounded once to x's type
+      const int row = it.m0 + 64 * w + 16 * warp + g;
+      bf16* dst = out + (long long)it.e * a.D * a.F;
+#pragma unroll
+      for (int c = 0; c < 32; ++c) {
+        const int col = it.n0 + 8 * c + 2 * t4;
+        if (col >= a.F) continue;
+        if (row < a.D)
+          store2(dst + (long long)row * a.F + col, acc[4 * c], acc[4 * c + 1]);
+        if (row + 8 < a.D)
+          store2(dst + (long long)(row + 8) * a.F + col, acc[4 * c + 2],
+                 acc[4 * c + 3]);
+      }
+    }
+  }
+}
+
+int launch_tgmm_wgmma(const GmmArgs& a, cudaStream_t stream) {
+  // with no rows nothing is loaded: the maps then name dW, which holds a
+  // row of either width
+  const cuuint64_t rows = a.N > 0 ? (cuuint64_t)a.N : 1;
+  const void* x = a.N > 0 ? a.a : a.out;
+  const void* dy = a.N > 0 ? a.b : a.out;
+  const cuuint64_t x_dims[2] = {(cuuint64_t)a.D, rows};
+  const cuuint64_t x_stride[1] = {(cuuint64_t)a.D * sizeof(bf16)};
+  const cuuint64_t dy_dims[2] = {(cuuint64_t)a.F, rows};
+  const cuuint64_t dy_stride[1] = {(cuuint64_t)a.F * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, kTgDepth};
+  CUtensorMap tx, tdy;
+  int err = hopper::encode_bf16(&tx, x, 2, x_dims, x_stride, box);
+  if (err == 0) err = hopper::encode_bf16(&tdy, dy, 2, dy_dims, dy_stride, box);
+  if (err != 0) return err;
+  const size_t smem = tgmm_smem_bytes(a.E);
+  const int sms = hopper::num_sms();
+  if (smem > kMaxSmem || sms <= 0) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      tgmm_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int items =
+      a.E * ((a.D + kTgRows - 1) / kTgRows) * ((a.F + kTgCols - 1) / kTgCols);
+  tgmm_wgmma<<<items < sms ? items : sms, kTgThreads, smem, stream>>>(tx, tdy,
+                                                                     a);
+  return (int)cudaGetLastError();
+}
+
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 template <typename T, int MODE>
@@ -405,8 +620,13 @@ int dispatch(const void* pa, const void* pb, const void* te, void* out, int N,
   a.E = E;
   a.bm = bm;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (MODE != kTgmm && N == 0) return (int)cudaSuccess;
-  return is_bf16 ? launch<bf16, MODE>(a, s) : launch<float, MODE>(a, s);
+  if constexpr (MODE == kTgmm) {
+    // bf16 K7 is tgmm_wgmma; the mma.sync template keeps f32
+    return is_bf16 ? launch_tgmm_wgmma(a, s) : launch<float, kTgmm>(a, s);
+  } else {
+    if (N == 0) return (int)cudaSuccess;
+    return is_bf16 ? launch<bf16, MODE>(a, s) : launch<float, MODE>(a, s);
+  }
 }
 
 }  // namespace

@@ -4,8 +4,9 @@ Each source under ``csrc/`` compiles with ``nvcc`` into its own shared
 library with a plain C interface, loaded with :mod:`ctypes` (pointers
 as ``c_void_p``, launched on PyTorch's current stream).  Libraries are
 built at first use into ``_build/`` inside the package (listed in
-``.gitignore``), named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads at once.  Nothing is
+``.gitignore``), named by a hash of the source, the ``csrc/`` headers it
+includes (``hopper.cuh``) and the flags, so an edited source or header
+rebuilds and an unchanged one loads at once.  Nothing is
 compiled when this module is imported.
 
 A missing ``nvcc`` or a failed compile raises; there is no fallback.
@@ -14,6 +15,7 @@ A missing ``nvcc`` or a failed compile raises; there is no fallback.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -67,6 +69,9 @@ KERNELS = {
     ),
 }
 
+#: ``#include "file"`` lines: headers of ``csrc/`` (system headers use <>)
+_LOCAL_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
 _lock = threading.Lock()
 _loaded = {}
 
@@ -94,13 +99,30 @@ def nvcc_path():
     )
 
 
+def sources(name):
+    """The files under ``csrc/`` that library ``name`` compiles from: its
+    source, then every header reached through ``#include "..."``, in the
+    order first reached."""
+    found, todo = [], [KERNELS[name][0]]
+    while todo:
+        src = todo.pop(0)
+        if src in found:
+            continue
+        found.append(src)
+        with open(os.path.join(CSRC_DIR, src)) as f:
+            todo.extend(_LOCAL_INCLUDE.findall(f.read()))
+    return found
+
+
 def library_path(name):
     """Where library ``name`` is (or will be) built: keyed by a hash of
-    its source and the compiler flags."""
-    src, _ = KERNELS[name]
+    its source, the headers it includes (:func:`sources`) and the
+    compiler flags."""
     h = hashlib.sha256()
-    with open(os.path.join(CSRC_DIR, src), "rb") as f:
-        h.update(f.read())
+    for src in sources(name):
+        h.update(src.encode())
+        with open(os.path.join(CSRC_DIR, src), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(
         BUILD_DIR, "lib{0}-{1}.so".format(name, h.hexdigest()[:16])

@@ -31,7 +31,10 @@ pickers (``_pick_bf``, ``_pick_bd``) are TPU rules and are not ported;
 :func:`gmm_dxt_call` never returns ``None`` (the reference's
 transposed-copy fallback for an ``F`` too wide for VMEM has no
 counterpart on the GPU).  The kernels need ``bm`` to be a multiple of
-their 128-row tile and ``D``, ``F`` multiples of 8.
+their 128-row tile and ``D``, ``F`` multiples of 8; an operand that does
+not start on a 16-byte boundary is copied to one that does.  In bf16,
+K7 is a Hopper ``wgmma`` kernel fed by TMA (``tgmm_wgmma``); K5, K6 and
+f32 K7 use ``mma.sync``.
 """
 
 import torch
@@ -123,7 +126,15 @@ def _kernel_operands(a, b, tile_expert, bm, names):
             raise ValueError(
                 "gmm kernels need {0}'s last two dims to be multiples of "
                 "8, got {1}".format(name, tuple(x.shape)))
-    return a.contiguous(), b.contiguous(), tile_expert.contiguous()
+    return _aligned(a), _aligned(b), tile_expert.contiguous()
+
+
+def _aligned(x):
+    """``x`` contiguous and starting on a 16-byte boundary, as the
+    kernels' 16-byte loads and TMA tensor maps need; copied only when it
+    is not (a view that starts inside another tensor)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def _launch(entry, count, *args, device):

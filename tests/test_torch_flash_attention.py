@@ -220,7 +220,7 @@ def _chip_mutants():
     return mod
 
 
-@pytest.mark.parametrize("name", ["diag", "zero_dq"])
+@pytest.mark.parametrize("name", ["diag", "zero_dq", "fwd_wgmma_diag"])
 def test_planted_faults_still_apply_to_the_kernel_source(name):
     """Each planted fault of ``chip_mutants.py`` finds its lines in the
     kernel source exactly once, so the card-side check of the checks

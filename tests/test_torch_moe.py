@@ -510,3 +510,46 @@ def test_planted_k7_fault_still_applies_to_the_kernel_source():
     assert mutated != text
     with pytest.raises(ValueError, match="found 0 times"):
         mutants.mutate(mutated, subs)
+
+
+@pytest.mark.parametrize("name", ["tgmm_wgmma_last_tile"])
+def test_planted_hopper_gmm_faults_still_apply_to_the_kernel_source(name):
+    """Each ``chip_mutants.py`` fault of the wgmma grouped-matmul kernels
+    finds its line in ``csrc/gmm.cu`` exactly once, and names a check
+    that exists."""
+    import importlib.util
+    import os
+
+    from tensorflowonspark_tpu_torch.ops import _build
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_mutants", os.path.join(root, "chip_mutants.py"))
+    mutants = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mutants)
+    _, subs, check = mutants.MUTANTS[name]
+    assert check in mutants.CHECKS
+    assert mutants.SOURCES[name].endswith("csrc/gmm.cu")
+    with open(os.path.join(_build.CSRC_DIR, "gmm.cu")) as f:
+        text = f.read()
+    mutated = mutants.mutate(text, subs)
+    assert mutated != text
+    with pytest.raises(ValueError, match="found 0 times"):
+        mutants.mutate(mutated, subs)
+
+
+def test_kernel_operands_start_on_16_byte_boundaries():
+    """A grouped-matmul operand that starts inside another tensor is
+    copied to a 16-byte boundary (the kernels' 16-byte loads and TMA
+    tensor maps need one); an aligned one is passed as it is."""
+    from tensorflowonspark_tpu_torch.ops import gmm
+
+    base = torch.arange(65, dtype=torch.float32).to(torch.bfloat16)
+    view = base[1:].reshape(8, 8)
+    assert view.data_ptr() % 16 != 0
+    moved = gmm._aligned(view)
+    assert moved.data_ptr() % 16 == 0
+    assert torch.equal(moved, view)
+    aligned = torch.zeros((8, 8), dtype=torch.bfloat16)
+    assert aligned.data_ptr() % 16 == 0
+    assert gmm._aligned(aligned).data_ptr() == aligned.data_ptr()
