@@ -12,9 +12,12 @@ into a temporary directory, rewrites a few lines of its kernel source
 there (``csrc/flash_attention.cu``, or ``csrc/gmm.cu`` for the mutants
 in :data:`SOURCES`), builds the kernels in that copy and runs the
 ``chip_smoke.py`` check it names.  ``diag``, ``zero_dq`` and
-``tgmm_last_tile`` break the ``mma.sync`` kernels (f32 K2 and K7, both
-types of K3 and K4); ``fwd_wgmma_diag`` and ``tgmm_wgmma_last_tile``
-break the bf16 Hopper kernels ``flash_fwd_wgmma`` and ``tgmm_wgmma``.  It prints one JSON line per
+``tgmm_last_tile`` break the ``mma.sync``-shaped kernels (f32 K2 and K7,
+both types of K3 and K4); ``fwd_wgmma_diag``, ``tgmm_wgmma_last_tile``,
+``rows_wgmma_fwd_shift`` and ``rows_wgmma_dxt_last_stage`` break the
+bf16 Hopper kernels ``flash_fwd_wgmma``, ``tgmm_wgmma`` and
+``gmm_rows_wgmma`` (K5, K6); ``skip_last_live_tile`` breaks the skip of
+the all-pad row tiles that K5 and K6 share in both types.  It prints one JSON line per
 case and one per mutant; the last line lists the mutants that survived,
 and the exit code is 0 only when every mutant was caught.  The
 repository itself is never modified.
@@ -68,9 +71,31 @@ MUTANTS = {
           "  it.row_end = (last[it.e] + 1) * a.bm - kTgDepth;")],
         "gmm_case",
     ),
+    "rows_wgmma_fwd_shift": (
+        "the bf16 K5 (gmm_rows_wgmma<kFwd>) loads each weight box one "
+        "8-row group of D late",
+        [("&tm_w, bar, n, k0,", "&tm_w, bar, n, k0 + 8,")],
+        "gmm_case",
+    ),
+    "rows_wgmma_dxt_last_stage": (
+        "the bf16 K6 (gmm_rows_wgmma<kDxt>) drops the last 64-deep stage "
+        "of its reduction over F",
+        [(": (a.F + kRwDepth - 1) / kRwDepth;",
+          ": (a.F + kRwDepth - 1) / kRwDepth - 1;")],
+        "gmm_case",
+    ),
+    "skip_last_live_tile": (
+        "K5 and K6 (both types) treat an expert's last live 128-row tile "
+        "as dead when the counts are passed",
+        [("  return live <= 0 ? 0 : min(live, kBM);",
+          "  return live < kBM ? 0 : kBM;")],
+        "gmm_case+moe_train_dropless_vs_gather",
+    ),
 }
 #: mutants of another source than :data:`SOURCE`
-SOURCES = {"tgmm_last_tile": GMM_SOURCE, "tgmm_wgmma_last_tile": GMM_SOURCE}
+SOURCES = {name: GMM_SOURCE for name in (
+    "tgmm_last_tile", "tgmm_wgmma_last_tile", "rows_wgmma_fwd_shift",
+    "rows_wgmma_dxt_last_stage", "skip_last_live_tile")}
 
 
 def mutate(text, subs):
@@ -122,8 +147,8 @@ def check_gmm_cases():
     import chip_smoke as c
 
     caught_any = False
-    for name, _, errs, absent_dw in c.gmm_case_results():
-        caught = not c.gmm_case_ok(errs, absent_dw)
+    for name, _, errs, absent_dw, dead_rows in c.gmm_case_results():
+        caught = not c.gmm_case_ok(errs, absent_dw, dead_rows)
         caught_any |= caught
         print(json.dumps(dict(
             case=name, caught=caught,
@@ -131,6 +156,7 @@ def check_gmm_cases():
             checked_err={n: x for n, (_, x, _) in errs.items()},
             tol={n: t for n, (_, _, t) in errs.items()},
             absent_expert_max_abs_dw=absent_dw,
+            rows_past_counts_max_abs=dead_rows,
         )), flush=True)
     return caught_any
 

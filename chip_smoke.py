@@ -50,10 +50,15 @@ caught):
     against their plain versions on the card, on dropless layouts from
     a skewed router (one heavy expert, one absent): bf16 at the MoE
     flagship's shapes in both directions (D=1024 -> F=4096 and back),
-    and both types with ragged counts and edges (:data:`GMM_TOL`).
+    and both types with ragged counts and edges (:data:`GMM_TOL`); then
+    the same with the layout's counts passed to K5 and K6 (and a
+    four-token decode layout), whose rows past each expert's count must
+    be exactly 0.
 14. ``gmm_timing``: the three kernels, their plain versions and a
     library yardstick at the MoE flagship's training shape, beside the
-    operation bound; K7 and its yardstick again on a skewed layout.
+    operation bound; K5 and K6 with and without the counts in both
+    geometries on the balanced and the skewed layouts, K7 on the skewed
+    layout, and K5 at a four-request decode step.
 15. ``moe_train_flagship``: the JAX package's MoE bench model (L4 H8
     Dh128 Dm1024 Dff4096 V32000, 8 experts top-2, dropless, remat
     ``block``, flash attention, bf16 compute over f32 masters) under
@@ -127,9 +132,12 @@ def phase_env():
          nvidia_smi=nvidia_smi())
 
 
-#: library -> the Hopper kernel built in it whose SASS must hold every
+#: library -> the Hopper kernels built in it whose SASS must hold every
 #: instruction of :data:`SASS_MUST_HOLD`, with no spills in ``-Xptxas=-v``
-WGMMA_KERNELS = {"flash_attention": "flash_fwd_wgmma", "gmm": "tgmm_wgmma"}
+#: (each name matched as a substring of the mangled names, so no name may
+#: be a substring of another's)
+WGMMA_KERNELS = {"flash_attention": ["flash_fwd_wgmma"],
+                 "gmm": ["tgmm_wgmma", "gmm_rows_wgmma"]}
 #: warpgroup MMA (``wgmma``) and TMA tile loads (``cp.async.bulk.tensor``)
 SASS_MUST_HOLD = ("HGMMA", "UTMALDG")
 
@@ -203,12 +211,12 @@ def phase_build():
     t0 = time.perf_counter()
     secs = _build.build()
     reports = {name: _build.build_report(name) for name in secs}
-    checks = {name: wgmma_sass_check(_build.library_path(name), kernel,
-                                     reports[name])
-              for name, kernel in WGMMA_KERNELS.items()}
+    checks = {name: [wgmma_sass_check(_build.library_path(name), kernel,
+                                      reports[name]) for kernel in kernels]
+              for name, kernels in WGMMA_KERNELS.items()}
     emit("build", seconds=time.perf_counter() - t0, per_library=secs,
          ptxas=reports, sass_check=checks)
-    bad = [c for c in checks.values() if not c["ok"]]
+    bad = [c for cs in checks.values() for c in cs if not c["ok"]]
     if bad:
         raise AssertionError(
             "Hopper kernels without {0} in their SASS, or spilling: "
@@ -337,6 +345,27 @@ def time_ms(fn, inputs, reps=200, warmup=20):
         torch.cuda.synchronize()
         samples.append(start.elapsed_time(end) / reps)
     return float(np.median(samples))
+
+
+def device_ms(fn, inputs, reps=50, warmup=5):
+    """Mean device time per call of ``fn`` (every CUDA kernel it runs),
+    from ``torch.profiler`` over ``reps`` calls cycling through
+    ``inputs``: for calls shorter than their host-side cost, where CUDA
+    events around back-to-back calls would time the host instead."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(warmup):
+        fn(inputs[i % len(inputs)])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+    us = sum(float(getattr(e, "self_device_time_total", 0.0)
+                   or getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / reps
 
 
 def phase_kernel_timing():
@@ -963,6 +992,8 @@ def phase_optimizer_timing(model):
 KERNEL_CLASSES = (
     ("flash_", "flash attention (K2-K4)"),
     ("gmm_kernel", "grouped matmul (K5-K7)"),
+    ("gmm_rows_wgmma", "grouped matmul (K5-K7)"),
+    ("tgmm_wgmma", "grouped matmul (K5-K7)"),
     ("gemm", "matmul"), ("xmma", "matmul"), ("cutlass", "matmul"),
     ("nvjet", "matmul"), ("cublas", "matmul"),
     ("multi_tensor", "optimizer"), ("foreach", "optimizer"),
@@ -1044,7 +1075,12 @@ GMM_SRC = "tensorflowonspark_tpu_torch/csrc/gmm.cu"
 #: bf16: every element within 2^-6 of |ref| + the RMS of its row
 #: (:func:`row_relative_error`): both sides sum in f32 and round once,
 #: so they differ by at most one bf16 ulp (2^-7 of |ref|).  An absent
-#: expert's dW must be exactly 0.
+#: expert's dW must be exactly 0.  The ``*_counts`` cases pass the
+#: layout's ``group_sizes`` to K5 and K6 and make the pad rows of x and dy
+#: random instead of zero, so that a kernel that ignored the counts would
+#: show: the rows past each expert's count must be exactly 0 in y and dx,
+#: and the live rows are held as above.  (Their absent expert is not the
+#: last one, which owns the layout's tail tiles and so their random rows.)
 GMM_TOL = {"f32_rel": 1e-5, "bf16_row_rel": 2 ** -6}
 GMM_CASES = [
     ("flagship_bf16_d1024_f4096", dict(
@@ -1059,16 +1095,33 @@ GMM_CASES = [
     ("bf16_ragged_absent_bm256", dict(
         g=1000, k=2, e=6, d=200, f=392, bm=256, dtype=torch.bfloat16,
         heavy=1, absent=2)),
+    ("flagship_bf16_d1024_f4096_counts", dict(
+        g=8192, k=2, e=8, d=1024, f=4096, bm=256, dtype=torch.bfloat16,
+        heavy=0, absent=6, counts=True)),
+    ("flagship_bf16_f4096_d1024_counts", dict(
+        g=8192, k=2, e=8, d=4096, f=1024, bm=256, dtype=torch.bfloat16,
+        heavy=3, absent=5, counts=True)),
+    ("bf16_ragged_absent_bm128_counts", dict(
+        g=1000, k=2, e=6, d=200, f=392, bm=128, dtype=torch.bfloat16,
+        heavy=1, absent=2, counts=True)),
+    ("f32_ragged_absent_bm256_counts", dict(
+        g=1000, k=2, e=6, d=200, f=392, bm=256, dtype=torch.float32,
+        heavy=1, absent=2, counts=True)),
+    ("bf16_decode_g4_counts", dict(
+        g=4, k=2, e=8, d=1024, f=4096, bm=256, dtype=torch.bfloat16,
+        heavy=0, absent=6, counts=True)),
 ]
 GMM_KERNELS = ("gmm", "gmm_dxt", "tgmm")
 
 
 def make_gmm_case(gen, *, g, k, e, d, f, bm, dtype, heavy=0, absent=None,
-                  skew=2.0):
+                  skew=2.0, counts=False):
     """A dropless layout from a router that favours expert ``heavy`` and
     never picks ``absent``; tokens ``[G, D]`` gathered into it, expert
     weights ``[E, D, F]``, and an upstream gradient ``[NP, F]`` that is 0
-    on pad rows, as the backward hands it over."""
+    on pad rows, as the backward hands it over.  ``sizes`` holds each
+    expert's routed rows.  With ``counts``, K5 and K6 get them as
+    ``group_sizes``, and the pad rows of x and dy are random."""
     from tensorflowonspark_tpu_torch.ops import moe
 
     logits = torch.randn((g, e), generator=gen, device="cuda")
@@ -1080,25 +1133,46 @@ def make_gmm_case(gen, *, g, k, e, d, f, bm, dtype, heavy=0, absent=None,
     tokens = torch.randn((g, d), generator=gen, device="cuda").to(dtype)
     x = moe.dispatch_sorted(tokens, layout)
     live = (layout.slot_token < g)[:, None].float()
-    dy = torch.randn((x.shape[0], f), generator=gen, device="cuda") * live
+    dy = torch.randn((x.shape[0], f), generator=gen, device="cuda")
+    if not counts:
+        dy = dy * live
     w = torch.randn((e, d, f), generator=gen, device="cuda") * d ** -0.5
+    if counts:
+        x = x + (torch.randn(x.shape, generator=gen, device="cuda")
+                 * (1 - live)).to(dtype)
+    sizes = moe.expert_counts(experts, e).to(torch.int32)
     return dict(x=x, w=w.to(dtype), dy=dy.to(dtype), te=layout.tile_expert,
-                bm=bm, e=e, routed=g * k, absent=absent)
+                bm=bm, e=e, routed=g * k, absent=absent, sizes=sizes,
+                group_sizes=sizes if counts else None)
 
 
 def gmm_outputs(c):
     """Each kernel's output and its plain version's on one case."""
     from tensorflowonspark_tpu_torch.ops import gmm
 
-    x, w, dy, te, bm, e = (c[n] for n in ("x", "w", "dy", "te", "bm", "e"))
-    got = dict(gmm=gmm.gmm_call(x, w, te, bm=bm),
-               gmm_dxt=gmm.gmm_dxt_call(dy, w, te, bm=bm),
+    x, w, dy, te, bm, e, gs = (c[n] for n in ("x", "w", "dy", "te", "bm", "e",
+                                               "group_sizes"))
+    got = dict(gmm=gmm.gmm_call(x, w, te, bm=bm, group_sizes=gs),
+               gmm_dxt=gmm.gmm_dxt_call(dy, w, te, bm=bm, group_sizes=gs),
                tgmm=gmm.tgmm_call(x, dy, te, e, bm=bm))
     torch.cuda.synchronize()
-    ref = dict(gmm=gmm.gmm_plain(x, w, te, bm=bm),
-               gmm_dxt=gmm.gmm_dxt_plain(dy, w, te, bm=bm),
+    ref = dict(gmm=gmm.gmm_plain(x, w, te, bm=bm, group_sizes=gs),
+               gmm_dxt=gmm.gmm_dxt_plain(dy, w, te, bm=bm, group_sizes=gs),
                tgmm=gmm.tgmm_plain(x, dy, te, e, bm=bm))
     return got, ref
+
+
+def gmm_dead_rows(c, got):
+    """Largest ``|y|`` and ``|dx|`` over the rows past their expert's
+    count when the case passes ``group_sizes`` (0.0 when it does not):
+    the kernels must write those rows as exact zeros."""
+    from tensorflowonspark_tpu_torch.ops import gmm
+
+    if c["group_sizes"] is None:
+        return 0.0
+    dead = ~gmm.live_row_mask(c["te"], c["group_sizes"], c["bm"])[:, 0]
+    return max(got[n][dead].float().abs().max().item()
+               for n in ("gmm", "gmm_dxt"))
 
 
 def gmm_errors(got, ref, dtype):
@@ -1119,32 +1193,37 @@ def gmm_errors(got, ref, dtype):
 
 
 def gmm_case_results():
-    """``(name, dtype, errors, absent expert's max |dW|)`` for each of
-    :data:`GMM_CASES`, inputs drawn on the card from one seed."""
+    """``(name, dtype, errors, absent expert's max |dW|, max |y|, |dx| on
+    the rows past the counts)`` for each of :data:`GMM_CASES`, inputs
+    drawn on the card from one seed."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
     for name, spec in GMM_CASES:
         c = make_gmm_case(gen, **spec)
         got, ref = gmm_outputs(c)
         absent = got["tgmm"][c["absent"]].float().abs().max().item()
-        yield name, spec["dtype"], gmm_errors(got, ref, spec["dtype"]), absent
+        yield (name, spec["dtype"], gmm_errors(got, ref, spec["dtype"]),
+               absent, gmm_dead_rows(c, got))
 
 
-def gmm_case_ok(errs, absent_dw):
-    return all(c <= t for _, c, t in errs.values()) and absent_dw == 0.0
+def gmm_case_ok(errs, absent_dw, dead_rows):
+    return (all(c <= t for _, c, t in errs.values()) and absent_dw == 0.0
+            and dead_rows == 0.0)
 
 
 def phase_gmm_cases():
-    for name, dtype, errs, absent_dw in gmm_case_results():
-        ok = gmm_case_ok(errs, absent_dw)
+    for name, dtype, errs, absent_dw, dead_rows in gmm_case_results():
+        ok = gmm_case_ok(errs, absent_dw, dead_rows)
         emit("gmm_case", case=name, dtype=str(dtype),
              max_abs_err={n: e for n, (e, _, _) in errs.items()},
              checked_err={n: c for n, (_, c, _) in errs.items()},
              tol={n: t for n, (_, _, t) in errs.items()},
-             absent_expert_max_abs_dw=absent_dw, ok=ok)
+             absent_expert_max_abs_dw=absent_dw,
+             rows_past_counts_max_abs=dead_rows, ok=ok)
         if not ok:
-            raise AssertionError("gmm case {0}: {1}, absent expert dW "
-                                 "{2}".format(name, errs, absent_dw))
+            raise AssertionError(
+                "gmm case {0}: {1}, absent expert dW {2}, rows past the "
+                "counts {3}".format(name, errs, absent_dw, dead_rows))
 
 
 def gmm_library(c):
@@ -1179,57 +1258,181 @@ def gmm_library(c):
         "a loop of torch.matmul over the experts' runs"
 
 
+#: the bf16 K5/K6 timing geometries, ``w [E, D, F]``: the MoE flagship's
+#: ``wi``/``wg`` (D=1024 -> F=4096) and ``wo`` (4096 -> 1024)
+GMM_GEOMETRIES = {"wi": (1024, 4096), "wo": (4096, 1024)}
+#: the bf16 kernel each grouped-matmul entry runs
+GMM_WGMMA = {"gmm": "gmm_rows_wgmma<kFwd>", "gmm_dxt": "gmm_rows_wgmma<kDxt>",
+             "tgmm": "tgmm_wgmma"}
+
+
+def gmm_bound(c):
+    """``(bound ms, bound_by, bytes, flops)`` of one grouped-matmul call on
+    case ``c``: the routed rows only (NP adds each run's padding and the
+    tail tiles), each operand read once, each output written once, the
+    weights of the experts that got a row."""
+    d, f = c["w"].shape[1:]
+    routed = c["routed"]
+    present = int((c["sizes"] > 0).sum().item())
+    flops = 2 * routed * d * f
+    nbytes = c["w"].element_size() * (routed * d + present * d * f
+                                      + routed * f)
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_SEC
+    ops_ms = 1e3 * flops / BF16_FLOPS_PER_SEC
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes, flops)
+
+
 def phase_gmm_timing():
     """K5, K6 and K7 at the MoE flagship's training shape (8192 tokens,
-    top-2 of 8 experts, D=1024, F=4096, bf16), beside their plain
-    versions, the bound over the routed rows and the library yardstick."""
+    top-2 of 8 experts, D=1024, F=4096, bf16) as its training step calls
+    them (K5 and K6 with the layout's counts), beside their plain
+    versions, the bound over the routed rows and the library yardstick;
+    then K5 and K6 with and without the counts in both geometries on the
+    balanced and the skewed layouts (:func:`rows_wgmma_timing`), K7 on the
+    skewed layout, and K5 at a decode step (:func:`gmm_decode_timing`)."""
     from tensorflowonspark_tpu_torch.ops import gmm
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
     c = make_gmm_case(gen, g=8192, k=2, e=8, d=1024, f=4096, bm=256,
                       dtype=torch.bfloat16, skew=0.0)
+    c["group_sizes"] = c["sizes"]
     got, ref = gmm_outputs(c)
     errs = gmm_errors(got, ref, torch.bfloat16)
     if not all(x <= t for _, x, t in errs.values()):
         raise AssertionError("gmm kernels at the flagship shape: {0}".format(
             errs))
-    x, w, dy, te, bm, e = (c[n] for n in ("x", "w", "dy", "te", "bm", "e"))
+    x, w, dy, te, bm, e, gs = (c[n] for n in ("x", "w", "dy", "te", "bm",
+                                              "e", "group_sizes"))
     runs = {
-        "gmm": (lambda _: gmm.gmm_call(x, w, te, bm=bm),
-                lambda _: gmm.gmm_plain(x, w, te, bm=bm)),
-        "gmm_dxt": (lambda _: gmm.gmm_dxt_call(dy, w, te, bm=bm),
-                    lambda _: gmm.gmm_dxt_plain(dy, w, te, bm=bm)),
+        "gmm": (lambda _: gmm.gmm_call(x, w, te, bm=bm, group_sizes=gs),
+                lambda _: gmm.gmm_plain(x, w, te, bm=bm, group_sizes=gs)),
+        "gmm_dxt": (lambda _: gmm.gmm_dxt_call(dy, w, te, bm=bm,
+                                               group_sizes=gs),
+                    lambda _: gmm.gmm_dxt_plain(dy, w, te, bm=bm,
+                                                group_sizes=gs)),
         "tgmm": (lambda _: gmm.tgmm_call(x, dy, te, e, bm=bm),
                  lambda _: gmm.tgmm_plain(x, dy, te, e, bm=bm)),
     }
     library, note = gmm_library(c)
     n_rows, d = x.shape
     f = w.shape[2]
+    bound_ms, bound_by, nbytes, flops = gmm_bound(c)
     routed = c["routed"]
-    present = int(torch.unique(te).numel())
-    # least work: the routed rows only (NP adds each run's padding and
-    # the tail tiles), each operand read once and each output written once
-    flops = 2 * routed * d * f
-    nbytes = 2 * (routed * d + present * d * f + routed * f)
-    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_SEC
-    ops_ms = 1e3 * flops / BF16_FLOPS_PER_SEC
     res = {}
     for name, (kernel, plain) in runs.items():
         ms = time_ms(kernel, [None], reps=20, warmup=3)
         res[name] = dict(
             ms=ms, plain_ms=time_ms(plain, [None], reps=3, warmup=1),
             library_ms=time_ms(library[name], [None], reps=20, warmup=3),
-            library_note=note, bound_ms=max(bytes_ms, ops_ms),
-            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            library_note=note, bound_ms=bound_ms, bound_by=bound_by,
             bytes=nbytes, flops=flops, flops_over_np=2 * n_rows * d * f,
             tflops=flops / ms / 1e9, max_abs_err=errs[name][0],
+            kernel=GMM_WGMMA[name], group_sizes=name != "tgmm",
         )
+    del c, got, ref, x, w, dy, runs, library
+    res["rows_wgmma"] = rows_wgmma_timing(gen)
     res["tgmm_skewed"] = tgmm_skewed_timing(gen)
+    res["gmm_decode"] = gmm_decode_timing(gen)
     emit("gmm_timing", shape=dict(tokens=8192, k=2, E=8, D=d, F=f, bm=bm,
                                   routed_rows=routed, NP=n_rows,
                                   dtype="bfloat16"), **res)
     return res
+
+
+def rows_wgmma_timing(gen):
+    """K5 and K6 (``gmm_rows_wgmma``) at the training shape with and
+    without the counts, in both :data:`GMM_GEOMETRIES`, on the balanced
+    layout and on the skewed one (expert 0's logits raised by 2), each
+    beside its library call and its bound; every output is held to the
+    plain version under :data:`GMM_TOL`."""
+    from tensorflowonspark_tpu_torch.ops import gmm
+
+    out = {}
+    for layout, skew in (("balanced", 0.0), ("skewed", 2.0)):
+        for geo, (d, f) in GMM_GEOMETRIES.items():
+            c = make_gmm_case(gen, g=8192, k=2, e=8, d=d, f=f, bm=256,
+                              dtype=torch.bfloat16, skew=skew)
+            x, w, dy, te, bm, gs = (c[n] for n in ("x", "w", "dy", "te",
+                                                   "bm", "sizes"))
+            library, _ = gmm_library(c)
+            bound_ms, bound_by, _, flops = gmm_bound(c)
+            calls = {
+                "gmm": (lambda s: gmm.gmm_call(x, w, te, bm=bm,
+                                               group_sizes=s),
+                        lambda: gmm.gmm_plain(x, w, te, bm=bm)),
+                "gmm_dxt": (lambda s: gmm.gmm_dxt_call(dy, w, te, bm=bm,
+                                                       group_sizes=s),
+                            lambda: gmm.gmm_dxt_plain(dy, w, te, bm=bm)),
+            }
+            for name, (call, plain) in calls.items():
+                ref = plain().float()
+                checked = max(row_relative_error(call(s).float(), ref)
+                              for s in (gs, None))
+                if not checked <= GMM_TOL["bf16_row_rel"]:
+                    raise AssertionError("{0} {1} {2}: {3}".format(
+                        name, geo, layout, checked))
+                ms = time_ms(lambda _: call(gs), [None], reps=20, warmup=3)
+                ms_all = time_ms(lambda _: call(None), [None], reps=20,
+                                 warmup=3)
+                out["{0}_{1}_{2}".format(name, geo, layout)] = dict(
+                    ms=ms, ms_all_rows=ms_all,
+                    library_ms=time_ms(library[name], [None], reps=20,
+                                       warmup=3),
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    tflops=flops / ms / 1e9,
+                    tflops_all_rows=flops / ms_all / 1e9,
+                    checked_err=checked, D=d, F=f, skew=skew,
+                    expert_rows=c["sizes"].tolist())
+            del c, x, w, dy, calls, library
+    return out
+
+
+def gmm_decode_timing(gen):
+    """K5 at a decode step of ``moe_train_to_serve``: 4 tokens, top-2 of 8
+    experts, 8 routed rows in NP = 2,304, D=1024 -> F=4096, bf16, with and
+    without the counts, beside ``torch._grouped_mm`` and the bound.  The
+    calls alternate between two copies of the weights (128 MB, more than
+    the L2 cache), so each reads them cold, as a layer does in a decode
+    step.  ``ms`` is CUDA events around back-to-back calls (what the
+    eager decode loop pays, host included), ``device_ms`` the profiler's
+    kernel time."""
+    from tensorflowonspark_tpu_torch.ops import gmm
+
+    c = make_gmm_case(gen, g=4, k=2, e=8, d=1024, f=4096, bm=256,
+                      dtype=torch.bfloat16, skew=0.0)
+    x, w, te, bm, gs = (c[n] for n in ("x", "w", "te", "bm", "sizes"))
+    ref = gmm.gmm_plain(x, w, te, bm=bm).float()
+    checked = max(row_relative_error(
+        gmm.gmm_call(x, w, te, bm=bm, group_sizes=s).float(), ref)
+        for s in (gs, None))
+    if not checked <= GMM_TOL["bf16_row_rel"]:
+        raise AssertionError("gmm at the decode shape: {0}".format(checked))
+    ws = [w, w.clone()]
+    ms = time_ms(lambda ww: gmm.gmm_call(x, ww, te, bm=bm, group_sizes=gs),
+                 ws, reps=50, warmup=6)
+    ms_all = time_ms(lambda ww: gmm.gmm_call(x, ww, te, bm=bm), ws, reps=50,
+                     warmup=6)
+    dev = device_ms(lambda ww: gmm.gmm_call(x, ww, te, bm=bm,
+                                            group_sizes=gs), ws)
+    dev_all = device_ms(lambda ww: gmm.gmm_call(x, ww, te, bm=bm), ws)
+    library_ms = library_device_ms = None
+    if hasattr(torch, "_grouped_mm"):
+        offs = torch.cumsum(torch.bincount(te.long(), minlength=c["e"])
+                            * bm, 0).to(torch.int32)
+        library_ms = time_ms(
+            lambda ww: torch._grouped_mm(x, ww, offs=offs), ws, reps=50,
+            warmup=6)
+        library_device_ms = device_ms(
+            lambda ww: torch._grouped_mm(x, ww, offs=offs), ws)
+    bound_ms, bound_by, nbytes, flops = gmm_bound(c)
+    return dict(ms=ms, ms_all_rows=ms_all, device_ms=dev,
+                device_ms_all_rows=dev_all,
+                library_device_ms=library_device_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
+                flops=flops, NP=x.shape[0], routed_rows=c["routed"],
+                expert_rows=c["sizes"].tolist(), checked_err=checked)
 
 
 def tgmm_skewed_timing(gen):
@@ -1464,10 +1667,12 @@ def phase_moe_train_to_serve(model):
                              "{1}".format(launches, gen))
 
 
-def kernel_entry(name, replaces, launches, timing,
+def kernel_entry(name, kernel, replaces, launches, timing,
                  source="tensorflowonspark_tpu_torch/csrc/flash_attention.cu"):
+    """One entry of the ``kernels`` line; ``kernel`` names the CUDA
+    function that ran at the timing shape."""
     return dict(
-        name=name, route="cuda", source=source,
+        name=name, kernel=kernel, route="cuda", source=source,
         replaces=replaces, launches=launches,
         max_abs_err=timing["max_abs_err"], ms=timing["ms"],
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
@@ -1507,7 +1712,7 @@ def main():
     jax_flash = "tensorflowonspark_tpu/ops/flash_attention.py:"
     jax_gmm = "tensorflowonspark_tpu/ops/gmm.py:"
     print(json.dumps({"kernels": [dict(
-        name="paged_attention", route="cuda",
+        name="paged_attention", kernel="paged_decode_kernel", route="cuda",
         source="tensorflowonspark_tpu_torch/csrc/paged_attention.cu",
         replaces="tensorflowonspark_tpu/ops/paged_attention.py:143",
         launches=flagship["paged_attention_launches"],
@@ -1515,15 +1720,15 @@ def main():
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
         bound_by=timing["bound_by"], library_ms=timing["library_ms"],
     )] + [
-        kernel_entry("flash_fwd", jax_flash + "132",
+        kernel_entry("flash_fwd", "flash_fwd_wgmma", jax_flash + "132",
                      train["launches"]["fwd"], flash["fwd"]),
-        kernel_entry("flash_dq", jax_flash + "198",
+        kernel_entry("flash_dq", "flash_dq_kernel", jax_flash + "198",
                      train["launches"]["dq"], flash["dq"]),
-        kernel_entry("flash_dkv", jax_flash + "256",
+        kernel_entry("flash_dkv", "flash_dkv_kernel", jax_flash + "256",
                      train["launches"]["dkv"], flash["dkv"]),
     ] + [
-        kernel_entry(name, jax_gmm + line, moe["launches"][name],
-                     gmm_timing[name], source=GMM_SRC)
+        kernel_entry(name, GMM_WGMMA[name], jax_gmm + line,
+                     moe["launches"][name], gmm_timing[name], source=GMM_SRC)
         for name, line in (("gmm", "71"), ("gmm_dxt", "144"),
                            ("tgmm", "219"))
     ]}), flush=True)

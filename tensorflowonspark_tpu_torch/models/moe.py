@@ -123,9 +123,13 @@ class MoEMLP(nn.Module):
             layout = moe_ops.dropless_layout(experts, e, bm=bm)
             xs = moe_ops.dispatch_sorted(xf.to(dtype), layout)
             te = layout.tile_expert
-            h = gmm.grouped_matmul(xs, wi, te, bm)
-            hg = gmm.grouped_matmul(xs, wg, te, bm)
-            ys = gmm.grouped_matmul(F.silu(hg) * h, wo, te, bm)
+            # the live rows of each expert's run: the kernels skip the
+            # layout's all-pad row tiles and write their rows as zeros
+            live = moe_ops.expert_counts(experts, e).to(torch.int32)
+            h = gmm.grouped_matmul(xs, wi, te, bm, group_sizes=live)
+            hg = gmm.grouped_matmul(xs, wg, te, bm, group_sizes=live)
+            ys = gmm.grouped_matmul(F.silu(hg) * h, wo, te, bm,
+                                    group_sizes=live)
             y = moe_ops.combine_sorted(ys, layout, gates)
             drop_rate = torch.zeros((), dtype=torch.float32, device=x.device)
             return y.reshape(b, s, d).to(x.dtype), aux, drop_rate

@@ -61,11 +61,15 @@ KERNELS = {
             "tfos_flash_dkv": ([_P] * 8 + [_L] * 12 + _FLASH_TAIL, _I),
         },
     ),
-    # a, b, tile_expert, out, N, D, F, E, bm, is_bf16, stream
+    # a, b, tile_expert, [group_sizes,] out, N, D, F, E, bm, is_bf16,
+    # stream (group_sizes: K5 and K6)
     "gmm": (
         "gmm.cu",
-        {name: ([_P] * 4 + [_I] * 6 + [_P], _I)
-         for name in ("tfos_gmm", "tfos_gmm_dxt", "tfos_tgmm")},
+        {
+            "tfos_gmm": ([_P] * 5 + [_I] * 6 + [_P], _I),
+            "tfos_gmm_dxt": ([_P] * 5 + [_I] * 6 + [_P], _I),
+            "tfos_tgmm": ([_P] * 4 + [_I] * 6 + [_P], _I),
+        },
     ),
 }
 

@@ -16,14 +16,26 @@ kernels:
 - K7 ``tgmm_call``     ``dw[e] = sum_{t: te[t]=e} x[t]^T dy[t]``
   (``_tgmm_kernel``); an expert that owns no tile gets exactly 0
 
-Products accumulate in f32 and round once: ``y`` to x's type, ``dx`` to
-dy's, ``dw`` (summed over the whole run) to x's.  :func:`grouped_matmul`
-is a :class:`torch.autograd.Function` whose forward is K5 and whose
-backward is K6 + K7 (``dw`` cast to w's type, as the reference's VJP
-does).  A CUDA tensor launches the kernel (counted in ``launches``) or
-raises; a CPU tensor runs the plain versions :func:`gmm_plain`,
-:func:`gmm_dxt_plain` and :func:`tgmm_plain`, which round where the
-kernels round.
+In bf16 all three are Hopper ``wgmma`` kernels fed by TMA
+(``gmm_rows_wgmma`` for K5 and K6, ``tgmm_wgmma`` for K7); in f32 they
+run on one template that sums with FMAs.  Products accumulate in f32 and
+round once: ``y`` to x's type, ``dx`` to dy's, ``dw`` (summed over the
+whole run) to x's.
+
+K5 and K6 take an optional ``group_sizes [E]`` (int32, on the operands'
+device; :func:`~.moe.expert_counts`): how many rows of each expert's run
+are routed tokens.  With it, rows at or past their expert's count come
+out as exact zeros (what the zero pad rows give the reference) and a
+128-row tile with no live row is neither loaded nor multiplied; without
+it every row is computed, as the reference does.  Nothing is read back
+to the host.
+
+:func:`grouped_matmul` is a :class:`torch.autograd.Function` whose
+forward is K5 and whose backward is K6 + K7 (``dw`` cast to w's type, as
+the reference's VJP does).  A CUDA tensor launches the kernel (counted
+in ``launches``) or raises; a CPU tensor runs the plain versions
+:func:`gmm_plain`, :func:`gmm_dxt_plain` and :func:`tgmm_plain`, which
+round where the kernels round and zero the rows the kernels zero.
 
 Deliberate differences from the reference: the Mosaic/VMEM block
 pickers (``_pick_bf``, ``_pick_bd``) are TPU rules and are not ported;
@@ -32,9 +44,7 @@ pickers (``_pick_bf``, ``_pick_bd``) are TPU rules and are not ported;
 transposed-copy fallback for an ``F`` too wide for VMEM has no
 counterpart on the GPU).  The kernels need ``bm`` to be a multiple of
 their 128-row tile and ``D``, ``F`` multiples of 8; an operand that does
-not start on a 16-byte boundary is copied to one that does.  In bf16,
-K7 is a Hopper ``wgmma`` kernel fed by TMA (``tgmm_wgmma``); K5, K6 and
-f32 K7 use ``mma.sync``.
+not start on a 16-byte boundary is copied to one that does.
 """
 
 import torch
@@ -58,27 +68,63 @@ def _check_layout(n, bm, tile_expert):
                 t, tuple(tile_expert.shape)))
 
 
+def _check_group_sizes(group_sizes, num_experts, device):
+    """``group_sizes`` validated and contiguous (``None`` stays
+    ``None``)."""
+    if group_sizes is None:
+        return None
+    if (group_sizes.dtype != torch.int32
+            or tuple(group_sizes.shape) != (num_experts,)):
+        raise ValueError(
+            "group_sizes must be int32 [E] = [{0}], got {1} {2}".format(
+                num_experts, group_sizes.dtype, tuple(group_sizes.shape)))
+    if group_sizes.device != device:
+        raise ValueError("group_sizes must be on the operands' device")
+    return group_sizes.contiguous()
+
+
 # -- plain PyTorch versions (the kernels' oracles) ---------------------
 
 
-def gmm_plain(x, w, tile_expert, bm=256):
+def live_row_mask(tile_expert, group_sizes, bm):
+    """``[N, 1]`` bool: the rows before their expert's count, counted
+    from the start of the expert's run (the first tile it owns;
+    ``tile_expert`` is non-decreasing)."""
+    te = tile_expert.long()
+    start = torch.searchsorted(te, te) * bm
+    rows = torch.arange(te.shape[0] * bm, device=te.device).reshape(-1, bm)
+    live = rows - start[:, None] < group_sizes.long()[te][:, None]
+    return live.reshape(-1, 1)
+
+
+def _zero_dead_rows(out, tile_expert, group_sizes, bm):
+    if group_sizes is None:
+        return out
+    return torch.where(live_row_mask(tile_expert, group_sizes, bm), out, 0.0)
+
+
+def gmm_plain(x, w, tile_expert, bm=256, group_sizes=None):
     """Plain version of K5: per row tile, an f32 product with the owning
-    expert's weights, rounded once to x's type."""
+    expert's weights, rounded once to x's type; with ``group_sizes``,
+    rows past their expert's count are 0."""
     n, d = x.shape
     t = n // bm
     y = torch.bmm(x.reshape(t, bm, d).float(),
                   w.float()[tile_expert.long()])
-    return y.reshape(n, -1).to(x.dtype)
+    y = _zero_dead_rows(y.reshape(n, -1), tile_expert, group_sizes, bm)
+    return y.to(x.dtype)
 
 
-def gmm_dxt_plain(dy, w, tile_expert, bm=256):
+def gmm_dxt_plain(dy, w, tile_expert, bm=256, group_sizes=None):
     """Plain version of K6: ``dy[t] @ w[te[t]]^T`` in f32, rounded once
-    to dy's type."""
+    to dy's type; with ``group_sizes``, rows past their expert's count
+    are 0."""
     n, f = dy.shape
     t = n // bm
     dx = torch.bmm(dy.reshape(t, bm, f).float(),
                    w.float()[tile_expert.long()].transpose(1, 2))
-    return dx.reshape(n, -1).to(dy.dtype)
+    dx = _zero_dead_rows(dx.reshape(n, -1), tile_expert, group_sizes, bm)
+    return dx.to(dy.dtype)
 
 
 def tgmm_plain(x, dy, tile_expert, num_experts, bm=256):
@@ -154,47 +200,58 @@ def _device_kind(x):
     return x.device.type
 
 
-def gmm_call(x, w, tile_expert, *, bm=256, bf=None, interpret=None):
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def gmm_call(x, w, tile_expert, *, bm=256, bf=None, interpret=None,
+             group_sizes=None):
     """Forward: ``y [N, F]`` in x's type for sorted ``x [N, D]`` and
-    ``w [E, D, F]``.  ``bf`` and ``interpret`` are the reference's
-    TPU knobs, accepted and unused.  Differentiate through
-    :func:`grouped_matmul`."""
+    ``w [E, D, F]``; with ``group_sizes [E]``, rows past their expert's
+    count are 0 and the tiles past it are skipped.  ``bf`` and
+    ``interpret`` are the reference's TPU knobs, accepted and unused.
+    Differentiate through :func:`grouped_matmul`."""
     n, d = x.shape
     e, d2, f = w.shape
     if d != d2:
         raise ValueError("x {0} and w {1} disagree on D".format(
             tuple(x.shape), tuple(w.shape)))
     _check_layout(n, bm, tile_expert)
+    group_sizes = _check_group_sizes(group_sizes, e, x.device)
     if _device_kind(x) == "cpu":
-        return gmm_plain(x, w, tile_expert, bm=bm)
+        return gmm_plain(x, w, tile_expert, bm=bm, group_sizes=group_sizes)
     x, w, te = _kernel_operands(x, w, tile_expert, bm, ("x", "w"))
     y = torch.empty((n, f), dtype=x.dtype, device=x.device)
     if y.numel():
         _launch("tfos_gmm", "gmm", x.data_ptr(), w.data_ptr(), te.data_ptr(),
-                y.data_ptr(), n, d, f, e, bm, int(x.dtype == torch.bfloat16),
-                device=x.device)
+                _ptr(group_sizes), y.data_ptr(), n, d, f, e, bm,
+                int(x.dtype == torch.bfloat16), device=x.device)
     return y
 
 
-def gmm_dxt_call(dy, w, tile_expert, *, bm=256, bd=None, interpret=None):
+def gmm_dxt_call(dy, w, tile_expert, *, bm=256, bd=None, interpret=None,
+                 group_sizes=None):
     """``dx [N, D] = dy [N, F] @ w[te]^T`` in dy's type, reading
-    ``w [E, D, F]`` in its stored layout (no transposed copy).  Never
-    returns ``None``; ``bd`` and ``interpret`` are accepted and
-    unused."""
+    ``w [E, D, F]`` in its stored layout (no transposed copy); with
+    ``group_sizes [E]``, rows past their expert's count are 0 and the
+    tiles past it are skipped.  Never returns ``None``; ``bd`` and
+    ``interpret`` are accepted and unused."""
     n, f = dy.shape
     e, d, f2 = w.shape
     if f != f2:
         raise ValueError("dy {0} and w {1} disagree on F".format(
             tuple(dy.shape), tuple(w.shape)))
     _check_layout(n, bm, tile_expert)
+    group_sizes = _check_group_sizes(group_sizes, e, dy.device)
     if _device_kind(dy) == "cpu":
-        return gmm_dxt_plain(dy, w, tile_expert, bm=bm)
+        return gmm_dxt_plain(dy, w, tile_expert, bm=bm,
+                             group_sizes=group_sizes)
     dy, w, te = _kernel_operands(dy, w, tile_expert, bm, ("dy", "w"))
     dx = torch.empty((n, d), dtype=dy.dtype, device=dy.device)
     if dx.numel():
         _launch("tfos_gmm_dxt", "gmm_dxt", dy.data_ptr(), w.data_ptr(),
-                te.data_ptr(), dx.data_ptr(), n, d, f, e, bm,
-                int(dy.dtype == torch.bfloat16), device=dy.device)
+                te.data_ptr(), _ptr(group_sizes), dx.data_ptr(), n, d, f, e,
+                bm, int(dy.dtype == torch.bfloat16), device=dy.device)
     return dx
 
 
@@ -223,30 +280,33 @@ def tgmm_call(x, dy, tile_expert, num_experts, *, bm=256, bd=None,
 
 class _GroupedMatmul(torch.autograd.Function):
     """The reference's ``grouped_matmul`` custom VJP: forward K5, saving
-    x, w and tile_expert; backward K6 (dx) and K7 (dw, cast to w's
-    type)."""
+    x, w, tile_expert and group_sizes; backward K6 (dx) and K7 (dw, cast
+    to w's type).  With ``group_sizes`` the rows past each expert's
+    count are 0 in y and in dx (the derivative of y's zeros)."""
 
     @staticmethod
-    def forward(ctx, x, w, tile_expert, bm):
-        ctx.save_for_backward(x, w, tile_expert)
+    def forward(ctx, x, w, tile_expert, bm, group_sizes):
+        ctx.save_for_backward(x, w, tile_expert, group_sizes)
         ctx.bm = bm
-        return gmm_call(x, w, tile_expert, bm=bm)
+        return gmm_call(x, w, tile_expert, bm=bm, group_sizes=group_sizes)
 
     @staticmethod
     def backward(ctx, dy):
-        x, w, tile_expert = ctx.saved_tensors
+        x, w, tile_expert, group_sizes = ctx.saved_tensors
         bm = ctx.bm
-        dx = gmm_dxt_call(dy, w, tile_expert, bm=bm)
+        dx = gmm_dxt_call(dy, w, tile_expert, bm=bm, group_sizes=group_sizes)
         dw = tgmm_call(x, dy, tile_expert, w.shape[0], bm=bm).to(w.dtype)
-        return dx, dw, None, None
+        return dx, dw, None, None, None
 
 
-def grouped_matmul(x, w, tile_expert, bm=256, bf=None):
+def grouped_matmul(x, w, tile_expert, bm=256, bf=None, group_sizes=None):
     """Differentiable grouped matmul on the group-aligned sorted layout:
     ``x [N, D]`` (N = T*bm), ``w [E, D, F]``, ``tile_expert [T]`` ->
-    ``y [N, F]``.  ``bf`` is the reference's TPU stripe width, accepted
+    ``y [N, F]``.  ``group_sizes [E]`` (int32, optional) names each
+    expert's live rows: the rows past them come out 0 and their tiles
+    are skipped.  ``bf`` is the reference's TPU stripe width, accepted
     and unused."""
-    return _GroupedMatmul.apply(x, w, tile_expert, int(bm))
+    return _GroupedMatmul.apply(x, w, tile_expert, int(bm), group_sizes)
 
 
 #: kernel launches since the counts were last reset, per kernel (the

@@ -183,6 +183,16 @@ def _exclusive_cumsum(v):
     return torch.cat([v.new_zeros(1), torch.cumsum(v, 0)[:-1]])
 
 
+def expert_counts(experts, num_experts):
+    """``[E]`` int64: the (token, choice) pairs routed to each expert of
+    ``experts [G, k]``, which are the live rows of the expert's run in
+    :func:`dropless_layout` (the grouped matmul's ``group_sizes``)."""
+    ef = experts.reshape(-1).long()
+    return torch.zeros((num_experts,), dtype=torch.int64,
+                       device=experts.device).scatter_add_(
+                           0, ef, torch.ones_like(ef))
+
+
 def dropless_layout(experts, num_experts, bm=256):
     """The sorted, tile-aligned layout for ``experts [G, k]``.
 
@@ -196,8 +206,7 @@ def dropless_layout(experts, num_experts, bm=256):
     n = g * k
     dev = experts.device
     ef = experts.reshape(-1).long()
-    counts = torch.zeros((num_experts,), dtype=torch.int64,
-                         device=dev).scatter_add_(0, ef, torch.ones_like(ef))
+    counts = expert_counts(experts, num_experts)
     padded = (counts + bm - 1) // bm * bm
     starts = _exclusive_cumsum(padded)
     unaligned = _exclusive_cumsum(counts)

@@ -62,3 +62,26 @@ def test_every_source_is_built_by_one_library():
     sources = sorted(f for f in os.listdir(_build.CSRC_DIR)
                      if f.endswith(".cu"))
     assert sorted(src for src, _ in _build.KERNELS.values()) == sources
+
+
+def test_wgmma_kernel_names_are_distinct_and_name_kernels_of_their_source():
+    """``chip_smoke.WGMMA_KERNELS`` matches each name as a substring of the
+    mangled names in its library, so no name may be a substring of
+    another; each names a kernel its library's source defines."""
+    import importlib.util
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    names = [n for kernels in smoke.WGMMA_KERNELS.values() for n in kernels]
+    assert len(names) == len(set(names))
+    for a in names:
+        for b in names:
+            assert a == b or a not in b, (a, b)
+    for lib, kernels in smoke.WGMMA_KERNELS.items():
+        with open(os.path.join(_build.CSRC_DIR, _build.KERNELS[lib][0])) as f:
+            text = f.read()
+        for name in kernels:
+            assert re.search(r"__global__[^;{]*\b" + name + r"\s*\(", text), name

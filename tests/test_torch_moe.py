@@ -15,7 +15,8 @@ Tolerances: routing indices and layouts identical, gates and aux losses
 gradients 1e-5 (f32 products of 16-32 terms); the model's logits 1e-4
 (two layers of f32 arithmetic, as the dense model's tests); the AdamW
 trajectory rtol/atol 1e-5 over three steps.  An absent expert's dw is 0
-exactly.
+exactly, and so are the rows past each expert's count when the grouped
+matmul is given the counts (``group_sizes``).
 """
 
 import functools
@@ -255,6 +256,129 @@ def test_gmm_call_validates_layout_and_keeps_the_signature():
                        tgmm.gmm_call(tx, tw, tte, bm=8))
     assert tgmm.grouped_matmul.launches == {"gmm": 0, "gmm_dxt": 0,
                                             "tgmm": 0}
+
+
+# -- the live rows of each expert's run (group_sizes) ------------------
+
+G_C = 200
+
+
+def _counts_case(bm, seed=20, d=16, f=32):
+    """A dropless layout at row tile ``bm`` from a router that favours
+    expert 0 and never picks expert 2, the experts' routed rows as
+    ``group_sizes``, and operands whose pad rows are random, so the zeros
+    past the counts can only come from the counts."""
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((G_C, E)).astype(np.float32)
+    logits[:, 0] += 2.0
+    logits[:, 2] = -1e4
+    experts, _, _ = tops.dropless_topk(torch.tensor(logits), k=K)
+    layout = tops.dropless_layout(experts, E, bm=bm)
+    sizes = tops.expert_counts(experts, E).to(torch.int32)
+    n = layout.slot_token.shape[0]
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    dy = rng.standard_normal((n, f)).astype(np.float32)
+    w = (rng.standard_normal((E, d, f)) * 0.1).astype(np.float32)
+    live = (layout.slot_token < G_C).numpy()
+    return x, w, dy, layout.tile_expert, sizes, live
+
+
+@pytest.mark.parametrize("bm", [128, 256])
+def test_plain_gmm_with_group_sizes_matches_jax_on_live_rows(bm):
+    """With ``group_sizes``, K5's and K6's plain versions equal the JAX
+    kernels (interpret mode, every row computed) on the live rows and
+    are exactly 0 on every other row, on a layout with a heavy and an
+    absent expert."""
+    x, w, dy, te, sizes, live = _counts_case(bm)
+    assert sizes[2] == 0 and sizes[0] == sizes.max()
+    assert int(sizes.sum()) == G_C * K
+    assert torch.equal(tgmm.live_row_mask(te, sizes, bm)[:, 0],
+                       torch.from_numpy(live))
+    fwd, dxt, _ = _jax_kernels(bm, E)
+    te_np = te.numpy()
+    got = (tgmm.gmm_call(torch.tensor(x), torch.tensor(w), te, bm=bm,
+                         group_sizes=sizes),
+           tgmm.gmm_dxt_call(torch.tensor(dy), torch.tensor(w), te, bm=bm,
+                             group_sizes=sizes))
+    for g, want in zip(got, (fwd(x, w, te_np), dxt(dy, w, te_np))):
+        g, want = g.numpy(), _np(want)
+        np.testing.assert_allclose(g[live], want[live], atol=1e-5, rtol=0)
+        assert not g[~live].any()
+        assert want[~live].any()  # the reference multiplies the pad rows
+
+
+def test_grouped_matmul_gradients_with_group_sizes_match_jax():
+    """On the layout's own terms (zero pad rows in x, and a cotangent that
+    is 0 on them, as ``combine_sorted``'s backward gives) the gradients
+    with ``group_sizes`` are the reference VJP's; y and dx are exactly 0
+    past the counts, even under a cotangent that is not."""
+    bm = 128
+    x, w, dy, te, sizes, live = _counts_case(bm, seed=21)
+    x = x * live[:, None]
+    dy = dy * live[:, None]
+    te_j = jnp.asarray(te.numpy())
+
+    def loss_j(x, w):
+        return jnp.sum(jgmm.grouped_matmul(x, w, te_j, bm, 16) * dy)
+
+    want = jax.jit(jax.grad(loss_j, argnums=(0, 1)))(x, w)
+    tx = torch.tensor(x, requires_grad=True)
+    tw = torch.tensor(w, requires_grad=True)
+    y = tgmm.grouped_matmul(tx, tw, te, bm, 16, group_sizes=sizes)
+    got = torch.autograd.grad((y * torch.tensor(dy)).sum(), (tx, tw))
+    for g, w_ in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), _np(w_), atol=1e-5, rtol=0)
+    assert torch.count_nonzero(got[1][2]) == 0
+    y = tgmm.grouped_matmul(tx, tw, te, bm, group_sizes=sizes)
+    dx = torch.autograd.grad(y.sum(), tx)[0].numpy()
+    assert not y.detach().numpy()[~live].any()
+    assert not dx[~live].any() and dx[live].all()
+
+
+def test_group_sizes_are_validated():
+    x, w, dy, te, sizes, _ = _counts_case(128)
+    tx, tw = torch.tensor(x), torch.tensor(w)
+    for bad in (sizes.long(), sizes[:-1]):
+        with pytest.raises(ValueError, match="group_sizes"):
+            tgmm.gmm_call(tx, tw, te, bm=128, group_sizes=bad)
+        with pytest.raises(ValueError, match="group_sizes"):
+            tgmm.gmm_dxt_call(torch.tensor(dy), tw, te, bm=128,
+                              group_sizes=bad)
+    assert torch.equal(
+        tgmm.gmm_plain(tx, tw, te, bm=128),
+        tgmm.gmm_call(tx, tw, te, bm=128, group_sizes=None))
+
+
+def test_moe_mlp_passes_the_layout_live_rows_as_group_sizes(monkeypatch):
+    """The dropless ``MoEMLP`` gives each of its three grouped matmuls
+    the routed rows of every expert, and those name exactly the rows of
+    the layout that hold a token."""
+    params = _mlp_params()
+    x = torch.tensor(np.random.default_rng(22).standard_normal(
+        (2, 16, 16)).astype(np.float32))
+    seen = []
+    grouped_matmul = tgmm.grouped_matmul
+
+    def spy(xs, w, te, bm, bf=None, group_sizes=None):
+        seen.append((te, group_sizes))
+        return grouped_matmul(xs, w, te, bm, bf, group_sizes=group_sizes)
+
+    monkeypatch.setattr(tmoe.gmm, "grouped_matmul", spy)
+    mine = tmoe.MoEMLP(E, 32, 16, k=K, dtype=torch.float32,
+                       dispatch="dropless", gmm_block_rows=8, device="cpu")
+    mine.load_state_dict({n: torch.tensor(v) for n, v in params.items()})
+    mine(x)
+    experts, _, _ = tops.dropless_topk(x.reshape(-1, 16) @ mine.router,
+                                       k=K)
+    layout = tops.dropless_layout(experts, E, bm=8)
+    live = layout.slot_token < x.shape[0] * x.shape[1]
+    assert len(seen) == 3
+    for te, sizes in seen:
+        assert sizes.dtype == torch.int32
+        assert torch.equal(te, layout.tile_expert)
+        assert torch.equal(sizes.long(), torch.bincount(
+            experts.reshape(-1).long(), minlength=E))
+        assert torch.equal(tgmm.live_row_mask(te, sizes, 8)[:, 0], live)
 
 
 # -- MoEMLP ------------------------------------------------------------
@@ -512,7 +636,9 @@ def test_planted_k7_fault_still_applies_to_the_kernel_source():
         mutants.mutate(mutated, subs)
 
 
-@pytest.mark.parametrize("name", ["tgmm_wgmma_last_tile"])
+@pytest.mark.parametrize("name", [
+    "tgmm_wgmma_last_tile", "rows_wgmma_fwd_shift",
+    "rows_wgmma_dxt_last_stage", "skip_last_live_tile"])
 def test_planted_hopper_gmm_faults_still_apply_to_the_kernel_source(name):
     """Each ``chip_mutants.py`` fault of the wgmma grouped-matmul kernels
     finds its line in ``csrc/gmm.cu`` exactly once, and names a check

@@ -3,8 +3,11 @@ in f32: the same weights (a JAX ``init`` tree through the converter)
 and the same admit / chunk / evict script must give identical greedy
 tokens, including the first token of every admit.  The JAX side runs
 ``paged_impl="gather"``; the port runs both of its paths, ``"kernel"``
-(the plain version of the kernel on a CPU tensor) and ``"gather"``.
+(the plain version of the kernel on a CPU tensor) and ``"gather"``.  A
+tiny MoE model is held the same way in each of its dispatch modes.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -85,6 +88,37 @@ def test_slot_decoder_matches_jax(extra):
                               **DEC)
         assert dec.model.cfg.paged_decode_impl == impl
         assert _drive(dec, prompts) == ref, impl
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_reference(dispatch):
+    """A tiny MoE (4 experts, top-2, f32) in dispatch mode ``dispatch``:
+    its config, the port's seeded weight tree (a Flax ``init`` of a
+    dropless model would run the Pallas kernels in interpret mode), its
+    prompts and the JAX ``SlotDecoder``'s log of SCRIPT."""
+    cfg_kw = dict(TINY, num_experts=4, expert_k=2, expert_dispatch=dispatch)
+    tree = convert.init_params_tree(ttr.TransformerConfig(**cfg_kw), seed=3)
+    prompts = _prompts(cfg_kw["vocab_size"], [5, 17, 9, 30, 2, 12])
+    jdec = jtr.SlotDecoder(jtr.Transformer(jtr.TransformerConfig(**cfg_kw)),
+                           jax.tree.map(jnp.asarray, tree), 3, MAX_NEW,
+                           paged_impl="gather", **DEC)
+    return cfg_kw, tree, prompts, _drive(jdec, prompts)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "gather"])
+@pytest.mark.parametrize("dispatch", ["dropless", "gather", "einsum"])
+def test_moe_slot_decoder_matches_jax(dispatch, impl):
+    """MoE paged serving: every admit's first token and every chunk's
+    greedy tokens equal the JAX package's (dropless: the plain grouped
+    matmul with the layout's counts on this side, the Pallas kernels in
+    interpret mode on that one)."""
+    cfg_kw, tree, prompts, ref = _moe_reference(dispatch)
+    model = convert.params_from_flax(tree, ttr.TransformerConfig(**cfg_kw),
+                                     device="cpu")
+    assert model.block_0.moe.dispatch == dispatch
+    dec = ttr.SlotDecoder(model, None, 3, MAX_NEW, paged_impl=impl, **DEC)
+    assert dec.model.cfg.paged_decode_impl == impl
+    assert _drive(dec, prompts) == ref
 
 
 def test_params_tree_loads_through_the_decoder():
