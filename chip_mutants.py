@@ -12,15 +12,19 @@ into a temporary directory, rewrites a few lines of its kernel source
 there (``csrc/flash_attention.cu``, or ``csrc/gmm.cu`` for the mutants
 in :data:`SOURCES`), builds the kernels in that copy and runs the
 ``chip_smoke.py`` check it names.  ``diag``, ``zero_dq`` and
-``tgmm_last_tile`` break the ``mma.sync``-shaped kernels (f32 K2 and K7,
-both types of K3 and K4); ``fwd_wgmma_diag``, ``tgmm_wgmma_last_tile``,
-``rows_wgmma_fwd_shift`` and ``rows_wgmma_dxt_last_stage`` break the
-bf16 Hopper kernels ``flash_fwd_wgmma``, ``tgmm_wgmma`` and
-``gmm_rows_wgmma`` (K5, K6); ``skip_last_live_tile`` breaks the skip of
-the all-pad row tiles that K5 and K6 share in both types.  It prints one JSON line per
-case and one per mutant; the last line lists the mutants that survived,
-and the exit code is 0 only when every mutant was caught.  The
-repository itself is never modified.
+``tgmm_last_tile`` break the ``mma.sync``-shaped kernels, which run f32
+only (K2, K3, K4, K7); ``fwd_wgmma_diag``, ``dq_wgmma_diag``,
+``dkv_wgmma_diag``, ``tgmm_wgmma_last_tile``, ``rows_wgmma_fwd_shift``
+and ``rows_wgmma_dxt_last_stage`` break the bf16 Hopper kernels
+``flash_fwd_wgmma``, ``flash_dq_wgmma``, ``flash_dkv_wgmma``,
+``tgmm_wgmma`` and ``gmm_rows_wgmma`` (K5, K6) by a tile or a stage;
+``dq_wgmma_diag_key`` (one key of each row masked in the bf16 K3) and
+``dkv_wgmma_first_head`` (the bf16 K4 drops every query head of a GQA
+group but the first) are smaller faults; ``skip_last_live_tile`` breaks
+the skip of the all-pad row tiles that K5 and K6 share in both types.
+It prints one JSON line per case and one per mutant; the last line
+lists the mutants that survived, and the exit code is 0 only when every
+mutant was caught.  The repository itself is never modified.
 """
 
 import json
@@ -36,8 +40,8 @@ GMM_SOURCE = "tensorflowonspark_tpu_torch/csrc/gmm.cu"
 #: name -> (what it breaks, [(source text, replacement)], check)
 MUTANTS = {
     "diag": (
-        "K2/K3 skip the diagonal key tile and K4 the diagonal query tile, "
-        "for tiles at or past position 512",
+        "the f32 K2/K3 skip the diagonal key tile and the f32 K4 the "
+        "diagonal query tile, for tiles at or past position 512",
         [("hi = a.causal ? q_last / kBN : (a.S - 1) / kBN;",
           "hi = a.causal ? q_last / kBN - (q0 >= 512) : (a.S - 1) / kBN;"),
          ("lo = a.causal ? k0 / kBM : 0;",
@@ -45,7 +49,7 @@ MUTANTS = {
         "flash_case",
     ),
     "zero_dq": (
-        "K3 stores 0 x dQ",
+        "the f32 K3 (flash_dq_kernel) stores 0 x dQ",
         [("store2(dst + 8 * n + 2 * t, dq[n][2 * r], dq[n][2 * r + 1]);",
           "store2(dst + 8 * n + 2 * t, 0.f * dq[n][2 * r], "
           "0.f * dq[n][2 * r + 1]);")],
@@ -83,6 +87,40 @@ MUTANTS = {
         [(": (a.F + kRwDepth - 1) / kRwDepth;",
           ": (a.F + kRwDepth - 1) / kRwDepth - 1;")],
         "gmm_case",
+    ),
+    "dq_wgmma_diag": (
+        "the bf16 K3 (flash_dq_wgmma) skips its diagonal key tile for q "
+        "tiles at or past position 512",
+        [("  const int j_hi = a.causal ? q_last / kBwStep : (a.S - 1) / "
+          "kBwStep;",
+          "  const int j_hi = a.causal ? q_last / kBwStep - (q0 >= 512) : "
+          "(a.S - 1) / kBwStep;")],
+        "flash_case",
+    ),
+    "dkv_wgmma_diag": (
+        "the bf16 K4 (flash_dkv_wgmma) skips its diagonal q tile for key "
+        "tiles at or past position 512",
+        [("  const int i_lo = a.causal ? k0 / kBwStep : 0;",
+          "  const int i_lo = a.causal ? k0 / kBwStep + (k0 >= 512) : 0;")],
+        "flash_case",
+    ),
+    "dq_wgmma_diag_key": (
+        "the bf16 K3 (flash_dq_wgmma) masks the diagonal element itself: "
+        "one key of each row",
+        [("        if (!visible(row[r], col, a)) p0 = 0.f;\n"
+          "        if (!visible(row[r], col + 1, a)) p1 = 0.f;",
+          "        if (!visible(row[r], col, a) || col == row[r]) p0 = 0.f;\n"
+          "        if (!visible(row[r], col + 1, a) || col + 1 == row[r]) "
+          "p1 = 0.f;")],
+        "flash_case",
+    ),
+    "dkv_wgmma_first_head": (
+        "the bf16 K4 (flash_dkv_wgmma) sums only the first query head of "
+        "each kv head's group",
+        [("    if (kw0 >= a.S || (a.causal && q0 + kBwStep - 1 < kw0) ||",
+          "    if (it >= nq || kw0 >= a.S || "
+          "(a.causal && q0 + kBwStep - 1 < kw0) ||")],
+        "flash_case",
     ),
     "skip_last_live_tile": (
         "K5 and K6 (both types) treat an expert's last live 128-row tile "

@@ -30,10 +30,14 @@ caught):
    plain versions on the card (bf16 flagship geometry, bf16 D=64 GQA, and
    in both types a window across tiles, non-causal, a ragged S=1000 with
    GQA); bf16 outputs are held row by row (:data:`FLASH_TOL`).
+   ``flash_repeat``: two runs of the bf16 dQ and dK/dV kernels on the
+   flagship case give bit-identical outputs.
 8. ``flash_timing``: the three kernels, their plain versions and
    ``scaled_dot_product_attention`` as a yardstick at the flagship
    training shape (B=8, S=2048, H=8, D=128, bf16, causal), beside the
-   operation bound.
+   operation bound; then the kernels and the yardstick under GQA at the
+   flagship width (Hkv=2) and at S=8192 (B=2), each checked against the
+   plain versions.
 9. ``train_flagship``: ``SyncTrainer(loss_fn(model), adamw(1e-4))`` on
    the flagship at full width (f32 master weights, bf16 compute, flash
    attention), one warm-up and two timed ``multi_step`` of K=4 on a
@@ -79,7 +83,10 @@ Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit
 line, and as the last line ``{"ok": true, "device": {...}}``.  Without a
 CUDA device the script exits non-zero before printing any result.
 ``phase_train_profile`` (not run by :func:`main`) breaks a training step
-down by kernel class for the dense or the MoE flagship.
+down by kernel class for the dense or the MoE flagship;
+``phase_register_probe`` (not run by it either) builds a minimal kernel
+in five variants of its roles and waits and reports ptxas's registers
+and spills.
 """
 
 import json
@@ -136,7 +143,8 @@ def phase_env():
 #: instruction of :data:`SASS_MUST_HOLD`, with no spills in ``-Xptxas=-v``
 #: (each name matched as a substring of the mangled names, so no name may
 #: be a substring of another's)
-WGMMA_KERNELS = {"flash_attention": ["flash_fwd_wgmma"],
+WGMMA_KERNELS = {"flash_attention": ["flash_fwd_wgmma", "flash_dq_wgmma",
+                                     "flash_dkv_wgmma"],
                  "gmm": ["tgmm_wgmma", "gmm_rows_wgmma"]}
 #: warpgroup MMA (``wgmma``) and TMA tile loads (``cp.async.bulk.tensor``)
 SASS_MUST_HOLD = ("HGMMA", "UTMALDG")
@@ -671,38 +679,77 @@ def phase_flash_cases():
             raise AssertionError("flash case {0}: {1}".format(name, errs))
 
 
-def flash_bounds(b, s, h, d, itemsize, causal=True):
+def phase_flash_repeat():
+    """Two runs of the bf16 K3 and K4 on the inputs of the flagship case
+    of :data:`FLASH_CASES` must give bit-identical outputs."""
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    c = make_flash_case(gen, **dict(FLASH_CASES)["flagship_bf16_causal"])
+    q, k, v, dout = c["q"], c["k"], c["v"], c["dout"]
+    pos = (c["scale"], c["causal"], c["window"])
+    out, lse = fa.flash_forward_reference(q, k, v, scale=pos[0],
+                                          causal=pos[1], window=pos[2])
+    args = (q, k, v, dout, lse, fa._delta(out, dout))
+    runs = [(fa._launch_dq(*args, *pos),) + fa._launch_dkv(*args, *pos)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    same = {n: torch.equal(x, y)
+            for n, x, y in zip(("dq", "dk", "dv"), *runs)}
+    emit("flash_repeat", case="flagship_bf16_causal", bit_identical=same,
+         ok=all(same.values()))
+    if not all(same.values()):
+        raise AssertionError("bf16 K3/K4 differ between two runs: "
+                             "{0}".format(same))
+
+
+def flash_bounds(b, s, h, hkv, d, itemsize, causal=True):
     """Least bytes (each input read once, each output written once) and
-    tensor-core flop of K2, K3 and K4 at one shape (MHA): one product
-    over the visible (query, key) pairs is 2 * D flop per pair."""
+    tensor-core flop of K2, K3 and K4 at one shape: one product over the
+    visible (query, key) pairs of every query head is 2 * D flop per
+    pair."""
     pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
     product = 2 * d * pairs
     t = b * s * h * d * itemsize  # one [B, S, H, D] tensor
+    tk = b * s * hkv * d * itemsize  # one [B, S, Hkv, D] tensor
     rows = b * h * s * 4  # one f32 [B, H, S] tensor
     return {
-        "fwd": (4 * t + rows, 2 * product),   # q, k, v -> o, lse
-        "dq": (5 * t + 2 * rows, 3 * product),  # q, k, v, dO, lse, delta -> dq
-        "dkv": (6 * t + 2 * rows, 4 * product),  # ... -> dk, dv
+        # q, k, v -> o, lse
+        "fwd": (2 * t + 2 * tk + rows, 2 * product),
+        # q, k, v, dO, lse, delta -> dq
+        "dq": (3 * t + 2 * tk + 2 * rows, 3 * product),
+        # ... -> dk, dv
+        "dkv": (2 * t + 4 * tk + 2 * rows, 4 * product),
     }
 
 
-def phase_flash_timing():
-    """K2, K3 and K4 at the flagship training shape, beside their plain
-    versions, the bound, and scaled_dot_product_attention as a yardstick."""
+#: the shapes ``flash_timing`` times (bf16, causal): the flagship training
+#: shape, which the ``kernels`` line reports, then GQA at the flagship
+#: width and a long sequence
+FLASH_TIMING_SHAPES = [
+    ("flagship", dict(b=8, s=2048, h=8, hkv=8, d=128)),
+    ("gqa_hkv2", dict(b=8, s=2048, h=8, hkv=2, d=128)),
+    ("s8192", dict(b=2, s=8192, h=8, hkv=8, d=128)),
+]
+
+
+def flash_timing_at(gen, *, b, s, h, hkv, d, plain=True):
+    """K2, K3 and K4 at one bf16 causal shape, checked against their
+    plain versions, beside the bound and scaled_dot_product_attention as
+    a yardstick (``plain``: the plain versions timed too)."""
     from tensorflowonspark_tpu_torch.ops import flash_attention as fa
 
-    b, s, h, d = 8, 2048, 8, 128
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(6)
-    c = make_flash_case(gen, b=b, s=s, h=h, hkv=h, d=d,
+    c = make_flash_case(gen, b=b, s=s, h=h, hkv=hkv, d=d,
                         dtype=torch.bfloat16, causal=True)
     got, ref = flash_outputs(c)
     errs = flash_errors(got, ref, torch.bfloat16)
     if not flash_ok(errs):
-        raise AssertionError("flash kernels at the flagship training shape: "
-                             "{0}".format(errs))
+        raise AssertionError("flash kernels at B={0} S={1} H={2} Hkv={3}: "
+                             "{4}".format(b, s, h, hkv, errs))
     q, k, v, dout = c["q"], c["k"], c["v"], c["dout"]
     lse, delta = ref["lse"], fa._delta(ref["out"], dout)
+    del got, ref
     pos = (c["scale"], True, 0)
     kw = dict(scale=c["scale"], causal=True, window=0)
     args = (q, k, v, dout, lse, delta)
@@ -718,13 +765,14 @@ def phase_flash_timing():
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
                   for x in (q, k, v))
     dot_ = dout.transpose(1, 2)
+    gqa = dict(enable_gqa=True) if hkv != h else {}
 
     def lib_fwd(_):
         with torch.no_grad():
-            return sdpa(qt, kt, vt, is_causal=True)
+            return sdpa(qt, kt, vt, is_causal=True, **gqa)
 
     def lib_fwd_bwd(_):
-        return torch.autograd.grad(sdpa(qt, kt, vt, is_causal=True),
+        return torch.autograd.grad(sdpa(qt, kt, vt, is_causal=True, **gqa),
                                    (qt, kt, vt), dot_)
 
     lib_fwd_ms = time_ms(lib_fwd, [None], reps=20, warmup=3)
@@ -740,26 +788,40 @@ def phase_flash_timing():
         "dkv": (None, "SDPA's backward covers dK and dV; its time stands "
                 "on flash_dq"),
     }
-    bounds = flash_bounds(b, s, h, d, 2)
+    bounds = flash_bounds(b, s, h, hkv, d, 2)
     err_of = {"fwd": max(errs["out"][0], errs["lse"][0]),
               "dq": errs["dq"][0], "dkv": max(errs["dk"][0], errs["dv"][0])}
     res = {}
-    for name, (kernel, plain) in runs.items():
+    for name, (kernel, plain_fn) in runs.items():
         nbytes, flops = bounds[name]
         bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_SEC
         ops_ms = 1e3 * flops / BF16_FLOPS_PER_SEC
         res[name] = dict(
             ms=time_ms(kernel, [None], reps=20, warmup=3),
-            plain_ms=time_ms(plain, [None], reps=3, warmup=1),
+            plain_ms=(time_ms(plain_fn, [None], reps=3, warmup=1)
+                      if plain else None),
             bound_ms=max(bytes_ms, ops_ms),
             bound_by="bytes" if bytes_ms >= ops_ms else "operations",
             bytes=nbytes, flops=flops, max_abs_err=err_of[name],
             library_ms=library[name][0], library_note=library[name][1],
         )
         res[name]["tflops"] = flops / res[name]["ms"] / 1e9
-    emit("flash_timing", shape=dict(B=b, S=s, H=h, Hkv=h, D=d,
-                                    dtype="bfloat16", causal=True), **res)
     return res
+
+
+def phase_flash_timing():
+    """:func:`flash_timing_at` over :data:`FLASH_TIMING_SHAPES`, one line
+    each; returns the flagship shape's timings."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    out = {}
+    for name, shape in FLASH_TIMING_SHAPES:
+        res = flash_timing_at(gen, plain=name == "flagship", **shape)
+        emit("flash_timing", case=name, shape=dict(
+            B=shape["b"], S=shape["s"], H=shape["h"], Hkv=shape["hkv"],
+            D=shape["d"], dtype="bfloat16", causal=True), **res)
+        out[name] = res
+    return out["flagship"]
 
 
 TRAIN_K, TRAIN_B, TRAIN_S = 4, 8, 2048
@@ -985,6 +1047,153 @@ def phase_optimizer_timing(model):
          fused_adamw_ms=fused_ms,
          bound_ms=1e3 * 7 * 4 * n / HBM_BYTES_PER_SEC, bound_by="bytes",
          device=torch.cuda.get_device_name(0))
+
+
+#: A minimal kernel shaped like the bf16 K4 consumer's loop at D = 128
+#: (dK and dV sums of 64 registers each, S^T and dP^T tiles of 32, the
+#: packed P^T and dS^T fragments), built in five variants to see
+#: which one ptxas lets hold them without spilling: 0, 384 threads with
+#: the role index threadIdx.x / 128 and setmaxnreg 24/240, the producer
+#: returning at once; 1, the same with the index read from lane 0
+#: (warp-uniform); 2, 288 threads (two consumer warpgroups and one
+#: producer warp), no setmaxnreg; 3, as 0 but with the consumer in the
+#: else branch of the role test, so both roles reach the kernel's end; 4,
+#: as 0 but the consumer's barrier wait has the watchdog (a __trap after
+#: 4 s) that the others' lacks.
+REGISTER_PROBE = r"""
+#include <cuda_bf16.h>
+
+#include "hopper.cuh"
+constexpr int kThreads = VARIANT == 2 ? 288 : 384;
+__global__ void __launch_bounds__(kThreads, 1)
+    register_probe(float* out, int n, float scale) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = (hopper::smem_u32(smem) + 1023u) & ~1023u;
+  const float* col = reinterpret_cast<const float*>(smem);
+#if VARIANT == 1
+  const int wg = __shfl_sync(0xffffffffu, (int)threadIdx.x / 128, 0);
+#else
+  const int wg = threadIdx.x / 128;
+#endif
+  const bool producer = VARIANT == 2 ? wg == 2 : wg == 0;
+  if (producer) {
+#if VARIANT != 2
+    hopper::reg_dealloc<24>();
+#endif
+    if (threadIdx.x % 128 == 0) out[0] = 0.f;
+#if VARIANT != 3
+    return;
+  }
+#else
+  } else {
+#endif
+#if VARIANT != 2
+  hopper::reg_alloc<240>();
+#endif
+  const int t = threadIdx.x & 3;
+  float dk[64], dv[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+  for (int it = 0; it < n; ++it) {
+    float s[32], dp[32];
+    const uint32_t st = base + (it & 1) * 32768;
+#if VARIANT == 4
+    hopper::mbar_wait(base + 65536, it & 1);
+#else
+    hopper::mbar_wait_spin(base + 65536, it & 1);
+#endif
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t a0 = base + (kk >> 2) * 16384 + (kk & 3) * 32;
+      const uint32_t b0 = st + (kk >> 2) * 16384 + (kk & 3) * 32;
+      hopper::wgmma_m64n64_ss<0, 0>(s, hopper::desc_sw128(a0, 16, 1024),
+                                    hopper::desc_sw128(b0, 16, 1024), kk > 0);
+      hopper::wgmma_m64n64_ss<0, 0>(dp, hopper::desc_sw128(a0 + 8192, 16, 1024),
+                                    hopper::desc_sw128(b0 + 8192, 16, 1024),
+                                    kk > 0);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    uint32_t pp[16], dsp[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int c = 8 * (i >> 1) + 2 * t;
+      float p0 = exp2f(fmaf(s[2 * i], scale, -col[c]));
+      float p1 = exp2f(fmaf(s[2 * i + 1], scale, -col[c + 1]));
+      if (c > it) p0 = p1 = 0.f;
+      const float d0 = p0 * (dp[2 * i] - col[64 + c]) * scale;
+      const float d1 = p1 * (dp[2 * i + 1] - col[65 + c]) * scale;
+      __nv_bfloat162 x = __floats2bfloat162_rn(p0, p1);
+      __nv_bfloat162 y = __floats2bfloat162_rn(d0, d1);
+      pp[i] = *reinterpret_cast<uint32_t*>(&x);
+      dsp[i] = *reinterpret_cast<uint32_t*>(&y);
+    }
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t b0 = st + kk * 2048;
+      hopper::wgmma_m64n128_rs<1>(
+          dv, pp + 4 * kk, hopper::desc_sw128(b0 + 16384, 8192, 1024), 1);
+      hopper::wgmma_m64n128_rs<1>(
+          dk, dsp + 4 * kk, hopper::desc_sw128(b0, 8192, 1024), 1);
+    }
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dk);
+    hopper::fence_regs(dv);
+    hopper::fence_regs(pp);
+    hopper::fence_regs(dsp);
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    out[threadIdx.x * 128 + i] = dk[i];
+    out[threadIdx.x * 128 + 64 + i] = dv[i];
+  }
+#if VARIANT == 3
+  }
+#endif
+}
+"""
+
+
+def phase_register_probe():
+    """Build :data:`REGISTER_PROBE` in its five variants (one
+    ``nvcc`` each, all started together) and report what ``-Xptxas=-v``
+    says of each: registers, stack, spills.  Not run by :func:`main`:
+    ``python3 -c "import chip_smoke as c; c.phase_env();
+    c.phase_register_probe()"``."""
+    from tensorflowonspark_tpu_torch.ops import _build
+
+    out_dir = os.path.join(_build.BUILD_DIR, "register_probe")
+    os.makedirs(out_dir, exist_ok=True)
+    src = os.path.join(out_dir, "register_probe.cu")
+    with open(src, "w") as f:
+        f.write(REGISTER_PROBE)
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared",
+                                                       "-Xcompiler",
+                                                       "-fPIC")]
+    procs = {v: subprocess.Popen(
+        [_build.nvcc_path(), *flags, "-cubin", "-DVARIANT={0}".format(v),
+         "-I", _build.CSRC_DIR, "-o",
+         os.path.join(out_dir, "probe{0}.cubin".format(v)), src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for v in (0, 1, 2, 3, 4)}
+    layouts = {0: "384 threads, threadIdx.x / 128, setmaxnreg 24/240",
+               1: "384 threads, warp-uniform index, setmaxnreg 24/240",
+               2: "288 threads, no setmaxnreg",
+               3: "384 threads, setmaxnreg 24/240, roles joined at the end",
+               4: "as 0, the consumer's wait with the trapping watchdog"}
+    res = {}
+    for v, proc in procs.items():
+        report = proc.communicate()[0]
+        res[layouts[v]] = dict(rc=proc.returncode,
+                               ptxas=ptxas_functions(report),
+                               report=report[-2000:])
+    emit("register_probe", **res)
+    return res
 
 
 #: lower-case kernel-name fragments -> class, first match wins, for the
@@ -1696,6 +1905,7 @@ def main():
     flagship = phase_slice_flagship(tree, init_s)
     phase_kernel_vs_gather()
     phase_flash_cases()
+    phase_flash_repeat()
     flash = phase_flash_timing()
     train, model = phase_train_flagship(tree, flash)
     del tree
@@ -1722,9 +1932,9 @@ def main():
     )] + [
         kernel_entry("flash_fwd", "flash_fwd_wgmma", jax_flash + "132",
                      train["launches"]["fwd"], flash["fwd"]),
-        kernel_entry("flash_dq", "flash_dq_kernel", jax_flash + "198",
+        kernel_entry("flash_dq", "flash_dq_wgmma", jax_flash + "198",
                      train["launches"]["dq"], flash["dq"]),
-        kernel_entry("flash_dkv", "flash_dkv_kernel", jax_flash + "256",
+        kernel_entry("flash_dkv", "flash_dkv_wgmma", jax_flash + "256",
                      train["launches"]["dkv"], flash["dkv"]),
     ] + [
         kernel_entry(name, GMM_WGMMA[name], jax_gmm + line,

@@ -1,10 +1,12 @@
-// Flash attention forward and backward for Hopper (sm_90a): three kernels.
+// Flash attention forward and backward for Hopper (sm_90a).
 //
 //   K2 flash_fwd_wgmma (bf16) and flash_fwd_kernel (f32) replace
 //      `_fwd_kernel` (the JAX package's ops/flash_attention.py:132,
 //      pallas_call at :409): O and lse.
-//   K3 flash_dq_kernel   replaces `_dq_kernel` (:198, call :491): dQ.
-//   K4 flash_dkv_kernel  replaces `_dkv_kernel` (:256, call :523): dK, dV.
+//   K3 flash_dq_wgmma (bf16) and flash_dq_kernel (f32) replace
+//      `_dq_kernel` (:198, call :491): dQ.
+//   K4 flash_dkv_wgmma (bf16) and flash_dkv_kernel (f32) replace
+//      `_dkv_kernel` (:256, call :523): dK, dV.
 //
 // They compute what the TPU kernels compute, with the same rounding
 // points: logits s = scale * q.k in f32 with a finite -1e30 mask; the
@@ -34,39 +36,35 @@
 // Design.  The TPU grid streams kv blocks through a sequential trailing
 // grid dimension with the softmax state in VMEM scratch; GPU blocks run
 // in no order, so each block owns one output tile and loops over the
-// tiles it needs itself, with the state in registers:
-//  - K2 in bf16 (flash_fwd_wgmma, below): warp-specialised wgmma fed by
-//    TMA; see its own note.  The rest of this list describes the
-//    mma.sync kernels: K2 in f32, K3 and K4 in both types.
-//  - K2 and K3: one block per (q tile of 64 rows, head, batch); the loop
-//    runs over the key tiles from the first one the window can touch to
-//    the diagonal (causal) or the last (non-causal).  Tiles outside are
-//    skipped, not masked (the reference's _block_relevant/banding).
-//  - K4: one block per (key tile of 64 rows, kv head, batch), looping
-//    over the G query heads of the kv head and the q tiles from the
-//    diagonal to the window's end.  dK and dV accumulate in f32 registers
-//    over the whole group and are written once, cast once: the group sum
-//    happens inside the kernel (the reference writes per-q-head f32
-//    partials and sums them outside, :563-566).  No atomics anywhere, so
-//    every run is bit-reproducible.
-//  - The products run on the tensor cores for bf16: mma.sync m16n8k16
-//    (bf16 in, f32 accumulate), fragments read from shared memory with
-//    ldmatrix (.trans where the operand is stored k-major).  For
-//    f32 the same per-thread accumulator layout is computed with FMAs
-//    (no TF32), so the f32 tolerances hold.  Each of the 4 warps owns 16
-//    rows of the block's 64-row tile; the Q (or K) tile and each streamed
-//    K/V (or Q/dO) tile are staged in shared memory with 16-byte loads,
-//    rows padded by 16 bytes against bank conflicts, and the ragged tail
-//    past S is zero-filled and masked.
-// Later work toward the bound: K3 and K4 on the same wgmma/TMA machinery
-// (hopper.cuh); for K2, 64-key tiles, so that the next tile's Q.K^T fits
-// in the registers beside a softmax (see the bf16 K2's note).
+// tiles it needs itself, with the state in registers.  No atomics
+// anywhere, so every run is bit-reproducible.
+//  - bf16 (K2 flash_fwd_wgmma, K3 flash_dq_wgmma, K4 flash_dkv_wgmma):
+//    warp-specialised wgmma kernels fed by TMA (hopper.cuh); see their
+//    own notes below.
+//  - f32 (flash_fwd_kernel, flash_dq_kernel, flash_dkv_kernel): the
+//    mma.sync accumulator layout computed with FMAs (no TF32), so the
+//    f32 tolerances hold.  K2 and K3: one block per (q tile of 64 rows,
+//    head, batch); the loop runs over the key tiles from the first one
+//    the window can touch to the diagonal (causal) or the last (non-
+//    causal).  Tiles outside are skipped, not masked (the reference's
+//    _block_relevant/banding).  K4: one block per (key tile of 64 rows,
+//    kv head, batch), looping over the G query heads of the kv head and
+//    the q tiles from the diagonal to the window's end; dK and dV
+//    accumulate in f32 registers over the whole group and are written
+//    once, cast once: the group sum happens inside the kernel (the
+//    reference writes per-q-head f32 partials and sums them outside,
+//    :563-566).  Each of the 4 warps owns 16 rows of the block's 64-row
+//    tile; the tiles are staged in shared memory with 16-byte cp.async
+//    copies, rows padded by 16 bytes against bank conflicts, and the
+//    ragged tail past S is zero-filled and masked.
+// Later work toward the bound: for the bf16 K2, 64-key tiles, so that the
+// next tile's Q.K^T can be in flight during a softmax (see its note);
+// for K3 and K4, the next tile's products in flight during the
+// elementwise work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -116,62 +114,14 @@ __device__ __forceinline__ uint32_t shared_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Warp-level 16x8x16 product c += A.B in the mma.sync accumulator layout:
-// lane (g = lane / 4, t = lane % 4) holds c[0], c[1] at row g, columns
-// 2t, 2t+1 and c[2], c[3] at row g + 8.  Element (m, k) of A is
-// a[m * am + k * ak], element (k, n) of B is b[k * bk + n * bn].
+// Warp-level 16x8x16 product c += A.B in the mma.sync accumulator layout,
+// for f32 computed with FMAs from shared memory (no TF32): lane (g = lane
+// / 4, t = lane % 4) holds c[0], c[1] at row g, columns 2t, 2t+1 and
+// c[2], c[3] at row g + 8.  Element (m, k) of A is a[m * am + k * ak],
+// element (k, n) of B is b[k * bk + n * bn].
 template <typename T>
 struct Mma;
 
-template <>
-struct Mma<bf16> {
-  struct A {
-    uint32_t r[4];
-  };
-  struct B {
-    uint32_t r[2];
-  };
-  // A is read along k (ak == 1 at every call site): one ldmatrix.x4 of
-  // the four 8x8 quarters, lane l addressing row l % 8 of quarter l / 8
-  static __device__ __forceinline__ void load_a(A& f, const bf16* a, int am,
-                                                int ak) {
-    const int lane = threadIdx.x & 31, r = lane & 7, j = lane >> 3;
-    const bf16* p = a + (r + 8 * (j & 1)) * am + 8 * (j >> 1) * ak;
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-        : "=r"(f.r[0]), "=r"(f.r[1]), "=r"(f.r[2]), "=r"(f.r[3])
-        : "r"(shared_addr(p)));
-  }
-  // B stored [n][k] (bk == 1): ldmatrix.x2 of the two k halves; stored
-  // [k][n] (bn == 1): the transposing ldmatrix.x2.trans
-  static __device__ __forceinline__ void load_b(B& f, const bf16* b, int bk,
-                                                int bn) {
-    const int lane = threadIdx.x & 31, r = lane & 7, j = (lane >> 3) & 1;
-    if (bk == 1) {
-      asm volatile(
-          "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-          : "=r"(f.r[0]), "=r"(f.r[1])
-          : "r"(shared_addr(b + r * bn + 8 * j)));
-    } else {
-      asm volatile(
-          "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-          : "=r"(f.r[0]), "=r"(f.r[1])
-          : "r"(shared_addr(b + (r + 8 * j) * bk)));
-    }
-  }
-  static __device__ __forceinline__ void mma(float c[4], const A& a,
-                                             const B& b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a.r[0]), "r"(a.r[1]), "r"(a.r[2]), "r"(a.r[3]), "r"(b.r[0]),
-          "r"(b.r[1]));
-  }
-};
-
-// f32: the same accumulator layout computed with FMAs from shared memory.
 template <>
 struct Mma<float> {
   struct A {
@@ -459,10 +409,9 @@ __global__ void __launch_bounds__(kThreads)
 // the ragged tail are masked.  The q tiles run heaviest first across the
 // whole grid (the slowest grid dimension counts down), which shortens the
 // causal tail.  Nothing but O, m and l is carried from one key tile to
-// the next: ptxas allocates the consumers within the 168 registers of
-// the 384-thread launch bound (setmaxnreg moves registers at run time,
-// not in the allocation), and at D = 128 one tile's O, S and P fill
-// them, so the next tile's Q.K^T cannot be in flight during a softmax.
+// the next: at D = 128 one tile's O, S and P fill most of the consumers'
+// registers, and a loop that kept the next tile's Q.K^T in flight during
+// a softmax spilled.
 // Exponentials are ex2.approx of the logits scaled by scale * log2(e) in
 // one FFMA (lse 1e-5 of the plain version's on the card).
 
@@ -925,31 +874,464 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------- K3 and K4, bf16: wgmma + TMA
+//
+// flash_dq_wgmma (K3) and flash_dkv_wgmma (K4) replace `_dq_kernel` and
+// `_dkv_kernel` of the JAX package's ops/flash_attention.py (:198 and
+// :256, pallas_call at :491 and :523) for bf16.  Bound: operations (3 and
+// 4 causal products, 0.104 and 0.139 ms at the flagship training shape).
+// Each keeps the reference's orientation, so that both products that
+// consume P or dS take it as a register A operand straight from the
+// accumulator of the product that made it, and neither goes through
+// shared memory:
+//  - K3: one block per (128-row q tile, head, batch); the q tiles run
+//    heaviest first across the grid, as K2's do.  Q and dO land once;
+//    K and V tiles of 64 keys stream through a 3-stage full/empty ring
+//    from the diagonal down.  Per key tile each consumer warpgroup (64 q
+//    rows) forms S = Q.K^T and dP = dO.V^T (m64n64, both operands
+//    K-major), p and ds in f32 registers, and dQ += dS.K with dS packed
+//    to bf16 A fragments and K read MN-major.  The dQ product of one tile
+//    runs while the next tile's S and dP are issued.
+//  - K4: one block per (128-key tile, kv head, batch); the key tiles run
+//    lowest (heaviest under causality) first.  K and V land once; Q and
+//    dO tiles of 64 rows stream with their lse and delta (1-D f32 maps:
+//    entries past the array load as zeros, entries of the next head's
+//    row meet a masked column) over the G query heads of the kv head and
+//    the q tiles from the diagonal to the window's end.  Per step each
+//    consumer warpgroup (64 keys) forms S^T = K.Q^T and dP^T = V.dO^T,
+//    p^T and ds^T, and dV += P^T.dO and dK += dS^T.Q (dO and Q read
+//    MN-major).  dK and dV sum the whole GQA group in f32 registers and
+//    are written once.
+// 384 threads: warpgroup 0 produces (one thread starts every TMA load),
+// warpgroups 1 and 2 consume, and setmaxnreg gives the consumers 240
+// registers: K4 at D = 128 holds dK and dV (64 registers each), S^T and
+// dP^T (32 each) and the packed P^T and dS^T (16 each).  ptxas reports
+// 168 registers (the 384-thread launch bound) and allocates the code
+// after setmaxnreg.inc within 240, but only where no __trap can follow:
+// with the watchdog's wait in the consumers, K4 spilled 528 B at D = 128
+// and 24 B at D = 64, and K3's products were serialised.  So the
+// consumers wait without the watchdog (mbar_wait_spin) and the producer,
+// once every tile is loaded, waits with it for the consumers' last
+// releases (mbar_drain): a lost wake-up still traps
+// (chip_smoke.phase_register_probe shows both effects on a small loop).
+// A warpgroup skips a streamed tile none of whose pairs is visible to its
+// 64 rows, and masks only the diagonal, the window's edge and the ragged
+// tail.  Exponentials are
+// ex2.approx of the logits scaled by scale * log2(e) minus lse * log2(e)
+// in one FFMA.  The epilogue rounds once, writes the warpgroup's rows
+// into its own rows of the Q (K3) or K and V (K4) boxes, 128-byte
+// swizzled, and stores them by TMA through maps whose S extent clips a
+// ragged tail.  No atomics: every run is bit-reproducible.
+
+constexpr int kBwRows = 128;       // the block's own rows: 2 x 64
+constexpr int kBwStep = 64;        // rows of a streamed tile
+constexpr int kBwStages = 3;       // depth of the streamed ring
+constexpr int kBwThreads = 384;    // producer + two consumer warpgroups
+constexpr uint32_t kOwnBox = kBwRows * 128;   // one [128][64] bf16 box
+constexpr uint32_t kStepBox = kBwStep * 128;  // one [64][64] bf16 box
+
+template <int D>
+struct BwdSmem {
+  static constexpr int kBoxes = D / 64;                // 64-wide boxes of D
+  static constexpr uint32_t kOwn = kBoxes * kOwnBox;   // [128][D]
+  static constexpr uint32_t kStep = kBoxes * kStepBox;  // [64][D]
+  // the two own tiles (Q, dO in K3; K, V in K4), then the ring; a stage
+  // holds two streamed tiles and, in K4, lse and delta (256 B each)
+  static constexpr uint32_t kRing = 2 * kOwn;
+  static constexpr uint32_t kRows = 2 * kStep;  // lse, delta in a stage
+  static constexpr uint32_t kStage = 2 * kStep + 1024;
+  static constexpr uint32_t kBar = kRing + kBwStages * kStage;
+  // barriers: own tiles full, then per stage full and empty
+  static constexpr size_t bytes = kBar + 8 * (1 + 2 * kBwStages) + 1024;
+};
+
+// d[64 x 64] = A.B^T over D, both operands K-major: sA is the
+// warpgroup's 64 rows of the own [128][D] boxes, sB a streamed [64][D]
+// tile.  No commit.
+template <int D>
+__device__ __forceinline__ void bw_start_ab(float (&d)[32], uint32_t sA,
+                                            uint32_t sB) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t c = (kk & 3) * 32;
+    hopper::wgmma_m64n64_ss<0, 0>(
+        d, hopper::desc_sw128(sA + (kk >> 2) * kOwnBox + c, 16, 1024),
+        hopper::desc_sw128(sB + (kk >> 2) * kStepBox + c, 16, 1024), kk > 0);
+  }
+}
+
+// d[64 x D] += A.B over 64 rows of B: A from registers (four per 16
+// rows), B a streamed [64][D] tile read MN-major.  No commit.
+template <int D>
+__device__ __forceinline__ void bw_start_rs(float (&d)[D / 2],
+                                            const uint32_t (&x)[16],
+                                            uint32_t sB) {
+#pragma unroll
+  for (int kk = 0; kk < kBwStep / 16; ++kk) {
+    const uint64_t db = hopper::desc_sw128(sB + kk * 2048, kStepBox, 1024);
+    if constexpr (D == 128)
+      hopper::wgmma_m64n128_rs<1>(d, x + 4 * kk, db, 1);
+    else
+      hopper::wgmma_m64n64_rs<1>(d, x + 4 * kk, db, 1);
+  }
+}
+
+// The f32 sums of a warpgroup's 64 rows, rounded to bf16, into its own
+// rows of the [128][64] boxes at `stage` (128-byte swizzle: row r holds
+// its 16-byte chunk j at chunk j ^ (r % 8), and r % 8 = g for both of
+// the thread's rows).
+template <int D>
+__device__ __forceinline__ void bw_stage_out(const float (&d)[D / 2],
+                                             uint32_t stage, int warp, int g,
+                                             int t) {
+  const int r = 16 * warp + g;
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c) {
+    const uint32_t at =
+        stage + (c >> 3) * kOwnBox + r * 128 + (((c & 7) ^ g) << 4) + 4 * t;
+    hopper::st_shared_b32(at, pack_bf16(d[4 * c], d[4 * c + 1]));
+    hopper::st_shared_b32(at + 8 * 128, pack_bf16(d[4 * c + 2], d[4 * c + 3]));
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwThreads, 1)
+    flash_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_do,
+                   const __grid_constant__ CUtensorMap tm_dq,
+                   const FlashArgs a) {
+  using L = BwdSmem<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // swizzled boxes start on 1024-byte boundaries
+  const uint32_t base = (hopper::smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sdO = base + L::kOwn, ring = base + L::kRing;
+  const uint32_t own_full = base + L::kBar;
+  const uint32_t full = own_full + 8, empty = full + 8 * kBwStages;
+
+  const int nq = (a.S + kBwRows - 1) / kBwRows;
+  const int q0 = (nq - 1 - (int)blockIdx.z) * kBwRows;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / (a.H / a.Hkv);
+  // key tiles: from the first the window can touch to the diagonal
+  // (causal) or the last; walked from the top down
+  const int q_last = min(a.S, q0 + kBwRows) - 1;
+  const int j_hi = a.causal ? q_last / kBwStep : (a.S - 1) / kBwStep;
+  const int j_lo =
+      (a.causal && a.window > 0) ? max(0, q0 - a.window + 1) / kBwStep : 0;
+  const int n_tiles = j_hi - j_lo + 1;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(own_full, 1);
+    for (int s = 0; s < kBwStages; ++s) {
+      hopper::mbar_init(full + 8 * s, 1);
+      hopper::mbar_init(empty + 8 * s, 8);  // every consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------------------------------------------- producer
+    hopper::reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_arrive_expect_tx(own_full, 2 * L::kOwn);
+      for (int x = 0; x < L::kBoxes; ++x) {
+        hopper::tma_load_4d(sQ + x * kOwnBox, &tm_q, own_full, 64 * x, q0, h,
+                            b);
+        hopper::tma_load_4d(sdO + x * kOwnBox, &tm_do, own_full, 64 * x, q0,
+                            h, b);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kBwStages, k0 = (j_hi - it) * kBwStep;
+        const uint32_t st = ring + s * L::kStage, bar = full + 8 * s;
+        hopper::mbar_wait(empty + 8 * s, ((it / kBwStages) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(bar, 2 * L::kStep);
+        for (int x = 0; x < L::kBoxes; ++x) {
+          hopper::tma_load_4d(st + x * kStepBox, &tm_k, bar, 64 * x, k0, hk,
+                              b);
+          hopper::tma_load_4d(st + L::kStep + x * kStepBox, &tm_v, bar, 64 * x,
+                              k0, hk, b);
+        }
+      }
+      hopper::mbar_drain(empty, kBwStages, n_tiles);
+    }
+    return;
+  }
+  // ---------------------------------------------------- consumers
+  hopper::reg_alloc<240>();
+  const int w = wg - 1, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 64 * w;  // this warpgroup's first row
+  const int row[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
+  const uint32_t sQw = sQ + w * 64 * 128, sdOw = sdO + w * 64 * 128;
+  const float scale_log2 = a.scale * kLog2e;
+  float lse2[2], dlt[2];  // lse * log2(e) and delta of the two rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const long long i = ((long long)b * a.H + h) * a.S + row[r];
+    lse2[r] = row[r] < a.S ? a.lse_in[i] * kLog2e : 0.f;
+    dlt[r] = row[r] < a.S ? a.delta[i] : 0.f;
+  }
+  constexpr int NQ = D / 2;  // the m64nD accumulator of dQ
+  float dq[NQ];
+#pragma unroll
+  for (int i = 0; i < NQ; ++i) dq[i] = 0.f;
+  uint32_t ds[16] = {};  // dS of the tile whose dQ product may run
+  int held = -1;         // that tile's stage
+
+  hopper::mbar_wait_spin(own_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kBwStages, k0 = (j_hi - it) * kBwStep;
+    const uint32_t st = ring + s * L::kStage;
+    hopper::mbar_wait_spin(full + 8 * s, (it / kBwStages) & 1);
+    // no pair of this tile is visible to the warpgroup's rows
+    if (r0 >= a.S || (a.causal && k0 > r0 + 63) ||
+        (a.window > 0 && k0 + kBwStep - 1 <= r0 - a.window)) {
+      if (lane == 0) hopper::mbar_arrive(empty + 8 * s);
+      continue;
+    }
+    float sc[32], dp[32];
+    hopper::wgmma_fence();
+    bw_start_ab<D>(sc, sQw, st);            // S = Q.K^T
+    bw_start_ab<D>(dp, sdOw, st + L::kStep);  // dP = dO.V^T
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();  // and the previous tile's dQ product
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+    hopper::fence_regs(ds);
+    if (held >= 0 && lane == 0) hopper::mbar_arrive(empty + 8 * held);
+
+    const bool masked = k0 + kBwStep > a.S ||
+                        (a.causal && k0 + kBwStep - 1 > r0) ||
+                        (a.window > 0 && k0 <= r0 + 63 - a.window);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int r = i & 1, col = k0 + 8 * (i >> 1) + 2 * t;
+      float p0 = ex2_approx(fmaf(sc[2 * i], scale_log2, -lse2[r]));
+      float p1 = ex2_approx(fmaf(sc[2 * i + 1], scale_log2, -lse2[r]));
+      if (masked) {
+        if (!visible(row[r], col, a)) p0 = 0.f;
+        if (!visible(row[r], col + 1, a)) p1 = 0.f;
+      }
+      // ds rounded to k's type
+      ds[i] = pack_bf16(p0 * (dp[2 * i] - dlt[r]) * a.scale,
+                        p1 * (dp[2 * i + 1] - dlt[r]) * a.scale);
+    }
+    hopper::wgmma_fence();
+    bw_start_rs<D>(dq, ds, st);  // dQ += dS.K
+    hopper::wgmma_commit();
+    held = s;
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(dq);
+  hopper::fence_regs(ds);
+  if (held >= 0 && lane == 0) hopper::mbar_arrive(empty + 8 * held);
+
+  // dQ rounded once, staged in this warpgroup's rows of the Q boxes
+  // (its products are done with them) and stored by TMA
+  if (r0 < a.S) {
+    bw_stage_out<D>(dq, sQw, warp, g, t);
+    hopper::fence_proxy_async();
+    hopper::named_sync(1 + w, 128);
+    if (tid == 0) {
+      for (int x = 0; x < L::kBoxes; ++x)
+        hopper::tma_store_4d(&tm_dq, sQw + x * kOwnBox, 64 * x, r0, h, b);
+      hopper::bulk_commit();
+      hopper::bulk_wait_read<0>();  // the staging read before the exit
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kBwThreads, 1)
+    flash_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do,
+                    const __grid_constant__ CUtensorMap tm_lse,
+                    const __grid_constant__ CUtensorMap tm_delta,
+                    const __grid_constant__ CUtensorMap tm_dk,
+                    const __grid_constant__ CUtensorMap tm_dv,
+                    const FlashArgs a) {
+  using L = BwdSmem<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sK = base, sV = base + L::kOwn, ring = base + L::kRing;
+  const uint32_t own_full = base + L::kBar;
+  const uint32_t full = own_full + 8, empty = full + 8 * kBwStages;
+  // the ring's lse and delta, as the consumers read them
+  const unsigned char* ring_ptr = smem_raw + (ring - raw);
+
+  const int k0 = blockIdx.z * kBwRows;
+  const int hk = blockIdx.x, b = blockIdx.y, G = a.H / a.Hkv;
+  // q tiles: from the diagonal (causal) or the first to the window's end
+  // or the last; the steps walk the G query heads, q tiles inner
+  const int k_last = min(a.S, k0 + kBwRows) - 1;
+  const int i_lo = a.causal ? k0 / kBwStep : 0;
+  const int i_hi = (a.causal && a.window > 0)
+                       ? min(a.S - 1, k_last + a.window - 1) / kBwStep
+                       : (a.S - 1) / kBwStep;
+  const int nq = i_hi - i_lo + 1, steps = G * nq;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(own_full, 1);
+    for (int s = 0; s < kBwStages; ++s) {
+      hopper::mbar_init(full + 8 * s, 1);
+      hopper::mbar_init(empty + 8 * s, 8);  // every consumer warp
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---------------------------------------------------- producer
+    hopper::reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_arrive_expect_tx(own_full, 2 * L::kOwn);
+      for (int x = 0; x < L::kBoxes; ++x) {
+        hopper::tma_load_4d(sK + x * kOwnBox, &tm_k, own_full, 64 * x, k0, hk,
+                            b);
+        hopper::tma_load_4d(sV + x * kOwnBox, &tm_v, own_full, 64 * x, k0, hk,
+                            b);
+      }
+      for (int it = 0; it < steps; ++it) {
+        const int s = it % kBwStages, h = hk * G + it / nq;
+        const int q0 = (i_lo + it % nq) * kBwStep;
+        const uint32_t st = ring + s * L::kStage, bar = full + 8 * s;
+        const int row0 = (b * a.H + h) * a.S + q0;  // in [B, H, S]
+        hopper::mbar_wait(empty + 8 * s, ((it / kBwStages) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(bar, 2 * L::kStep + 2 * 256);
+        for (int x = 0; x < L::kBoxes; ++x) {
+          hopper::tma_load_4d(st + x * kStepBox, &tm_q, bar, 64 * x, q0, h, b);
+          hopper::tma_load_4d(st + L::kStep + x * kStepBox, &tm_do, bar,
+                              64 * x, q0, h, b);
+        }
+        hopper::tma_load_1d(st + L::kRows, &tm_lse, bar, row0);
+        hopper::tma_load_1d(st + L::kRows + 256, &tm_delta, bar, row0);
+      }
+      hopper::mbar_drain(empty, kBwStages, steps);
+    }
+    return;
+  }
+  // ---------------------------------------------------- consumers
+  hopper::reg_alloc<240>();
+  const int w = wg - 1, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int kw0 = k0 + 64 * w;  // this warpgroup's first key
+  const int key[2] = {kw0 + 16 * warp + g, kw0 + 16 * warp + g + 8};
+  const uint32_t sKw = sK + w * 64 * 128, sVw = sV + w * 64 * 128;
+  const float scale_log2 = a.scale * kLog2e;
+  constexpr int NK = D / 2;  // the m64nD accumulators of dK and dV
+  float dk[NK], dv[NK];
+#pragma unroll
+  for (int i = 0; i < NK; ++i) dk[i] = dv[i] = 0.f;
+
+  hopper::mbar_wait_spin(own_full, 0);
+  for (int it = 0; it < steps; ++it) {
+    const int s = it % kBwStages, q0 = (i_lo + it % nq) * kBwStep;
+    const uint32_t st = ring + s * L::kStage;
+    hopper::mbar_wait_spin(full + 8 * s, (it / kBwStages) & 1);
+    // no pair of this step is visible to the warpgroup's keys
+    if (kw0 >= a.S || (a.causal && q0 + kBwStep - 1 < kw0) ||
+        (a.window > 0 && q0 - (kw0 + 63) >= a.window)) {
+      if (lane == 0) hopper::mbar_arrive(empty + 8 * s);
+      continue;
+    }
+    float sc[32], dp[32];
+    hopper::wgmma_fence();
+    bw_start_ab<D>(sc, sKw, st);            // S^T = K.Q^T
+    bw_start_ab<D>(dp, sVw, st + L::kStep);  // dP^T = V.dO^T
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dp);
+
+    const bool masked = q0 + kBwStep > a.S || kw0 + 64 > a.S ||
+                        (a.causal && q0 < kw0 + 63) ||
+                        (a.window > 0 && q0 + kBwStep - 1 - kw0 >= a.window);
+    const float* lse = reinterpret_cast<const float*>(
+        ring_ptr + s * L::kStage + L::kRows);
+    const float* delta = lse + 64;
+    uint32_t pt[16], ds[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int r = i & 1, c = 8 * (i >> 1) + 2 * t;  // column in the tile
+      const float2 l = *reinterpret_cast<const float2*>(lse + c);
+      const float2 dl = *reinterpret_cast<const float2*>(delta + c);
+      float p0 = ex2_approx(fmaf(sc[2 * i], scale_log2, -l.x * kLog2e));
+      float p1 = ex2_approx(fmaf(sc[2 * i + 1], scale_log2, -l.y * kLog2e));
+      if (masked) {
+        if (!visible(q0 + c, key[r], a)) p0 = 0.f;
+        if (!visible(q0 + c + 1, key[r], a)) p1 = 0.f;
+      }
+      // p rounded to dO's type, ds to q's
+      pt[i] = pack_bf16(p0, p1);
+      ds[i] = pack_bf16(p0 * (dp[2 * i] - dl.x) * a.scale,
+                        p1 * (dp[2 * i + 1] - dl.y) * a.scale);
+    }
+    hopper::wgmma_fence();
+    bw_start_rs<D>(dv, pt, st + L::kStep);  // dV += P^T.dO
+    bw_start_rs<D>(dk, ds, st);             // dK += dS^T.Q
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dk);
+    hopper::fence_regs(dv);
+    hopper::fence_regs(pt);
+    hopper::fence_regs(ds);
+    if (lane == 0) hopper::mbar_arrive(empty + 8 * s);
+  }
+
+  // dK and dV rounded once, staged in this warpgroup's rows of the K
+  // and V boxes (its products are done with them) and stored by TMA
+  if (kw0 < a.S) {
+    bw_stage_out<D>(dk, sKw, warp, g, t);
+    bw_stage_out<D>(dv, sVw, warp, g, t);
+    hopper::fence_proxy_async();
+    hopper::named_sync(1 + w, 128);
+    if (tid == 0) {
+      for (int x = 0; x < L::kBoxes; ++x) {
+        hopper::tma_store_4d(&tm_dk, sKw + x * kOwnBox, 64 * x, kw0, hk, b);
+        hopper::tma_store_4d(&tm_dv, sVw + x * kOwnBox, 64 * x, kw0, hk, b);
+      }
+      hopper::bulk_commit();
+      hopper::bulk_wait_read<0>();  // the staging read before the exit
+    }
+  }
+}
+
 // ------------------------------------------------------------ launches
 
 enum Which { kFwd, kDq, kDkv };
 
-// A tensor map of q, k or v read from its strides as (D, S, H, B), boxes
-// of [128 rows][64]; rows at or past S load as zeros.
+// A tensor map of a [B, S, H, D] operand read from its strides as (D, S,
+// H, B), boxes of [rows][64]; rows at or past S load as zeros and are
+// not stored.
 int encode_bshd(CUtensorMap* map, const void* p, int B, int S, int H, int D,
-                long long sb, long long ss, long long sh) {
+                long long sb, long long ss, long long sh, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)ss * sizeof(bf16),
                                  (cuuint64_t)sh * sizeof(bf16),
                                  (cuuint64_t)sb * sizeof(bf16)};
-  const cuuint32_t box[4] = {64, kWgRows, 1, 1};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
   return hopper::encode_bf16(map, p, 4, dims, strides, box);
 }
 
 template <int D>
 int launch_fwd_wgmma(const FlashArgs& a, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  int err = encode_bshd(&tq, a.q, a.B, a.S, a.H, D, a.q_sb, a.q_ss, a.q_sh);
+  int err = encode_bshd(&tq, a.q, a.B, a.S, a.H, D, a.q_sb, a.q_ss, a.q_sh,
+                        kWgRows);
   if (err == 0)
-    err = encode_bshd(&tk, a.k, a.B, a.S, a.Hkv, D, a.k_sb, a.k_ss, a.k_sh);
+    err = encode_bshd(&tk, a.k, a.B, a.S, a.Hkv, D, a.k_sb, a.k_ss, a.k_sh,
+                      kWgKeys);
   if (err == 0)
-    err = encode_bshd(&tv, a.v, a.B, a.S, a.Hkv, D, a.v_sb, a.v_ss, a.v_sh);
+    err = encode_bshd(&tv, a.v, a.B, a.S, a.Hkv, D, a.v_sb, a.v_ss, a.v_sh,
+                      kWgKeys);
   if (err != 0) return err;
   constexpr size_t smem = FwdWgSmem<D>::bytes;
   cudaError_t e = cudaFuncSetAttribute(
@@ -961,18 +1343,83 @@ int launch_fwd_wgmma(const FlashArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The mma.sync kernels: K2 in f32 (bf16 K2 is flash_fwd_wgmma), K3 and K4.
-template <typename T, int D>
+// The bf16 backward maps: q, k, v and dO with the rows of their role
+// (the block's own 128 or a streamed 64), dQ or dK/dV as [64][64] store
+// boxes, lse and delta as 1-D f32 maps over [B, H, S].
+template <int D>
+int launch_dq_wgmma(const FlashArgs& a, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo, tdq;
+  const long long hd = (long long)a.H * D;
+  int err = encode_bshd(&tq, a.q, a.B, a.S, a.H, D, a.q_sb, a.q_ss, a.q_sh,
+                        kBwRows);
+  if (err == 0)
+    err = encode_bshd(&tk, a.k, a.B, a.S, a.Hkv, D, a.k_sb, a.k_ss, a.k_sh,
+                      kBwStep);
+  if (err == 0)
+    err = encode_bshd(&tv, a.v, a.B, a.S, a.Hkv, D, a.v_sb, a.v_ss, a.v_sh,
+                      kBwStep);
+  if (err == 0)
+    err = encode_bshd(&tdo, a.dout, a.B, a.S, a.H, D, a.o_sb, a.o_ss, a.o_sh,
+                      kBwRows);
+  if (err == 0)
+    err = encode_bshd(&tdq, a.dq, a.B, a.S, a.H, D, a.S * hd, hd, D, kBwStep);
+  if (err != 0) return err;
+  constexpr size_t smem = BwdSmem<D>::bytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(a.H, a.B, (a.S + kBwRows - 1) / kBwRows);
+  flash_dq_wgmma<D><<<grid, kBwThreads, smem, stream>>>(tq, tk, tv, tdo, tdq,
+                                                         a);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv_wgmma(const FlashArgs& a, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo, tlse, tdelta, tdk, tdv;
+  const long long hd = (long long)a.Hkv * D;
+  const cuuint64_t rows = (cuuint64_t)a.B * a.H * a.S;
+  int err = encode_bshd(&tq, a.q, a.B, a.S, a.H, D, a.q_sb, a.q_ss, a.q_sh,
+                        kBwStep);
+  if (err == 0)
+    err = encode_bshd(&tk, a.k, a.B, a.S, a.Hkv, D, a.k_sb, a.k_ss, a.k_sh,
+                      kBwRows);
+  if (err == 0)
+    err = encode_bshd(&tv, a.v, a.B, a.S, a.Hkv, D, a.v_sb, a.v_ss, a.v_sh,
+                      kBwRows);
+  if (err == 0)
+    err = encode_bshd(&tdo, a.dout, a.B, a.S, a.H, D, a.o_sb, a.o_ss, a.o_sh,
+                      kBwStep);
+  if (err == 0) err = hopper::encode_f32_1d(&tlse, a.lse_in, rows, kBwStep);
+  if (err == 0) err = hopper::encode_f32_1d(&tdelta, a.delta, rows, kBwStep);
+  if (err == 0)
+    err = encode_bshd(&tdk, a.dk, a.B, a.S, a.Hkv, D, a.S * hd, hd, D,
+                      kBwStep);
+  if (err == 0)
+    err = encode_bshd(&tdv, a.dv, a.B, a.S, a.Hkv, D, a.S * hd, hd, D,
+                      kBwStep);
+  if (err != 0) return err;
+  constexpr size_t smem = BwdSmem<D>::bytes;
+  cudaError_t e = cudaFuncSetAttribute(
+      flash_dkv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(a.Hkv, a.B, (a.S + kBwRows - 1) / kBwRows);
+  flash_dkv_wgmma<D><<<grid, kBwThreads, smem, stream>>>(
+      tq, tk, tv, tdo, tlse, tdelta, tdk, tdv, a);
+  return (int)cudaGetLastError();
+}
+
+// The mma.sync kernels, f32 only: K2, K3 and K4.
+template <int D>
 int launch(Which which, const FlashArgs& a, cudaStream_t stream) {
+  using T = float;
   void (*kernel)(const FlashArgs);
   size_t smem;
   dim3 grid;
   if (which == kFwd) {
-    if constexpr (std::is_same<T, bf16>::value) {
-      return (int)cudaErrorInvalidValue;
-    } else {
-      kernel = flash_fwd_kernel<T, D>;
-    }
+    kernel = flash_fwd_kernel<T, D>;
     smem = Smem<T, D>::fwd;
     grid = dim3((a.S + kBM - 1) / kBM, a.H, a.B);
   } else if (which == kDq) {
@@ -998,12 +1445,15 @@ int dispatch(Which which, const FlashArgs& a, int D, int is_bf16,
   if (is_bf16 && which == kFwd) {
     if (D == 64) return launch_fwd_wgmma<64>(a, s);
     if (D == 128) return launch_fwd_wgmma<128>(a, s);
+  } else if (is_bf16 && which == kDq) {
+    if (D == 64) return launch_dq_wgmma<64>(a, s);
+    if (D == 128) return launch_dq_wgmma<128>(a, s);
   } else if (is_bf16) {
-    if (D == 64) return launch<bf16, 64>(which, a, s);
-    if (D == 128) return launch<bf16, 128>(which, a, s);
+    if (D == 64) return launch_dkv_wgmma<64>(a, s);
+    if (D == 128) return launch_dkv_wgmma<128>(a, s);
   } else {
-    if (D == 64) return launch<float, 64>(which, a, s);
-    if (D == 128) return launch<float, 128>(which, a, s);
+    if (D == 64) return launch<64>(which, a, s);
+    if (D == 128) return launch<128>(which, a, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -7,6 +7,8 @@
 //  - Operand tiles are bf16 and land in shared memory through TMA with the
 //    128-byte swizzle: one box is [rows][64] (128 bytes a row), and a box
 //    starts on a 1024-byte boundary (one swizzle atom is 8 rows x 128 B).
+//    f32 row vectors (the flash backward's lse and delta) land unswizzled
+//    through 1-D maps.
 //  - A K-major operand (the reduction dimension contiguous in memory)
 //    walks its 16-element k steps by adding 32 bytes to the descriptor's
 //    start address inside the 128-byte row; 8-row groups are 1024 bytes
@@ -76,6 +78,25 @@ inline int encode_bf16(CUtensorMap* map, const void* base, int rank,
                       CU_TENSOR_MAP_INTERLEAVE_NONE,
                       CU_TENSOR_MAP_SWIZZLE_128B,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeFailed + (int)r;
+}
+
+// A 1-D f32 tensor map over `n` contiguous floats, boxes of `box`
+// elements (box * 4 a multiple of 16), no swizzle: elements at or past n
+// load as zeros.  0 on success.
+inline int encode_f32_1d(CUtensorMap* map, const void* base, cuuint64_t n,
+                         cuuint32_t box) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled_entry();
+  if (encode == nullptr) return kNoEncodeEntry;
+  const cuuint64_t dims[1] = {n};
+  const cuuint64_t strides[1] = {4};  // not read for rank 1
+  const cuuint32_t boxes[1] = {box};
+  const cuuint32_t unit[1] = {1};
+  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1,
+                      const_cast<void*>(base), dims, strides, boxes, unit,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                      CU_TENSOR_MAP_L2_PROMOTION_NONE,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kEncodeFailed + (int)r;
 }
@@ -160,6 +181,26 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// The same wait without the watchdog, for code after setmaxnreg.inc: a
+// possible __trap there makes ptxas ignore setmaxnreg and allocate such
+// code within the launch bound (168 registers at 384 threads), so a
+// loop that needs more spills (chip_smoke.phase_register_probe).  A
+// kernel whose consumers wait this way has its producer wait, with the
+// watchdog, for the consumers' release of every tile it loaded
+// (mbar_drain), so a lost wake-up still traps.
+__device__ __forceinline__ void mbar_wait_spin(uint32_t bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
+  }
+}
+
+// For a ring of `stages` empty barriers at `empty` (8 bytes apart) that
+// has carried `n` tiles: wait until the consumers released the last
+// tile of each stage.
+__device__ __forceinline__ void mbar_drain(uint32_t empty, int stages, int n) {
+  for (int it = n > stages ? n - stages : 0; it < n; ++it)
+    mbar_wait(empty + 8 * (it % stages), (it / stages) & 1);
+}
+
 // TMA tile loads into shared memory, completing `bar`'s transaction count
 
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
@@ -168,6 +209,15 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
       "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_1d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0)
       : "memory");
 }
 
@@ -201,6 +251,15 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
       "[%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {
@@ -315,6 +374,20 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
 // d[64 x N] (+)= A . B, bf16 in, f32 accumulate, both operands in shared
 // memory; TA / TB are the transpose bits (1 = MN-major).  scale_d = 0
 // overwrites d instead of adding to it.
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64_ss(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TFOS_REGS_32
+      ", %32, %33, p, 1, 1, %35, %36;\n"
+      "}\n"
+      : TFOS_F32(d, 0)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
 
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n128_ss(float (&d)[64], uint64_t da,

@@ -14,9 +14,11 @@ is a :class:`torch.autograd.Function` whose forward launches K2 and
 whose backward launches K3 and K4 for CUDA tensors; for CPU tensors it
 runs the plain PyTorch versions :func:`flash_forward_reference` and
 :func:`flash_backward_reference` (the kernels' oracles).  There is no
-fallback from one to the other.  In bf16, K2 is a warp-specialised
-Hopper kernel (``flash_fwd_wgmma``: TMA loads into ``mbarrier`` rings
-feeding ``wgmma``); f32 K2, K3 and K4 use ``mma.sync``.
+fallback from one to the other.  In bf16 all three are warp-specialised
+Hopper kernels (``flash_fwd_wgmma``, ``flash_dq_wgmma``,
+``flash_dkv_wgmma``: TMA loads into ``mbarrier`` rings feeding
+``wgmma``); in f32 they are ``mma.sync``-shaped kernels computed with
+FMAs.
 
 The plain versions round where the reference kernels round: ``p`` to
 ``v``'s type before ``P·V``, ``p`` to ``dO``'s type before ``Pᵀ·dO``,
@@ -387,8 +389,8 @@ def flash_attention(q, k, v, causal=True, scale=None, block_q=1024,
     Differentiable (:class:`torch.autograd.Function`).  ``block_q`` /
     ``block_k`` keep the reference's tiling rule (``seq_len`` must
     divide by a lane-aligned block no larger than them); the CUDA
-    kernels use their own tiles (64 rows; 128 in the bf16 forward) and
-    mask a ragged tail.
+    kernels use their own tiles (64 rows in f32; 128 own and 64 or 128
+    streamed rows in bf16) and mask a ragged tail.
 
     A CUDA ``q`` launches the kernels and counts each launch in
     ``flash_attention.launches`` (``fwd``, ``dq``, ``dkv``); a CPU ``q``

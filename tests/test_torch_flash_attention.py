@@ -209,23 +209,27 @@ def test_flash_kernels_are_registered():
         assert "int {0}(".format(fn) in text
 
 
-def _chip_mutants():
+def _repo_script(name):
+    """The repository's top-level script ``<name>.py`` as a module."""
     import importlib.util
 
     path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "chip_mutants.py")
-    spec = importlib.util.spec_from_file_location("chip_mutants", path)
+        os.path.abspath(__file__))), name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
-@pytest.mark.parametrize("name", ["diag", "zero_dq", "fwd_wgmma_diag"])
+@pytest.mark.parametrize("name", ["diag", "zero_dq", "fwd_wgmma_diag",
+                                  "dq_wgmma_diag", "dkv_wgmma_diag",
+                                  "dq_wgmma_diag_key",
+                                  "dkv_wgmma_first_head"])
 def test_planted_faults_still_apply_to_the_kernel_source(name):
     """Each planted fault of ``chip_mutants.py`` finds its lines in the
     kernel source exactly once, so the card-side check of the checks
     keeps breaking what it says it breaks."""
-    mutants = _chip_mutants()
+    mutants = _repo_script("chip_mutants")
     _, subs, check = mutants.MUTANTS[name]
     assert check in mutants.CHECKS
     with open(os.path.join(_build.CSRC_DIR, "flash_attention.cu")) as f:
@@ -234,3 +238,25 @@ def test_planted_faults_still_apply_to_the_kernel_source(name):
     assert mutated != text
     with pytest.raises(ValueError, match="found 0 times"):
         mutants.mutate(mutated, subs)
+
+
+@pytest.mark.parametrize("hkv", [4, 1])
+def test_flash_bounds_count_each_operand_once_and_the_visible_pairs(hkv):
+    """``chip_smoke.flash_bounds`` (the ``bound_ms`` of K2-K4, MHA and
+    GQA) against the bytes of the tensors each kernel reads and writes
+    and the flop of its products over the causal mask's pairs."""
+    b, s, h, d = 2, 96, 4, 64
+    q = torch.empty(b, s, h, d, dtype=torch.bfloat16)
+    kv = torch.empty(b, s, hkv, d, dtype=torch.bfloat16)
+    rows = torch.empty(b, h, s, dtype=torch.float32)
+
+    def nbytes(*xs):
+        return sum(x.numel() * x.element_size() for x in xs)
+
+    product = 2 * d * b * h * int(torch.ones(s, s).tril().sum())
+    want = {
+        "fwd": (nbytes(q, kv, kv, q, rows), 2 * product),
+        "dq": (nbytes(q, kv, kv, q, rows, rows, q), 3 * product),
+        "dkv": (nbytes(q, kv, kv, q, rows, rows, kv, kv), 4 * product),
+    }
+    assert _repo_script("chip_smoke").flash_bounds(b, s, h, hkv, d, 2) == want
