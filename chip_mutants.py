@@ -1,5 +1,5 @@
-"""Planted faults in the flash and grouped-matmul kernels, to show that
-the checks of ``chip_smoke.py`` catch them.
+"""Planted faults in the flash, grouped-matmul and paged-decode kernels,
+to show that the checks of ``chip_smoke.py`` catch them.
 
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit (``nvcc``)::
@@ -9,8 +9,8 @@ toolkit (``nvcc``)::
 
 Each mutant copies ``chip_smoke.py``, this file and the port's package
 into a temporary directory, rewrites a few lines of its kernel source
-there (``csrc/flash_attention.cu``, or ``csrc/gmm.cu`` for the mutants
-in :data:`SOURCES`), builds the kernels in that copy and runs the
+there (``csrc/flash_attention.cu``, or the source :data:`SOURCES`
+names), builds the kernels in that copy and runs the
 ``chip_smoke.py`` check it names.  ``diag``, ``zero_dq`` and
 ``tgmm_last_tile`` break the ``mma.sync``-shaped kernels, which run f32
 only (K2, K3, K4, K7); ``fwd_wgmma_diag``, ``dq_wgmma_diag``,
@@ -22,6 +22,10 @@ and ``rows_wgmma_dxt_last_stage`` break the bf16 Hopper kernels
 ``dkv_wgmma_first_head`` (the bf16 K4 drops every query head of a GQA
 group but the first) are smaller faults; ``skip_last_live_tile`` breaks
 the skip of the all-pad row tiles that K5 and K6 share in both types.
+``paged_split_short``, ``paged_combine_last_split`` and
+``paged_mask_last_key`` break the paged-decode kernels (K1): each split
+stops one page short, the combine drops the last split, the key at
+position ``len - 1`` is masked.
 It prints one JSON line per case and one per mutant; the last line
 lists the mutants that survived, and the exit code is 0 only when every
 mutant was caught.  The repository itself is never modified.
@@ -36,6 +40,7 @@ from pathlib import Path
 
 SOURCE = "tensorflowonspark_tpu_torch/csrc/flash_attention.cu"
 GMM_SOURCE = "tensorflowonspark_tpu_torch/csrc/gmm.cu"
+PAGED_SOURCE = "tensorflowonspark_tpu_torch/csrc/paged_attention.cu"
 
 #: name -> (what it breaks, [(source text, replacement)], check)
 MUTANTS = {
@@ -129,11 +134,34 @@ MUTANTS = {
           "  return live < kBM ? 0 : kBM;")],
         "gmm_case+moe_train_dropless_vs_gather",
     ),
+    "paged_split_short": (
+        "K1 (paged_decode_split): each split stops one page short of its "
+        "share",
+        [("  const int np = hi - lo;",
+          "  const int np = max(hi - lo - 1, 0);")],
+        "kernel_case",
+    ),
+    "paged_combine_last_split": (
+        "K1 (paged_combine) drops the last split's partial state",
+        [("  const int S = a.splits;", "  const int S = a.splits - 1;")],
+        "kernel_case",
+    ),
+    "paged_mask_last_key": (
+        "K1 (paged_decode_split) masks the key at position len - 1, the "
+        "query's own",
+        [("keep[i] = r < T && pos < len &&",
+          "keep[i] = r < T && pos < len - 1 &&")],
+        "kernel_case",
+    ),
 }
 #: mutants of another source than :data:`SOURCE`
-SOURCES = {name: GMM_SOURCE for name in (
-    "tgmm_last_tile", "tgmm_wgmma_last_tile", "rows_wgmma_fwd_shift",
-    "rows_wgmma_dxt_last_stage", "skip_last_live_tile")}
+SOURCES = dict(
+    {name: GMM_SOURCE for name in (
+        "tgmm_last_tile", "tgmm_wgmma_last_tile", "rows_wgmma_fwd_shift",
+        "rows_wgmma_dxt_last_stage", "skip_last_live_tile")},
+    **{name: PAGED_SOURCE for name in (
+        "paged_split_short", "paged_combine_last_split",
+        "paged_mask_last_key")})
 
 
 def mutate(text, subs):
@@ -164,6 +192,24 @@ def check_flash_cases():
             checked_err={n: x for n, (_, x, _) in errs.items()},
             tol={n: t for n, (_, _, t) in errs.items()},
             first_bf16_rule_tol=old,
+        )), flush=True)
+    return caught_any
+
+
+def check_paged_cases():
+    """``kernel_case``'s comparison over every case, not stopping at the
+    first failure, beside what the first bf16 rule (2e-2 max abs) would
+    have allowed.  True when any case fails."""
+    import chip_smoke as c
+
+    caught_any = False
+    for name, dtype, (err, checked, tol) in c.paged_case_results():
+        caught = not checked <= tol
+        caught_any |= caught
+        print(json.dumps(dict(
+            case=name, caught=caught, max_abs_err=err, checked_err=checked,
+            tol=tol, first_bf16_rule_caught=(
+                err > 2e-2 if dtype == c.torch.bfloat16 else None),
         )), flush=True)
     return caught_any
 
@@ -221,6 +267,7 @@ def check_gmm_and_moe_training():
 
 
 CHECKS = {"flash_case": check_flash_cases,
+          "kernel_case": check_paged_cases,
           "train_kernel_vs_dot": check_train_kernel_vs_dot,
           "gmm_case": check_gmm_cases,
           "gmm_case+moe_train_dropless_vs_gather": check_gmm_and_moe_training}

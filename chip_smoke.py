@@ -14,12 +14,19 @@ caught):
    source, all started together), and fails unless ``cuobjdump -sass``
    shows ``HGMMA`` and ``UTMALDG`` in the bf16 Hopper kernels
    (:data:`WGMMA_KERNELS`) and ``-Xptxas=-v`` reports no spills for
-   them.
-3. ``kernel_case``: the paged-decode kernel against its plain PyTorch
-   version on the card, case by case (bf16 flagship geometry, f32 GQA,
-   sliding window, int8 pools with scales, a length-1 slot).
+   them, nor for the paged-decode kernels (:data:`SPILL_FREE_KERNELS`).
+3. ``kernel_case``: the paged-decode kernels (split, combine) against
+   their plain PyTorch version on the card, case by case
+   (:data:`KERNEL_CASES`: bf16 flagship geometry, f32 GQA, sliding
+   windows, int8 pools with scales, a length-1 slot, one long GQA
+   request, more splits than live pages, narrow head-dim rows, two
+   chunks of query heads, D=256); bf16 outputs held element by element
+   to the row-relative rule of ``flash_case``.  ``paged_repeat``: two
+   runs of the bf16 kernel give bit-identical outputs.
 4. ``kernel_timing``: the kernel, its plain version and a library
-   yardstick at the flagship decode shape, beside the byte bound.
+   yardstick (gather + ``scaled_dot_product_attention``) beside the byte
+   bound, at the flagship decode shape, a full 2048-token serving bank
+   (B=32) and one long request under GQA (:data:`PAGED_TIMING_SHAPES`).
 5. ``slice_flagship``: ``serving_builder`` + ``predict_rows(schedule=
    "continuous")`` at the flagship's full width (L16 H8 Dh128 Dm1024,
    bf16, paged KV) with random weights made from a seed; the kernel's
@@ -83,7 +90,8 @@ Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit
 line, and as the last line ``{"ok": true, "device": {...}}``.  Without a
 CUDA device the script exits non-zero before printing any result.
 ``phase_train_profile`` (not run by :func:`main`) breaks a training step
-down by kernel class for the dense or the MoE flagship;
+down by kernel class for the dense or the MoE flagship, and
+``phase_serve_profile`` (not run by it either) a serving decode step;
 ``phase_register_probe`` (not run by it either) builds a minimal kernel
 in five variants of its roles and waits and reports ptxas's registers
 and spills.
@@ -103,8 +111,6 @@ import torch
 #: H100 SXM memory rate and f32 (non-tensor-core) peak, NVIDIA data sheet
 HBM_BYTES_PER_SEC = 3.35e12
 F32_FLOPS_PER_SEC = 67e12
-
-TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 FLAGSHIP = dict(
     vocab_size=32000, num_layers=16, num_heads=8, head_dim=128,
@@ -148,6 +154,10 @@ WGMMA_KERNELS = {"flash_attention": ["flash_fwd_wgmma", "flash_dq_wgmma",
                  "gmm": ["tgmm_wgmma", "gmm_rows_wgmma"]}
 #: warpgroup MMA (``wgmma``) and TMA tile loads (``cp.async.bulk.tensor``)
 SASS_MUST_HOLD = ("HGMMA", "UTMALDG")
+#: library -> kernels of it that must spill nothing in ``-Xptxas=-v``
+#: (no instruction required of their SASS); names as for WGMMA_KERNELS
+SPILL_FREE_KERNELS = {"paged_attention": ["paged_decode_split",
+                                          "paged_combine"]}
 
 
 def cuda_tool(name):
@@ -195,13 +205,13 @@ def ptxas_functions(report):
     return funcs
 
 
-def wgmma_sass_check(library, kernel, report):
+def wgmma_sass_check(library, kernel, report, must_hold=SASS_MUST_HOLD):
     """What the SASS and the compiler report say of one Hopper kernel:
-    each of its instantiations must hold :data:`SASS_MUST_HOLD` and spill
-    nothing."""
+    each of its instantiations must hold every instruction of
+    ``must_hold`` and spill nothing."""
     sass = {n: t for n, t in sass_functions(library).items() if kernel in n}
     ptxas = {n: f for n, f in ptxas_functions(report).items() if kernel in n}
-    found = {n: {op: op in t for op in SASS_MUST_HOLD}
+    found = {n: {op: op in t for op in must_hold}
              for n, t in sass.items()}
     warnings = [line.strip() for line in report.splitlines()
                 if "warning" in line.lower()]
@@ -222,13 +232,18 @@ def phase_build():
     checks = {name: [wgmma_sass_check(_build.library_path(name), kernel,
                                       reports[name]) for kernel in kernels]
               for name, kernels in WGMMA_KERNELS.items()}
+    checks.update({
+        name: [wgmma_sass_check(_build.library_path(name), kernel,
+                                reports[name], must_hold=())
+               for kernel in kernels]
+        for name, kernels in SPILL_FREE_KERNELS.items()})
     emit("build", seconds=time.perf_counter() - t0, per_library=secs,
          ptxas=reports, sass_check=checks)
     bad = [c for cs in checks.values() for c in cs if not c["ok"]]
     if bad:
         raise AssertionError(
-            "Hopper kernels without {0} in their SASS, or spilling: "
-            "{1}".format("/".join(SASS_MUST_HOLD), bad))
+            "Hopper kernels without {0} in their SASS (WGMMA_KERNELS), or "
+            "spilling: {1}".format("/".join(SASS_MUST_HOLD), bad))
 
 
 def make_paged_case(gen, *, b, h, hkv, d, t, nb, lengths, dtype,
@@ -260,60 +275,158 @@ def make_paged_case(gen, *, b, h, hkv, d, t, nb, lengths, dtype,
                 k_scale_pool=ks, v_scale_pool=vs)
 
 
-def check_case(name, case, window=0):
-    from tensorflowonspark_tpu_torch.ops.paged_attention import (
-        paged_attention, paged_attention_reference,
-    )
+#: the paged-decode kernel against its plain version: f32 to 1e-5
+#: absolute (the same f32 products summed in another order, the splits
+#: combined); bf16 every element to ``FLASH_TOL["bf16_row_rel"]`` of
+#: |ref| + the RMS of its row of D values (:func:`row_relative_error`),
+#: which holds a dropped page at long lengths far more tightly than a
+#: max-abs rule
+PAGED_F32_TOL = 1e-5
 
+#: (name, make_paged_case spec, window); the split counts are the
+#: wrapper's (``ops/paged_attention.num_splits`` on 132 SMs: 9 for the
+#: flagship case, 128 for the long request, 16 and 8 for the two cases
+#: with more splits than some slots' live pages)
+KERNEL_CASES = [
+    ("flagship_bf16_mha", dict(
+        b=8, h=8, hkv=8, d=128, t=16, nb=32, dtype=torch.bfloat16,
+        lengths=[1, 17, 100, 255, 256, 257, 511, 512], idle=(0,),
+    ), 0),
+    ("f32_gqa", dict(
+        b=4, h=8, hkv=2, d=128, t=16, nb=8, dtype=torch.float32,
+        lengths=[5, 16, 33, 128],
+    ), 0),
+    ("f32_window_across_pages", dict(
+        b=4, h=8, hkv=4, d=64, t=16, nb=8, dtype=torch.float32,
+        lengths=[10, 40, 77, 128],
+    ), 37),
+    ("int8_pools_with_scales", dict(
+        b=4, h=8, hkv=2, d=128, t=16, nb=8, dtype=torch.float32,
+        pool_dtype=torch.int8, lengths=[3, 31, 64, 100],
+    ), 0),
+    ("bf16_int8_pools", dict(
+        b=2, h=8, hkv=8, d=128, t=16, nb=4, dtype=torch.bfloat16,
+        pool_dtype=torch.int8, lengths=[20, 64],
+    ), 0),
+    ("length_one_slot", dict(
+        b=3, h=8, hkv=8, d=128, t=16, nb=4, dtype=torch.float32,
+        lengths=[1, 1, 49], idle=(1,),
+    ), 0),
+    # S3 of kernel_timing: one long request under GQA, 128 splits
+    ("bf16_long_gqa_request", dict(
+        b=1, h=8, hkv=2, d=128, t=16, nb=128, dtype=torch.bfloat16,
+        lengths=[2048],
+    ), 0),
+    # 16 splits: three slots have fewer live pages (empty splits)
+    ("bf16_splits_past_live_pages", dict(
+        b=4, h=8, hkv=2, d=128, t=16, nb=16, dtype=torch.bfloat16,
+        lengths=[1, 20, 100, 256],
+    ), 0),
+    # the window's first position falls inside a page of a split; 8
+    # splits over 7 live pages
+    ("bf16_window_edge_inside_split", dict(
+        b=2, h=8, hkv=4, d=64, t=16, nb=16, dtype=torch.bfloat16,
+        lengths=[200, 250],
+    ), 100),
+    # 72-byte rows: 8-byte copies
+    ("bf16_d36_narrow_rows", dict(
+        b=3, h=4, hkv=2, d=36, t=16, nb=8, dtype=torch.bfloat16,
+        lengths=[5, 64, 127],
+    ), 0),
+    # 66-byte rows: element copies
+    ("bf16_d33_element_copies", dict(
+        b=2, h=4, hkv=4, d=33, t=8, nb=6, dtype=torch.bfloat16,
+        lengths=[7, 48],
+    ), 0),
+    # 36-byte int8 rows (4-byte copies) with scales and a window
+    ("f32_int8_d36_window", dict(
+        b=2, h=4, hkv=1, d=36, t=8, nb=10, dtype=torch.float32,
+        pool_dtype=torch.int8, lengths=[30, 77],
+    ), 20),
+    # G=16: two chunks of 8 query heads
+    ("f32_mqa_two_head_chunks", dict(
+        b=2, h=16, hkv=1, d=64, t=16, nb=8, dtype=torch.float32,
+        lengths=[50, 128],
+    ), 0),
+    # D=256: 8 elements a lane, 8 query heads in registers
+    ("bf16_d256_gqa8", dict(
+        b=2, h=16, hkv=2, d=256, t=16, nb=8, dtype=torch.bfloat16,
+        lengths=[33, 128],
+    ), 0),
+]
+
+
+def paged_error(out, ref):
+    """``(max abs err, checked err, tolerance)`` of a paged-decode output
+    against its plain version: the max abs error in f32, the
+    row-relative error in bf16."""
+    got, want = out.float(), ref.float()
+    err = (got - want).abs().max().item()
+    if ref.dtype == torch.bfloat16:
+        checked, tol = row_relative_error(got, want), FLASH_TOL["bf16_row_rel"]
+    else:
+        checked, tol = err, PAGED_F32_TOL
+    if not torch.isfinite(got).all().item():
+        err = checked = float("inf")
+    return err, checked, tol
+
+
+def paged_args(case, window=0):
     args = [case[k] for k in ("q", "k_pool", "v_pool", "block_tables",
                               "lengths")]
     kw = dict(window=window, k_scale_pool=case["k_scale_pool"],
               v_scale_pool=case["v_scale_pool"])
-    out = paged_attention(*args, **kw)
-    torch.cuda.synchronize()
-    ref = paged_attention_reference(*args, **kw)
-    err = (out.float() - ref.float()).abs().max().item()
-    tol = TOL[case["q"].dtype]
-    emit("kernel_case", case=name, dtype=str(case["q"].dtype),
-         max_abs_err=err, tol=tol, ok=err <= tol)
-    if not (err <= tol and torch.isfinite(out).all().item()):
-        raise AssertionError(
-            "kernel case {0}: max abs err {1} > {2}".format(name, err, tol)
-        )
-    return err
+    return args, kw
+
+
+def paged_case_results():
+    """``(name, dtype, (max abs err, checked err, tol))`` for each of
+    :data:`KERNEL_CASES`, inputs drawn on the card from one seed."""
+    from tensorflowonspark_tpu_torch.ops.paged_attention import (
+        paged_attention, paged_attention_reference,
+    )
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    for name, spec, window in KERNEL_CASES:
+        case = make_paged_case(gen, **spec)
+        args, kw = paged_args(case, window)
+        out = paged_attention(*args, **kw)
+        torch.cuda.synchronize()
+        ref = paged_attention_reference(*args, **kw)
+        yield name, spec["dtype"], paged_error(out, ref)
 
 
 def phase_kernel_cases():
+    for name, dtype, (err, checked, tol) in paged_case_results():
+        ok = checked <= tol
+        emit("kernel_case", case=name, dtype=str(dtype), max_abs_err=err,
+             checked_err=checked, tol=tol, ok=ok)
+        if not ok:
+            raise AssertionError(
+                "kernel case {0}: checked err {1} > {2}".format(
+                    name, checked, tol))
+
+
+def phase_paged_repeat():
+    """Two runs of the bf16 kernel on the flagship case of
+    :data:`KERNEL_CASES` (several splits, so the combine runs) must give
+    bit-identical outputs."""
+    from tensorflowonspark_tpu_torch.ops.paged_attention import (
+        paged_attention,
+    )
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    cases = [
-        ("flagship_bf16_mha", dict(
-            b=8, h=8, hkv=8, d=128, t=16, nb=32, dtype=torch.bfloat16,
-            lengths=[1, 17, 100, 255, 256, 257, 511, 512], idle=(0,),
-        ), 0),
-        ("f32_gqa", dict(
-            b=4, h=8, hkv=2, d=128, t=16, nb=8, dtype=torch.float32,
-            lengths=[5, 16, 33, 128],
-        ), 0),
-        ("f32_window_across_pages", dict(
-            b=4, h=8, hkv=4, d=64, t=16, nb=8, dtype=torch.float32,
-            lengths=[10, 40, 77, 128],
-        ), 37),
-        ("int8_pools_with_scales", dict(
-            b=4, h=8, hkv=2, d=128, t=16, nb=8, dtype=torch.float32,
-            pool_dtype=torch.int8, lengths=[3, 31, 64, 100],
-        ), 0),
-        ("bf16_int8_pools", dict(
-            b=2, h=8, hkv=8, d=128, t=16, nb=4, dtype=torch.bfloat16,
-            pool_dtype=torch.int8, lengths=[20, 64],
-        ), 0),
-        ("length_one_slot", dict(
-            b=3, h=8, hkv=8, d=128, t=16, nb=4, dtype=torch.float32,
-            lengths=[1, 1, 49], idle=(1,),
-        ), 0),
-    ]
-    for name, spec, window in cases:
-        check_case(name, make_paged_case(gen, **spec), window=window)
+    _, spec, window = KERNEL_CASES[0]
+    args, kw = paged_args(make_paged_case(gen, **spec), window)
+    runs = [paged_attention(*args, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = torch.equal(runs[0], runs[1])
+    emit("paged_repeat", case=KERNEL_CASES[0][0], bit_identical=same,
+         ok=same)
+    if not same:
+        raise AssertionError("bf16 paged kernel differs between two runs")
 
 
 def bytes_and_flops(case, t):
@@ -376,21 +489,75 @@ def device_ms(fn, inputs, reps=50, warmup=5):
     return us / 1e3 / reps
 
 
-def phase_kernel_timing():
+def graph_ms(fn, inputs, reps=50):
+    """Device time per call of ``fn`` with no host in the way: ``reps``
+    calls cycling through ``inputs`` captured in one CUDA graph, the
+    median over five timed replays (CUDA events) divided by ``reps``.
+    Each call's kernels and the gaps between them count; the host's
+    dispatch does not."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(inputs[i % len(inputs)])
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fn(inputs[i % len(inputs)])
+    graph.replay()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        samples.append(start.elapsed_time(end) / reps)
+    del graph
+    return float(np.median(samples))
+
+
+#: the shapes ``kernel_timing`` times (bf16, T=16, D=128): the flagship
+#: decode step, which the ``kernels`` line reports; a full serving bank
+#: at the flagship's max_seq_len; one long request under GQA.  Lengths
+#: are drawn from ``np.random.default_rng(seed)`` in [lo, hi].
+PAGED_TIMING_SHAPES = [
+    ("s1_flagship", dict(b=8, h=8, hkv=8, nb=32, lo=32, hi=500, seed=1)),
+    ("s2_full_bank", dict(b=32, h=8, hkv=8, nb=128, lo=1024, hi=2048,
+                          seed=2)),
+    ("s3_long_gqa", dict(b=1, h=8, hkv=2, nb=128, lo=2048, hi=2048,
+                         seed=3)),
+]
+#: bytes of pools the timed calls cycle through: three times the L2
+TIMING_POOL_BYTES = 150e6
+
+
+def paged_timing_at(gen, *, b, h, hkv, nb, lo, hi, seed, d=128, t=16):
+    """The kernel, its plain version and gather + SDPA at one bf16 decode
+    shape, beside the byte bound; the kernel checked against the plain
+    version first.  Each call reads its pools cold: the calls cycle
+    through copies of the pools worth :data:`TIMING_POOL_BYTES`.
+    Needs only the wrapper's public functions."""
     from tensorflowonspark_tpu_torch.ops.paged_attention import (
         gather_pool, paged_attention, paged_attention_reference,
     )
 
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(1)
-    rng = np.random.default_rng(1)
-    b, h, d, t, nb = 8, 8, 128, 16, 32
-    lengths = sorted(int(x) for x in rng.integers(32, 501, size=b))
-    spec = dict(b=b, h=h, hkv=h, d=d, t=t, nb=nb, dtype=torch.bfloat16,
+    rng = np.random.default_rng(seed)
+    lengths = sorted(int(x) for x in rng.integers(lo, hi + 1, size=b))
+    spec = dict(b=b, h=h, hkv=hkv, d=d, t=t, nb=nb, dtype=torch.bfloat16,
                 lengths=lengths)
-    # 8 copies x 2 pools x 8.4 MB: well past the 50 MB L2
-    copies = [make_paged_case(gen, **spec) for _ in range(8)]
+    pool_bytes = 2 * (b * nb + 1) * t * hkv * d * 2
+    n_copies = max(2, int(np.ceil(TIMING_POOL_BYTES / pool_bytes)))
+    copies = [make_paged_case(gen, **spec) for _ in range(n_copies)]
     case = copies[0]
+    span = torch.arange(nb * t, device="cuda")
+    for c in copies:
+        c["mask"] = (span[None, :] < c["lengths"][:, None].long())[
+            :, None, None, :]
 
     def run(c):
         return paged_attention(c["q"], c["k_pool"], c["v_pool"],
@@ -400,48 +567,66 @@ def phase_kernel_timing():
         return paged_attention_reference(c["q"], c["k_pool"], c["v_pool"],
                                          c["block_tables"], c["lengths"])
 
-    mask_len = nb * t
-    masks = [
-        (torch.arange(mask_len, device="cuda")[None, :]
-         < c["lengths"][:, None].long())[:, None, None, :]
-        for c in copies
-    ]
-    for c, m in zip(copies, masks):
-        c["mask"] = m
-
     def library(c):
         kk = gather_pool(c["k_pool"], c["block_tables"]).transpose(1, 2)
         vv = gather_pool(c["v_pool"], c["block_tables"]).transpose(1, 2)
         return torch.nn.functional.scaled_dot_product_attention(
-            c["q"][:, :, None], kk, vv, attn_mask=c["mask"]
+            c["q"][:, :, None], kk, vv, attn_mask=c["mask"],
+            enable_gqa=hkv != h,
         )[:, :, 0]
 
     out = run(case)
     ref = plain(case)
     lib = library(case)
     torch.cuda.synchronize()
-    err = (out.float() - ref.float()).abs().max().item()
+    err, checked, tol = paged_error(out, ref)
     lib_err = (lib.float() - ref.float()).abs().max().item()
-    if err > TOL[torch.bfloat16]:
-        raise AssertionError("kernel at the flagship decode shape: max abs "
-                             "err {0}".format(err))
-    kernel_ms = time_ms(run, copies)
-    plain_ms = time_ms(plain, copies, reps=50)
-    library_ms = time_ms(library, copies, reps=50)
+    del out, ref, lib
+    if not checked <= tol:
+        raise AssertionError("kernel at B={0} H={1} Hkv={2} NB={3}: checked "
+                             "err {4} > {5}".format(b, h, hkv, nb, checked,
+                                                    tol))
     nbytes, flops = bytes_and_flops(case, t)
     bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_SEC
     ops_ms = 1e3 * flops / F32_FLOPS_PER_SEC
-    res = dict(
-        shape=dict(B=b, H=h, Hkv=h, D=d, T=t, NB=nb, lengths=lengths,
+    kernel_ms = graph_ms(run, copies)
+    heavy = nb * b > 1024
+    return dict(
+        shape=dict(B=b, H=h, Hkv=hkv, D=d, T=t, NB=nb, lengths=lengths,
                    dtype="bfloat16"),
-        kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+        pool_copies=n_copies,
+        kernel_ms=kernel_ms,
+        kernel_device_ms=device_ms(run, copies),
+        kernel_eager_ms=time_ms(run, copies),
+        plain_ms=time_ms(plain, copies, reps=5 if heavy else 50,
+                         warmup=2),
+        library_ms=graph_ms(library, copies, reps=4 if heavy else 20),
+        library_eager_ms=time_ms(library, copies, reps=10 if heavy else 50,
+                                 warmup=2),
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-        bytes=nbytes, flops=flops, max_abs_err=err,
-        library_max_abs_err=lib_err,
+        bound_share=max(bytes_ms, ops_ms) / kernel_ms,
+        bytes=nbytes, flops=flops, max_abs_err=err, checked_err=checked,
+        tol=tol, library_max_abs_err=lib_err,
+        note="kernel_ms and library_ms: CUDA-graph replays (device only); "
+             "*_eager_ms: back-to-back calls timed by CUDA events, the "
+             "host's dispatch included; kernel_device_ms: the profiler's "
+             "sum of kernel times per call",
     )
-    emit("kernel_timing", **res)
-    return res
+
+
+def phase_kernel_timing():
+    """:func:`paged_timing_at` over :data:`PAGED_TIMING_SHAPES`, one line
+    each; returns the flagship shape's timings."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    out = {}
+    for name, shape in PAGED_TIMING_SHAPES:
+        res = paged_timing_at(gen, **shape)
+        emit("kernel_timing", case=name, **res)
+        out[name] = res
+        torch.cuda.empty_cache()
+    return out["s1_flagship"]
 
 
 def make_requests(rng, n, vocab, lo, hi):
@@ -1199,6 +1384,7 @@ def phase_register_probe():
 #: lower-case kernel-name fragments -> class, first match wins, for the
 #: profile of a training step
 KERNEL_CLASSES = (
+    ("paged_", "paged attention (K1)"),
     ("flash_", "flash attention (K2-K4)"),
     ("gmm_kernel", "grouped matmul (K5-K7)"),
     ("gmm_rows_wgmma", "grouped matmul (K5-K7)"),
@@ -1220,18 +1406,36 @@ def phase_train_profile(moe=False):
     run by :func:`main`; run it alone with ``python3 -c "import
     chip_smoke as c; c.phase_env(); c.phase_build();
     c.phase_train_profile()"`` (or ``phase_train_profile(moe=True)``)."""
-    from torch.profiler import ProfilerActivity, profile
-
     if moe:
         _, _, trainer, state, stacked = moe_trainer(moe_tree())
     else:
         _, _, trainer, state, stacked = flagship_trainer(flagship_tree()[0])
     state, _ = trainer.multi_step_on_device(state, stacked)
     torch.cuda.synchronize()
+
+    def steps():
+        trainer.multi_step_on_device(state, stacked)
+
+    emit("train_profile", model="moe" if moe else "dense",
+         **profile_steps(steps, TRAIN_K))
+
+
+def profile_steps(run, steps):
+    """Device time of ``run()`` (which must do ``steps`` steps) by
+    kernel class, from ``torch.profiler``, beside its wall (host clock,
+    ending in a synchronize), per step.  ``run()`` goes once without
+    the profiler first: the busy share is the device time over that
+    wall (``device_busy_share``) and over the profiled one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, _ = trainer.multi_step_on_device(state, stacked)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     classes, kernels = {}, []
@@ -1250,18 +1454,57 @@ def phase_train_profile(moe=False):
         classes[kind] = classes.get(kind, 0.0) + us
         kernels.append((us, e.count, e.key[:120]))
     device_ms = sum(classes.values()) / 1e3
-    per_step = {k: v / 1e3 / TRAIN_K for k, v in sorted(
+    per_step = {k: v / 1e3 / steps for k, v in sorted(
         classes.items(), key=lambda kv: -kv[1])}
-    emit("train_profile", model="moe" if moe else "dense", steps=TRAIN_K,
-         wall_ms_per_step=1e3 * wall / TRAIN_K,
-         device_ms_per_step=device_ms / TRAIN_K,
-         device_busy_share=device_ms / (1e3 * wall) if wall else None,
-         device_ms_per_step_by_class=per_step,
-         top_kernels=[dict(ms_per_step=us / 1e3 / TRAIN_K,
-                           calls_per_step=n / TRAIN_K, name=name)
-                      for us, n, name in sorted(kernels, reverse=True)[:25]],
-         note="wall includes the profiler's own overhead",
-         device=torch.cuda.get_device_name(0))
+    return dict(
+        steps=steps, wall_ms_per_step=1e3 * plain_wall / steps,
+        profiled_wall_ms_per_step=1e3 * wall / steps,
+        device_ms_per_step=device_ms / steps,
+        device_busy_share=device_ms / (1e3 * plain_wall),
+        device_busy_share_profiled=device_ms / (1e3 * wall),
+        device_ms_per_step_by_class=per_step,
+        top_kernels=[dict(ms_per_step=us / 1e3 / steps,
+                          calls_per_step=n / steps, name=name)
+                     for us, n, name in sorted(kernels, reverse=True)[:25]],
+        note="profiled_wall includes the profiler's own overhead",
+        device=torch.cuda.get_device_name(0))
+
+
+def phase_serve_profile(chunks=3):
+    """Device time of the flagship's serving decode step by kernel class
+    (K1's share included) and the device's busy share of the wall, from
+    ``torch.profiler`` over ``chunks`` decode chunks of 16 steps on 8
+    slots (after the prompts' prefill, one warm-up chunk and ``chunks``
+    unprofiled ones, :func:`profile_steps`).  Random
+    weights as in ``slice_flagship``.  Not run by :func:`main`; run it
+    alone with ``python3 -c "import chip_smoke as c; c.phase_env();
+    c.phase_build(); c.phase_serve_profile()"``.  Needs only the
+    serving entry points, so it also profiles another tree's package."""
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        serving_builder,
+    )
+
+    serving_cfg = dict(SERVING, max_new_tokens=(2 * chunks + 1)
+                       * SERVING["chunk_size"])
+    predict = serving_builder(flagship_tree()[0],
+                              dict(FLAGSHIP, **serving_cfg))
+    dec = predict.make_slot_decoder(SLOTS)
+    rows = make_requests(np.random.default_rng(2), SLOTS,
+                         FLAGSHIP["vocab_size"], 16, SERVING["max_prompt_len"])
+    for slot, row in enumerate(rows):
+        dec.admit(slot, row["tokens"])
+    dec.step_chunk()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(chunks):
+            dec.step_chunk()
+
+    res = profile_steps(run, chunks * SERVING["chunk_size"])
+    k1 = res["device_ms_per_step_by_class"].get("paged attention (K1)", 0.0)
+    emit("serve_profile", model="L16 H8 Dh128 Dm1024 bf16, 8 slots",
+         prompt_lens=[int(len(r["tokens"])) for r in rows],
+         k1_share_of_device=k1 / res["device_ms_per_step"], **res)
 
 
 #: the JAX package's MoE bench model (``python bench.py moe``, its
@@ -1900,6 +2143,7 @@ def main():
     phase_env()
     phase_build()
     phase_kernel_cases()
+    phase_paged_repeat()
     timing = phase_kernel_timing()
     tree, init_s = flagship_tree()
     flagship = phase_slice_flagship(tree, init_s)
@@ -1922,13 +2166,16 @@ def main():
     jax_flash = "tensorflowonspark_tpu/ops/flash_attention.py:"
     jax_gmm = "tensorflowonspark_tpu/ops/gmm.py:"
     print(json.dumps({"kernels": [dict(
-        name="paged_attention", kernel="paged_decode_kernel", route="cuda",
+        name="paged_attention", kernel="paged_decode_split+paged_combine",
+        route="cuda",
         source="tensorflowonspark_tpu_torch/csrc/paged_attention.cu",
         replaces="tensorflowonspark_tpu/ops/paged_attention.py:143",
         launches=flagship["paged_attention_launches"],
         max_abs_err=timing["max_abs_err"], ms=timing["kernel_ms"],
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
         bound_by=timing["bound_by"], library_ms=timing["library_ms"],
+        library_note="gather_pool of K and V, then "
+                     "scaled_dot_product_attention with the length mask",
     )] + [
         kernel_entry("flash_fwd", "flash_fwd_wgmma", jax_flash + "132",
                      train["launches"]["fwd"], flash["fwd"]),

@@ -47,8 +47,11 @@ KERNELS = {
     "paged_attention": (
         "paged_attention.cu",
         {
+            # q, k, v, k_scale, v_scale, tables, lengths, out, ws_acc,
+            # ws_ml, B, H, Hkv, D, P, T, NB, scale, window, splits,
+            # q_bf16, kv_int8, stream
             "tfos_paged_attention": (
-                [_P] * 8 + [_I] * 7 + [_F] + [_I] * 3 + [_P],
+                [_P] * 10 + [_I] * 7 + [_F] + [_I] * 4 + [_P],
                 _I,
             ),
         },

@@ -11,13 +11,19 @@ Two entry points, as in the reference:
 - :func:`paged_attention` — single-token decode steps (``q [B, H, D]``),
   the bandwidth-bound hot loop.  On a CUDA tensor it launches the
   hand-written Hopper kernel ``csrc/paged_attention.cu`` (which replaces
-  the TPU kernel ``_paged_kernel``); on a CPU tensor it runs
-  :func:`paged_attention_reference`, the plain PyTorch version of the
-  same function.  There is no fallback from one to the other.
+  the TPU kernel ``_paged_kernel``): each slot's live pages split over
+  several blocks (:func:`num_splits`, :func:`split_page_ranges`), whose
+  partial softmax states a second kernel combines.  On a CPU tensor it
+  runs :func:`paged_attention_reference`, the plain PyTorch version of
+  the same function.  There is no fallback from one to the other.
+  :func:`paged_attention_split_reference` is the plain version of the
+  kernel's split-and-combine arithmetic.
 - :func:`paged_gather_attention` — multi-token query spans (suffix
   prefill): gathers the slot's pages into a transient contiguous view
   and reuses :func:`.attention.dot_attention`.
 """
+
+import functools
 
 import torch
 
@@ -26,8 +32,7 @@ from tensorflowonspark_tpu_torch.ops.attention import dot_attention
 
 NEG_INF = -1e30  # finite mask sentinel: exp() underflows to 0, no NaNs
 
-#: largest page the kernel stages: the K and V tiles of a page are held
-#: in shared memory as f32, 2 * T * D * 4 bytes (128 KiB at 64 x 256)
+#: largest page and head_dim the kernel takes
 MAX_PAGE_TOKENS = 64
 MAX_HEAD_DIM = 256
 #: shared memory one block may use on Hopper (227 KiB)
@@ -36,6 +41,17 @@ MAX_SMEM_BYTES = 232448
 #: pools have q's type or int8)
 KERNEL_POOL_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 KERNEL_Q_DTYPES = (torch.float32, torch.bfloat16)
+#: the kernel's ring of page stages: at most this many, within this
+#: many bytes (at least one stage, whatever its size)
+MAX_STAGES = 4
+RING_BUDGET_BYTES = 64 * 1024
+#: most splits of a slot's pages (the combine kernel's weight buffer)
+MAX_SPLITS = 256
+#: the host's split rule: at least this many blocks per SM, and at
+#: most this many pages per split (blocks of a few pages balance
+#: ragged lengths across the SMs)
+SPLIT_WAVES = 4
+MAX_PAGES_PER_SPLIT = 8
 
 
 class TileLegalityError(ValueError):
@@ -48,13 +64,29 @@ class TileLegalityError(ValueError):
     """
 
 
-def _smem_bytes(group, head_dim, page_tokens):
-    """Dynamic shared memory of one block (mirrors ``smem_floats`` in
-    the CUDA source): q and acc ``[G, D]``, K and V tiles ``[T, D]``,
-    probabilities ``[G, T]``, scales ``[T]`` x2, softmax state ``[G]``
-    x3, all f32."""
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+def _kernel_geometry(group, head_dim, page_tokens, itemsize):
+    """The kernel's shared memory (mirrors ``geometry`` in the CUDA
+    source): a ring of page stages, each ``round128(2 * T * row + 8 *
+    T)`` bytes (K and V rows in the pool's type, ``row`` = ``D *
+    itemsize`` rounded up to ``max(16, EPL * itemsize)``, EPL = 4 for
+    ``D <= 128`` else 8; then the two f32 scale rows), then q and the
+    merged accumulator ``[G, D]`` f32 and m, l ``[G]`` f32.  The ring
+    holds up to :data:`MAX_STAGES` stages within
+    :data:`RING_BUDGET_BYTES` and what is left of
+    :data:`MAX_SMEM_BYTES`, at least one."""
     g, d, t = int(group), int(head_dim), int(page_tokens)
-    return 4 * (2 * g * d + 2 * t * d + g * t + 2 * t + 3 * g)
+    epl = 4 if d <= 128 else 8
+    row = _round_up(d * itemsize, max(16, epl * itemsize))
+    stage = _round_up(2 * t * row + 8 * t, 128)
+    fixed = 8 * g * d + 8 * g
+    stages = max(1, min(MAX_STAGES, RING_BUDGET_BYTES // stage,
+                        (MAX_SMEM_BYTES - fixed) // stage))
+    return {"row_bytes": row, "stage_bytes": stage, "stages": stages,
+            "smem_bytes": stages * stage + fixed}
 
 
 def check_tiles(page_tokens, head_dim, dtype, group=1):
@@ -63,8 +95,9 @@ def check_tiles(page_tokens, head_dim, dtype, group=1):
     Stands in for the reference's Mosaic (sublane, lane) rule, which
     does not apply on the GPU.  The kernel takes ``1 <= page_tokens <=
     64``, ``1 <= head_dim <= 256``, pools of f32, bf16 or int8, and a
-    block's shared memory (which grows with the GQA ``group``) within
-    227 KiB.  ``dtype`` is the pool's type (a torch dtype or its name).
+    block's shared memory (one page stage, and q and the accumulator of
+    the GQA ``group``, :func:`_kernel_geometry`) within 227 KiB.
+    ``dtype`` is the pool's type (a torch dtype or its name).
 
     Returns ``{"page_tokens", "head_dim", "smem_bytes"}`` when legal;
     raises :class:`TileLegalityError` otherwise.
@@ -89,7 +122,10 @@ def check_tiles(page_tokens, head_dim, dtype, group=1):
                 dtype, [str(d) for d in KERNEL_POOL_DTYPES]
             )
         )
-    smem = _smem_bytes(group, head_dim, page_tokens)
+    itemsize = (torch.empty((), dtype=dtype).element_size()
+                if dtype in KERNEL_POOL_DTYPES else 4)
+    smem = _kernel_geometry(group, max(head_dim, 1), max(page_tokens, 1),
+                            itemsize)["smem_bytes"]
     if smem > MAX_SMEM_BYTES:
         problems.append(
             "a block needs {0} bytes of shared memory at group={1}; the "
@@ -192,6 +228,12 @@ def paged_attention(q, k_pool, v_pool, block_tables, lengths, *,
 paged_attention.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index):
+    """The SM count of CUDA device ``index``, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch(q, k_pool, v_pool, block_tables, lengths, scale, window,
             k_scale_pool, v_scale_pool):
     b, h, d = q.shape
@@ -239,6 +281,13 @@ def _launch(q, k_pool, v_pool, block_tables, lengths, scale, window,
     out = torch.empty_like(q)
     if b == 0:
         return out
+    splits = num_splits(b, hkv, nb, _sm_count(q.device.index), t, window)
+    ws_acc = ws_ml = None
+    if splits > 1:
+        ws_acc = torch.empty((b, h, splits, d), dtype=torch.float32,
+                             device=q.device)
+        ws_ml = torch.empty((b, h, splits, 2), dtype=torch.float32,
+                            device=q.device)
     lib = _build.load("paged_attention")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.tfos_paged_attention(
@@ -246,7 +295,9 @@ def _launch(q, k_pool, v_pool, block_tables, lengths, scale, window,
         k_scale_pool.data_ptr() if scales else None,
         v_scale_pool.data_ptr() if scales else None,
         tables.data_ptr(), lens.data_ptr(), out.data_ptr(),
-        b, h, hkv, d, p, t, nb, scale, window,
+        ws_acc.data_ptr() if splits > 1 else None,
+        ws_ml.data_ptr() if splits > 1 else None,
+        b, h, hkv, d, p, t, nb, scale, window, splits,
         int(q.dtype == torch.bfloat16), int(kv_int8), stream,
     )
     if err != 0:
@@ -271,6 +322,120 @@ def paged_attention_reference(q, k_pool, v_pool, block_tables, lengths, *,
         q[:, None], k_pool, v_pool, block_tables, positions, scale=scale,
         window=window, k_scale_pool=k_scale_pool, v_scale_pool=v_scale_pool,
     )[:, 0]
+
+
+def num_splits(batch, kv_heads, blocks_per_slot, sm_count, page_tokens,
+               window=0):
+    """How many blocks share each (slot, kv head)'s pages: enough for
+    :data:`SPLIT_WAVES` blocks per SM and for a full table to give each
+    split at most :data:`MAX_PAGES_PER_SPLIT` pages; at most
+    ``blocks_per_slot`` (a split of at least one page), at most the
+    pages a ``window`` can touch, at most :data:`MAX_SPLITS`.  The host
+    side of the kernel; it never reads the lengths (no host sync)."""
+    nb = int(blocks_per_slot)
+    want = max(
+        -(-SPLIT_WAVES * int(sm_count) // (int(batch) * int(kv_heads))),
+        -(-nb // MAX_PAGES_PER_SPLIT))
+    cap = min(nb, MAX_SPLITS)
+    if window and window > 0:
+        cap = min(cap, 1 + -(-(int(window) - 1) // int(page_tokens)))
+    return max(1, min(want, cap))
+
+
+def split_page_ranges(lengths, page_tokens, blocks_per_slot, window,
+                      splits):
+    """``(lo, hi)``, int64 ``[B, splits]``: the pages ``[lo, hi)`` of each
+    slot that each split of the kernel reads.  Mirrors the kernel's
+    device side: a slot's live pages are ``[first, min(ceil(len / T),
+    NB))``, ``first`` the window's first page (0 without a window), and
+    split ``s`` of ``S`` takes ``[first + s * live // S, first + (s + 1)
+    * live // S)``, which may be empty."""
+    t, nb = int(page_tokens), int(blocks_per_slot)
+    lens = torch.as_tensor(lengths).to(torch.int64).clamp_min(0)
+    n_pages = torch.clamp(-(-lens // t), max=nb)
+    first = torch.zeros_like(lens)
+    if window and window > 0:
+        first = torch.where(lens - window > 0, (lens - window) // t, first)
+    live = (n_pages - first).clamp_min(0)
+    s = torch.arange(splits + 1, dtype=torch.int64)
+    edges = first[:, None] + s[None, :] * live[:, None] // splits
+    return edges[:, :-1], edges[:, 1:]
+
+
+def split_partials(q, k_pool, v_pool, block_tables, lengths, *, splits,
+                   scale=None, window=0, k_scale_pool=None,
+                   v_scale_pool=None):
+    """Plain version of the kernel's first pass: for each split of
+    :func:`split_page_ranges`, the online-softmax state over the
+    visible positions of its pages, ``m`` and ``l`` ``[B, H, S]`` and
+    ``acc`` ``[B, H, S, D]``, all f32.  An empty split has ``m =
+    NEG_INF``, ``l = 0`` and a zero ``acc``; ``p`` (times the v scale)
+    is rounded to q's type before P.V, as in the kernel."""
+    _check_args(q, k_pool, v_pool, block_tables, lengths, k_scale_pool,
+                v_scale_pool)
+    b, h, d = q.shape
+    t, hkv = k_pool.shape[1], k_pool.shape[2]
+    nb = block_tables.shape[1]
+    g = h // hkv
+    scale = scale if scale is not None else d ** -0.5
+    lo, hi = split_page_ranges(lengths.cpu(), t, nb, window, splits)
+    lo, hi = lo.to(q.device), hi.to(q.device)
+    k = gather_pool(k_pool, block_tables).to(q.dtype).float()
+    v = gather_pool(v_pool, block_tables).to(q.dtype).float()
+    logits = torch.einsum("bkgd,blkd->bkgl",
+                          q.float().reshape(b, hkv, g, d), k)
+    if k_scale_pool is not None:
+        ks = gather_pool(k_scale_pool, block_tables)[..., 0]  # [B, L, Hkv]
+        logits = logits * ks.transpose(1, 2)[:, :, None, :]
+    logits = logits * scale
+    pos = torch.arange(nb * t, device=q.device)
+    lens = lengths.to(q.device, torch.int64)[:, None]
+    vis = pos[None, :] < lens
+    if window:
+        vis = vis & (pos[None, :] >= lens - window)
+    page = (pos // t)[None, None, :]
+    mask = (vis[:, None, :] & (page >= lo[:, :, None])
+            & (page < hi[:, :, None]))  # [B, S, L]
+    mask = mask[:, :, None, None, :]  # [B, S, 1, 1, L]
+    lg = torch.where(mask, logits[:, None], NEG_INF)  # [B, S, Hkv, G, L]
+    m = lg.amax(dim=-1)
+    p = torch.where(mask, torch.exp(lg - m[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    if v_scale_pool is not None:
+        vs = gather_pool(v_scale_pool, block_tables)[..., 0]  # [B, L, Hkv]
+        p = p * vs.transpose(1, 2)[:, None, :, None, :]
+    p = p.to(q.dtype).float()
+    acc = torch.einsum("bskgl,blkd->bskgd", p, v)
+
+    def heads(x):  # [B, S, Hkv, G, ...] -> [B, H, S, ...]
+        x = x.reshape((b, splits, h) + tuple(x.shape[4:]))
+        return x.transpose(1, 2).contiguous()
+
+    return heads(m), heads(l), heads(acc)
+
+
+def combine_splits(m, l, acc, dtype):
+    """Plain version of the combine kernel: ``sum_s e^(m_s - M) acc_s /
+    sum_s e^(m_s - M) l_s`` with ``M = max_s m_s``, in ``dtype``."""
+    w = torch.exp(m - m.amax(dim=-1, keepdim=True))
+    out = (w[..., None] * acc).sum(dim=-2) / (w * l).sum(dim=-1)[..., None]
+    return out.to(dtype)
+
+
+def paged_attention_split_reference(q, k_pool, v_pool, block_tables,
+                                    lengths, *, splits, scale=None,
+                                    window=0, k_scale_pool=None,
+                                    v_scale_pool=None):
+    """Plain PyTorch version of the kernel's split-and-combine
+    arithmetic: :func:`split_partials`, then :func:`combine_splits`.
+    The same function as :func:`paged_attention_reference` for every
+    ``splits >= 1``."""
+    m, l, acc = split_partials(
+        q, k_pool, v_pool, block_tables, lengths, splits=splits,
+        scale=scale, window=window, k_scale_pool=k_scale_pool,
+        v_scale_pool=v_scale_pool,
+    )
+    return combine_splits(m, l, acc, q.dtype)
 
 
 def gather_pool(pool, block_tables, span=None):

@@ -6,9 +6,13 @@ given CPU tensors, runs its plain PyTorch version.  Same inputs, made
 with numpy from a seed; tolerance 1e-5 (f32, summation order only).
 """
 
+import functools
+import os
+
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -139,6 +143,129 @@ class TestPagedAttention:
                                    rtol=RTOL)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_paged_case(name):
+    """``(case, window, JAX output)`` of ``PAGED_CASES[name]``: the JAX
+    kernel runs once per case in interpret mode."""
+    spec = dict(PAGED_CASES[name])
+    window = spec.pop("window", 0)
+    c = _paged_case(sorted(PAGED_CASES).index(name), **spec)
+    j, _ = _both(jpa.paged_attention, tpa.paged_attention_reference, c,
+                 window=window)
+    return c, window, j
+
+
+def _live_pages(length, page_tokens, window):
+    """The pages holding a position the query at ``length - 1`` sees,
+    from the positions themselves."""
+    start = max(0, length - window) if window else 0
+    return sorted({pos // page_tokens for pos in range(start, length)})
+
+
+class TestSplitArithmetic:
+    """The kernel's split-and-combine arithmetic, as its plain version
+    computes it, against the JAX kernel (f32, 1e-5)."""
+
+    @pytest.mark.parametrize("splits", [1, 2, 3, "past_live_pages"])
+    @pytest.mark.parametrize("name", sorted(PAGED_CASES))
+    def test_split_reference_matches_jax_kernel(self, name, splits):
+        c, window, j = _jax_paged_case(name)
+        nb = c["tables"].shape[1]
+        # more splits than any slot has live pages: some shares are empty
+        s = nb + 3 if splits == "past_live_pages" else splits
+        t = tpa.paged_attention_split_reference(
+            *[torch.from_numpy(c[k]) for k in
+              ("q", "k", "v", "tables", "lengths")],
+            splits=s, window=window,
+            k_scale_pool=None if c["ks"] is None else torch.from_numpy(
+                c["ks"]),
+            v_scale_pool=None if c["vs"] is None else torch.from_numpy(
+                c["vs"]),
+        ).numpy()
+        np.testing.assert_allclose(t, j, atol=ATOL, rtol=RTOL)
+
+    def test_empty_splits_hold_the_neutral_state(self):
+        c = _paged_case(3, lengths=[1, 5, 18])
+        args = [torch.from_numpy(c[k]) for k in
+                ("q", "k", "v", "tables", "lengths")]
+        splits = 8
+        m, l, acc = tpa.split_partials(*args, splits=splits)
+        lo, hi = tpa.split_page_ranges(args[4], 4, 5, 0, splits)
+        empty = (hi <= lo)[:, None, :].expand(m.shape)
+        assert empty.any() and (~empty).any()
+        assert (m[empty] == tpa.NEG_INF).all()
+        assert (l[empty] == 0).all() and (acc[empty] == 0).all()
+        assert (l[~empty] > 0).all()
+
+    @pytest.mark.parametrize("args,want", [
+        ((8, 8, 32, 132, 16), 9),  # the flagship decode: 4 blocks an SM
+        ((32, 8, 128, 132, 16), 16),  # a full bank: 8 pages a split
+        ((1, 2, 128, 132, 16), 128),  # one long request: a page a split
+        ((1, 1, 4096, 132, 16), tpa.MAX_SPLITS),
+        ((64, 64, 1, 132, 16), 1),  # never past the table
+    ])
+    def test_num_splits_rule(self, args, want):
+        assert tpa.num_splits(*args) == want
+
+    def test_num_splits_caps_at_the_pages_a_window_touches(self):
+        # 37 positions span at most 1 + ceil(36 / 16) = 4 pages
+        assert tpa.num_splits(1, 2, 128, 132, 16, window=37) == 4
+        assert tpa.num_splits(1, 2, 128, 132, 16, window=1) == 1
+
+
+@settings(max_examples=300, deadline=None)
+@given(data=st.data())
+def test_split_partition_covers_live_pages_once(data):
+    """Every slot's live pages fall in exactly one split's share, the
+    shares in order; for any lengths, window, page size, table width and
+    split count."""
+    t = data.draw(st.integers(1, 64), label="page_tokens")
+    nb = data.draw(st.integers(1, 40), label="blocks_per_slot")
+    splits = data.draw(st.integers(1, tpa.MAX_SPLITS), label="splits")
+    lengths = data.draw(st.lists(st.integers(0, nb * t), min_size=1,
+                                 max_size=6), label="lengths")
+    window = data.draw(st.integers(0, nb * t + 3), label="window")
+    lo, hi = tpa.split_page_ranges(torch.tensor(lengths), t, nb, window,
+                                   splits)
+    assert lo.shape == hi.shape == (len(lengths), splits)
+    for i, n in enumerate(lengths):
+        assert (hi[i] >= lo[i]).all()
+        assert (lo[i, 1:] == hi[i, :-1]).all()
+        pages = [p for a, b in zip(lo[i].tolist(), hi[i].tolist())
+                 for p in range(a, b)]
+        assert pages == _live_pages(n, t, window)
+
+
+def _repo_script(name):
+    """The repository's top-level script ``<name>.py`` as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", ["paged_split_short",
+                                  "paged_combine_last_split",
+                                  "paged_mask_last_key"])
+def test_planted_paged_faults_still_apply_to_the_kernel_source(name):
+    """Each planted fault of ``chip_mutants.py`` in the paged-decode
+    kernels finds its lines in the source exactly once."""
+    mutants = _repo_script("chip_mutants")
+    _, subs, check = mutants.MUTANTS[name]
+    assert check in mutants.CHECKS
+    assert mutants.SOURCES[name].endswith("csrc/paged_attention.cu")
+    with open(os.path.join(_build.CSRC_DIR, "paged_attention.cu")) as f:
+        text = f.read()
+    mutated = mutants.mutate(text, subs)
+    assert mutated != text
+    with pytest.raises(ValueError, match="found 0 times"):
+        mutants.mutate(mutated, subs)
+
+
 DOT_CASES = {
     "causal_mha": dict(h=4, hkv=4),
     "causal_gqa": dict(h=6, hkv=2),
@@ -226,3 +353,34 @@ class TestTilesAndDevices:
         path = _build.library_path("paged_attention")
         assert path.startswith(_build.BUILD_DIR)
         assert path.endswith(".so")
+
+
+def _first_kernel_smem(group, head_dim, page_tokens):
+    """Shared memory of the first CUDA kernel (one block per slot and kv
+    head, K/V pages staged as f32), which set what check_tiles took."""
+    g, d, t = group, head_dim, page_tokens
+    return 4 * (2 * g * d + 2 * t * d + g * t + 2 * t + 3 * g)
+
+
+@pytest.mark.parametrize("page_tokens,head_dim,group", [
+    (64, 256, 1), (64, 256, 13), (16, 128, 64), (16, 128, 196),
+    (1, 1, 9000), (1, 129, 215), (64, 64, 100), (7, 33, 3),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_check_tiles_takes_every_geometry_the_first_kernel_took(
+        page_tokens, head_dim, group, dtype):
+    assert _first_kernel_smem(group, head_dim, page_tokens) \
+        <= tpa.MAX_SMEM_BYTES
+    out = tpa.check_tiles(page_tokens, head_dim, dtype, group=group)
+    assert out["smem_bytes"] <= tpa.MAX_SMEM_BYTES
+
+
+def test_kernel_geometry_ring():
+    """The flagship page (16 x 128 bf16) takes the full ring of four
+    8,320-byte stages; a 64 x 256 f32 page takes one."""
+    g = tpa._kernel_geometry(1, 128, 16, 2)
+    assert g == {"row_bytes": 256, "stage_bytes": 8320, "stages": 4,
+                 "smem_bytes": 4 * 8320 + 8 * 128 + 8}
+    assert tpa._kernel_geometry(1, 256, 64, 4)["stages"] == 1
+    # D=36 bf16: 72-byte rows padded to 80 for 16-byte stage rows
+    assert tpa._kernel_geometry(2, 36, 16, 2)["row_bytes"] == 80
