@@ -85,6 +85,20 @@ caught):
 17. ``moe_train_to_serve``: the trained MoE weights through
     ``serving_builder`` and ``predict_rows(schedule="continuous")`` (K5
     in every prefill and decode step, K1 in every decode step).
+18. ``feed_train_flagship``: the executor-fleet feed path.
+    ``cluster.run(LocalEngine(1), feed_train_fn, num_chips_per_node=1,
+    input_mode=InputMode.SPARK)`` spawns the compute process on the card
+    that ``cluster/gpu_info`` chose; ``TPUCluster.train`` feeds the
+    ``train_flagship`` tokens as 32 rows ``{"tokens": int32[2048]}`` for
+    3 epochs through the node's queue, and the compute process trains
+    the flagship with ``SyncTrainer.train_on_feed`` (columnar, K=4): a
+    warm-up call of 4 steps, a timed call of 8, then ``feed.terminate()``
+    timed apart (what ``terminate_on_max_steps`` adds).  Its 12 losses must
+    equal ``train_flagship``'s within :data:`FEED_LOSS_RTOL` (1e-6)
+    relative, K2-K4 must launch 16 x 12 times there, its card's UUID
+    must be the one ``gpu_info`` chose, and a second tiny cluster whose
+    fn raises at once must fail the driver with an error naming the
+    executor.
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit
 line, and as the last line ``{"ok": true, "device": {...}}``.  Without a
@@ -94,7 +108,9 @@ down by kernel class for the dense or the MoE flagship, and
 ``phase_serve_profile`` (not run by it either) a serving decode step;
 ``phase_register_probe`` (not run by it either) builds a minimal kernel
 in five variants of its roles and waits and reports ptxas's registers
-and spills.
+and spills; ``phase_feed_global_stop(4)`` (not run by it either; four
+cards) holds the feed path's global stop across four executors with a
+card each, over NCCL with a ``gloo`` flag group.
 """
 
 import json
@@ -2119,8 +2135,321 @@ def phase_moe_train_to_serve(model):
                              "{1}".format(launches, gen))
 
 
+#: the fed losses against ``train_flagship``'s, relative: the same
+#: weights, kernels and batches run in the same order, so they agree to
+#: the bit (0 in every run so far); within the first epoch the losses of
+#: different batches differ by ~1e-3, so a feeder that swapped or
+#: repeated rows or batches fails this
+FEED_LOSS_RTOL = 1e-6
+
+
+def card_uuid(device=0):
+    """The UUID of a CUDA device as ``nvidia-smi`` prints it, lower-case
+    and without the ``GPU-`` prefix."""
+    return _bare_uuid(str(torch.cuda.get_device_properties(device).uuid))
+
+
+def _bare_uuid(uuid):
+    uuid = uuid.lower()
+    return uuid[4:] if uuid.startswith("gpu-") else uuid
+
+
+def feed_train_fn(args, ctx):
+    """The user fn of ``feed_train_flagship``, run in the compute
+    process: the flagship from the seed-0 tree, trained from the node's
+    feed by two ``train_on_feed`` calls; writes ``args["out"]``.
+
+    Neither callback synchronises: a host timestamp in each measures
+    the feed wait between groups."""
+    t_start = time.perf_counter()
+    from tensorflowonspark_tpu_torch import compat, convert, optim
+    from tensorflowonspark_tpu_torch.models import transformer
+    from tensorflowonspark_tpu_torch.ops import _build
+    from tensorflowonspark_tpu_torch.ops.flash_attention import (
+        flash_attention,
+    )
+    from tensorflowonspark_tpu_torch.parallel import dp
+
+    device = compat.resolve_device()
+    build_s = _build.build(["flash_attention"])["flash_attention"]
+    ctx.initialize_distributed()
+    feed = ctx.get_data_feed()
+    tree = convert.init_params_tree(
+        transformer.TransformerConfig(**FLAGSHIP), seed=0)  # as flagship_tree
+    cfg = transformer.TransformerConfig(**dict(FLAGSHIP,
+                                               attention_impl="flash"))
+    model = convert.params_from_flax(tree, cfg, device=device,
+                                     param_dtype=torch.float32)
+    del tree
+    trainer = dp.SyncTrainer(transformer.loss_fn(model), optim.adamw(1e-4))
+    state = trainer.create_state(dict(model.named_parameters()))
+    losses, marks = [], []
+    multi = trainer.multi_step_on_device
+
+    def multi_step_on_device(*a):
+        out = multi(*a)
+        losses.append(out[1]["loss"])  # a device tensor: no sync
+        return out
+
+    trainer.multi_step_on_device = multi_step_on_device
+    k, b = args["k"], args["batch"]
+    calls = dict(batch_size=b, columnar=True, steps_per_execution=k,
+                 step_callback=lambda step: marks.append(
+                     ("step", time.perf_counter())),
+                 metrics_callback=lambda step, m: marks.append(
+                     ("metrics", time.perf_counter())))
+    flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
+    state = trainer.train_on_feed(state, feed, max_steps=k,
+                                  terminate_on_max_steps=False, **calls)
+    torch.cuda.synchronize()
+    first_step = marks[0][1]
+    del marks[:]
+    t0 = time.perf_counter()
+    state = trainer.train_on_feed(state, feed, max_steps=2 * k,
+                                  terminate_on_max_steps=False, **calls)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # what terminate_on_max_steps would add at the cap, timed apart: the
+    # drain waits out its quiet gap even when nothing is in flight
+    t1 = time.perf_counter()
+    feed.terminate()
+    terminate_sec = time.perf_counter() - t1
+    waits, prev = [], t0
+    for kind, t in marks:
+        if kind == "step":
+            waits.append(t - prev)
+        else:
+            prev = t
+    result = dict(
+        losses=torch.cat(losses).float().cpu().numpy().tolist(),
+        launches=dict(flash_attention.launches), steps=int(state.step),
+        timed_steps=2 * k, wall_sec=wall, feed_wait_sec=waits,
+        terminate_sec=terminate_sec,
+        startup_sec=first_step - t_start, flash_build_sec=build_s,
+        cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"),
+        device=torch.cuda.get_device_name(device), uuid=card_uuid(device),
+        pid=os.getpid(), wire=feed.wire_stats(),
+        peak_memory_bytes=torch.cuda.max_memory_allocated(device),
+    )
+    with open(args["out"], "w") as f:
+        json.dump(result, f)
+
+
+def feed_fail_fn(args, ctx):
+    """A user fn that raises at once (the failure check of
+    ``feed_train_flagship``)."""
+    raise RuntimeError("injected failure in the user fn")
+
+
+def feed_cluster(fn, args, rows, epochs):
+    """``cluster.run`` over a one-executor ``LocalEngine`` with one GPU,
+    ``train`` of
+    ``rows`` as one partition, ``shutdown``; the engine is stopped
+    whatever happens.  Returns ``(startup_sec, train_sec, error)``, where
+    ``error`` is the ``RuntimeError`` that ``train`` or ``shutdown``
+    raised (``None`` when neither did)."""
+    from tensorflowonspark_tpu_torch.cluster import cluster
+    from tensorflowonspark_tpu_torch.engine import LocalEngine
+
+    engine = LocalEngine(1)
+    try:
+        t0 = time.perf_counter()
+        c = cluster.run(engine, fn, args, num_executors=1,
+                        num_chips_per_node=1,
+                        input_mode=cluster.InputMode.SPARK,
+                        reservation_timeout=120)
+        t1 = time.perf_counter()
+        error = None
+        try:
+            c.train([rows], num_epochs=epochs, feed_timeout=600)
+        except RuntimeError as e:
+            error = e
+        t2 = time.perf_counter()
+        try:
+            c.shutdown(timeout=600)
+        except RuntimeError as e:
+            error = error or e
+        return t1 - t0, t2 - t1, error
+    finally:
+        engine.stop()
+
+
+def phase_feed_train_flagship(train):
+    """The feed path: see the module docstring, phase 18.  ``train`` is
+    :func:`phase_train_flagship`'s result."""
+    import gc
+    import importlib
+    import tempfile
+
+    from tensorflowonspark_tpu_torch.cluster import gpu_info
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_bytes, total_bytes = torch.cuda.mem_get_info()
+    print("feed_train_flagship: {0} of {1} bytes free on the card before "
+          "the compute process starts".format(free_bytes, total_bytes),
+          flush=True)
+    chosen = gpu_info.get_gpus(1, worker_index=0)
+    chosen_uuid = [_bare_uuid(g["uuid"]) for g in gpu_info.allocatable_gpus()
+                   if g["id"] == chosen[0]][0]
+    # the fns by module name, not as __main__'s: the spawned processes
+    # import this module under its own name
+    smoke = importlib.import_module("chip_smoke")
+    rng = np.random.default_rng(7)  # flagship_trainer's tokens, as rows
+    tokens = rng.integers(0, FLAGSHIP["vocab_size"],
+                          (TRAIN_K, TRAIN_B, TRAIN_S)).astype(np.int32)
+    rows = [{"tokens": t} for t in tokens.reshape(-1, TRAIN_S)]
+    out = os.path.join(tempfile.mkdtemp(prefix="feed_train_"), "result.json")
+    startup, train_sec, error = feed_cluster(
+        smoke.feed_train_fn, {"out": out, "k": TRAIN_K, "batch": TRAIN_B},
+        rows, epochs=3)
+    if error is not None:
+        raise error
+    if not os.path.exists(out):
+        raise AssertionError("the compute process wrote no result")
+    with open(out) as f:
+        res = json.load(f)
+    # the failure path: a fn that raises at once fails the driver
+    _, _, failure = feed_cluster(smoke.feed_fail_fn, None, rows[:TRAIN_B],
+                                 epochs=1)
+    got = np.asarray(res["losses"])
+    want = np.asarray(train["losses"])
+    rel = (np.abs(got - want) / np.abs(want)).max() if got.shape == \
+        want.shape else float("inf")
+    steps = res["timed_steps"]
+    tokens_per_sec = steps * TRAIN_B * TRAIN_S / res["wall_sec"]
+    wait_ms = [1e3 * w for w in res["feed_wait_sec"]]
+    line = dict(
+        model=train["model"], rows=len(rows), epochs=3,
+        steps=len(res["losses"]), timed_steps=steps,
+        tokens_per_sec=tokens_per_sec,
+        step_ms=1e3 * res["wall_sec"] / steps,
+        train_flagship_tokens_per_sec=train["tokens_per_sec"],
+        fed_over_stacked=tokens_per_sec / train["tokens_per_sec"],
+        feed_wait_ms=wait_ms,
+        feed_wait_share=sum(res["feed_wait_sec"]) / res["wall_sec"],
+        terminate_sec=res["terminate_sec"],
+        startup_sec=res["startup_sec"], cluster_startup_sec=startup,
+        train_call_sec=train_sec, flash_build_sec=res["flash_build_sec"],
+        losses=res["losses"], max_rel_loss_diff=rel,
+        launches=res["launches"], compute_pid=res["pid"],
+        driver_pid=os.getpid(),
+        cuda_visible_devices=res["cuda_visible_devices"],
+        chosen_gpus=chosen, chosen_uuid=chosen_uuid,
+        compute_device=res["device"], compute_uuid=res["uuid"],
+        peak_memory_bytes=res["peak_memory_bytes"], wire=res["wire"],
+        free_bytes_before=free_bytes,
+        failure=None if failure is None else next(
+            (ln for ln in str(failure).splitlines()
+             if re.search(r"executor \d", ln)), str(failure).splitlines()[0]),
+        nvidia_smi=nvidia_smi(),
+    )
+    emit("feed_train_flagship", **line)
+    if not rel <= FEED_LOSS_RTOL:
+        raise AssertionError("fed losses differ from train_flagship's by "
+                             "{0} relative".format(rel))
+    want_launches = FLAGSHIP["num_layers"] * len(want)
+    if res["launches"] != {n: want_launches for n in ("fwd", "dq", "dkv")}:
+        raise AssertionError("fed flash launches {0}, want {1} each".format(
+            res["launches"], want_launches))
+    if res["pid"] == os.getpid():
+        raise AssertionError("the fn ran in the driver process")
+    if (res["cuda_visible_devices"] != ",".join(map(str, chosen))
+            or res["uuid"] != chosen_uuid):
+        raise AssertionError("compute process on {0} (visible {1}), "
+                             "gpu_info chose {2} ({3})".format(
+                                 res["uuid"], res["cuda_visible_devices"],
+                                 chosen, chosen_uuid))
+    if failure is None or "executor 0" not in str(failure) \
+            or "injected failure" not in str(failure):
+        raise AssertionError("a raising user fn did not fail the driver "
+                             "naming the executor: {0!r}".format(failure))
+    return line
+
+
+def global_stop_fn(args, ctx):
+    """The user fn of :func:`phase_feed_global_stop`: a linear model
+    trained from the node's feed under ``torch.distributed``, then one
+    all-reduce over the default group; writes ``rank<r>.json``."""
+    from tensorflowonspark_tpu_torch import compat, optim
+    from tensorflowonspark_tpu_torch.parallel import dp
+
+    dist = ctx.initialize_distributed()
+    device = compat.resolve_device()
+    model = torch.nn.Linear(4, 1).to(device)
+
+    def loss_fn(params, batch, rng):
+        x, y = batch
+        return torch.mean((x @ params["weight"].T + params["bias"] - y) ** 2)
+
+    trainer = dp.SyncTrainer(loss_fn, optim.sgd(0.1))
+    state = trainer.create_state(dict(model.named_parameters()))
+    state = trainer.train_on_feed(state, ctx.get_data_feed(), batch_size=4,
+                                  columnar=True)
+    rank = torch.full((1,), float(dist.get_rank() + 1), device=device)
+    dist.all_reduce(rank)
+    out = dict(rank=dist.get_rank(), world=dist.get_world_size(),
+               backend=dist.get_backend(), steps=int(state.step),
+               all_reduce=rank.item(),
+               cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"),
+               uuid=card_uuid(device))
+    dist.destroy_process_group()
+    with open(os.path.join(args["out"], "rank%d.json" % out["rank"]),
+              "w") as f:
+        json.dump(out, f)
+
+
+def phase_feed_global_stop(n=4):
+    """Not run by :func:`main`: ``n`` executors, one GPU each by
+    host-local rank, ``initialize_distributed`` (NCCL with a ``gloo``
+    flag group), executor ``i`` fed ``3 + i`` batches; every rank must
+    stop after 3 steps (the global stop), the all-reduce must sum the
+    ranks, and each rank must hold the card that ``gpu_info`` gave its
+    executor."""
+    import importlib
+    import tempfile
+
+    from tensorflowonspark_tpu_torch.cluster import cluster, gpu_info
+    from tensorflowonspark_tpu_torch.engine import LocalEngine
+
+    smoke = importlib.import_module("chip_smoke")
+    pool = {_bare_uuid(g["uuid"]): str(g["id"])
+            for g in gpu_info.allocatable_gpus()}
+    gen = np.random.default_rng(0)
+    parts = [[(gen.standard_normal(4).astype(np.float32),
+               gen.standard_normal(1).astype(np.float32))
+              for _ in range(4 * (3 + i))] for i in range(n)]
+    out = tempfile.mkdtemp(prefix="global_stop_")
+    engine = LocalEngine(n, deterministic=True)
+    try:
+        t0 = time.perf_counter()
+        c = cluster.run(engine, smoke.global_stop_fn, {"out": out},
+                        num_executors=n, num_chips_per_node=1,
+                        reservation_timeout=120)
+        c.train(parts, feed_timeout=300)
+        c.shutdown(timeout=300)
+        wall = time.perf_counter() - t0
+    finally:
+        engine.stop()
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(out, "rank%d.json" % r)) as f:
+            ranks.append(json.load(f))
+    emit("feed_global_stop", executors=n, wall_sec=wall, ranks=ranks)
+    if [r["steps"] for r in ranks] != [3] * n:
+        raise AssertionError("ranks stopped at different steps")
+    if {r["all_reduce"] for r in ranks} != {n * (n + 1) / 2.0}:
+        raise AssertionError("the all-reduce did not sum the ranks")
+    if len({r["uuid"] for r in ranks}) != n or any(
+            pool.get(r["uuid"]) != r["cuda_visible_devices"] for r in ranks):
+        raise AssertionError("the ranks do not hold one distinct card "
+                             "each, the one gpu_info chose: {0}".format(pool))
+    return ranks
+
+
 def kernel_entry(name, kernel, replaces, launches, timing,
-                 source="tensorflowonspark_tpu_torch/csrc/flash_attention.cu"):
+                 source="tensorflowonspark_tpu_torch/csrc/flash_attention.cu",
+                 **extra):
     """One entry of the ``kernels`` line; ``kernel`` names the CUDA
     function that ran at the timing shape."""
     return dict(
@@ -2129,7 +2458,7 @@ def kernel_entry(name, kernel, replaces, launches, timing,
         max_abs_err=timing["max_abs_err"], ms=timing["ms"],
         plain_ms=timing["plain_ms"], bound_ms=timing["bound_ms"],
         bound_by=timing["bound_by"], library_ms=timing["library_ms"],
-        library_note=timing["library_note"],
+        library_note=timing["library_note"], **extra
     )
 
 
@@ -2163,6 +2492,7 @@ def main():
     phase_moe_dropless_vs_gather()
     phase_moe_train_to_serve(moe_model)
     del moe_model
+    fed = phase_feed_train_flagship(train)
     jax_flash = "tensorflowonspark_tpu/ops/flash_attention.py:"
     jax_gmm = "tensorflowonspark_tpu/ops/gmm.py:"
     print(json.dumps({"kernels": [dict(
@@ -2177,12 +2507,12 @@ def main():
         library_note="gather_pool of K and V, then "
                      "scaled_dot_product_attention with the length mask",
     )] + [
-        kernel_entry("flash_fwd", "flash_fwd_wgmma", jax_flash + "132",
-                     train["launches"]["fwd"], flash["fwd"]),
-        kernel_entry("flash_dq", "flash_dq_wgmma", jax_flash + "198",
-                     train["launches"]["dq"], flash["dq"]),
-        kernel_entry("flash_dkv", "flash_dkv_wgmma", jax_flash + "256",
-                     train["launches"]["dkv"], flash["dkv"]),
+        kernel_entry("flash_" + name, kernel, jax_flash + line,
+                     train["launches"][name], flash[name],
+                     fed_launches=fed["launches"][name])
+        for name, kernel, line in (("fwd", "flash_fwd_wgmma", "132"),
+                                   ("dq", "flash_dq_wgmma", "198"),
+                                   ("dkv", "flash_dkv_wgmma", "256"))
     ] + [
         kernel_entry(name, GMM_WGMMA[name], jax_gmm + line,
                      moe["launches"][name], gmm_timing[name], source=GMM_SRC)

@@ -58,19 +58,13 @@ from tensorflowonspark_tpu_torch.ops.paged_attention import (
 )
 from tensorflowonspark_tpu_torch.planner import knobs as knob_registry
 from tensorflowonspark_tpu_torch.prefix_cache import PagePool
+from tensorflowonspark_tpu_torch.utils import not_ported as _not_ported
 
 _DTYPES = {
     "float32": torch.float32,
     "bfloat16": torch.bfloat16,
     "float16": torch.float16,
 }
-
-
-def _not_ported(what, item):
-    return NotImplementedError(
-        "{0} is not ported to the PyTorch package yet (ROADMAP queue A: "
-        "{1})".format(what, item)
-    )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,13 +18,7 @@ from tensorflowonspark_tpu_torch.serving_engine import (  # noqa: F401
     apply_output_mapping,
     error_record,
 )
-
-
-def _not_ported(what, item):
-    return NotImplementedError(
-        "{0} is not ported to the PyTorch package yet (ROADMAP queue A: "
-        "{1})".format(what, item)
-    )
+from tensorflowonspark_tpu_torch.utils import not_ported as _not_ported
 
 
 def predict_rows(

@@ -183,11 +183,37 @@ def test_import_loads_no_jax():
         "flash_attention, gmm, moe, paged_attention\n"
         "from tensorflowonspark_tpu_torch.parallel import dp\n"
         "from tensorflowonspark_tpu_torch.planner import knobs\n"
+        "from tensorflowonspark_tpu_torch import cluster, engine\n"
+        "from tensorflowonspark_tpu_torch.cluster import gpu_info, manager, "
+        "node, reservation, supervisor\n"
+        "from tensorflowonspark_tpu_torch.data import feed\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'tensorflowonspark_tpu'))\n"
         "assert not bad, bad\n"
         "import torch\n"
         "assert not torch.cuda.is_initialized()\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(PKG)
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_cluster_plane_imports_no_torch():
+    """The driver and executor side of the cluster plane never import
+    ``torch``: the executor forks its queue manager, and a CUDA context
+    does not survive a fork (only the spawned compute process may touch
+    the GPU)."""
+    code = (
+        "import sys\n"
+        "from tensorflowonspark_tpu_torch import engine\n"
+        "from tensorflowonspark_tpu_torch.cluster import cluster, gpu_info, "
+        "manager, node, reservation, supervisor\n"
+        "from tensorflowonspark_tpu_torch.data import feed\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'tensorflowonspark_tpu'))\n"
+        "assert not bad, bad\n"
     )
     env = dict(os.environ)
     env["PYTHONPATH"] = os.path.dirname(PKG)

@@ -253,7 +253,8 @@ def test_bf16_model_keeps_f32_masters():
     ({"rules": object()}, "multi-GPU DP"),
     ({"annotations": {}}, "multi-GPU DP"),
     ({"has_model_state": True}, "model state"),
-    ({"device_preprocess": lambda b: b}, "train_on_feed"),
+    ({"device_preprocess": lambda b: b},
+     "device_preprocess and the shm ring"),
 ], ids=["mesh", "rules", "annotations", "model_state", "preprocess"])
 def test_unported_trainer_knobs_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -261,9 +262,36 @@ def test_unported_trainer_knobs_raise(kw, item):
 
 
 def test_train_on_feed_is_not_ported():
+    """What of ``train_on_feed`` is still not ported: its checkpoint
+    hooks."""
     trainer = dp.SyncTrainer(lambda p, b, r: 0.0, optim.sgd(0.1))
-    with pytest.raises(NotImplementedError, match="train_on_feed"):
-        trainer.train_on_feed(None, None, 8)
+    with pytest.raises(NotImplementedError, match="Checkpointing"):
+        trainer.train_on_feed(None, None, 8, checkpointer=object())
+    with pytest.raises(NotImplementedError, match="Checkpointing"):
+        trainer.train_on_feed(None, None, 8, checkpoint_every=2)
+
+
+def test_train_on_feed_runs_a_tiny_feed():
+    from tensorflowonspark_tpu_torch.cluster import manager
+    from tensorflowonspark_tpu_torch.cluster.marker import pack_columnar
+    from tensorflowonspark_tpu_torch.data.feed import DataFeed
+
+    mgr, _ = manager.start(b"tiny-feed", ["input", "output", "error"])
+    try:
+        q = mgr.get_queue("input")
+        q.put(pack_columnar([{"tokens": t} for t in
+                             _batches().reshape(STEPS * B, S)]))
+        q.put(None)
+        model = _port_model(TINY)
+        trainer = dp.SyncTrainer(ttr.loss_fn(model), optim.sgd(0.01))
+        state = trainer.create_state(dict(model.named_parameters()))
+        state = trainer.train_on_feed(state, DataFeed(mgr), batch_size=B,
+                                      max_steps=2, columnar=True)
+        assert int(state.step) == 2
+        # the cap ended training with a batch in flight: feed terminated
+        assert mgr.get("state")._getvalue() == "terminating"
+    finally:
+        mgr.shutdown()
 
 
 @pytest.mark.parametrize("field,item", [
