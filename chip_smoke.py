@@ -99,6 +99,29 @@ caught):
     must be the one ``gpu_info`` chose, and a second tiny cluster whose
     fn raises at once must fail the driver with an error naming the
     executor.
+19. ``feed_ring_train_flagship``: the same training fed through the
+    node's shared-memory ring (``TFOS_SHM_FEED=1`` in the executor's
+    env): the rows narrowed on the driver to ``uint16`` by
+    ``columnar.WireSpec`` (4096 B a row, which meets the default ring
+    policy), widened to int32 on the card by ``SyncTrainer(
+    device_preprocess={"columns": ["tokens"], "dtype": "int32"})``.  The
+    12 losses must equal ``train_flagship``'s within
+    :data:`FEED_LOSS_RTOL`, K2-K4 must launch 16 x 12 times, the feed's
+    source must be the ring, its wire bytes must equal the columnar
+    codec's totals for the three records fed, and no ``tfos_*`` segment
+    may be left in ``/dev/shm`` after the engine stops.
+20. ``feed_inference_flagship``: batch inference.  64 Examples
+    ``{"tokens": int64[2048]}`` written to a TFRecord file with the
+    port's ``tfrecord``/``example`` and read back with
+    ``columnar.load_tfrecords_columnar`` as ``uint16`` (the native codecs
+    must be the ones loaded), scored by ``TPUCluster.inference`` (two
+    partitions, ``TFOS_SHM_FEED=1``) in a compute process that runs the
+    flagship (bf16) over ``prefetch_to_device(feed.batches(8,
+    pad_to_batch=True), host_prefetch=True)`` widening to int32 on the
+    card; each row's mean next-token cross-entropy must come back in
+    row order within :data:`INFER_RTOL` of the driver's own scores of
+    the same batches, with 128 K2 launches and none of K3/K4, on the
+    card ``gpu_info`` chose.
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit
 line, and as the last line ``{"ok": true, "device": {...}}``.  Without a
@@ -2154,10 +2177,30 @@ def _bare_uuid(uuid):
     return uuid[4:] if uuid.startswith("gpu-") else uuid
 
 
+def gpu_choice():
+    """``(ids, uuid)``: the card ``gpu_info`` gives a one-GPU node of
+    host-local rank 0, and its UUID as :func:`card_uuid` prints it."""
+    from tensorflowonspark_tpu_torch.cluster import gpu_info
+
+    chosen = gpu_info.get_gpus(1, worker_index=0)
+    return chosen, [_bare_uuid(g["uuid"]) for g in gpu_info.allocatable_gpus()
+                    if g["id"] == chosen[0]][0]
+
+
+def max_rel_diff(got, want):
+    """The largest relative difference of two equal-shaped arrays
+    (``inf`` when the shapes differ)."""
+    if got.shape != want.shape:
+        return float("inf")
+    return (np.abs(got - want) / np.abs(want)).max()
+
+
 def feed_train_fn(args, ctx):
-    """The user fn of ``feed_train_flagship``, run in the compute
-    process: the flagship from the seed-0 tree, trained from the node's
-    feed by two ``train_on_feed`` calls; writes ``args["out"]``.
+    """The user fn of ``feed_train_flagship`` and
+    ``feed_ring_train_flagship``, run in the compute process: the
+    flagship from the seed-0 tree, trained from the node's feed by two
+    ``train_on_feed`` calls (with ``args["preprocess"]`` as the trainer's
+    ``device_preprocess`` when given); writes ``args["out"]``.
 
     Neither callback synchronises: a host timestamp in each measures
     the feed wait between groups."""
@@ -2181,7 +2224,8 @@ def feed_train_fn(args, ctx):
     model = convert.params_from_flax(tree, cfg, device=device,
                                      param_dtype=torch.float32)
     del tree
-    trainer = dp.SyncTrainer(transformer.loss_fn(model), optim.adamw(1e-4))
+    trainer = dp.SyncTrainer(transformer.loss_fn(model), optim.adamw(1e-4),
+                             device_preprocess=args.get("preprocess"))
     state = trainer.create_state(dict(model.named_parameters()))
     losses, marks = [], []
     multi = trainer.multi_step_on_device
@@ -2209,6 +2253,9 @@ def feed_train_fn(args, ctx):
                                   terminate_on_max_steps=False, **calls)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    # the feed's source and ring before terminate() drains and closes it
+    hot_source = feed._hot_source
+    ring = None if feed._ring is None else feed._ring.name
     # what terminate_on_max_steps would add at the cap, timed apart: the
     # drain waits out its quiet gap even when nothing is in flight
     t1 = time.perf_counter()
@@ -2228,8 +2275,8 @@ def feed_train_fn(args, ctx):
         startup_sec=first_step - t_start, flash_build_sec=build_s,
         cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"),
         device=torch.cuda.get_device_name(device), uuid=card_uuid(device),
-        pid=os.getpid(), wire=feed.wire_stats(),
-        peak_memory_bytes=torch.cuda.max_memory_allocated(device),
+        pid=os.getpid(), wire=feed.wire_stats(), hot_source=hot_source,
+        ring=ring, peak_memory_bytes=torch.cuda.max_memory_allocated(device),
     )
     with open(args["out"], "w") as f:
         json.dump(result, f)
@@ -2241,17 +2288,17 @@ def feed_fail_fn(args, ctx):
     raise RuntimeError("injected failure in the user fn")
 
 
-def feed_cluster(fn, args, rows, epochs):
-    """``cluster.run`` over a one-executor ``LocalEngine`` with one GPU,
-    ``train`` of
-    ``rows`` as one partition, ``shutdown``; the engine is stopped
-    whatever happens.  Returns ``(startup_sec, train_sec, error)``, where
-    ``error`` is the ``RuntimeError`` that ``train`` or ``shutdown``
-    raised (``None`` when neither did)."""
+def feed_cluster(fn, args, rows, epochs, env=None):
+    """``cluster.run`` over a one-executor ``LocalEngine`` (with ``env``
+    set in the executor) with one GPU, ``train`` of ``rows`` as one
+    partition, ``shutdown``; the engine is stopped whatever happens.
+    Returns ``(startup_sec, train_sec, error)``, where ``error`` is the
+    ``RuntimeError`` that ``train`` or ``shutdown`` raised (``None`` when
+    neither did)."""
     from tensorflowonspark_tpu_torch.cluster import cluster
     from tensorflowonspark_tpu_torch.engine import LocalEngine
 
-    engine = LocalEngine(1)
+    engine = LocalEngine(1, env=env)
     try:
         t0 = time.perf_counter()
         c = cluster.run(engine, fn, args, num_executors=1,
@@ -2281,17 +2328,13 @@ def phase_feed_train_flagship(train):
     import importlib
     import tempfile
 
-    from tensorflowonspark_tpu_torch.cluster import gpu_info
-
     gc.collect()
     torch.cuda.empty_cache()
     free_bytes, total_bytes = torch.cuda.mem_get_info()
     print("feed_train_flagship: {0} of {1} bytes free on the card before "
           "the compute process starts".format(free_bytes, total_bytes),
           flush=True)
-    chosen = gpu_info.get_gpus(1, worker_index=0)
-    chosen_uuid = [_bare_uuid(g["uuid"]) for g in gpu_info.allocatable_gpus()
-                   if g["id"] == chosen[0]][0]
+    chosen, chosen_uuid = gpu_choice()
     # the fns by module name, not as __main__'s: the spawned processes
     # import this module under its own name
     smoke = importlib.import_module("chip_smoke")
@@ -2314,8 +2357,7 @@ def phase_feed_train_flagship(train):
                                  epochs=1)
     got = np.asarray(res["losses"])
     want = np.asarray(train["losses"])
-    rel = (np.abs(got - want) / np.abs(want)).max() if got.shape == \
-        want.shape else float("inf")
+    rel = max_rel_diff(got, want)
     steps = res["timed_steps"]
     tokens_per_sec = steps * TRAIN_B * TRAIN_S / res["wall_sec"]
     wait_ms = [1e3 * w for w in res["feed_wait_sec"]]
@@ -2364,6 +2406,281 @@ def phase_feed_train_flagship(train):
             or "injected failure" not in str(failure):
         raise AssertionError("a raising user fn did not fail the driver "
                              "naming the executor: {0!r}".format(failure))
+    return line
+
+
+def shm_segments():
+    """The feed rings' segments in ``/dev/shm`` (``tfos_*``)."""
+    return sorted(f for f in os.listdir("/dev/shm") if f.startswith("tfos_"))
+
+
+def phase_feed_ring_train_flagship(train):
+    """The shm ring and ``device_preprocess``: see the module docstring,
+    phase 19.  ``train`` is :func:`phase_train_flagship`'s result."""
+    import gc
+    import importlib
+    import tempfile
+
+    from tensorflowonspark_tpu_torch.cluster.marker import (
+        encode_columnar_parts, pack_columnar,
+    )
+    from tensorflowonspark_tpu_torch.data.columnar import WireSpec
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    st = os.statvfs("/dev/shm")
+    shm_free = st.f_bavail * st.f_frsize
+    print("feed_ring_train_flagship: {0} bytes free in /dev/shm".format(
+        shm_free), flush=True)
+    chosen, chosen_uuid = gpu_choice()
+    smoke = importlib.import_module("chip_smoke")
+    rng = np.random.default_rng(7)  # feed_train_flagship's rows, narrowed
+    tokens = rng.integers(0, FLAGSHIP["vocab_size"],
+                          (TRAIN_K, TRAIN_B, TRAIN_S)).astype(np.int32)
+    rows = WireSpec({"tokens": "uint16"}).narrow_rows(
+        [{"tokens": t} for t in tokens.reshape(-1, TRAIN_S)])
+    # every epoch ships its 32 rows as one columnar wire record
+    header, bufs = encode_columnar_parts(pack_columnar(rows))
+    epochs = 3
+    want_wire = epochs * (len(header) + sum(b.nbytes for b in bufs))
+    out = os.path.join(tempfile.mkdtemp(prefix="feed_ring_"), "result.json")
+    before = shm_segments()
+    startup, train_sec, error = feed_cluster(
+        smoke.feed_train_fn,
+        {"out": out, "k": TRAIN_K, "batch": TRAIN_B,
+         "preprocess": {"columns": ["tokens"], "dtype": "int32"}},
+        rows, epochs=epochs, env={"TFOS_SHM_FEED": "1"})
+    left = [f for f in shm_segments() if f not in before]
+    if error is not None:
+        raise error
+    with open(out) as f:
+        res = json.load(f)
+    got = np.asarray(res["losses"])
+    want = np.asarray(train["losses"])
+    rel = max_rel_diff(got, want)
+    steps = res["timed_steps"]
+    tokens_per_sec = steps * TRAIN_B * TRAIN_S / res["wall_sec"]
+    line = dict(
+        model=train["model"], rows=len(rows), epochs=epochs,
+        wire_dtype=str(rows[0]["tokens"].dtype), steps=len(res["losses"]),
+        timed_steps=steps, tokens_per_sec=tokens_per_sec,
+        step_ms=1e3 * res["wall_sec"] / steps,
+        train_flagship_tokens_per_sec=train["tokens_per_sec"],
+        fed_over_stacked=tokens_per_sec / train["tokens_per_sec"],
+        feed_wait_ms=[1e3 * w for w in res["feed_wait_sec"]],
+        feed_wait_share=sum(res["feed_wait_sec"]) / res["wall_sec"],
+        terminate_sec=res["terminate_sec"], startup_sec=res["startup_sec"],
+        cluster_startup_sec=startup, train_call_sec=train_sec,
+        losses=res["losses"], max_rel_loss_diff=rel,
+        launches=res["launches"], hot_source=res["hot_source"],
+        ring=res["ring"], wire=res["wire"], want_wire_bytes=want_wire,
+        wire_bytes_per_row=res["wire"]["bytes_per_row"],
+        record_header_bytes=len(header), shm_free_bytes=shm_free,
+        shm_left=left, compute_uuid=res["uuid"], chosen_uuid=chosen_uuid,
+        peak_memory_bytes=res["peak_memory_bytes"], nvidia_smi=nvidia_smi(),
+    )
+    emit("feed_ring_train_flagship", **line)
+    if not rel <= FEED_LOSS_RTOL:
+        raise AssertionError("ring-fed losses differ from train_flagship's "
+                             "by {0} relative".format(rel))
+    want_launches = FLAGSHIP["num_layers"] * len(want)
+    if res["launches"] != {n: want_launches for n in ("fwd", "dq", "dkv")}:
+        raise AssertionError("ring-fed flash launches {0}, want {1} "
+                             "each".format(res["launches"], want_launches))
+    if res["hot_source"] != "ring" or not res["ring"]:
+        raise AssertionError("the feed did not come from the ring: "
+                             "{0}".format(res["hot_source"]))
+    if res["wire"]["wire_bytes"] != want_wire \
+            or res["wire"]["rows"] != epochs * len(rows):
+        raise AssertionError("ring wire {0}, want {1} bytes".format(
+            res["wire"], want_wire))
+    if left or res["ring"] in shm_segments():
+        raise AssertionError("shm segments left after engine.stop(): "
+                             "{0}".format(left or [res["ring"]]))
+    if res["uuid"] != chosen_uuid:
+        raise AssertionError("compute process on {0}, gpu_info chose "
+                             "{1}".format(res["uuid"], chosen_uuid))
+    return line
+
+
+INFER_ROWS, INFER_BATCH = 64, 8
+INFER_RTOL = 1e-6
+
+
+def inference_model(device):
+    """The flagship for scoring: the seed-0 tree, bf16, flash attention."""
+    from tensorflowonspark_tpu_torch import convert
+    from tensorflowonspark_tpu_torch.models import transformer
+
+    tree = convert.init_params_tree(
+        transformer.TransformerConfig(**FLAGSHIP), seed=0)  # as flagship_tree
+    cfg = transformer.TransformerConfig(**dict(FLAGSHIP,
+                                               attention_impl="flash"))
+    return convert.params_from_flax(tree, cfg, device=device)
+
+
+def score_rows(model, tokens):
+    """Each row's mean next-token cross-entropy, in f32 from the model's
+    bf16 logits."""
+    import torch.nn.functional as F
+
+    tokens = tokens.to(torch.int64)
+    logits = model(tokens)[:, :-1].float()
+    ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                         tokens[:, 1:].reshape(-1), reduction="none")
+    return ce.view(tokens.shape[0], -1).mean(1)
+
+
+def feed_inference_fn(args, ctx):
+    """The user fn of ``feed_inference_flagship``, run in the compute
+    process: scores the fed rows with the flagship, batches of 8 through
+    ``prefetch_to_device``; writes ``args["out"]``."""
+    t_start = time.perf_counter()
+    from tensorflowonspark_tpu_torch import compat
+    from tensorflowonspark_tpu_torch.data.feed import prefetch_to_device
+    from tensorflowonspark_tpu_torch.ops import _build
+    from tensorflowonspark_tpu_torch.ops.flash_attention import (
+        flash_attention,
+    )
+
+    device = compat.resolve_device()
+    _build.build(["flash_attention"])
+    feed = ctx.get_data_feed(train_mode=False,
+                             input_mapping={"tokens": "tokens"})
+    model = inference_model(device)
+    flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
+    batches = prefetch_to_device(
+        feed.batches(INFER_BATCH, pad_to_batch=True), size=2,
+        preprocess={"columns": ["tokens"], "dtype": "int32"},
+        host_prefetch=True)
+    waits, scoring, dtypes = [], [], set()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        while True:
+            t = time.perf_counter()
+            try:
+                batch, n = next(batches)
+            except StopIteration:
+                break
+            t1 = time.perf_counter()
+            waits.append(t1 - t)
+            dtypes.add(str(batch["tokens"].dtype))
+            scores = score_rows(model, batch["tokens"])[:n].cpu()
+            feed.batch_results(scores.tolist())
+            scoring.append(time.perf_counter() - t1)
+    result = dict(
+        launches=dict(flash_attention.launches), wait_sec=waits,
+        scoring_sec=scoring, loop_sec=time.perf_counter() - t0,
+        startup_sec=t0 - t_start, batch_dtypes=sorted(dtypes),
+        wire=feed.wire_stats(), hot_source=feed._hot_source,
+        cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"),
+        device=torch.cuda.get_device_name(device), uuid=card_uuid(device),
+        pid=os.getpid(),
+    )
+    with open(args["out"], "w") as f:
+        json.dump(result, f)
+
+
+def phase_feed_inference_flagship():
+    """Batch inference: see the module docstring, phase 20."""
+    import gc
+    import importlib
+    import tempfile
+
+    from tensorflowonspark_tpu_torch import compat
+    from tensorflowonspark_tpu_torch.cluster import cluster
+    from tensorflowonspark_tpu_torch.data import (
+        _native, columnar, example, tfrecord,
+    )
+    from tensorflowonspark_tpu_torch.engine import LocalEngine
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    chosen, chosen_uuid = gpu_choice()
+    smoke = importlib.import_module("chip_smoke")
+    tokens = np.random.default_rng(11).integers(
+        0, FLAGSHIP["vocab_size"], (INFER_ROWS, TRAIN_S))
+    tmp = tempfile.mkdtemp(prefix="feed_infer_")
+    path = os.path.join(tmp, "tokens.tfrecord")
+    t0 = time.perf_counter()
+    tfrecord.write_records(path, (example.encode_example({"tokens": row})
+                                  for row in tokens))
+    t1 = time.perf_counter()
+    cols = columnar.load_tfrecords_columnar(
+        path, {"tokens": ("uint16", TRAIN_S)})
+    t2 = time.perf_counter()
+    codecs = _native.loaded()
+    if "libexample_codec.so" not in codecs \
+            or "libtfrecord_codec.so" not in codecs:
+        raise AssertionError("the native codecs did not load: {0}".format(
+            codecs))
+    if cols["tokens"].dtype != np.uint16 \
+            or not (cols["tokens"] == tokens).all():
+        raise AssertionError("the TFRecord rows did not decode to the "
+                             "written tokens as uint16")
+    rows = [(r,) for r in cols["tokens"]]
+    half = INFER_ROWS // 2
+    out = os.path.join(tmp, "result.json")
+    engine = LocalEngine(1, env={"TFOS_SHM_FEED": "1"})
+    try:
+        t3 = time.perf_counter()
+        c = cluster.run(engine, smoke.feed_inference_fn, {"out": out},
+                        num_executors=1, num_chips_per_node=1,
+                        input_mode=cluster.InputMode.SPARK,
+                        reservation_timeout=120)
+        t4 = time.perf_counter()
+        got = c.inference([rows[:half], rows[half:]], feed_timeout=600)
+        t5 = time.perf_counter()
+        c.shutdown(timeout=600)
+    finally:
+        engine.stop()
+    with open(out) as f:
+        res = json.load(f)
+    # the driver's own scores, same model and batches of 8 on this card
+    model = inference_model(compat.resolve_device())
+    want = []
+    with torch.no_grad():
+        for i in range(0, INFER_ROWS, INFER_BATCH):
+            batch = torch.from_numpy(
+                cols["tokens"][i:i + INFER_BATCH].astype(np.int32)).cuda()
+            want.extend(score_rows(model, batch).cpu().tolist())
+    del model
+    got, want = np.asarray(got), np.asarray(want)
+    rel = max_rel_diff(got, want)
+    n_tokens = INFER_ROWS * TRAIN_S
+    line = dict(
+        model="L16 H8 Dh128 Dm1024 V32000 bf16, flash attention",
+        rows=INFER_ROWS, batch=INFER_BATCH, results=len(got),
+        max_rel_score_diff=rel, scores_first=got[:4].tolist(),
+        tokens_per_sec_call=n_tokens / (t5 - t4),
+        tokens_per_sec_scoring=n_tokens / sum(res["scoring_sec"]),
+        inference_call_sec=t5 - t4, cluster_startup_sec=t4 - t3,
+        scoring_ms=[1e3 * x for x in res["scoring_sec"]],
+        prefetch_wait_ms=[1e3 * x for x in res["wait_sec"]],
+        loop_sec=res["loop_sec"], fn_startup_sec=res["startup_sec"],
+        tfrecord_write_sec=t1 - t0, tfrecord_decode_sec=t2 - t1,
+        native_codecs=sorted(codecs), batch_dtypes=res["batch_dtypes"],
+        launches=res["launches"], wire=res["wire"],
+        hot_source=res["hot_source"], compute_uuid=res["uuid"],
+        chosen_uuid=chosen_uuid,
+        cuda_visible_devices=res["cuda_visible_devices"],
+        nvidia_smi=nvidia_smi(),
+    )
+    emit("feed_inference_flagship", **line)
+    if not rel <= INFER_RTOL:
+        raise AssertionError("inference scores differ from the driver's by "
+                             "{0} relative".format(rel))
+    want_launches = {"fwd": FLAGSHIP["num_layers"] * INFER_ROWS //
+                     INFER_BATCH, "dq": 0, "dkv": 0}
+    if res["launches"] != want_launches:
+        raise AssertionError("inference flash launches {0}, want {1}".format(
+            res["launches"], want_launches))
+    if res["batch_dtypes"] != ["torch.int32"]:
+        raise AssertionError("batches reached the model as {0}".format(
+            res["batch_dtypes"]))
+    if res["uuid"] != chosen_uuid or res["pid"] == os.getpid():
+        raise AssertionError("compute process on {0}, gpu_info chose "
+                             "{1}".format(res["uuid"], chosen_uuid))
     return line
 
 
@@ -2493,6 +2810,8 @@ def main():
     phase_moe_train_to_serve(moe_model)
     del moe_model
     fed = phase_feed_train_flagship(train)
+    ring = phase_feed_ring_train_flagship(train)
+    inference = phase_feed_inference_flagship()
     jax_flash = "tensorflowonspark_tpu/ops/flash_attention.py:"
     jax_gmm = "tensorflowonspark_tpu/ops/gmm.py:"
     print(json.dumps({"kernels": [dict(
@@ -2509,7 +2828,9 @@ def main():
     )] + [
         kernel_entry("flash_" + name, kernel, jax_flash + line,
                      train["launches"][name], flash[name],
-                     fed_launches=fed["launches"][name])
+                     fed_launches=fed["launches"][name],
+                     ring_fed_launches=ring["launches"][name],
+                     inference_launches=inference["launches"][name])
         for name, kernel, line in (("fwd", "flash_fwd_wgmma", "132"),
                                    ("dq", "flash_dq_wgmma", "198"),
                                    ("dkv", "flash_dkv_wgmma", "256"))

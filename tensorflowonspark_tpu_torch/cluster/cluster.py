@@ -4,7 +4,8 @@ tensorflowonspark/TFCluster.py).
 
 :func:`run` launches the user's ``main_fun(args, ctx)`` on every
 executor, coordinates startup through the rendezvous server, and
-returns a :class:`TPUCluster` handle with ``train`` and ``shutdown``.
+returns a :class:`TPUCluster` handle with ``train``, ``train_stream``,
+``train_dstream``, ``inference`` and ``shutdown``.
 Shutdown is driver-direct: every node manager is reachable over TCP, so
 the driver posts the end-of-feed sentinels and collects errors itself.
 A :class:`ClusterMonitor` watches the heartbeat registry and fails the
@@ -12,9 +13,10 @@ feed within seconds of a worker's death, naming the executor.
 
 Not ported (ROADMAP queue A): ``elastic=True`` with partition requeue,
 parameter-server and evaluator nodes (``num_ps``, ``driver_ps_nodes``,
-``eval_node``), the planner (``plan``), profiling and tensorboard,
-``train_stream``/``train_dstream``, ``inference``, and the health,
-remediation and journal planes.
+``eval_node``), the planner (``plan``), profiling and tensorboard, the
+health, remediation and journal planes, and Spark's native datasets
+(there is no ``SparkEngine``: partitions are lists or zero-argument
+callables, and a stream's micro-batches are duck-typed RDDs).
 """
 
 import logging
@@ -179,16 +181,64 @@ class TPUCluster(object):
             self._run_feed_monitored(feed_fn, data)
 
     def train_stream(self, batches, feed_timeout=600, qname="input"):
-        raise _not_ported("TPUCluster.train_stream",
-                          "inference and train_stream")
+        """Feed a stream of micro-batches, each a list of partitions fed
+        as one job (the DStream role).  Ends when ``batches`` is
+        exhausted or someone posts STOP on the reservation server
+        (``reservation.Client(addr).request_stop()``); returns the
+        number of micro-batches fed."""
+        assert self.input_mode == InputMode.SPARK, (
+            "train_stream() requires InputMode.SPARK")
+        feed_fn = node.train(self.cluster_info, self.cluster_meta,
+                             feed_timeout, qname)
+        fed = 0
+        for partitions in batches:
+            if self.server.stop_requested:
+                logger.info("stop requested after %d stream batches; "
+                            "ending feed", fed)
+                break
+            self._run_feed_monitored(
+                feed_fn, [p if callable(p) else list(p) for p in partitions])
+            fed += 1
+        logger.info("stream feed complete after %d batches", fed)
+        return fed
 
     def train_dstream(self, dstream, feed_timeout=600, qname="input"):
-        raise _not_ported("TPUCluster.train_dstream",
-                          "inference and train_stream")
+        """Hook a stream with ``foreachRDD``: each micro-batch RDD is fed
+        in place (``rdd.foreachPartition`` of the feeder) as it arrives;
+        after a STOP on the reservation server, later micro-batches are
+        skipped."""
+        assert self.input_mode == InputMode.SPARK, (
+            "train_dstream() requires InputMode.SPARK")
+        feed_fn = node.train(self.cluster_info, self.cluster_meta,
+                             feed_timeout, qname)
+        server = self.server
+
+        def _each_rdd(rdd):
+            if server.stop_requested:
+                logger.info("stop requested; skipping stream micro-batch")
+                return
+            rdd.foreachPartition(feed_fn)
+
+        dstream.foreachRDD(_each_rdd)
 
     def inference(self, data, feed_timeout=600, qname="input", lazy=False):
-        raise _not_ported("TPUCluster.inference",
-                          "inference and train_stream")
+        """Feed data for inference and return one result per row, in
+        order.
+
+        Args:
+          data: a list of partitions (see :meth:`train`).
+          lazy: return a generator of per-partition result lists, each
+            yielded as soon as it and its predecessors complete, instead
+            of one flat list.
+        """
+        assert self.input_mode == InputMode.SPARK, (
+            "inference() requires InputMode.SPARK")
+        feed_fn = node.inference(self.cluster_info, self.cluster_meta,
+                                 feed_timeout, qname)
+        data = [p if callable(p) else list(p) for p in data]
+        if lazy:
+            return self.engine.run_job_lazy(feed_fn, data)
+        return self.engine.run_job(feed_fn, data, collect=True)
 
     def _run_feed_monitored(self, feed_fn, partitions):
         """Run one feed job while watching the liveness plane: a dead

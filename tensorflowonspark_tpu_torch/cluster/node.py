@@ -22,8 +22,11 @@ It
 The feed map function (:func:`feed_partition`) reconnects to the node's
 manager from whatever executor the feed task landed on, ships the rows
 as :class:`~.marker.ColumnarBlock`s (or row :class:`~.marker.Block`s)
-and polls the node's error queue while it waits for consumption.
-Teardown is driver-direct (``TPUCluster.shutdown``).
+through the node's queue or, with ``TFOS_SHM_FEED=1``, as columnar wire
+records through the node's shared-memory ring, and polls the node's
+error queue while it waits for consumption.  The inference map function
+(:func:`inference_partition`) feeds a partition and drains exactly as
+many results.  Teardown is driver-direct (``TPUCluster.shutdown``).
 
 Every map function here is a module-level function, bound with
 ``functools.partial``: the engine ships them with the standard
@@ -32,10 +35,9 @@ module level and nothing on the executor side initialises CUDA (the
 executor forks its queue manager, and a CUDA context does not survive a
 fork); only the spawned compute process touches the GPU.
 
-Not ported (ROADMAP queue A): the shared-memory feed ring
-(``TFOS_SHM_FEED``), ``inference``, ps/evaluator service nodes,
-tensorboard, the telemetry publishers, the flight recorder, chaos hooks
-and elastic partition ledgers.
+Not ported (ROADMAP queue A): ps/evaluator service nodes, tensorboard,
+the telemetry publishers, the flight recorder, chaos hooks and elastic
+partition ledgers.
 """
 
 import collections
@@ -43,6 +45,7 @@ import functools
 import json
 import logging
 import multiprocessing
+import multiprocessing.util
 import os
 import pickle
 import queue as _queue_mod
@@ -52,7 +55,8 @@ import time
 import uuid
 
 from . import gpu_info, manager, reservation
-from .marker import Block, pack_columnar
+from .marker import (Block, ColumnarBlock, EndPartition,
+                     encode_columnar_parts, encode_rows_parts, pack_columnar)
 from ..utils import not_ported
 from ..utils import paths as path_utils
 from ..utils.net import get_ip_address
@@ -172,6 +176,63 @@ def _role_for(template, executor_id):
 #: Module-level keepalive for this executor's queue managers: BaseManager
 #: shuts its server down when the last reference is collected.
 _LOCAL_MANAGERS = []
+
+#: Keepalive for the shm feed rings this executor created, as
+#: ``(cluster_id, ring)`` pairs.  Rings of earlier cluster runs are
+#: unlinked when a new run starts, and the last run's at executor exit.
+_LOCAL_RINGS = []
+_RING_FINALIZER = []
+
+
+def _evict_stale_rings(current_cluster_id):
+    kept = []
+    for cluster_id, ring in _LOCAL_RINGS:
+        if cluster_id == current_cluster_id:
+            kept.append((cluster_id, ring))
+            continue
+        try:
+            ring.close(unlink=True)
+            logger.info("unlinked stale shm ring from run %s", cluster_id)
+        except Exception:  # noqa: BLE001 - cleanup is best effort
+            logger.warning("failed to unlink stale shm ring", exc_info=True)
+    _LOCAL_RINGS[:] = kept
+
+
+def _unlink_local_rings():
+    """The final run's ring has no successor run to evict it: unlink it
+    at executor exit, or the resource tracker reports a leaked
+    segment."""
+    _evict_stale_rings(current_cluster_id=object())  # matches nothing
+
+
+def _create_feed_ring(mgr, cluster_id, executor_id):
+    """Create this executor's shm feed ring, tag it with the columnar
+    wire format and advertise it in the manager kv under ``"shm_ring"``;
+    without the native library the feed stays on the queue."""
+    from ..data import shm_ring
+
+    if not shm_ring.available():
+        logger.warning("TFOS_SHM_FEED is set but the native ring is "
+                       "unavailable; falling back to queue feeding")
+        return None
+    name = "tfos_{0}_{1}".format(cluster_id[-8:], executor_id)
+    capacity = int(os.environ.get("TFOS_SHM_FEED_BYTES",
+                                  shm_ring.DEFAULT_CAPACITY))
+    _evict_stale_rings(cluster_id)
+    ring = shm_ring.ShmRing(name, capacity, create=True)
+    ring.set_format(shm_ring.FORMAT_COLUMNAR_V1)
+    if not _RING_FINALIZER:
+        # a multiprocessing finalizer, not atexit: an executor is a
+        # multiprocessing child, which runs these as its target returns
+        # (priority 5: after the compute process's exit grace, before
+        # the queue manager's shutdown)
+        _RING_FINALIZER.append(multiprocessing.util.Finalize(
+            None, _unlink_local_rings, exitpriority=5))
+    _LOCAL_RINGS.append((cluster_id, ring))
+    mgr.set("shm_ring", {"name": name, "capacity": capacity})
+    logger.info("shm feed ring %s (%d MB) enabled", name, capacity >> 20)
+    return ring
+
 
 _MANAGER_FILE = "tfos_manager.json"
 
@@ -313,10 +374,6 @@ def start_node(fn_bytes, args, cluster_meta, input_mode, iterator):
     from ..utils.env import write_executor_id
     from .cluster import InputMode
 
-    if (input_mode == InputMode.SPARK
-            and os.environ.get("TFOS_SHM_FEED") in ("1", "force")):
-        raise not_ported("TFOS_SHM_FEED", "device_preprocess and the shm ring")
-
     # 1. claim executor id from the start partition payload
     executor_id = None
     for item in iterator:
@@ -352,6 +409,11 @@ def start_node(fn_bytes, args, cluster_meta, input_mode, iterator):
     mgr, addr = manager.start(authkey, queues, mode="remote")
     _LOCAL_MANAGERS.append(mgr)  # keepalive for the executor lifetime
     mgr.set("state", "running")
+    # the shared-memory feed ring: created here so it lives as long as
+    # the executor; feeders and the compute process attach by name
+    if (input_mode == InputMode.SPARK
+            and os.environ.get("TFOS_SHM_FEED") in ("1", "force")):
+        _create_feed_ring(mgr, cluster_meta["id"], executor_id)
     host = get_ip_address()
     adv_addr = (host, addr[1])
     _write_manager_info(workdir, {"cluster_id": cluster_meta["id"],
@@ -495,11 +557,12 @@ def _queue_put_retry(queue, obj):
 
 
 class _PipelinedShipper(object):
-    """Feeder-side encode pipeline: a small worker pool packs block N+1
-    into columns while the caller's iterator produces block N+2 and this
-    thread puts block N (the put pickles it).
-    Submission order is preserved and all puts stay on the submitting
-    thread; worker errors re-raise there at the next ``ship``/``close``.
+    """Feeder-side encode pipeline: a small worker pool encodes block N+1
+    (columnar pack, ring wire encode, pickle) while the caller's iterator
+    produces block N+2 and this thread ships block N.  Submission order
+    is preserved and every push stays on the submitting thread, so the
+    ring's single-producer contract holds; worker errors re-raise there
+    at the next ``ship``/``close``.
     """
 
     def __init__(self, encode, push, workers=2, depth=4):
@@ -512,15 +575,16 @@ class _PipelinedShipper(object):
         self._depth = max(1, depth)
         self._pending = collections.deque()
 
-    def ship(self, rows):
+    def ship(self, rows, use_ring):
         while len(self._pending) >= self._depth:
             self._drain_one()
-        self._pending.append(self._pool.submit(self._encode, rows))
+        self._pending.append(self._pool.submit(self._encode, rows, use_ring))
         while self._pending and self._pending[0].done():
             self._drain_one()
 
     def _drain_one(self):
-        self._push(self._pending.popleft().result())
+        for action in self._pending.popleft().result():
+            self._push(action)
 
     def close(self):
         """Flush every queued block in order, then stop the pool."""
@@ -547,6 +611,111 @@ def _pack(rows):
     return Block(rows)
 
 
+#: feeder-side ring attachments, one per (process, ring name)
+_ATTACHED_RINGS = {}
+
+
+def _attach_feed_ring(mgr):
+    """Attach to this node's shm feed ring if one was advertised, and
+    announce this process as its producer (a consumer waiting on the
+    ring then detects a feeder's death instead of hanging)."""
+    try:
+        info = mgr.get("shm_ring")._getvalue()
+    except Exception:  # noqa: BLE001 - kv read is best effort
+        info = None
+    if not info:
+        return None
+    name = info["name"]
+    if name not in _ATTACHED_RINGS:
+        from ..data import shm_ring
+
+        # an unlinked segment stays resident while mapped: drop the
+        # attachments of finished cluster runs
+        for stale in list(_ATTACHED_RINGS):
+            _ATTACHED_RINGS.pop(stale).close(unlink=False)
+        _ATTACHED_RINGS[name] = shm_ring.ShmRing(name)
+    _ATTACHED_RINGS[name].announce_producer()
+    return _ATTACHED_RINGS[name]
+
+
+def _row_vals(row):
+    return (row.values() if isinstance(row, dict)
+            else row if isinstance(row, (tuple, list)) else (row,))
+
+
+def _row_is_large(row):
+    """The per-row scatter-gather encode pays off only when a row
+    carries an array of at least 64 KB (images); smaller rows ship
+    faster as one stacked-column copy."""
+    try:
+        return any(getattr(v, "nbytes", 0) >= 65536 for v in _row_vals(row))
+    except TypeError:
+        return False
+
+
+def _row_bytes(row):
+    total = 0
+    try:
+        for v in _row_vals(row):
+            n = getattr(v, "nbytes", None)
+            if n is None:
+                n = len(v) if isinstance(v, (bytes, str)) else 8
+            total += n
+    except TypeError:
+        return 0
+    return total
+
+
+def _encode_into(rows, use_ring, wire_cap, actions):
+    """Encode one block into ordered ship actions: ``('pushv', parts,
+    nbytes)``, ``('push', payload, nbytes)`` or ``('queue', obj)``,
+    splitting blocks that exceed one ring frame (``wire_cap`` bytes).
+    Pure CPU work, safe on the shipper's pool: no manager or ring
+    calls."""
+    if not use_ring:
+        actions.append(("queue", _pack(rows)))
+        return
+
+    def split():
+        if len(rows) == 1:
+            # a single row larger than a ring frame: the queue has no cap
+            actions.append(("queue", Block(rows)))
+            return
+        mid = len(rows) // 2
+        _encode_into(rows[:mid], use_ring, wire_cap, actions)
+        _encode_into(rows[mid:], use_ring, wire_cap, actions)
+
+    columnar_ok = os.environ.get("TFOS_COLUMNAR_FEED", "1") != "0"
+    if columnar_ok and _row_is_large(rows[0]):
+        # per-row buffers scatter-gather straight into the ring: the
+        # contiguous record write is the column stack
+        enc = encode_rows_parts(rows)
+        if enc is not None:
+            header, bufs, total = enc
+            if total + 8 < wire_cap:
+                actions.append(("pushv", [header] + bufs, total))
+            else:
+                split()
+            return
+    packed = _pack(rows)
+    if isinstance(packed, ColumnarBlock):
+        enc = encode_columnar_parts(packed)
+        if enc is not None:  # None: non-string dict keys, pickled below
+            header, bufs = enc
+            total = len(header) + sum(b.nbytes for b in bufs)
+            if total + 8 < wire_cap:
+                actions.append(("pushv", [header] + bufs, total))
+                return
+            if len(rows) > 1:
+                split()
+                return
+    payload = pickle.dumps(packed, protocol=5)
+    if len(payload) + 8 >= wire_cap:
+        split()
+        return
+    actions.append(("push", payload, len(payload)))
+
+
 def train(cluster_info, cluster_meta, feed_timeout=600, qname="input"):
     """The feeder map function for training data: a ``functools.partial``
     of :func:`feed_partition`."""
@@ -556,9 +725,15 @@ def train(cluster_info, cluster_meta, feed_timeout=600, qname="input"):
 
 def feed_partition(cluster_info, cluster_meta, feed_timeout, qname,
                    iterator):
-    """Ship one partition into the local node's input queue, then wait
-    until the compute process has taken every block, raising if it
-    reported an error or ``feed_timeout`` passes."""
+    """Ship one partition to the local node (its shm ring when one is
+    advertised and the rows are large enough, else its input queue),
+    then wait until the compute process has taken every block, raising
+    if it reported an error or ``feed_timeout`` passes.
+
+    Ring policy: the first block decides for the whole task, ring when
+    its first row carries at least ``TFOS_SHM_RING_MIN_ROW_BYTES``
+    (default 4096) payload bytes, queue otherwise; ``TFOS_SHM_FEED=force``
+    takes the ring for every block."""
 
     def _probe(m):
         return str(m.get("state")._getvalue())
@@ -579,20 +754,56 @@ def feed_partition(cluster_info, cluster_meta, feed_timeout, qname,
             logger.debug("unable to reach reservation server: %s", e)
         return []
     err_q = mgr.get_queue("error")
+    ring = _attach_feed_ring(mgr)
+    # the largest record one ring frame can carry (u32 frame length)
+    wire_cap = min(ring.capacity, (1 << 32) - 4) if ring else 0
+    ring_min_row = int(os.environ.get("TFOS_SHM_RING_MIN_ROW_BYTES", "4096"))
+    ring_forced = os.environ.get("TFOS_SHM_FEED") == "force"
+    ring_choice = []  # decided at the first block, sticky per task
+    wire_sent = [0]
+
+    def _use_ring(rows):
+        if ring is None:
+            return False
+        if ring_forced:
+            return True
+        if not ring_choice:
+            ring_choice.append(_row_bytes(rows[0]) >= ring_min_row)
+            if not ring_choice[0]:
+                logger.info("rows ~%dB < TFOS_SHM_RING_MIN_ROW_BYTES=%d: "
+                            "shipping via queue", _row_bytes(rows[0]),
+                            ring_min_row)
+        return ring_choice[0]
+
+    def _encode(rows, use_ring):
+        actions = []
+        _encode_into(rows, use_ring, wire_cap, actions)
+        return actions
+
+    def _push_action(action):
+        # always on this thread: the ring has a single producer
+        if action[0] == "queue":
+            _queue_put_retry(queue, action[1])
+            return
+        push = ring.pushv if action[0] == "pushv" else ring.push
+        push(action[1], timeout=feed_timeout,
+             error_check=lambda: _check_error_queue(mgr, err_q, local_eid))
+        wire_sent[0] += action[2]
+
     count = 0
     block = []
-    shipper = _PipelinedShipper(
-        _pack, functools.partial(_queue_put_retry, queue),
-        workers=FEED_PIPELINE_WORKERS, depth=FEED_PIPELINE_DEPTH)
+    shipper = _PipelinedShipper(_encode, _push_action,
+                                workers=FEED_PIPELINE_WORKERS,
+                                depth=FEED_PIPELINE_DEPTH)
     try:
         for item in iterator:
             count += 1
             block.append(item)
             if len(block) >= FEED_BLOCK_SIZE:
-                shipper.ship(block)
+                shipper.ship(block, _use_ring(block))
                 block = []
         if block:
-            shipper.ship(block)
+            shipper.ship(block, _use_ring(block))
         shipper.close()
     except BaseException:
         shipper.abort()
@@ -601,17 +812,85 @@ def feed_partition(cluster_info, cluster_meta, feed_timeout, qname,
     # queue is polled about once a second; the wake-up stays at 0.1 s)
     deadline = time.monotonic() + feed_timeout
     next_err_poll = 0.0
-    joiner = _JoinWatcher(queue)
-    while not joiner.wait(0.1):
+
+    def _poll():
+        nonlocal next_err_poll
         if time.monotonic() >= next_err_poll:
             _check_error_queue(mgr, err_q, local_eid)
             next_err_poll = time.monotonic() + 1.0
         if time.monotonic() >= deadline:
             raise RuntimeError("timed out waiting for consumption of all "
                                "batches (feed_timeout exceeded)")
+
+    if ring is not None:
+        while True:
+            size = ring.size()
+            if size < 0:
+                raise RuntimeError("feed ring segment corrupt during the "
+                                   "drain wait")
+            if size == 0:
+                break
+            _poll()
+            time.sleep(0.05)
+    joiner = _JoinWatcher(queue)
+    while not joiner.wait(0.1):
+        _poll()
     _check_error_queue(mgr, err_q, local_eid)
-    logger.info("fed %d items", count)
+    logger.info("fed %d items (%d ring wire bytes)", count, wire_sent[0])
     return []
+
+
+def inference(cluster_info, cluster_meta, feed_timeout=600, qname="input"):
+    """The inference map function: a ``functools.partial`` of
+    :func:`inference_partition`."""
+    return functools.partial(inference_partition, cluster_info,
+                             cluster_meta, feed_timeout, qname)
+
+
+def inference_partition(cluster_info, cluster_meta, feed_timeout, qname,
+                        iterator):
+    """Feed one partition through the node's queue as row Blocks closed
+    by an ``EndPartition``, wait until it is consumed, then drain
+    exactly as many results from the node's output queue (one result
+    per row, in order)."""
+    local_eid = _local_executor_id()
+    mgr, queue_in = _manager_first_call(cluster_info, local_eid,
+                                        lambda m: m.get_queue(qname))
+    count = 0
+    block = []
+    for item in iterator:
+        count += 1
+        block.append(item)
+        if len(block) >= FEED_BLOCK_SIZE:
+            _queue_put_retry(queue_in, Block(block))
+            block = []
+    if block:
+        _queue_put_retry(queue_in, Block(block))
+    _queue_put_retry(queue_in, EndPartition())
+    if count == 0:
+        return []
+    err_q = mgr.get_queue("error")
+    deadline = time.monotonic() + feed_timeout
+    joiner = _JoinWatcher(queue_in)
+    while not joiner.wait(0.1):
+        _check_error_queue(mgr, err_q, local_eid)
+        if time.monotonic() >= deadline:
+            raise RuntimeError("timed out waiting for inference "
+                               "consumption (feed_timeout exceeded)")
+    _check_error_queue(mgr, err_q, local_eid)
+    queue_out = mgr.get_queue("output")
+    results = []
+    while count > 0:
+        item = queue_out.get(block=True)
+        queue_out.task_done()
+        if isinstance(item, Block):
+            results.extend(item.items)
+            count -= len(item.items)
+        else:
+            results.append(item)
+            count -= 1
+    logger.info("returning %d inference results", len(results))
+    return results
 
 
 def _check_error_queue(mgr, err_queue=None, executor_id=None):

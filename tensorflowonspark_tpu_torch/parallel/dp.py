@@ -16,10 +16,14 @@ device tensors: no step synchronises with the host.
 dry (:func:`all_hosts_ready` reduces a has-data flag over a ``gloo``
 group on the CPU, so the flag never waits for the device).
 
+``device_preprocess`` (a callable or a
+:func:`~..data.preprocess.make_preprocess` kwargs dict) runs at the top
+of every step on the device batch, so a narrow wire dtype (uint8,
+uint16) crosses the host-to-device link narrow and widens on the card.
+
 Not ported yet, each raising ``NotImplementedError`` that names its
 ROADMAP item: data parallelism over several GPUs (``mesh``, ``rules``,
-``annotations``), model state (``has_model_state``), on-device
-preprocessing (``device_preprocess``) and checkpoint hooks
+``annotations``), model state (``has_model_state``) and checkpoint hooks
 (``train_on_feed(checkpointer=...)``).
 """
 
@@ -28,11 +32,14 @@ import logging
 import numpy as np
 import torch
 
+from ..data import preprocess as pp_mod
+from ..data.feed import place_tree
 from ..utils import not_ported as _not_ported
+from ..utils.tree import leaves as _leaves
+from ..utils.tree import tree_map as _tree_map
 
 
 _DP = "multi-GPU DP over torch.distributed"
-_PREPROCESS = "device_preprocess and the shm ring"
 _CKPT = "Checkpointing"
 
 logger = logging.getLogger(__name__)
@@ -70,8 +77,12 @@ class SyncTrainer(object):
         :func:`~..models.transformer.loss_fn`.
       optimizer: an :class:`~..optim.Optimizer` (``optim.adamw``,
         ``optim.sgd``).
-      mesh, rules, annotations, has_model_state, device_preprocess: the
-        reference's; only their defaults are ported.
+      device_preprocess: a callable ``fn(batch)`` (or ``fn(batch,
+        rng)``, which receives the step's generator) or a
+        ``make_preprocess`` kwargs dict, applied to the device batch at
+        the top of every step.
+      mesh, rules, annotations, has_model_state: the reference's; only
+        their defaults are ported.
       data_axes: kept for the reference's signature.
     """
 
@@ -87,9 +98,10 @@ class SyncTrainer(object):
                 "SyncTrainer has_model_state=True", "model state "
                 "(BatchNorm models: ResNet/UNet)"
             )
-        if device_preprocess is not None:
-            raise _not_ported("SyncTrainer device_preprocess=",
-                              _PREPROCESS)
+        self.device_preprocess = pp_mod.resolve_preprocess(
+            device_preprocess)
+        self._pre_takes_rng = (self.device_preprocess is not None
+                               and pp_mod.takes_rng(self.device_preprocess))
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.has_aux = has_aux
@@ -122,11 +134,14 @@ class SyncTrainer(object):
 
     def _place(self, batch):
         """A host batch (a dict, tuple or list of arrays, nested, or one
-        array) as device tensors, leaf by leaf."""
-        return _tree_map(
-            lambda x: torch.as_tensor(np.asarray(x)).to(self.device), batch)
+        array) as device tensors, leaf by leaf: on a GPU through pinned
+        memory without waiting for the device (:func:`place_tree`)."""
+        return place_tree(batch, self.device)
 
     def _train_step(self, state, batch, rng):
+        pre = self.device_preprocess
+        if pre is not None:
+            batch = pre(batch, rng) if self._pre_takes_rng else pre(batch)
         params = state.params
         out = self.loss_fn(params, batch, rng)
         loss, aux = out if self.has_aux else (out, {})
@@ -332,23 +347,3 @@ def all_hosts_ready(local_flag):
     flag = torch.tensor([1 if local_flag else 0], dtype=torch.int32)
     dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=_HOST_GROUP[0])
     return bool(flag.item())
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    if isinstance(tree, (tuple, list)):
-        return [x for v in tree for x in _leaves(v)]
-    return [tree]
-
-
-def _tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of dicts, tuples and lists (nested), with
-    ``rest`` trees of the same structure as further arguments."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
-    return fn(tree, *rest)

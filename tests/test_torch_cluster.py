@@ -212,24 +212,19 @@ def test_run_refuses_a_closure():
         cluster.run(object(), lambda args, ctx: None, num_executors=1)
 
 
-def test_unported_cluster_surface_raises(monkeypatch):
+def test_unported_cluster_surface_raises():
+    """What of the cluster surface is still not ported: meshes and
+    placement over several GPUs (``inference``, ``train_stream``,
+    ``train_dstream``, ``prefetch_to_device`` and ``TFOS_SHM_FEED`` are
+    held to the JAX package in ``test_torch_inference.py``,
+    ``test_torch_preprocess.py`` and ``test_torch_shm_ring.py``)."""
     from tensorflowonspark_tpu_torch.cluster import node
     from tensorflowonspark_tpu_torch.data import feed
 
-    c = cluster.TPUCluster(None, {"id": "x"}, [], None, None,
-                           cluster.InputMode.SPARK, [])
-    for call in (lambda: c.inference([[1]]), lambda: c.train_stream([]),
-                 lambda: c.train_dstream(None)):
-        with pytest.raises(NotImplementedError,
-                           match="inference and train_stream"):
-            call()
-    with pytest.raises(NotImplementedError, match="prefetch_to_device"):
-        feed.prefetch_to_device(iter([]))
     with pytest.raises(NotImplementedError, match="multi-GPU DP"):
         node.NodeContext().mesh()
-    monkeypatch.setenv("TFOS_SHM_FEED", "1")
-    with pytest.raises(NotImplementedError, match="shm ring"):
-        node.start_node(None, None, {}, cluster.InputMode.SPARK, iter([0]))
+    with pytest.raises(NotImplementedError, match="multi-GPU DP"):
+        feed.prefetch_to_device(iter([]), sharding=[torch.device("cpu")] * 2)
 
 
 @pytest.mark.parametrize("engine", [2], indirect=True)

@@ -185,8 +185,9 @@ def test_import_loads_no_jax():
         "from tensorflowonspark_tpu_torch.planner import knobs\n"
         "from tensorflowonspark_tpu_torch import cluster, engine\n"
         "from tensorflowonspark_tpu_torch.cluster import gpu_info, manager, "
-        "node, reservation, supervisor\n"
-        "from tensorflowonspark_tpu_torch.data import feed\n"
+        "node, parallel_run, reservation, supervisor\n"
+        "from tensorflowonspark_tpu_torch.data import _native, columnar, "
+        "example, feed, preprocess, shm_ring, tfrecord\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'tensorflowonspark_tpu'))\n"
         "assert not bad, bad\n"
@@ -201,16 +202,20 @@ def test_import_loads_no_jax():
 
 
 def test_cluster_plane_imports_no_torch():
-    """The driver and executor side of the cluster plane never import
-    ``torch``: the executor forks its queue manager, and a CUDA context
-    does not survive a fork (only the spawned compute process may touch
-    the GPU)."""
+    """The driver and executor side of the cluster plane and the data
+    plane's host modules (native loader, shm ring, wire codecs, columnar
+    decode, Example and TFRecord codecs, the preprocess factory) never
+    import ``torch``: the executor forks its queue manager, and a CUDA
+    context does not survive a fork (only the spawned compute process
+    may touch the GPU)."""
     code = (
         "import sys\n"
         "from tensorflowonspark_tpu_torch import engine\n"
         "from tensorflowonspark_tpu_torch.cluster import cluster, gpu_info, "
-        "manager, node, reservation, supervisor\n"
-        "from tensorflowonspark_tpu_torch.data import feed\n"
+        "manager, marker, node, parallel_run, reservation, supervisor\n"
+        "from tensorflowonspark_tpu_torch.data import _native, columnar, "
+        "example, feed, preprocess, shm_ring, tfrecord\n"
+        "from tensorflowonspark_tpu_torch.utils import tree\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('torch', 'jax', 'tensorflowonspark_tpu'))\n"
         "assert not bad, bad\n"

@@ -253,9 +253,7 @@ def test_bf16_model_keeps_f32_masters():
     ({"rules": object()}, "multi-GPU DP"),
     ({"annotations": {}}, "multi-GPU DP"),
     ({"has_model_state": True}, "model state"),
-    ({"device_preprocess": lambda b: b},
-     "device_preprocess and the shm ring"),
-], ids=["mesh", "rules", "annotations", "model_state", "preprocess"])
+], ids=["mesh", "rules", "annotations", "model_state"])
 def test_unported_trainer_knobs_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         dp.SyncTrainer(lambda p, b, r: 0.0, optim.sgd(0.1), **kw)
