@@ -4,8 +4,9 @@ to show that the checks of ``chip_smoke.py`` catch them.
 Run from the repository root on a machine with a CUDA card and the CUDA
 toolkit (``nvcc``)::
 
-    python3 chip_mutants.py            # every mutant
+    python3 chip_mutants.py            # every one-card mutant
     python3 chip_mutants.py diag       # one
+    python3 chip_mutants.py sp_grads_seq_mean   # four cards
 
 Each mutant copies ``chip_smoke.py``, this file and the port's package
 into a temporary directory, rewrites a few lines of its kernel source
@@ -20,12 +21,20 @@ and ``rows_wgmma_dxt_last_stage`` break the bf16 Hopper kernels
 ``tgmm_wgmma`` and ``gmm_rows_wgmma`` (K5, K6) by a tile or a stage;
 ``dq_wgmma_diag_key`` (one key of each row masked in the bf16 K3) and
 ``dkv_wgmma_first_head`` (the bf16 K4 drops every query head of a GQA
-group but the first) are smaller faults; ``skip_last_live_tile`` breaks
+group but the first) are smaller faults; ``offset_key_tiles`` (K2 and K3
+take their key tiles as if the rows of an offset chunk sat at 0) and
+``visible_global_bound`` (the row bound of the mask taken on the global
+position ``q_offset + row``) break the ``q_offset`` path of ring
+attention, which ``flash_offset_case`` holds; ``skip_last_live_tile`` breaks
 the skip of the all-pad row tiles that K5 and K6 share in both types.
 ``paged_split_short``, ``paged_combine_last_split`` and
 ``paged_mask_last_key`` break the paged-decode kernels (K1): each split
 stops one page short, the combine drops the last split, the key at
-position ``len - 1`` is masked.
+position ``len - 1`` is masked.  ``sp_grads_seq_mean`` (four cards,
+run only when named) breaks no kernel: the sequence-parallel trainer
+averages its gradients over ``seq`` where it must sum them, which
+``sp_train_flagship`` must catch although AdamW's steps, and so the
+losses, hardly change.
 It prints one JSON line per case and one per mutant; the last line
 lists the mutants that survived, and the exit code is 0 only when every
 mutant was caught.  The repository itself is never modified.
@@ -47,10 +56,12 @@ MUTANTS = {
     "diag": (
         "the f32 K2/K3 skip the diagonal key tile and the f32 K4 the "
         "diagonal query tile, for tiles at or past position 512",
-        [("hi = a.causal ? q_last / kBN : (a.S - 1) / kBN;",
-          "hi = a.causal ? q_last / kBN - (q0 >= 512) : (a.S - 1) / kBN;"),
-         ("lo = a.causal ? k0 / kBM : 0;",
-          "lo = a.causal ? k0 / kBM + (k0 >= 512) : 0;")],
+        [("  key_range<kBM, kBN>(q0, a, a.q_offset, lo, hi);",
+          "  key_range<kBM, kBN>(q0, a, a.q_offset, lo, hi), "
+          "hi -= a.causal && q0 >= 512;"),
+         ("  query_range<kBN, kBM>(k0, a, a.q_offset, lo, hi);",
+          "  query_range<kBN, kBM>(k0, a, a.q_offset, lo, hi), "
+          "lo += a.causal && k0 >= 512;")],
         "flash_case",
     ),
     "zero_dq": (
@@ -68,10 +79,9 @@ MUTANTS = {
     "fwd_wgmma_diag": (
         "the bf16 K2 (flash_fwd_wgmma) skips its diagonal key tile for q "
         "tiles at or past position 512",
-        [("  const int j_hi = a.causal ? q_last / kWgKeys : (a.S - 1) / "
-          "kWgKeys;",
-          "  const int j_hi = a.causal ? q_last / kWgKeys - (q0 >= 512) : "
-          "(a.S - 1) / kWgKeys;")],
+        [("  key_range<kWgRows, kWgKeys>(q0, a, q_off, j_lo, j_hi);",
+          "  key_range<kWgRows, kWgKeys>(q0, a, q_off, j_lo, j_hi), "
+          "j_hi -= a.causal && q0 >= 512;")],
         "flash_case",
     ),
     "tgmm_wgmma_last_tile": (
@@ -96,36 +106,53 @@ MUTANTS = {
     "dq_wgmma_diag": (
         "the bf16 K3 (flash_dq_wgmma) skips its diagonal key tile for q "
         "tiles at or past position 512",
-        [("  const int j_hi = a.causal ? q_last / kBwStep : (a.S - 1) / "
-          "kBwStep;",
-          "  const int j_hi = a.causal ? q_last / kBwStep - (q0 >= 512) : "
-          "(a.S - 1) / kBwStep;")],
+        [("  key_range<kBwRows, kBwStep>(q0, a, q_off, j_lo, j_hi);",
+          "  key_range<kBwRows, kBwStep>(q0, a, q_off, j_lo, j_hi), "
+          "j_hi -= a.causal && q0 >= 512;")],
         "flash_case",
     ),
     "dkv_wgmma_diag": (
         "the bf16 K4 (flash_dkv_wgmma) skips its diagonal q tile for key "
         "tiles at or past position 512",
-        [("  const int i_lo = a.causal ? k0 / kBwStep : 0;",
-          "  const int i_lo = a.causal ? k0 / kBwStep + (k0 >= 512) : 0;")],
+        [("  query_range<kBwRows, kBwStep>(k0, a, q_off, i_lo, i_hi);",
+          "  query_range<kBwRows, kBwStep>(k0, a, q_off, i_lo, i_hi), "
+          "i_lo += a.causal && k0 >= 512;")],
         "flash_case",
     ),
     "dq_wgmma_diag_key": (
         "the bf16 K3 (flash_dq_wgmma) masks the diagonal element itself: "
         "one key of each row",
-        [("        if (!visible(row[r], col, a)) p0 = 0.f;\n"
-          "        if (!visible(row[r], col + 1, a)) p1 = 0.f;",
-          "        if (!visible(row[r], col, a) || col == row[r]) p0 = 0.f;\n"
-          "        if (!visible(row[r], col + 1, a) || col + 1 == row[r]) "
-          "p1 = 0.f;")],
+        [("        if (!visible(row[r], col, a, q_off)) p0 = 0.f;\n"
+          "        if (!visible(row[r], col + 1, a, q_off)) p1 = 0.f;",
+          "        if (!visible(row[r], col, a, q_off) || col == row[r]) "
+          "p0 = 0.f;\n"
+          "        if (!visible(row[r], col + 1, a, q_off) || "
+          "col + 1 == row[r]) p1 = 0.f;")],
         "flash_case",
     ),
     "dkv_wgmma_first_head": (
         "the bf16 K4 (flash_dkv_wgmma) sums only the first query head of "
         "each kv head's group",
-        [("    if (kw0 >= a.S || (a.causal && q0 + kBwStep - 1 < kw0) ||",
+        [("    if (kw0 >= a.S || (a.causal && gq0 + kBwStep - 1 < kw0) ||",
           "    if (it >= nq || kw0 >= a.S || "
-          "(a.causal && q0 + kBwStep - 1 < kw0) ||")],
+          "(a.causal && gq0 + kBwStep - 1 < kw0) ||")],
         "flash_case",
+    ),
+    "offset_key_tiles": (
+        "K2 and K3 (both types) take the key tiles of a q tile as if its "
+        "rows sat at global position 0: the key range ignores q_offset",
+        [("  const int first = q_off + q0;\n"
+          "  const int last = q_off + min(a.S, q0 + ROWS) - 1;",
+          "  const int first = q0;\n"
+          "  const int last = min(a.S, q0 + ROWS) - 1;")],
+        "flash_offset_case",
+    ),
+    "visible_global_bound": (
+        "visible() bounds the query row by its global position "
+        "q_off + row instead of the local row",
+        [("  if (row >= a.S || kpos >= a.S) return false;",
+          "  if (q_off + row >= a.S || kpos >= a.S) return false;")],
+        "flash_offset_case",
     ),
     "skip_last_live_tile": (
         "K5 and K6 (both types) treat an expert's last live 128-row tile "
@@ -153,7 +180,19 @@ MUTANTS = {
           "keep[i] = r < T && pos < len - 1 &&")],
         "kernel_case",
     ),
+    "sp_grads_seq_mean": (
+        "SyncTrainer(mesh=) averages the gradients over every rank of the "
+        "mesh, seq included, where they must be summed over seq (the "
+        "reported loss stays right)",
+        [("            out.append(flat[at:at + g.numel()].view(g.shape)"
+          ".to(g.dtype))",
+          "            out.append(flat[at:at + g.numel()].view(g.shape)"
+          ".to(g.dtype) * (width / dist.get_world_size(group)))")],
+        "sp_train_flagship",
+    ),
 }
+#: mutants whose check needs four cards: run only when named
+FOUR_CARD = ("sp_grads_seq_mean",)
 #: mutants of another source than :data:`SOURCE`
 SOURCES = dict(
     {name: GMM_SOURCE for name in (
@@ -161,7 +200,8 @@ SOURCES = dict(
         "rows_wgmma_dxt_last_stage", "skip_last_live_tile")},
     **{name: PAGED_SOURCE for name in (
         "paged_split_short", "paged_combine_last_split",
-        "paged_mask_last_key")})
+        "paged_mask_last_key")},
+    sp_grads_seq_mean="tensorflowonspark_tpu_torch/parallel/dp.py")
 
 
 def mutate(text, subs):
@@ -192,6 +232,24 @@ def check_flash_cases():
             checked_err={n: x for n, (_, x, _) in errs.items()},
             tol={n: t for n, (_, _, t) in errs.items()},
             first_bf16_rule_tol=old,
+        )), flush=True)
+    return caught_any
+
+
+def check_flash_offset_cases():
+    """``flash_offset_case``'s comparison over every case, not stopping
+    at the first failure.  True when any case fails."""
+    import chip_smoke as c
+
+    caught_any = False
+    for name, _, errs in c.flash_offset_case_errors():
+        caught = not c.flash_ok(errs)
+        caught_any |= caught
+        print(json.dumps(dict(
+            case=name, caught=caught,
+            max_abs_err={n: e for n, (e, _, _) in errs.items()},
+            checked_err={n: x for n, (_, x, _) in errs.items()},
+            tol={n: t for n, (_, _, t) in errs.items()},
         )), flush=True)
     return caught_any
 
@@ -266,11 +324,26 @@ def check_gmm_and_moe_training():
     return all(caught)
 
 
+def check_sp_train_flagship():
+    """True when ``sp_train_flagship`` on four cards fails."""
+    import chip_smoke as c
+
+    try:
+        c.phase_sp_train_flagship(4)
+    except AssertionError as e:
+        print(json.dumps(dict(sp_train_flagship_failed=str(e)[:2000])),
+              flush=True)
+        return True
+    return False
+
+
 CHECKS = {"flash_case": check_flash_cases,
+          "flash_offset_case": check_flash_offset_cases,
           "kernel_case": check_paged_cases,
           "train_kernel_vs_dot": check_train_kernel_vs_dot,
           "gmm_case": check_gmm_cases,
-          "gmm_case+moe_train_dropless_vs_gather": check_gmm_and_moe_training}
+          "gmm_case+moe_train_dropless_vs_gather": check_gmm_and_moe_training,
+          "sp_train_flagship": check_sp_train_flagship}
 
 
 def run_in_copy(name):
@@ -302,7 +375,8 @@ def main(names):
         return 2
     root = Path(__file__).resolve().parent
     survived = []
-    for name in names or list(MUTANTS):
+    names = names or [n for n in MUTANTS if n not in FOUR_CARD]
+    for name in names:
         with tempfile.TemporaryDirectory() as tmp:
             copy = Path(tmp)
             for f in ("chip_smoke.py", "chip_mutants.py"):
@@ -319,7 +393,7 @@ def main(names):
             ).returncode
         if rc != 0:
             survived.append(name)
-    print(json.dumps(dict(mutants=names or list(MUTANTS),
+    print(json.dumps(dict(mutants=names,
                           survived=survived)), flush=True)
     return 1 if survived else 0
 

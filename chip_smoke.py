@@ -45,6 +45,20 @@ caught):
    operation bound; then the kernels and the yardstick under GQA at the
    flagship width (Hkv=2) and at S=8192 (B=2), each checked against the
    plain versions.
+   ``flash_offset_case``: the three kernels at a query offset (ring
+   attention's chunk at ring distance m: ``q_offset = m * S_local``)
+   against their plain versions (:data:`FLASH_OFFSET_CASES`: causal with
+   and without a window, GQA and MHA, both types, ragged S, chunks whose
+   rows partly see nothing, K2's f32 O from bf16 inputs); the rows and
+   keys that see nothing must get exact zeros from K3 and K4.
+   ``flash_offset_timing``: the flagship ring's hop-1 chunk (B=2,
+   S_local=2048, H=8, Hkv=2, window 512 at q_offset 2048) beside its bound
+   over the visible pairs and SDPA with the chunk's boolean mask.
+   ``ring_flagship``: the flagship's attention at S=8192 as a ring of 4
+   virtual ranks on one card, composed from the port's per-hop ring
+   functions, against one full-sequence flash pass (O, lse, dQ, dK, dV),
+   windowed and plainly causal, with one launch of each kernel per hop
+   of each branch kind (:data:`RING_HOPS`).
 9. ``train_flagship``: ``SyncTrainer(loss_fn(model), adamw(1e-4))`` on
    the flagship at full width (f32 master weights, bf16 compute, flash
    attention), one warm-up and two timed ``multi_step`` of K=4 on a
@@ -133,7 +147,14 @@ down by kernel class for the dense or the MoE flagship, and
 in five variants of its roles and waits and reports ptxas's registers
 and spills; ``phase_feed_global_stop(4)`` (not run by it either; four
 cards) holds the feed path's global stop across four executors with a
-card each, over NCCL with a ``gloo`` flag group.
+card each, over NCCL with a ``gloo`` flag group, and their weights equal
+after training; ``phase_sp_train_flagship(4)`` (not run by it either;
+four cards) trains the flagship sequence-parallel at S=8192 (ring with
+and without a window, Ulysses, and a data x seq mesh) through
+``cluster.run`` and ``SyncTrainer(mesh=)``, and holds the ranks' losses
+and weights equal and the losses to one card's full-sequence run.  NCCL
+refuses two ranks on one card, so :func:`main` holds the ring's per-hop
+arithmetic on one card instead (``ring_flagship``).
 """
 
 import json
@@ -861,7 +882,9 @@ def flash_errors(got, ref, dtype):
     error is the max abs error for f32 outputs and lse, and
     :func:`row_relative_error` for bf16 O/dQ/dK/dV."""
     out = {}
-    for name in ("out", "lse", "dq", "dk", "dv"):
+    for name in ("out", "out_f32", "lse", "dq", "dk", "dv"):
+        if name not in got:
+            continue
         g, r = got[name].float(), ref[name].float()
         err = (g - r).abs().max().item()
         if name == "lse":
@@ -928,23 +951,36 @@ def phase_flash_repeat():
                              "{0}".format(same))
 
 
-def flash_bounds(b, s, h, hkv, d, itemsize, causal=True):
+def flash_bounds(b, s, h, hkv, d, itemsize, causal=True, pairs=None,
+                 out_itemsize=None, rows_seen=None, keys_seen=None):
     """Least bytes (each input read once, each output written once) and
     tensor-core flop of K2, K3 and K4 at one shape: one product over the
     visible (query, key) pairs of every query head is 2 * D flop per
-    pair."""
-    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
-    product = 2 * d * pairs
+    pair.  ``pairs``: the visible pairs of one head where the mask is not
+    plain causal (an offset chunk); ``out_itemsize``: K2's O type;
+    ``rows_seen`` / ``keys_seen``: the query rows that see a key and the
+    keys that a row sees (default S), the only ones whose inputs must be
+    read (q, dO, lse, delta per row; k, v per key); every output is
+    written in full."""
+    if pairs is None:
+        pairs = s * (s + 1) // 2 if causal else s * s
+    product = 2 * d * b * h * pairs
+    rows_seen = s if rows_seen is None else rows_seen
+    keys_seen = s if keys_seen is None else keys_seen
     t = b * s * h * d * itemsize  # one [B, S, H, D] tensor
+    t_in = b * rows_seen * h * d * itemsize  # its rows that see a key
     tk = b * s * hkv * d * itemsize  # one [B, S, Hkv, D] tensor
+    tk_in = b * keys_seen * hkv * d * itemsize  # its keys that are seen
     rows = b * h * s * 4  # one f32 [B, H, S] tensor
+    rows_in = b * h * rows_seen * 4
+    o = t * (out_itemsize or itemsize) // itemsize
     return {
         # q, k, v -> o, lse
-        "fwd": (2 * t + 2 * tk + rows, 2 * product),
+        "fwd": (t_in + 2 * tk_in + o + rows, 2 * product),
         # q, k, v, dO, lse, delta -> dq
-        "dq": (3 * t + 2 * tk + 2 * rows, 3 * product),
+        "dq": (2 * t_in + 2 * tk_in + 2 * rows_in + t, 3 * product),
         # ... -> dk, dv
-        "dkv": (2 * t + 4 * tk + 2 * rows, 4 * product),
+        "dkv": (2 * t_in + 2 * tk_in + 2 * rows_in + 2 * tk, 4 * product),
     }
 
 
@@ -1046,6 +1082,444 @@ def phase_flash_timing():
             D=shape["d"], dtype="bfloat16", causal=True), **res)
         out[name] = res
     return out["flagship"]
+
+
+#: K2-K4 at a query offset against their plain versions (ring attention's
+#: chunk at ring distance m runs at q_offset = m * S_local): causal with
+#: and without a window, GQA and MHA, both types, ragged S; the first is
+#: the flagship ring's hop 1 (B=2, S_local=2048, H=8, Hkv=2, window 512 at
+#: q_offset 2048), where rows 511.. see no key and keys ..1536 no row.
+#: The next three are the flagship ring's other hop kinds at q_offset 0,
+#: K2 taking its f32 O from bf16 inputs as the ring does: a past chunk in
+#: full (non-causal) and a rank's own chunk, windowed and plainly causal.
+#: Held by ``flash_case``'s rule (:data:`FLASH_TOL`), O over the rows that
+#: see a key (elsewhere it must be finite; lse is -1e30 in both), and the
+#: rows and keys that see nothing must get exact zeros from K3 and K4.
+FLASH_OFFSET_CASES = [
+    ("bf16_ring_hop1_gqa_window512", dict(
+        b=2, s=2048, h=8, hkv=2, d=128, dtype=torch.bfloat16, causal=True,
+        window=512, q_offset=2048)),
+    ("bf16_ring_full_hop_gqa", dict(
+        b=2, s=2048, h=8, hkv=2, d=128, dtype=torch.bfloat16, causal=False,
+        q_offset=0)),
+    ("bf16_ring_diag_hop_gqa_window512", dict(
+        b=2, s=2048, h=8, hkv=2, d=128, dtype=torch.bfloat16, causal=True,
+        window=512, q_offset=0)),
+    ("bf16_ring_diag_hop_gqa", dict(
+        b=2, s=2048, h=8, hkv=2, d=128, dtype=torch.bfloat16, causal=True,
+        q_offset=0)),
+    ("bf16_mha_causal_offset200", dict(
+        b=1, s=1024, h=4, hkv=4, d=128, dtype=torch.bfloat16, causal=True,
+        q_offset=200)),
+    ("bf16_d64_gqa_window300_offset700", dict(
+        b=1, s=1024, h=8, hkv=2, d=64, dtype=torch.bfloat16, causal=True,
+        window=300, q_offset=700)),
+    ("bf16_ragged_s1000_mha_window300_offset500", dict(
+        b=1, s=1000, h=4, hkv=4, d=128, dtype=torch.bfloat16, causal=True,
+        window=300, q_offset=500)),
+    ("f32_gqa_window512_offset1024", dict(
+        b=1, s=1024, h=4, hkv=2, d=128, dtype=torch.float32, causal=True,
+        window=512, q_offset=1024)),
+    ("f32_mha_causal_offset200", dict(
+        b=1, s=512, h=4, hkv=4, d=128, dtype=torch.float32, causal=True,
+        q_offset=200)),
+    ("f32_ragged_s1000_gqa_window300_offset700", dict(
+        b=1, s=1000, h=4, hkv=2, d=128, dtype=torch.float32, causal=True,
+        window=300, q_offset=700)),
+]
+
+
+def offset_mask(s, q_offset, causal=True, window=0):
+    """``[S, S]`` bool on the card: which key each local row of a chunk at
+    ``q_offset`` sees."""
+    qpos = q_offset + torch.arange(s, device="cuda")[:, None]
+    kpos = torch.arange(s, device="cuda")[None, :]
+    vis = qpos >= kpos if causal else torch.ones_like(qpos >= kpos)
+    if window:
+        vis &= kpos > qpos - window
+    return vis
+
+
+def flash_offset_outputs(c):
+    """Each kernel's outputs at ``c["q_offset"]`` and its plain version's;
+    in bf16 K2 also with an f32 O.  The backward of both takes the lse a
+    ring hands it (this chunk's merged with another's, here a constant
+    log S) and delta of the plain forward's f32 O."""
+    import math
+
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, dout = c["q"], c["k"], c["v"], c["dout"]
+    kw = dict(scale=c["scale"], causal=c["causal"], window=c["window"],
+              q_offset=c["q_offset"])
+    pos = (kw["scale"], kw["causal"], kw["window"], kw["q_offset"])
+    ref = dict(zip(("out", "lse"), fa.flash_forward_reference(q, k, v,
+                                                              **kw)))
+    ref_out32, _ = fa.flash_forward_reference(q, k, v, out_dtype=torch.float32,
+                                              **kw)
+    got = dict(zip(("out", "lse"), fa._launch_fwd(q, k, v, *pos)))
+    if q.dtype == torch.bfloat16:
+        ref["out_f32"] = ref_out32
+        got["out_f32"], _ = fa._launch_fwd(q, k, v, *pos,
+                                           out_dtype=torch.float32)
+    lse = torch.logaddexp(ref["lse"], torch.full_like(
+        ref["lse"], math.log(q.shape[1])))
+    delta = fa._delta(ref_out32, dout)
+    args = (q, k, v, dout, lse, delta)
+    got["dq"] = fa._launch_dq(*args, *pos)
+    got["dk"], got["dv"] = fa._launch_dkv(*args, *pos)
+    torch.cuda.synchronize()
+    ref["dq"] = fa.flash_dq_reference(*args, **kw)
+    ref["dk"], ref["dv"] = fa.flash_dkv_reference(*args, **kw)
+    return got, ref
+
+
+def flash_offset_errors(got, ref, c, dtype):
+    """:func:`flash_errors` with O over the rows that see a key, plus
+    ``unseen``: the largest |dQ| of a row and |dK|, |dV| of a key that see
+    nothing (must be 0), inf when O is not finite everywhere."""
+    vis = offset_mask(c["q"].shape[1], c["q_offset"], c["causal"],
+                      c["window"])
+    rows, keys = vis.any(dim=1), vis.any(dim=0)
+    sub = {n: x[:, rows] if n.startswith("out") else x
+           for n, x in got.items()}
+    errs = flash_errors(sub, {n: x[:, rows] if n.startswith("out") else x
+                              for n, x in ref.items()}, dtype)
+    zero = max([got["dq"][:, ~rows].abs().max().item() if (~rows).any()
+                else 0.0] + [got[n][:, ~keys].abs().max().item()
+                             if (~keys).any() else 0.0 for n in ("dk", "dv")])
+    if not all(torch.isfinite(got[n]).all().item() for n in got):
+        zero = float("inf")
+    errs["unseen"] = (zero, zero, 0.0)
+    return errs
+
+
+def make_offset_case(gen, q_offset=0, **spec):
+    c = make_flash_case(gen, **spec)
+    c["q_offset"] = q_offset
+    return c
+
+
+def flash_offset_case_errors():
+    """``(name, dtype, errors)`` for each of :data:`FLASH_OFFSET_CASES`,
+    inputs drawn on the card from one seed."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    for name, spec in FLASH_OFFSET_CASES:
+        c = make_offset_case(gen, **spec)
+        got, ref = flash_offset_outputs(c)
+        yield name, spec["dtype"], flash_offset_errors(got, ref, c,
+                                                       spec["dtype"])
+
+
+def phase_flash_offset_cases():
+    for name, dtype, errs in flash_offset_case_errors():
+        ok = flash_ok(errs)
+        emit("flash_offset_case", case=name, dtype=str(dtype),
+             q_offset=dict(FLASH_OFFSET_CASES)[name]["q_offset"],
+             max_abs_err={n: e for n, (e, _, _) in errs.items()},
+             checked_err={n: x for n, (_, x, _) in errs.items()},
+             tol={n: t for n, (_, _, t) in errs.items()}, ok=ok)
+        if not ok:
+            raise AssertionError("flash offset case {0}: {1}".format(name,
+                                                                    errs))
+
+
+def phase_flash_offset_timing():
+    """K2 (f32 O, as the ring takes it), K3 and K4 on the flagship ring's
+    hop-1 chunk (:data:`FLASH_OFFSET_CASES`' first) beside their plain
+    versions, the bound over this chunk's visible pairs, and SDPA with
+    the same boolean mask as the yardstick."""
+    import math
+
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    name, spec = FLASH_OFFSET_CASES[0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    c = make_offset_case(gen, **spec)
+    got, ref = flash_offset_outputs(c)
+    errs = flash_offset_errors(got, ref, c, spec["dtype"])
+    if not flash_ok(errs):
+        raise AssertionError("flash offset timing case: {0}".format(errs))
+    q, k, v, dout = c["q"], c["k"], c["v"], c["dout"]
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    pos = (c["scale"], True, spec["window"], spec["q_offset"])
+    kw = dict(scale=c["scale"], causal=True, window=spec["window"],
+              q_offset=spec["q_offset"])
+    lse = torch.logaddexp(ref["lse"], torch.full_like(ref["lse"], math.log(s)))
+    delta = fa._delta(ref["out_f32"], dout)
+    args = (q, k, v, dout, lse, delta)
+    f32 = torch.float32
+    runs = {
+        "fwd": (lambda _: fa._launch_fwd(q, k, v, *pos, out_dtype=f32),
+                lambda _: fa.flash_forward_reference(q, k, v, out_dtype=f32,
+                                                     **kw)),
+        "dq": (lambda _: fa._launch_dq(*args, *pos),
+               lambda _: fa.flash_dq_reference(*args, **kw)),
+        "dkv": (lambda _: fa._launch_dkv(*args, *pos),
+                lambda _: fa.flash_dkv_reference(*args, **kw)),
+    }
+    vis = offset_mask(s, spec["q_offset"], True, spec["window"])
+    pairs = int(vis.sum().item())
+    rows_seen = int(vis.any(dim=1).sum().item())
+    keys_seen = int(vis.any(dim=0).sum().item())
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+
+    def lib_fwd(_):
+        with torch.no_grad():
+            return sdpa(qt, kt, vt, attn_mask=vis, enable_gqa=True)
+
+    def lib_fwd_bwd(_):
+        return torch.autograd.grad(
+            sdpa(qt, kt, vt, attn_mask=vis, enable_gqa=True), (qt, kt, vt),
+            dout.transpose(1, 2))
+
+    lib_fwd_ms = time_ms(lib_fwd, [None], reps=20, warmup=3)
+    lib_bwd_ms = time_ms(lib_fwd_bwd, [None], reps=20, warmup=3) - lib_fwd_ms
+    library = {"fwd": lib_fwd_ms, "dq": lib_bwd_ms, "dkv": None}
+    bounds = flash_bounds(b, s, h, hkv, d, 2, pairs=pairs, out_itemsize=4,
+                          rows_seen=rows_seen, keys_seen=keys_seen)
+    err_of = {"fwd": max(errs["out_f32"][0], errs["lse"][0]),
+              "dq": errs["dq"][0], "dkv": max(errs["dk"][0], errs["dv"][0])}
+    res = {}
+    for kname, (kernel, plain_fn) in runs.items():
+        nbytes, flops = bounds[kname]
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_SEC
+        ops_ms = 1e3 * flops / BF16_FLOPS_PER_SEC
+        res[kname] = dict(
+            ms=time_ms(kernel, [None], reps=50, warmup=5),
+            plain_ms=time_ms(plain_fn, [None], reps=3, warmup=1),
+            bound_ms=max(bytes_ms, ops_ms),
+            bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+            bytes=nbytes, flops=flops, max_abs_err=err_of[kname],
+            library_ms=library[kname],
+        )
+    emit("flash_offset_timing", case=name, shape=dict(
+        B=b, S=s, H=h, Hkv=hkv, D=d, dtype="bfloat16", causal=True,
+        window=spec["window"], q_offset=spec["q_offset"]),
+         visible_pairs_per_head=pairs,
+         rows_seeing_a_key=rows_seen, keys_seen=keys_seen,
+         library_note="scaled_dot_product_attention(attn_mask=the chunk's "
+                      "boolean mask, enable_gqa=True): forward on fwd, "
+                      "forward+backward minus forward on dq", **res)
+    return res
+
+
+#: the flagship's attention at full width as a ring of 4 ranks on one
+#: card (sequence-parallel training's shape on four cards); the composed
+#: ring is held against one full-sequence pass (both K2-K4, bf16) by
+#: flash_case's rule (:data:`FLASH_TOL`: the same logits, merged per chunk
+#: in f32 instead of in one online softmax)
+RING_FLAGSHIP = dict(b=2, s=8192, h=8, hkv=2, d=128, p=4, window=512)
+#: hops of each branch kind over the 4 x 4 (rank, hop) pairs: under the
+#: 512 window (reach 1) each rank's own chunk and, for ranks 1-3, the one
+#: before at q_offset 2048; plainly causal, each rank's own, the r earlier
+#: ones in full, the later ones skipped
+RING_HOPS = {512: {"diag": 4, "offset": 3, "skip": 9},
+             0: {"diag": 4, "full": 6, "skip": 6}}
+
+
+def branch_kind(branch):
+    if branch is None:
+        return "skip"
+    causal, q_offset = branch
+    return "offset" if q_offset else ("diag" if causal else "full")
+
+
+def ring_compose(q, k, v, dout, p, causal, window, scale):
+    """The ring of ``p`` ranks composed on one card from the port's
+    per-hop pieces (``hop_branch``, ``chunk_forward``, ``merge_partial``,
+    ``chunk_grads``): rank ``r`` holds rows ``r*S/p..`` and at hop ``t``
+    sees the chunk of rank ``(r - t) % p``; the dK/dV of a chunk add up
+    over the hops that visit it.  Returns ``(out, lse, dq, dk, dv)``
+    over the whole sequence and, per branch kind, the hops taken and the
+    kernel launches they made."""
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+    from tensorflowonspark_tpu_torch.ops import ring_attention as ra
+
+    sl = q.shape[1] // p
+
+    def parts(x):
+        return [x[:, i * sl:(i + 1) * sl] for i in range(p)]
+
+    qs, ks, vs, dos = (parts(x) for x in (q, k, v, dout))
+    tally = {}
+
+    def hop(kind, fn, forward=True):
+        before = dict(fa.flash_attention.launches)
+        out = fn()
+        rec = tally.setdefault(kind, {"hops": 0, "fwd": 0, "dq": 0,
+                                      "dkv": 0})
+        rec["hops"] += forward
+        for n, x in fa.flash_attention.launches.items():
+            rec[n] += x - before[n]
+        return out
+
+    outs, lses = [], []
+    for r in range(p):
+        o = torch.zeros(qs[r].shape, dtype=torch.float32, device=q.device)
+        lse = torch.full((q.shape[0], q.shape[2], sl), -1e30,
+                         dtype=torch.float32, device=q.device)
+        for t in range(p):
+            br = ra.hop_branch(r, t, p, causal, window, sl)
+            src = (r - t) % p
+            if br is None:
+                hop("skip", lambda: None)
+                continue
+            o_c, lse_c = hop(branch_kind(br), lambda: ra.chunk_forward(
+                qs[r], ks[src], vs[src], scale, br, window))
+            o, lse = ra.merge_partial(o, lse, o_c, lse_c)
+        outs.append(o.to(q.dtype))
+        lses.append(lse)
+    dq = [torch.zeros(x.shape, dtype=torch.float32, device=q.device)
+          for x in qs]
+    dk = [torch.zeros(x.shape, dtype=torch.float32, device=q.device)
+          for x in ks]
+    dv = [torch.zeros_like(x) for x in dk]
+    for r in range(p):
+        delta = fa._delta(outs[r], dos[r])
+        for t in range(p):
+            br = ra.hop_branch(r, t, p, causal, window, sl)
+            src = (r - t) % p
+            if br is None:
+                continue
+            dq_c, dk_c, dv_c = hop(branch_kind(br), lambda: ra.chunk_grads(
+                qs[r], ks[src], vs[src], dos[r], lses[r], delta, scale, br,
+                window), forward=False)
+            dq[r] += dq_c
+            dk[src] += dk_c
+            dv[src] += dv_c
+    cat = torch.cat
+    return (cat(outs, 1), cat(lses, 2), cat(dq, 1).to(q.dtype),
+            cat(dk, 1).to(k.dtype), cat(dv, 1).to(v.dtype)), tally
+
+
+def phase_ring_flagship():
+    """Ring attention at the flagship's attention width on one card:
+    :data:`RING_FLAGSHIP` split into ``p`` virtual ranks, every (rank,
+    hop) pair composed from the port's per-hop ring functions, held
+    against one full-sequence flash forward and backward (K2-K4 at
+    q_offset 0); windowed (diag and offset hops) and plain causal (skip,
+    diag and full hops).  Each hop's kernels must have launched once, and
+    the flash ring and Ulysses must refuse a shard that their tiling rule
+    refuses (:func:`ring_refusals`).  Returns the windowed ring's
+    launches and both timings."""
+    from tensorflowonspark_tpu_torch.ops import flash_attention as fa
+
+    g = RING_FLAGSHIP
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    out = {}
+    for window in (g["window"], 0):
+        c = make_flash_case(gen, b=g["b"], s=g["s"], h=g["h"], hkv=g["hkv"],
+                            d=g["d"], dtype=torch.bfloat16, causal=True,
+                            window=window)
+        q, k, v, dout, scale = c["q"], c["k"], c["v"], c["dout"], c["scale"]
+        fa.flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
+        got, tally = ring_compose(q, k, v, dout, g["p"], True, window, scale)
+        launches = dict(fa.flash_attention.launches)
+        o, lse = fa._fwd_core(q, k, v, scale, True, window=window)
+        want = (o, lse) + fa._bwd_core(q, k, v, dout, lse, fa._delta(o, dout),
+                                       scale, True, window)
+        torch.cuda.synchronize()
+        names = ("out", "lse", "dq", "dk", "dv")
+        errs = flash_errors(dict(zip(names, got)), dict(zip(names, want)),
+                            torch.bfloat16)
+        # every hop of a kind launched each kernel once, a skip none
+        expect = RING_HOPS[window]
+        launches_ok = set(tally) == set(expect) and all(
+            tally[kind]["hops"] == n and all(
+                tally[kind][k] == (0 if kind == "skip" else n)
+                for k in ("fwd", "dq", "dkv"))
+            for kind, n in expect.items())
+        del got, want
+
+        def ring(_):
+            ring_compose(q, k, v, dout, g["p"], True, window, scale)
+
+        def full(_):
+            o, lse = fa._fwd_core(q, k, v, scale, True, window=window)
+            fa._bwd_core(q, k, v, dout, lse, fa._delta(o, dout), scale, True,
+                         window)
+
+        res = dict(
+            window=window, launches=launches, hops_expected=expect,
+            launches_by_branch=tally,
+            max_abs_err={n: e for n, (e, _, _) in errs.items()},
+            checked_err={n: x for n, (_, x, _) in errs.items()},
+            tol={n: t for n, (_, _, t) in errs.items()},
+            ring_fwd_bwd_ms=time_ms(ring, [None], reps=3, warmup=1),
+            full_fwd_bwd_ms=time_ms(full, [None], reps=3, warmup=1),
+        )
+        ok = flash_ok(errs) and launches_ok
+        emit("ring_flagship", shape=dict(B=g["b"], S=g["s"], H=g["h"],
+                                         Hkv=g["hkv"], D=g["d"], P=g["p"],
+                                         dtype="bfloat16", causal=True),
+             ok=ok, **res)
+        if not ok:
+            raise AssertionError("ring flagship (window {0}): {1}".format(
+                window, res))
+        out[window] = res
+    refused = ring_refusals(c["q"][:, :1100])
+    emit("ring_refusal", shard_len=1100, refused=refused)
+    if not all(refused.values()):
+        raise AssertionError("the flash ring or Ulysses took a shard its "
+                             "tiling rule refuses: {0}".format(refused))
+    return out
+
+
+def ring_refusals(x):
+    """Whether ring and Ulysses attention raise on card tensors whose
+    sequence the flash tiling rule refuses, instead of taking the plain
+    step: ``{"ring": bool, "ulysses": bool}``."""
+    from tensorflowonspark_tpu_torch.ops.ring_attention import ring_attention
+    from tensorflowonspark_tpu_torch.ops.ulysses import ulysses_attention
+
+    refused = {}
+    for name, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        try:
+            fn(x, x, x)
+            refused[name] = False
+        except ValueError as e:
+            refused[name] = "refuses" in str(e)
+    return refused
+
+
+#: :func:`phase_flash_timing_trees`'s process: K2-K4 at the flagship
+#: training shape from the package of the tree in argv[1]
+FLASH_TIMING_TREE = r"""
+import importlib.util, json, os, sys
+tree = os.path.abspath(sys.argv[1])
+sys.path.insert(0, tree)
+import torch
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[2])
+c = importlib.util.module_from_spec(spec)
+sys.modules["chip_smoke"] = c
+spec.loader.exec_module(c)
+import tensorflowonspark_tpu_torch as pkg
+assert pkg.__file__.startswith(tree), pkg.__file__
+gen = torch.Generator(device="cuda")
+gen.manual_seed(6)
+runs = [c.flash_timing_at(gen, plain=False, **dict(c.FLASH_TIMING_SHAPES)[
+    "flagship"]) for _ in range(3)]
+c.emit("flash_timing_tree", tree=sys.argv[1], ms=[
+    {k: r[k]["ms"] for k in ("fwd", "dq", "dkv")} for r in runs])
+"""
+
+
+def phase_flash_timing_trees(trees):
+    """Not run by :func:`main`: K2-K4 at the flagship training shape,
+    three times each, from the package of each tree in ``trees`` in turn
+    (one process each, this file's phases; e.g. a parent commit unpacked
+    in a gitignored directory and ``"."``, as parent, change, change,
+    parent), to compare two commits on one card in one call."""
+    for tree in trees:
+        subprocess.run([sys.executable, "-c", FLASH_TIMING_TREE, tree,
+                        os.path.abspath(__file__)], check=True)
 
 
 TRAIN_K, TRAIN_B, TRAIN_S = 4, 8, 2048
@@ -2708,6 +3182,7 @@ def global_stop_fn(args, ctx):
     out = dict(rank=dist.get_rank(), world=dist.get_world_size(),
                backend=dist.get_backend(), steps=int(state.step),
                all_reduce=rank.item(),
+               weights=params_digest(model.parameters()),
                cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"),
                uuid=card_uuid(device))
     dist.destroy_process_group()
@@ -2721,8 +3196,9 @@ def phase_feed_global_stop(n=4):
     host-local rank, ``initialize_distributed`` (NCCL with a ``gloo``
     flag group), executor ``i`` fed ``3 + i`` batches; every rank must
     stop after 3 steps (the global stop), the all-reduce must sum the
-    ranks, and each rank must hold the card that ``gpu_info`` gave its
-    executor."""
+    ranks, the ranks' weights must be equal after the last step (each
+    step averages the gradients over the ranks), and each rank must hold
+    the card that ``gpu_info`` gave its executor."""
     import importlib
     import tempfile
 
@@ -2757,11 +3233,315 @@ def phase_feed_global_stop(n=4):
         raise AssertionError("ranks stopped at different steps")
     if {r["all_reduce"] for r in ranks} != {n * (n + 1) / 2.0}:
         raise AssertionError("the all-reduce did not sum the ranks")
+    if len({r["weights"] for r in ranks}) != 1:
+        raise AssertionError("the ranks' weights differ after training")
     if len({r["uuid"] for r in ranks}) != n or any(
             pool.get(r["uuid"]) != r["cuda_visible_devices"] for r in ranks):
         raise AssertionError("the ranks do not hold one distinct card "
                              "each, the one gpu_info chose: {0}".format(pool))
     return ranks
+
+
+def params_digest(params):
+    """sha256 of the parameters' bytes, in order: equal on two ranks only
+    when every weight is bit for bit equal."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in params:
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+#: sequence-parallel training of the flagship (not run by :func:`main`;
+#: four cards): name, mesh axes, config fields beyond :data:`FLAGSHIP`,
+#: global batch rows.  The ring configs are the flagship with two kv
+#: heads (Hkv=2, GQA); Ulysses needs the head counts to divide by the seq
+#: width, so it runs the flagship's own MHA.
+SP_TRAIN_CONFIGS = [
+    ("ring_seq4_window512_gqa", {"seq": 4},
+     dict(attention_impl="ring", num_kv_heads=2, attention_window=512), 2),
+    ("ring_seq4_gqa", {"seq": 4},
+     dict(attention_impl="ring", num_kv_heads=2), 2),
+    ("ulysses_seq4_mha", {"seq": 4}, dict(attention_impl="ulysses"), 2),
+    ("ring_data2_seq2_window512_gqa", {"data": 2, "seq": 2},
+     dict(attention_impl="ring", num_kv_heads=2, attention_window=512), 4),
+]
+SP_TRAIN_S, SP_TRAIN_STEPS = 8192, 4  # the first step is the warm-up
+#: sequence-parallel losses against one card's full-sequence run of the
+#: same model, weights and tokens (K2-K4 at q_offset 0), relative: about
+#: 4x the largest of the sound runs (2.6e-5 on four H100s; the two runs
+#: round attention and its gradients at other points)
+SP_LOSS_RTOL = 1e-4
+#: the global L2 norm of each step's reduced gradients against the
+#: one-card run's, relative: about 3x the largest of the sound runs
+#: (8.8e-4 on four H100s).  AdamW's update hardly depends on the
+#: gradients' scale, so the losses alone would pass gradients averaged
+#: over ``seq`` where they must be summed (off by 0.75 at seq=4); this
+#: check does not
+SP_GRAD_RTOL = 3e-3
+
+
+def sp_tokens(index, rows, vocab, s, steps):
+    """The ``[steps, rows, S]`` int32 tokens of config ``index``."""
+    rng = np.random.default_rng(20 + index)
+    return rng.integers(0, vocab, (steps, rows, s)).astype(np.int32)
+
+
+class GradNormProbe(object):
+    """An optimizer that hands every update on to ``opt`` and keeps the
+    global L2 norm of the gradients it is given, one device scalar per
+    step (:meth:`read` brings them to the host)."""
+
+    def __init__(self, opt):
+        self.opt, self.norms = opt, []
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, opt_state, params, grads):
+        self.norms.append(torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm([g.float() for g in grads]))))
+        return self.opt.update(opt_state, params, grads)
+
+    def read(self):
+        return [float(x) for x in self.norms]
+
+
+def sp_train_configs(args, device):
+    """This rank's part of each of ``args["configs"]``: the model
+    (``args["model"]`` fields) from seed-0 weights, trained with
+    ``SyncTrainer(loss_fn(model), adamw(1e-4), mesh=build_mesh(axes),
+    data_axes=("data",))`` for ``args["steps"]`` steps on its rows (the
+    data coordinate's) of the config's tokens, the reduced gradients'
+    norm kept per step (:class:`GradNormProbe`); then the gradient
+    all-reduce alone, timed over a flat f32 buffer of every parameter.
+    Returns one result dict per config."""
+    import gc
+
+    import torch.distributed as dist
+
+    from tensorflowonspark_tpu_torch import convert, optim
+    from tensorflowonspark_tpu_torch.models import transformer
+    from tensorflowonspark_tpu_torch.ops.flash_attention import (
+        flash_attention,
+    )
+    from tensorflowonspark_tpu_torch.parallel import dp
+    from tensorflowonspark_tpu_torch.parallel.mesh import build_mesh
+
+    s, steps = args["s"], args["steps"]
+    base = dict(args["model"], max_seq_len=s)
+    trees, results = {}, []
+    for index, (name, axes, extra, rows) in enumerate(args["configs"]):
+        mesh = build_mesh(axes)
+        hkv = extra.get("num_kv_heads", 0)
+        if hkv not in trees:
+            trees[hkv] = convert.init_params_tree(
+                transformer.TransformerConfig(**dict(base, num_kv_heads=hkv)),
+                seed=0)
+        cfg = transformer.TransformerConfig(**dict(base, mesh=mesh, **extra))
+        model = convert.params_from_flax(trees[hkv], cfg, device=device,
+                                         param_dtype=torch.float32)
+        probe = GradNormProbe(optim.adamw(1e-4))
+        trainer = dp.SyncTrainer(transformer.loss_fn(model), probe,
+                                 mesh=mesh, data_axes=("data",))
+        state = trainer.create_state(dict(model.named_parameters()))
+        part = rows // mesh.axis_size("data")
+        lo = mesh.axis_index("data") * part
+        tokens = torch.from_numpy(sp_tokens(index, rows, cfg.vocab_size, s,
+                                            steps)[:, lo:lo + part]).to(device)
+        flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
+        torch.cuda.reset_peak_memory_stats(device)
+        losses, walls = [], []
+        for i in range(steps):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            state, metrics = trainer.step_on_device(state,
+                                                    {"tokens": tokens[i]})
+            torch.cuda.synchronize(device)
+            walls.append(time.perf_counter() - t0)
+            losses.append(metrics["loss"])
+        launches = dict(flash_attention.launches)
+        n_params = sum(p.numel() for p in model.parameters())
+        buf = torch.ones(n_params, dtype=torch.float32, device=device)
+        dist.all_reduce(buf, group=mesh.world_group)  # warm-up
+        reduce_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            dist.all_reduce(buf, group=mesh.world_group)
+            torch.cuda.synchronize(device)
+            reduce_ms.append(1e3 * (time.perf_counter() - t0))
+        results.append(dict(
+            name=name, mesh=dict(mesh.shape), coords=mesh.coords,
+            losses=[float(x) for x in losses], grad_norms=probe.read(),
+            step_sec=walls,
+            launches=launches, weights=params_digest(model.parameters()),
+            tokens_per_sec_per_card=(rows * s * (steps - 1) / sum(walls[1:])
+                                     / mesh.size),
+            allreduce_ms=reduce_ms, allreduce_bytes=4 * n_params,
+            peak_memory_bytes=torch.cuda.max_memory_allocated(device)))
+        del model, trainer, probe, state, tokens, buf
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results
+
+
+def sp_train_fn(args, ctx):
+    """The user fn of :func:`phase_sp_train_flagship`: joins the cluster's
+    process group (NCCL), runs :func:`sp_train_configs` on this rank's
+    card and writes ``rank<r>.json``."""
+    from tensorflowonspark_tpu_torch import compat
+
+    dist = ctx.initialize_distributed()
+    device = compat.resolve_device()
+    results = sp_train_configs(args, device)
+    out = dict(rank=dist.get_rank(), world=dist.get_world_size(),
+               backend=dist.get_backend(),
+               cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"),
+               uuid=card_uuid(device), results=results)
+    dist.destroy_process_group()
+    with open(os.path.join(args["out"], "rank%d.json" % out["rank"]),
+              "w") as f:
+        json.dump(out, f)
+
+
+def sp_reference(args, device):
+    """Each config's one-card run over the full sequence: the same model,
+    weights and tokens with flash attention (K2-K4 at q_offset 0) and the
+    default trainer.  Returns ``{name: (losses, gradient norms,
+    tokens_per_sec)}``."""
+    import gc
+
+    from tensorflowonspark_tpu_torch import convert, optim
+    from tensorflowonspark_tpu_torch.models import transformer
+    from tensorflowonspark_tpu_torch.parallel import dp
+
+    s, steps = args["s"], args["steps"]
+    base = dict(args["model"], max_seq_len=s)
+    trees, out = {}, {}
+    for index, (name, _, extra, rows) in enumerate(args["configs"]):
+        hkv = extra.get("num_kv_heads", 0)
+        if hkv not in trees:
+            trees[hkv] = convert.init_params_tree(
+                transformer.TransformerConfig(**dict(base, num_kv_heads=hkv)),
+                seed=0)
+        cfg = transformer.TransformerConfig(**dict(
+            base, num_kv_heads=hkv, attention_impl="flash",
+            attention_window=extra.get("attention_window", 0)))
+        model = convert.params_from_flax(trees[hkv], cfg, device=device,
+                                         param_dtype=torch.float32)
+        probe = GradNormProbe(optim.adamw(1e-4))
+        trainer = dp.SyncTrainer(transformer.loss_fn(model), probe)
+        state = trainer.create_state(dict(model.named_parameters()))
+        tokens = torch.from_numpy(sp_tokens(index, rows, cfg.vocab_size, s,
+                                            steps)).to(device)
+        losses, walls = [], []
+        for i in range(steps):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            state, metrics = trainer.step_on_device(state,
+                                                    {"tokens": tokens[i]})
+            torch.cuda.synchronize(device)
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+        out[name] = (losses, probe.read(),
+                     rows * s * (steps - 1) / sum(walls[1:]))
+        del model, trainer, probe, state, tokens
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def sp_check(ranks, reference):
+    """The checks of :func:`phase_sp_train_flagship` on the ranks' results
+    and the one-card reference; returns the summary it emits."""
+    summary = {}
+    for i, (name, axes, extra, rows) in enumerate(SP_TRAIN_CONFIGS):
+        res = [r["results"][i] for r in ranks]
+        want, want_norms, ref_tps = reference[name]
+        got, norms = res[0]["losses"], res[0]["grad_norms"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        grad_rel = max(abs(a - b) / abs(b) for a, b in zip(norms, want_norms))
+        summary[name] = dict(
+            losses=got, one_card_losses=want, max_rel_diff=rel,
+            grad_norms=norms, one_card_grad_norms=want_norms,
+            grad_norm_max_rel_diff=grad_rel,
+            tokens_per_sec_per_card=[r["tokens_per_sec_per_card"]
+                                     for r in res],
+            one_card_tokens_per_sec=ref_tps,
+            allreduce_ms=[min(r["allreduce_ms"]) for r in res],
+            allreduce_bytes=res[0]["allreduce_bytes"],
+            launches=[r["launches"] for r in res],
+            peak_memory_bytes=[r["peak_memory_bytes"] for r in res])
+        if any(r["losses"] != got for r in res):
+            raise AssertionError("{0}: the ranks' losses differ: {1}".format(
+                name, [r["losses"] for r in res]))
+        if len({r["weights"] for r in res}) != 1:
+            raise AssertionError("{0}: the ranks' weights differ".format(
+                name))
+        if not rel <= SP_LOSS_RTOL:
+            raise AssertionError("{0}: losses {1} against one card's {2}: "
+                                 "{3} > {4}".format(name, got, want, rel,
+                                                    SP_LOSS_RTOL))
+        if not grad_rel <= SP_GRAD_RTOL:
+            raise AssertionError(
+                "{0}: gradient norms {1} against one card's {2}: {3} > "
+                "{4}".format(name, norms, want_norms, grad_rel,
+                             SP_GRAD_RTOL))
+        if not all(r["launches"]["fwd"] > 0 and len(set(
+                r["launches"].values())) == 1 for r in res):
+            raise AssertionError("{0}: K2-K4 launches {1}".format(
+                name, [r["launches"] for r in res]))
+    return summary
+
+
+def phase_sp_train_flagship(n=4):
+    """Not run by :func:`main`: sequence-parallel training of the
+    flagship (L16 H8 Dh128 Dm1024 V32000, bf16 over f32 masters, AdamW)
+    over ``n`` cards through ``cluster.run(LocalEngine(n), sp_train_fn)``
+    -> ``ctx.initialize_distributed()`` -> ``build_mesh`` ->
+    ``SyncTrainer(mesh=)``, for each of :data:`SP_TRAIN_CONFIGS` at
+    S=8192.  Per config, every rank's losses must be identical, its
+    weights equal to the others' after the last step, and the losses and
+    the reduced gradients' norms within :data:`SP_LOSS_RTOL` and
+    :data:`SP_GRAD_RTOL` of one card's full-sequence run of the same
+    model on the same tokens (run here afterwards, on card 0).
+    Reports tokens/s per card beside the one-card run's, and the
+    gradient all-reduce's time."""
+    import importlib
+    import tempfile
+
+    from tensorflowonspark_tpu_torch.cluster import cluster
+    from tensorflowonspark_tpu_torch.engine import LocalEngine
+
+    smoke = importlib.import_module("chip_smoke")
+    out = tempfile.mkdtemp(prefix="sp_train_")
+    args = dict(out=out, model=FLAGSHIP, configs=SP_TRAIN_CONFIGS,
+                s=SP_TRAIN_S, steps=SP_TRAIN_STEPS)
+    engine = LocalEngine(n, deterministic=True)
+    try:
+        t0 = time.perf_counter()
+        c = cluster.run(engine, smoke.sp_train_fn, args, num_executors=n,
+                        num_chips_per_node=1, reservation_timeout=120)
+        c.shutdown(grace_secs=1500, timeout=1800)
+        wall = time.perf_counter() - t0
+    finally:
+        engine.stop()
+    ranks = []
+    for r in range(n):
+        with open(os.path.join(out, "rank%d.json" % r)) as f:
+            ranks.append(json.load(f))
+    if len({r["uuid"] for r in ranks}) != n:
+        raise AssertionError("the ranks do not hold one card each")
+    t1 = time.perf_counter()
+    reference = sp_reference(args, torch.device("cuda", 0))
+    summary = sp_check(ranks, reference)
+    emit("sp_train_flagship", cards=n, backend=ranks[0]["backend"],
+         cluster_wall_sec=wall, reference_wall_sec=time.perf_counter() - t1,
+         seq_len=SP_TRAIN_S, steps=SP_TRAIN_STEPS, loss_rtol=SP_LOSS_RTOL,
+         grad_rtol=SP_GRAD_RTOL, configs=summary)
+    return summary
 
 
 def kernel_entry(name, kernel, replaces, launches, timing,
@@ -2797,6 +3577,9 @@ def main():
     phase_flash_cases()
     phase_flash_repeat()
     flash = phase_flash_timing()
+    phase_flash_offset_cases()
+    offset = phase_flash_offset_timing()
+    ring_hops = phase_ring_flagship()[RING_FLAGSHIP["window"]]
     train, model = phase_train_flagship(tree, flash)
     del tree
     phase_train_kernel_vs_dot()
@@ -2830,7 +3613,11 @@ def main():
                      train["launches"][name], flash[name],
                      fed_launches=fed["launches"][name],
                      ring_fed_launches=ring["launches"][name],
-                     inference_launches=inference["launches"][name])
+                     inference_launches=inference["launches"][name],
+                     ring_attention_launches=ring_hops["launches"][name],
+                     **{"offset_" + k: offset[name][k] for k in (
+                         "ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms", "max_abs_err")})
         for name, kernel, line in (("fwd", "flash_fwd_wgmma", "132"),
                                    ("dq", "flash_dq_wgmma", "198"),
                                    ("dkv", "flash_dkv_wgmma", "256"))

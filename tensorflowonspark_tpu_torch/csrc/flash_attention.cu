@@ -25,6 +25,17 @@
 // [B, S, H, D], dK and dV [B, S, Hkv, D], lse and delta are f32
 // [B, H, S].  H = G * Hkv: query head h reads kv head h / G.
 //
+// q_offset (the reference's, `_causal_mask` :74 and `_block_relevant`
+// :94): local query row r sits at global position q_offset + r against
+// keys 0..S-1, as ring attention's chunk at ring distance m does with
+// q_offset = m * S_local.  Rows are bounded locally (r < S) and masked
+// on their global position; every tile range and "needs a mask" test
+// takes the offset.  Under a window an offset chunk has rows that see no
+// key and keys no row sees: such a row's lse is -1e30 and its O finite
+// (merge_partial weighs it 0), such a key's dK and dV are exact zeros.
+// K2 in bf16 writes O in f32 on request (out_f32: ring partials taken
+// straight from the accumulator).
+//
 // Bound: operations.  One causal product at the flagship training shape
 // (B=8, H=8, S=2048, D=128) is B*H*S^2*D = 3.44e10 flop (2 per
 // multiply-add over the S(S+1)/2 visible pairs); K2 does 2 products
@@ -96,6 +107,11 @@ struct FlashArgs {
   int B, S, H, Hkv;
   float scale;
   int causal, window;
+  // global position of local query row 0 (keys start at 0): ring
+  // attention's chunk at ring distance m sits m * S_local ahead of the
+  // keys it visits
+  int q_offset;
+  int out_f32;  // K2, bf16: write O in f32 (ring partials)
 };
 
 template <typename T>
@@ -234,31 +250,59 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
   }
 }
 
-__device__ __forceinline__ bool visible(int qpos, int kpos,
-                                        const FlashArgs& a) {
-  if (qpos >= a.S || kpos >= a.S) return false;
+// Whether key kpos is visible to local query row `row`: both inside S,
+// and the key neither after the row's global position q_off + row
+// (causal) nor at or behind its window's horizon.  q_off is a.q_offset,
+// or a constant 0 in the Hopper kernels' zero-offset instantiations.
+__device__ __forceinline__ bool visible(int row, int kpos, const FlashArgs& a,
+                                        int q_off) {
+  if (row >= a.S || kpos >= a.S) return false;
+  const int qpos = q_off + row;
   if (a.causal && kpos > qpos) return false;
   if (a.window > 0 && kpos <= qpos - a.window) return false;
   return true;
 }
 
-// Key tiles a q tile starting at q0 needs: from the first the window can
-// touch to the diagonal (causal) or the last.
-__device__ __forceinline__ void key_tiles(int q0, const FlashArgs& a, int& lo,
-                                          int& hi) {
-  const int q_last = min(a.S, q0 + kBM) - 1;
-  hi = a.causal ? q_last / kBN : (a.S - 1) / kBN;
-  lo = (a.causal && a.window > 0) ? max(0, q0 - a.window + 1) / kBN : 0;
+// Key tiles of KEYS keys that the local query rows [q0, q0 + ROWS) can
+// see: from the first the window can touch to the diagonal (causal) or
+// the last.  lo > hi when they see none (an offset chunk behind the
+// window's horizon).
+template <int ROWS, int KEYS>
+__device__ __forceinline__ void key_range(int q0, const FlashArgs& a,
+                                          int q_off, int& lo, int& hi) {
+  // the rows' global positions
+  const int first = q_off + q0;
+  const int last = q_off + min(a.S, q0 + ROWS) - 1;
+  const int k_hi = a.causal ? min(a.S - 1, last) : a.S - 1;
+  const int k_lo =
+      (a.causal && a.window > 0) ? max(0, first - a.window + 1) : 0;
+  hi = k_hi / KEYS;
+  lo = k_lo <= k_hi ? k_lo / KEYS : hi + 1;
 }
 
-// Q tiles a key tile starting at k0 needs: from the diagonal (causal) or
-// the first to the window's end or the last.
+// Query tiles of ROWS local rows that can see the keys [k0, k0 + KEYS):
+// from the diagonal (causal) or the first to the window's end or the
+// last.  lo > hi when none can.
+template <int KEYS, int ROWS>
+__device__ __forceinline__ void query_range(int k0, const FlashArgs& a,
+                                            int q_off, int& lo, int& hi) {
+  const int k_last = min(a.S, k0 + KEYS) - 1;
+  const int r_lo = a.causal ? max(0, k0 - q_off) : 0;
+  const int r_hi = (a.causal && a.window > 0)
+                       ? min(a.S - 1, k_last + a.window - 1 - q_off)
+                       : a.S - 1;
+  lo = r_lo / ROWS;
+  hi = r_lo <= r_hi ? r_hi / ROWS : lo - 1;
+}
+
+// The f32 kernels' tiles
+__device__ __forceinline__ void key_tiles(int q0, const FlashArgs& a, int& lo,
+                                          int& hi) {
+  key_range<kBM, kBN>(q0, a, a.q_offset, lo, hi);
+}
 __device__ __forceinline__ void query_tiles(int k0, const FlashArgs& a,
                                             int& lo, int& hi) {
-  const int k_last = min(a.S, k0 + kBN) - 1;
-  lo = a.causal ? k0 / kBM : 0;
-  hi = (a.causal && a.window > 0) ? min(a.S - 1, k_last + a.window - 1) / kBM
-                                  : (a.S - 1) / kBM;
+  query_range<kBN, kBM>(k0, a, a.q_offset, lo, hi);
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -309,9 +353,11 @@ __global__ void __launch_bounds__(kThreads)
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
   int j_lo, j_hi;
   key_tiles(q0, a, j_lo, j_hi);
-  load_tile<T, kBM, D>(sQ, q, a.q_ss, q0, a.S);
-  load_tile<T, kBN, D>(sK, k, a.k_ss, j_lo * kBN, a.S);
-  cp_async_commit();
+  if (j_lo <= j_hi) {
+    load_tile<T, kBM, D>(sQ, q, a.q_ss, q0, a.S);
+    load_tile<T, kBN, D>(sK, k, a.k_ss, j_lo * kBN, a.S);
+    cp_async_commit();
+  }
 
   // K and V stream through one buffer each, staggered: V_j lands while
   // Q.K_j^T runs, K_{j+1} while P.V_j runs
@@ -333,7 +379,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) {
         const int col = k0 + 8 * n + 2 * t + (e & 1);
         const float x =
-            visible(row[e >> 1], col, a) ? s[n][e] * a.scale : kNegInf;
+            visible(row[e >> 1], col, a, a.q_offset) ? s[n][e] * a.scale
+                                                     : kNegInf;
         s[n][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -480,26 +527,30 @@ __device__ __forceinline__ float ex2_approx(float x) {
   return y;
 }
 
-// The online softmax of one S tile (a warpgroup's 64 rows from r0, keys
-// from k0, accumulator layout), in place: masked only where some pair of
-// the tile is not visible; the row max m (of the raw logits q.k) and
-// sum l updated, the rescale of O in alpha, and sc = exp(scale * (S -
-// m)) in f32, computed as 2^(S * scale * log2(e) - m * scale * log2(e))
-// with one FFMA and one ex2 an element.
+// The online softmax of one S tile (a warpgroup's 64 rows, the first at
+// global position g0 = q_off + its local row, keys from k0, accumulator
+// layout), in place: masked
+// only where some pair of the tile is not visible; the row max m (of the
+// raw logits q.k) and sum l updated, the rescale of O in alpha, and
+// sc = exp(scale * (S - m)) in f32, computed as
+// 2^(S * scale * log2(e) - m * scale * log2(e)) with one FFMA and one ex2
+// an element.
+template <bool OFF>
 __device__ __forceinline__ void fwd_softmax(float (&sc)[64], float (&m)[2],
                                             float (&l)[2],
-                                            float (&alpha)[2], int k0, int r0,
-                                            const int (&row)[2], int t,
-                                            float scale_log2,
+                                            float (&alpha)[2], int k0, int g0,
+                                            int q_off, const int (&row)[2],
+                                            int t, float scale_log2,
                                             const FlashArgs& a) {
   const bool masked = k0 + kWgKeys > a.S ||
-                      (a.causal && k0 + kWgKeys - 1 > r0) ||
-                      (a.window > 0 && k0 <= r0 + 63 - a.window);
+                      (a.causal && k0 + kWgKeys - 1 > g0) ||
+                      (a.window > 0 && k0 <= g0 + 63 - a.window);
   float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
   for (int e = 0; e < 64; ++e) {
     const int rr = (e >> 1) & 1;
-    if (masked && !visible(row[rr], k0 + 8 * (e >> 2) + 2 * t + (e & 1), a))
+    if (masked &&
+        !visible(row[rr], k0 + 8 * (e >> 2) + 2 * t + (e & 1), a, q_off))
       sc[e] = kNegInf;
     mx[rr] = fmaxf(mx[rr], sc[e]);
   }
@@ -509,7 +560,11 @@ __device__ __forceinline__ void fwd_softmax(float (&sc)[64], float (&m)[2],
     const float m_new = fmaxf(m[r], quad_max(mx[r]));
     alpha[r] = ex2_approx((m[r] - m_new) * scale_log2);
     m[r] = m_new;
-    ms[r] = m_new * scale_log2;
+    // an offset chunk's row that has seen no key yet (behind the window)
+    // keeps m = -1e30: its masked p must be 0, not 2^(the rounding residue
+    // of -1e30 * scale * log2(e)); without an offset every row below S
+    // sees its own key in the first tile
+    ms[r] = (OFF && m_new == kNegInf) ? 0.f : m_new * scale_log2;
   }
 #pragma unroll
   for (int e = 0; e < 64; ++e) {
@@ -529,7 +584,20 @@ __device__ __forceinline__ void fwd_pack_p(const float (&sc)[64],
   for (int i = 0; i < 32; ++i) p[i] = pack_bf16(sc[2 * i], sc[2 * i + 1]);
 }
 
-template <int D>
+// One row r (0 or 1) of the thread's O accumulator, times inv, in the
+// output's type (bf16, or f32 for ring partials).
+template <int D, typename T>
+__device__ __forceinline__ void fwd_store_row(T* dst, const float (&o)[D / 2],
+                                              int r, int t, float inv) {
+#pragma unroll
+  for (int c = 0; c < D / 8; ++c)
+    store2(dst + 8 * c + 2 * t, o[4 * c + 2 * r] * inv,
+           o[4 * c + 2 * r + 1] * inv);
+}
+
+// OFF: instantiated with a query offset; the zero-offset instantiation
+// folds every offset term away.
+template <int D, bool OFF>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
@@ -550,10 +618,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const int h = blockIdx.x, b = blockIdx.y, hk = h / (a.H / a.Hkv);
   // key tiles: from the first the window can touch to the diagonal
   // (causal) or the last; walked from the top down
-  const int q_last = min(a.S, q0 + kWgRows) - 1;
-  const int j_hi = a.causal ? q_last / kWgKeys : (a.S - 1) / kWgKeys;
-  const int j_lo =
-      (a.causal && a.window > 0) ? max(0, q0 - a.window + 1) / kWgKeys : 0;
+  const int q_off = OFF ? a.q_offset : 0;
+  int j_lo, j_hi;
+  key_range<kWgRows, kWgKeys>(q0, a, q_off, j_lo, j_hi);
   const int n_tiles = j_hi - j_lo + 1;
 
   if (threadIdx.x == 0) {
@@ -597,6 +664,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
     const int r0 = q0 + 64 * (wg - 1);  // this warpgroup's first row
+    const int g0 = q_off + r0;          // and its global position
     const int row[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
     const uint32_t sQw = sQ + (wg - 1) * 64 * 128;  // its rows of each box
     constexpr int NO = D / 2;  // the m64nD accumulator of O
@@ -623,7 +691,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       release(k_empty + 8 * s);
 
       float alpha[2];
-      fwd_softmax(sc, m, l, alpha, k0, r0, row, t, scale_log2, a);
+      fwd_softmax<OFF>(sc, m, l, alpha, k0, g0, q_off, row, t, scale_log2,
+                       a);
 #pragma unroll
       for (int i = 0; i < NO; ++i) o[i] *= alpha[(i >> 1) & 1];
       uint32_t p[32];
@@ -638,20 +707,20 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       release(v_empty + 8 * s);
     }
 
-    bf16* out = static_cast<bf16*>(a.out);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (row[r] >= a.S) continue;
       const float l_safe = fmaxf(l[r], 1e-30f), inv = 1.f / l_safe;
-      bf16* dst = out + (((long long)b * a.S + row[r]) * a.H + h) * D;
-#pragma unroll
-      for (int c = 0; c < D / 8; ++c) {
-        store2(dst + 8 * c + 2 * t, o[4 * c + 2 * r] * inv,
-               o[4 * c + 2 * r + 1] * inv);
-      }
+      const long long at = (((long long)b * a.S + row[r]) * a.H + h) * D;
+      if (a.out_f32)
+        fwd_store_row<D>(static_cast<float*>(a.out) + at, o, r, t, inv);
+      else
+        fwd_store_row<D>(static_cast<bf16*>(a.out) + at, o, r, t, inv);
+      // a row that sees no key (O = 0) keeps the plain version's lse of
+      // -1e30 (m is the raw logit here, scaled only now)
       if (t == 0) {
         a.lse_out[((long long)b * a.H + h) * a.S + row[r]] =
-            m[r] * a.scale + logf(l_safe);
+            (OFF && m[r] == kNegInf) ? kNegInf : m[r] * a.scale + logf(l_safe);
       }
     }
   }
@@ -694,14 +763,16 @@ __global__ void __launch_bounds__(kThreads)
   zero(dq);
   int j_lo, j_hi;
   key_tiles(q0, a, j_lo, j_hi);
-  load_tile<T, kBM, D>(sQ, q, a.q_ss, q0, a.S);
-  load_tile<T, kBM, D>(sdO, dout, a.o_ss, q0, a.S);
-  load_tile<T, kBN, D>(sV, v, a.v_ss, j_lo * kBN, a.S);
-  cp_async_commit();
-  load_tile<T, kBN, D>(sK, k, a.k_ss, j_lo * kBN, a.S);
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();  // Q, dO and the first V visible
+  if (j_lo <= j_hi) {
+    load_tile<T, kBM, D>(sQ, q, a.q_ss, q0, a.S);
+    load_tile<T, kBM, D>(sdO, dout, a.o_ss, q0, a.S);
+    load_tile<T, kBN, D>(sV, v, a.v_ss, j_lo * kBN, a.S);
+    cp_async_commit();
+    load_tile<T, kBN, D>(sK, k, a.k_ss, j_lo * kBN, a.S);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // Q, dO and the first V visible
+  }
 
   // K and V stream through one buffer each, staggered: K_j lands while
   // dO.V_j^T runs, V_{j+1} while Q.K_j^T and dS.K_j run
@@ -723,7 +794,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1, col = k0 + 8 * n + 2 * t + (e & 1);
-        const float x = visible(row[r], col, a) ? s[n][e] * a.scale : kNegInf;
+        const float x =
+            visible(row[r], col, a, a.q_offset) ? s[n][e] * a.scale : kNegInf;
         const float p = expf(x - lse[r]);
         s[n][e] = p * (dp[n][e] - delta[r]) * a.scale;
       }
@@ -805,12 +877,14 @@ __global__ void __launch_bounds__(kThreads)
     load_rows(sDelta, a.delta + ((long long)b * a.H + h) * a.S, q0, a.S);
     cp_async_commit();
   };
-  load_tile<T, kBN, D>(sK, k, a.k_ss, k0, a.S);
-  load_tile<T, kBN, D>(sV, v, a.v_ss, k0, a.S);
-  load_q(0);
-  load_do(0);
-  cp_async_wait<1>();
-  __syncthreads();  // K, V, the first Q and lse visible
+  if (steps > 0) {
+    load_tile<T, kBN, D>(sK, k, a.k_ss, k0, a.S);
+    load_tile<T, kBN, D>(sV, v, a.v_ss, k0, a.S);
+    load_q(0);
+    load_do(0);
+    cp_async_wait<1>();
+    __syncthreads();  // K, V, the first Q and lse visible
+  }
 
   // Q and dO stream through one buffer each, staggered: dO lands while
   // K.Q^T runs, the next Q while P^T.dO runs
@@ -828,7 +902,8 @@ __global__ void __launch_bounds__(kThreads)
         for (int e = 0; e < 4; ++e) {
           const int c = 8 * n + 2 * t + (e & 1);
           const float x =
-              visible(q0 + c, key[e >> 1], a) ? st[n][e] * a.scale : kNegInf;
+              visible(q0 + c, key[e >> 1], a, a.q_offset) ? st[n][e] * a.scale
+                                                          : kNegInf;
           st[n][e] = expf(x - sLse[c]);
         }
         // p rounded to dO's type
@@ -994,7 +1069,7 @@ __device__ __forceinline__ void bw_stage_out(const float (&d)[D / 2],
   }
 }
 
-template <int D>
+template <int D, bool OFF>
 __global__ void __launch_bounds__(kBwThreads, 1)
     flash_dq_wgmma(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
@@ -1015,10 +1090,9 @@ __global__ void __launch_bounds__(kBwThreads, 1)
   const int h = blockIdx.x, b = blockIdx.y, hk = h / (a.H / a.Hkv);
   // key tiles: from the first the window can touch to the diagonal
   // (causal) or the last; walked from the top down
-  const int q_last = min(a.S, q0 + kBwRows) - 1;
-  const int j_hi = a.causal ? q_last / kBwStep : (a.S - 1) / kBwStep;
-  const int j_lo =
-      (a.causal && a.window > 0) ? max(0, q0 - a.window + 1) / kBwStep : 0;
+  const int q_off = OFF ? a.q_offset : 0;
+  int j_lo, j_hi;
+  key_range<kBwRows, kBwStep>(q0, a, q_off, j_lo, j_hi);
   const int n_tiles = j_hi - j_lo + 1;
 
   if (threadIdx.x == 0) {
@@ -1064,6 +1138,7 @@ __global__ void __launch_bounds__(kBwThreads, 1)
   const int w = wg - 1, tid = threadIdx.x & 127;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int r0 = q0 + 64 * w;  // this warpgroup's first row
+  const int g0 = q_off + r0;  // and its global position
   const int row[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
   const uint32_t sQw = sQ + w * 64 * 128, sdOw = sdO + w * 64 * 128;
   const float scale_log2 = a.scale * kLog2e;
@@ -1087,8 +1162,8 @@ __global__ void __launch_bounds__(kBwThreads, 1)
     const uint32_t st = ring + s * L::kStage;
     hopper::mbar_wait_spin(full + 8 * s, (it / kBwStages) & 1);
     // no pair of this tile is visible to the warpgroup's rows
-    if (r0 >= a.S || (a.causal && k0 > r0 + 63) ||
-        (a.window > 0 && k0 + kBwStep - 1 <= r0 - a.window)) {
+    if (r0 >= a.S || (a.causal && k0 > g0 + 63) ||
+        (a.window > 0 && k0 + kBwStep - 1 <= g0 - a.window)) {
       if (lane == 0) hopper::mbar_arrive(empty + 8 * s);
       continue;
     }
@@ -1104,16 +1179,16 @@ __global__ void __launch_bounds__(kBwThreads, 1)
     if (held >= 0 && lane == 0) hopper::mbar_arrive(empty + 8 * held);
 
     const bool masked = k0 + kBwStep > a.S ||
-                        (a.causal && k0 + kBwStep - 1 > r0) ||
-                        (a.window > 0 && k0 <= r0 + 63 - a.window);
+                        (a.causal && k0 + kBwStep - 1 > g0) ||
+                        (a.window > 0 && k0 <= g0 + 63 - a.window);
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
       const int r = i & 1, col = k0 + 8 * (i >> 1) + 2 * t;
       float p0 = ex2_approx(fmaf(sc[2 * i], scale_log2, -lse2[r]));
       float p1 = ex2_approx(fmaf(sc[2 * i + 1], scale_log2, -lse2[r]));
       if (masked) {
-        if (!visible(row[r], col, a)) p0 = 0.f;
-        if (!visible(row[r], col + 1, a)) p1 = 0.f;
+        if (!visible(row[r], col, a, q_off)) p0 = 0.f;
+        if (!visible(row[r], col + 1, a, q_off)) p1 = 0.f;
       }
       // ds rounded to k's type
       ds[i] = pack_bf16(p0 * (dp[2 * i] - dlt[r]) * a.scale,
@@ -1144,7 +1219,7 @@ __global__ void __launch_bounds__(kBwThreads, 1)
   }
 }
 
-template <int D>
+template <int D, bool OFF>
 __global__ void __launch_bounds__(kBwThreads, 1)
     flash_dkv_wgmma(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
@@ -1169,11 +1244,9 @@ __global__ void __launch_bounds__(kBwThreads, 1)
   const int hk = blockIdx.x, b = blockIdx.y, G = a.H / a.Hkv;
   // q tiles: from the diagonal (causal) or the first to the window's end
   // or the last; the steps walk the G query heads, q tiles inner
-  const int k_last = min(a.S, k0 + kBwRows) - 1;
-  const int i_lo = a.causal ? k0 / kBwStep : 0;
-  const int i_hi = (a.causal && a.window > 0)
-                       ? min(a.S - 1, k_last + a.window - 1) / kBwStep
-                       : (a.S - 1) / kBwStep;
+  const int q_off = OFF ? a.q_offset : 0;
+  int i_lo, i_hi;
+  query_range<kBwRows, kBwStep>(k0, a, q_off, i_lo, i_hi);
   const int nq = i_hi - i_lo + 1, steps = G * nq;
 
   if (threadIdx.x == 0) {
@@ -1233,11 +1306,12 @@ __global__ void __launch_bounds__(kBwThreads, 1)
   hopper::mbar_wait_spin(own_full, 0);
   for (int it = 0; it < steps; ++it) {
     const int s = it % kBwStages, q0 = (i_lo + it % nq) * kBwStep;
+    const int gq0 = q_off + q0;  // the tile's first global row
     const uint32_t st = ring + s * L::kStage;
     hopper::mbar_wait_spin(full + 8 * s, (it / kBwStages) & 1);
     // no pair of this step is visible to the warpgroup's keys
-    if (kw0 >= a.S || (a.causal && q0 + kBwStep - 1 < kw0) ||
-        (a.window > 0 && q0 - (kw0 + 63) >= a.window)) {
+    if (kw0 >= a.S || (a.causal && gq0 + kBwStep - 1 < kw0) ||
+        (a.window > 0 && gq0 - (kw0 + 63) >= a.window)) {
       if (lane == 0) hopper::mbar_arrive(empty + 8 * s);
       continue;
     }
@@ -1251,8 +1325,8 @@ __global__ void __launch_bounds__(kBwThreads, 1)
     hopper::fence_regs(dp);
 
     const bool masked = q0 + kBwStep > a.S || kw0 + 64 > a.S ||
-                        (a.causal && q0 < kw0 + 63) ||
-                        (a.window > 0 && q0 + kBwStep - 1 - kw0 >= a.window);
+                        (a.causal && gq0 < kw0 + 63) ||
+                        (a.window > 0 && gq0 + kBwStep - 1 - kw0 >= a.window);
     const float* lse = reinterpret_cast<const float*>(
         ring_ptr + s * L::kStage + L::kRows);
     const float* delta = lse + 64;
@@ -1265,8 +1339,8 @@ __global__ void __launch_bounds__(kBwThreads, 1)
       float p0 = ex2_approx(fmaf(sc[2 * i], scale_log2, -l.x * kLog2e));
       float p1 = ex2_approx(fmaf(sc[2 * i + 1], scale_log2, -l.y * kLog2e));
       if (masked) {
-        if (!visible(q0 + c, key[r], a)) p0 = 0.f;
-        if (!visible(q0 + c + 1, key[r], a)) p1 = 0.f;
+        if (!visible(q0 + c, key[r], a, q_off)) p0 = 0.f;
+        if (!visible(q0 + c + 1, key[r], a, q_off)) p1 = 0.f;
       }
       // p rounded to dO's type, ds to q's
       pt[i] = pack_bf16(p0, p1);
@@ -1307,6 +1381,13 @@ __global__ void __launch_bounds__(kBwThreads, 1)
 
 enum Which { kFwd, kDq, kDkv };
 
+// Lets `kernel` take `bytes` of dynamic shared memory.
+template <typename Kernel>
+int set_smem(Kernel kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 // A tensor map of a [B, S, H, D] operand read from its strides as (D, S,
 // H, B), boxes of [rows][64]; rows at or past S load as zeros and are
 // not stored.
@@ -1334,12 +1415,16 @@ int launch_fwd_wgmma(const FlashArgs& a, cudaStream_t stream) {
                       kWgKeys);
   if (err != 0) return err;
   constexpr size_t smem = FwdWgSmem<D>::bytes;
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  int e = a.q_offset ? set_smem(flash_fwd_wgmma<D, true>, smem)
+                     : set_smem(flash_fwd_wgmma<D, false>, smem);
+  if (e != 0) return e;
   const dim3 grid(a.H, a.B, (a.S + kWgRows - 1) / kWgRows);
-  flash_fwd_wgmma<D><<<grid, kWgThreads, smem, stream>>>(tq, tk, tv, a);
+  if (a.q_offset)
+    flash_fwd_wgmma<D, true><<<grid, kWgThreads, smem, stream>>>(tq, tk, tv,
+                                                                  a);
+  else
+    flash_fwd_wgmma<D, false><<<grid, kWgThreads, smem, stream>>>(tq, tk, tv,
+                                                                   a);
   return (int)cudaGetLastError();
 }
 
@@ -1365,13 +1450,16 @@ int launch_dq_wgmma(const FlashArgs& a, cudaStream_t stream) {
     err = encode_bshd(&tdq, a.dq, a.B, a.S, a.H, D, a.S * hd, hd, D, kBwStep);
   if (err != 0) return err;
   constexpr size_t smem = BwdSmem<D>::bytes;
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  int e = a.q_offset ? set_smem(flash_dq_wgmma<D, true>, smem)
+                     : set_smem(flash_dq_wgmma<D, false>, smem);
+  if (e != 0) return e;
   const dim3 grid(a.H, a.B, (a.S + kBwRows - 1) / kBwRows);
-  flash_dq_wgmma<D><<<grid, kBwThreads, smem, stream>>>(tq, tk, tv, tdo, tdq,
-                                                         a);
+  if (a.q_offset)
+    flash_dq_wgmma<D, true><<<grid, kBwThreads, smem, stream>>>(
+        tq, tk, tv, tdo, tdq, a);
+  else
+    flash_dq_wgmma<D, false><<<grid, kBwThreads, smem, stream>>>(
+        tq, tk, tv, tdo, tdq, a);
   return (int)cudaGetLastError();
 }
 
@@ -1401,13 +1489,16 @@ int launch_dkv_wgmma(const FlashArgs& a, cudaStream_t stream) {
                       kBwStep);
   if (err != 0) return err;
   constexpr size_t smem = BwdSmem<D>::bytes;
-  cudaError_t e = cudaFuncSetAttribute(
-      flash_dkv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
+  int e = a.q_offset ? set_smem(flash_dkv_wgmma<D, true>, smem)
+                     : set_smem(flash_dkv_wgmma<D, false>, smem);
+  if (e != 0) return e;
   const dim3 grid(a.Hkv, a.B, (a.S + kBwRows - 1) / kBwRows);
-  flash_dkv_wgmma<D><<<grid, kBwThreads, smem, stream>>>(
-      tq, tk, tv, tdo, tlse, tdelta, tdk, tdv, a);
+  if (a.q_offset)
+    flash_dkv_wgmma<D, true><<<grid, kBwThreads, smem, stream>>>(
+        tq, tk, tv, tdo, tlse, tdelta, tdk, tdv, a);
+  else
+    flash_dkv_wgmma<D, false><<<grid, kBwThreads, smem, stream>>>(
+        tq, tk, tv, tdo, tlse, tdelta, tdk, tdv, a);
   return (int)cudaGetLastError();
 }
 
@@ -1459,7 +1550,7 @@ int dispatch(Which which, const FlashArgs& a, int D, int is_bf16,
 }
 
 FlashArgs make_args(int B, int S, int H, int Hkv, float scale, int causal,
-                    int window) {
+                    int window, int q_offset) {
   FlashArgs a = {};
   a.B = B;
   a.S = S;
@@ -1468,6 +1559,7 @@ FlashArgs make_args(int B, int S, int H, int Hkv, float scale, int causal,
   a.scale = scale;
   a.causal = causal;
   a.window = window;
+  a.q_offset = q_offset;
   return a;
 }
 
@@ -1478,8 +1570,8 @@ FlashArgs bwd_args(const void* q, const void* k, const void* v,
                    long long v_sb, long long v_ss, long long v_sh,
                    long long o_sb, long long o_ss, long long o_sh, int B,
                    int S, int H, int Hkv, float scale, int causal,
-                   int window) {
-  FlashArgs a = make_args(B, S, H, Hkv, scale, causal, window);
+                   int window, int q_offset) {
+  FlashArgs a = make_args(B, S, H, Hkv, scale, causal, window, q_offset);
   a.q = q;
   a.k = k;
   a.v = v;
@@ -1503,15 +1595,20 @@ extern "C" {
 // head) for q, k, v and dO, whose last stride is 1 and whose rows start
 // 16-byte aligned.  Outputs are contiguous: out and dq [B, S, H, D], dk
 // and dv [B, S, Hkv, D], lse [B, H, S] f32; lse and delta inputs are
-// contiguous f32 [B, H, S].
+// contiguous f32 [B, H, S].  q_offset >= 0 is the global position of
+// query row 0 (keys start at 0); out is f32 when out_f32 != 0, else
+// the operands' type.
 
 int tfos_flash_fwd(const void* q, const void* k, const void* v, void* out,
                    void* lse, long long q_sb, long long q_ss, long long q_sh,
                    long long k_sb, long long k_ss, long long k_sh,
                    long long v_sb, long long v_ss, long long v_sh, int B,
                    int S, int H, int Hkv, int D, float scale, int causal,
-                   int window, int is_bf16, void* stream) {
-  FlashArgs a = make_args(B, S, H, Hkv, scale, causal, window);
+                   int window, int q_offset, int out_f32, int is_bf16,
+                   void* stream) {
+  if (q_offset < 0) return (int)cudaErrorInvalidValue;
+  FlashArgs a = make_args(B, S, H, Hkv, scale, causal, window, q_offset);
+  a.out_f32 = out_f32;
   a.q = q;
   a.k = k;
   a.v = v;
@@ -1530,10 +1627,11 @@ int tfos_flash_dq(const void* q, const void* k, const void* v,
                   long long v_sb, long long v_ss, long long v_sh,
                   long long o_sb, long long o_ss, long long o_sh, int B, int S,
                   int H, int Hkv, int D, float scale, int causal, int window,
-                  int is_bf16, void* stream) {
+                  int q_offset, int is_bf16, void* stream) {
+  if (q_offset < 0) return (int)cudaErrorInvalidValue;
   FlashArgs a = bwd_args(q, k, v, dout, lse, delta, q_sb, q_ss, q_sh, k_sb,
                          k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, B, S,
-                         H, Hkv, scale, causal, window);
+                         H, Hkv, scale, causal, window, q_offset);
   a.dq = dq;
   return dispatch(kDq, a, D, is_bf16, stream);
 }
@@ -1545,11 +1643,12 @@ int tfos_flash_dkv(const void* q, const void* k, const void* v,
                    long long k_sh, long long v_sb, long long v_ss,
                    long long v_sh, long long o_sb, long long o_ss,
                    long long o_sh, int B, int S, int H, int Hkv, int D,
-                   float scale, int causal, int window, int is_bf16,
-                   void* stream) {
+                   float scale, int causal, int window, int q_offset,
+                   int is_bf16, void* stream) {
+  if (q_offset < 0) return (int)cudaErrorInvalidValue;
   FlashArgs a = bwd_args(q, k, v, dout, lse, delta, q_sb, q_ss, q_sh, k_sb,
                          k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, B, S,
-                         H, Hkv, scale, causal, window);
+                         H, Hkv, scale, causal, window, q_offset);
   a.dk = dk;
   a.dv = dv;
   return dispatch(kDkv, a, D, is_bf16, stream);

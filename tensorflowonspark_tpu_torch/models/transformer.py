@@ -11,6 +11,14 @@ decode, static ``generate``, speculative decoding, fused QKV, weight
 quantization, the prefix cache, TP meshes and disaggregation raise
 ``NotImplementedError`` naming their ROADMAP item.
 
+Sequence parallelism (``attention_impl="ring"`` or ``"ulysses"`` with
+``cfg.mesh``, a :class:`..parallel.mesh.Mesh`): each rank runs its
+slice of the sequence.  The model takes this rank's ``[B, S/P]`` slice
+of the tokens (the ``seq_axis`` coordinate's), places it at positions
+``index * S/P`` on, and returns the logits of that slice; attention
+spans the whole sequence through the ring or the all-to-alls.
+:func:`loss_fn` takes the full ``[B, S]`` rows and slices them.
+
 Remat (``cfg.remat``) checkpoints each block in training
 (``torch.utils.checkpoint``, non-reentrant): ``remat_policy="block"``
 recomputes the whole block in the backward; ``"dots"`` saves the
@@ -331,9 +339,19 @@ def model_device(cfg, device):
     if device is not None and torch.device(device).type == "meta":
         return torch.device("meta")
     device = resolve_device(device)
-    if cfg.attention_impl == "flash" and device.type == "cuda":
+    if cfg.attention_impl in ("flash", "ring", "ulysses") \
+            and device.type == "cuda":
         check_flash_shapes(cfg.head_dim, cfg.torch_dtype)
     return device
+
+
+def seq_shard(cfg):
+    """``(size, index)`` of this rank on the model's sequence-parallel
+    axis: ``(1, 0)`` unless ``cfg`` runs ring or Ulysses attention."""
+    if cfg.attention_impl not in ("ring", "ulysses") or cfg.mesh is None:
+        return 1, 0
+    return cfg.mesh.axis_size(cfg.seq_axis), cfg.mesh.axis_index(
+        cfg.seq_axis)
 
 
 class Transformer(nn.Module):
@@ -358,6 +376,12 @@ class Transformer(nn.Module):
                 "KV cache and quantize"
             )
         cfg.torch_dtype  # validates the dtype name
+        if cfg.attention_impl in ("ring", "ulysses") and cfg.mesh is None:
+            raise ValueError(
+                "attention_impl={0!r} needs cfg.mesh, a parallel.mesh.Mesh "
+                "with a {1!r} axis".format(cfg.attention_impl,
+                                           cfg.seq_axis)
+            )
         device = model_device(cfg, device)
         self.cfg = cfg
         self.embedding = nn.Parameter(
@@ -398,7 +422,10 @@ class Transformer(nn.Module):
 
         ``return_aux=True`` returns ``(logits, aux_losses)``, the list of
         the MoE blocks' load-balancing losses (the reference's
-        ``"losses"`` collection; empty for a dense model)."""
+        ``"losses"`` collection; empty for a dense model).
+
+        Under sequence parallelism ``tokens`` is this rank's slice of the
+        sequence (see the module docstring)."""
         cfg = self.cfg
         if not decode and (slot_positions is not None
                            or block_tables is not None
@@ -412,6 +439,8 @@ class Transformer(nn.Module):
         x = self.embedding[tokens].to(cfg.torch_dtype)
         s = tokens.shape[1]
         steps = torch.arange(s, device=tokens.device)
+        if not decode:
+            steps = steps + seq_shard(cfg)[1] * s
         if decode:
             if slot_positions is None:
                 raise _not_ported(
@@ -452,16 +481,39 @@ def loss_fn(model):
     ``dict(model.named_parameters())``, or others of the same shapes),
     the log-softmax runs in f32 and the loss is the mean over
     ``B * (S - 1)`` targets.  ``rng`` is accepted and unused, as in the
-    reference."""
+    reference.
+
+    Under sequence parallelism (P ranks on the model's ``seq_axis``) the
+    batch is the full rows on every rank of a ``seq`` line; the model
+    runs this rank's slice, whose targets come from the full row (the
+    slice's last position predicts the next slice's first token; the
+    last rank has one target fewer), and the loss is this rank's share:
+    its summed cross-entropy over the global ``B * (S - 1)``.  Summed
+    over the ``seq`` line (``SyncTrainer(mesh=...)`` does) it is the
+    reference's mean."""
 
     def _loss(params, batch, rng):
         tokens = batch["tokens"].to(torch.int64)
-        logits = torch.func.functional_call(model, params, (tokens,))
-        targets = tokens[:, 1:]
-        logits = logits[:, :-1].to(torch.float32)
-        return F.cross_entropy(
-            logits.reshape(-1, logits.shape[-1]), targets.reshape(-1)
-        )
+        p, index = seq_shard(model.cfg)
+        if p == 1:
+            logits = torch.func.functional_call(model, params, (tokens,))
+            targets = tokens[:, 1:]
+            logits = logits[:, :-1].to(torch.float32)
+            return F.cross_entropy(
+                logits.reshape(-1, logits.shape[-1]), targets.reshape(-1)
+            )
+        b, s = tokens.shape
+        if s % p:
+            raise ValueError("sequence length {0} does not split over {1} "
+                             "ranks".format(s, p))
+        lo = index * (s // p)
+        logits = torch.func.functional_call(
+            model, params, (tokens[:, lo:lo + s // p],))
+        targets = tokens[:, lo + 1:lo + s // p + 1]
+        logits = logits[:, :targets.shape[1]].to(torch.float32)
+        nll = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                              targets.reshape(-1), reduction="sum")
+        return nll / (b * (s - 1))
 
     return _loss
 

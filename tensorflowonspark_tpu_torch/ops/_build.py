@@ -38,9 +38,10 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 
-#: the tail every flash entry shares: B, S, H, Hkv, D, scale, causal,
-#: window, is_bf16, stream
-_FLASH_TAIL = [_I] * 5 + [_F] + [_I] * 3 + [_P]
+#: the tail the flash backward entries share: B, S, H, Hkv, D, scale,
+#: causal, window, q_offset, is_bf16, stream (the forward's has out_f32
+#: before is_bf16)
+_FLASH_TAIL = [_I] * 5 + [_F] + [_I] * 4 + [_P]
 
 #: library name -> (source file under csrc/, {C function: (argtypes, restype)})
 KERNELS = {
@@ -59,7 +60,11 @@ KERNELS = {
     "flash_attention": (
         "flash_attention.cu",
         {
-            "tfos_flash_fwd": ([_P] * 5 + [_L] * 9 + _FLASH_TAIL, _I),
+            "tfos_flash_fwd": (
+                [_P] * 5 + [_L] * 9 + _FLASH_TAIL[:-2] + [_I]
+                + _FLASH_TAIL[-2:],
+                _I,
+            ),
             "tfos_flash_dq": ([_P] * 7 + [_L] * 12 + _FLASH_TAIL, _I),
             "tfos_flash_dkv": ([_P] * 8 + [_L] * 12 + _FLASH_TAIL, _I),
         },

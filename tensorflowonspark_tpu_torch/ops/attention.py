@@ -4,8 +4,8 @@ Shapes follow the reference's ``[batch, seq, heads, head_dim]``
 convention so the port's public functions compare like with like.
 ``dot`` is the plain implementation; ``flash`` dispatches to
 :func:`.flash_attention.flash_attention` (the hand-written kernels
-K2-K4 on the GPU).  ``ring`` and ``ulysses`` (sequence parallelism)
-raise ``NotImplementedError`` naming their ROADMAP item.
+K2-K4 on the GPU); ``ring`` and ``ulysses`` (sequence parallelism) to
+:mod:`.ring_attention` and :mod:`.ulysses` on this rank's shards.
 """
 
 import torch
@@ -85,23 +85,38 @@ def dot_attention(q, k, v, causal=True, scale=None, mask=None, window=0,
 def attention(q, k, v, impl="dot", causal=True, scale=None, mesh=None,
               seq_axis="seq", block_q=1024, block_k=1024,
               ring_impl="flash", window=0):
-    """Dispatch to an attention implementation: ``dot`` or ``flash``
-    (``block_q``/``block_k`` keep the reference's flash tiling rule)."""
+    """Dispatch to an attention implementation: ``dot``, ``flash``,
+    ``ring`` or ``ulysses`` (``block_q``/``block_k`` keep the reference's
+    flash tiling rule, for ``flash`` and the flash steps of the others).
+
+    ``ring``/``ulysses`` take this rank's ``[B, S_local, ...]`` shards:
+    with a ``mesh`` (a :class:`..parallel.mesh.Mesh`) they run over its
+    ``seq_axis`` line; without one over the default process group (the
+    reference's call inside ``shard_map`` with ``seq_axis`` bound).
+    ``ring_impl`` is ring's inner step (``"flash"`` or ``"dense"``).
+    """
     if impl not in _IMPLS:
         raise ValueError(
             "unknown attention impl {0!r}; one of {1}".format(impl, _IMPLS)
         )
-    if impl in ("ring", "ulysses"):
-        raise NotImplementedError(
-            "attention impl {0!r} is not ported yet (ROADMAP queue A: "
-            "ring/Ulysses sequence parallelism over K2-K4 with "
-            "q_offset)".format(impl)
-        )
-    if mesh is not None:
-        raise NotImplementedError(
-            "sequence-parallel meshes are not ported yet (ROADMAP queue A: "
-            "ring/Ulysses sequence parallelism over K2-K4 with q_offset)"
-        )
+    if impl == "ring":
+        from tensorflowonspark_tpu_torch.ops import ring_attention as ra
+
+        kw = dict(causal=causal, scale=scale, impl=ring_impl,
+                  block_q=block_q, block_k=block_k, window=window)
+        if mesh is not None:
+            return ra.ring_attention_sharded(q, k, v, mesh,
+                                             axis_name=seq_axis, **kw)
+        return ra.ring_attention(q, k, v, **kw)
+    if impl == "ulysses":
+        from tensorflowonspark_tpu_torch.ops import ulysses as ul
+
+        kw = dict(causal=causal, scale=scale, block_q=block_q,
+                  block_k=block_k, window=window)
+        if mesh is not None:
+            return ul.ulysses_attention_sharded(q, k, v, mesh,
+                                                axis_name=seq_axis, **kw)
+        return ul.ulysses_attention(q, k, v, **kw)
     if impl == "flash":
         return flash_attention(
             q, k, v, causal=causal, scale=scale, block_q=block_q,

@@ -29,6 +29,15 @@ cast once.
 
 Layout: q ``[B, S, H, D]``, k/v ``[B, S, Hkv, D]`` with ``H % Hkv ==
 0`` (k/v never repeated); ``lse`` is f32 ``[B, H, S]``.
+
+:func:`_fwd_core` and :func:`_bwd_core` are the reference's per-chunk
+entry points that ring attention calls once per hop: ``q_offset`` puts
+local query row ``r`` at global position ``q_offset + r`` against keys
+``0..S-1`` (the chunk at ring distance ``m`` has ``q_offset = m *
+S_local``), and ``out_dtype=torch.float32`` takes the forward's partial
+output from its f32 accumulator.  A row that sees no key of an offset
+chunk has lse ``-1e30`` and a finite output, which
+:func:`..ring_attention.merge_partial` weighs 0.
 """
 
 import torch
@@ -113,14 +122,15 @@ def _block_sizes(seq_len, block_q, block_k):
 # -- plain PyTorch versions (the kernels' oracles) ---------------------
 
 
-def _logits(q, k, scale, causal, window):
-    """Masked f32 logits ``[B, Hkv, G, S, S]`` (finite ``-1e30`` mask)."""
+def _logits(q, k, scale, causal, window, q_offset=0):
+    """Masked f32 logits ``[B, Hkv, G, S, S]`` (finite ``-1e30`` mask);
+    query row ``r`` sits at global position ``q_offset + r``."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, s, hkv, h // hkv, d).float()
     logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
     if causal:
-        qpos = torch.arange(s, device=q.device)[:, None]
+        qpos = q_offset + torch.arange(s, device=q.device)[:, None]
         kpos = torch.arange(s, device=q.device)[None, :]
         visible = qpos >= kpos
         if window:
@@ -135,23 +145,24 @@ def _group_rows(x, hkv):
     return x.reshape(b, hkv, h // hkv, s, 1)
 
 
-def flash_forward_reference(q, k, v, *, causal, scale, window):
-    """Plain version of K2: ``(out [B,S,H,D] in q's type, lse f32
-    [B,H,S])``."""
+def flash_forward_reference(q, k, v, *, causal, scale, window, q_offset=0,
+                            out_dtype=None):
+    """Plain version of K2: ``(out [B,S,H,D] in out_dtype or q's type, lse
+    f32 [B,H,S])``."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
-    logits = _logits(q, k, scale, causal, window)
+    logits = _logits(q, k, scale, causal, window, q_offset)
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
     l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     acc = torch.einsum("bhgqk,bkhd->bhgqd", p.to(v.dtype).float(), v.float())
     out = (acc / l_safe).permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
     lse = (m + torch.log(l_safe)).reshape(b, h, s)
-    return out.to(q.dtype), lse
+    return out.to(out_dtype or q.dtype), lse
 
 
-def _probs(q, k, lse, scale, causal, window):
-    logits = _logits(q, k, scale, causal, window)
+def _probs(q, k, lse, scale, causal, window, q_offset):
+    logits = _logits(q, k, scale, causal, window, q_offset)
     return torch.exp(logits - _group_rows(lse, k.shape[2]))
 
 
@@ -160,32 +171,35 @@ def _delta(out, dout):
     return (dout.float() * out.float()).sum(dim=-1).permute(0, 2, 1)
 
 
-def _dscores(q, k, v, dout, lse, delta, scale, causal, window):
+def _dscores(q, k, v, dout, lse, delta, scale, causal, window, q_offset):
     """``(p, ds)`` f32 ``[B, Hkv, G, S, S]``."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
-    p = _probs(q, k, lse, scale, causal, window)
+    p = _probs(q, k, lse, scale, causal, window, q_offset)
     dog = dout.reshape(b, s, hkv, h // hkv, d).float()
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
     ds = p * (dp - _group_rows(delta, hkv)) * scale
     return p, ds
 
 
-def flash_dq_reference(q, k, v, dout, lse, delta, *, causal, scale, window):
+def flash_dq_reference(q, k, v, dout, lse, delta, *, causal, scale, window,
+                       q_offset=0):
     """Plain version of K3: ``dq [B,S,H,D]`` in q's type."""
     b, s, h, d = q.shape
-    _, ds = _dscores(q, k, v, dout, lse, delta, scale, causal, window)
+    _, ds = _dscores(q, k, v, dout, lse, delta, scale, causal, window,
+                     q_offset)
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds.to(k.dtype).float(), k.float())
     return dq.reshape(b, s, h, d).to(q.dtype)
 
 
 def flash_dkv_reference(q, k, v, dout, lse, delta, *, causal, scale,
-                        window):
+                        window, q_offset=0):
     """Plain version of K4: ``(dk, dv)`` ``[B,S,Hkv,D]`` in k's/v's type;
     the query heads of a kv head are summed in f32 and cast once."""
     b, s, h, d = q.shape
     hkv = k.shape[2]
-    p, ds = _dscores(q, k, v, dout, lse, delta, scale, causal, window)
+    p, ds = _dscores(q, k, v, dout, lse, delta, scale, causal, window,
+                     q_offset)
     qg = q.reshape(b, s, hkv, h // hkv, d)
     dog = dout.reshape(b, s, hkv, h // hkv, d)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p.to(dout.dtype).float(),
@@ -260,10 +274,14 @@ def _strides(*xs):
     return [st for x in xs for st in x.stride()[:3]]
 
 
-def _common(q, k, scale, causal, window):
+def _common(q, k, scale, causal, window, q_offset, *flags):
+    """The entries' shared tail: B, S, H, Hkv, D, scale, causal, window,
+    q_offset, then ``flags`` (K2's out_f32), is_bf16 and the stream."""
     b, s, h, d = q.shape
+    if q_offset < 0:
+        raise ValueError("q_offset must be >= 0, got {0}".format(q_offset))
     return [b, s, h, k.shape[2], d, float(scale), int(causal), int(window),
-            int(q.dtype == torch.bfloat16),
+            int(q_offset), *flags, int(q.dtype == torch.bfloat16),
             torch.cuda.current_stream(q.device).cuda_stream]
 
 
@@ -275,11 +293,15 @@ def _raise_on(err, name):
         )
 
 
-def _launch_fwd(q, k, v, scale, causal, window):
-    """K2: ``(out, lse)``."""
+def _launch_fwd(q, k, v, scale, causal, window, q_offset=0, out_dtype=None):
+    """K2: ``(out, lse)``, ``out`` in ``out_dtype`` (q's type or f32)."""
     q, k, v = _kernel_operands(q, k, v)
     b, s, h, d = q.shape
-    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    out_dtype = out_dtype or q.dtype
+    if out_dtype not in (q.dtype, torch.float32):
+        raise ValueError("K2 writes O in q's type or f32, not {0}".format(
+            out_dtype))
+    out = torch.empty((b, s, h, d), dtype=out_dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out, lse
@@ -287,7 +309,8 @@ def _launch_fwd(q, k, v, scale, causal, window):
     err = lib.tfos_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), *_strides(q, k, v),
-        *_common(q, k, scale, causal, window),
+        *_common(q, k, scale, causal, window, q_offset,
+                 int(out_dtype == torch.float32)),
     )
     _raise_on(err, "forward")
     flash_attention.launches["fwd"] += 1
@@ -295,46 +318,91 @@ def _launch_fwd(q, k, v, scale, causal, window):
 
 
 def _bwd_operands(q, k, v, dout, lse, delta):
+    """The backward kernels' operands in the layouts they read.  The
+    caller holds every returned tensor until its kernel is launched: a
+    copy made here (``delta`` usually arrives as a permuted view) that
+    were freed before the launch could be handed to the outputs the
+    caller allocates next, and the kernel would read it as they are
+    written."""
     q, k, v, dout = _kernel_operands(q, k, v, dout)
-    lse, delta = _rows(lse, q, "lse"), _rows(delta, q, "delta")
-    ptrs = [x.data_ptr() for x in (q, k, v, dout, lse, delta)]
-    return q, k, v, dout, ptrs, _strides(q, k, v, dout)
+    return q, k, v, dout, _rows(lse, q, "lse"), _rows(delta, q, "delta")
 
 
-def _launch_dq(q, k, v, dout, lse, delta, scale, causal, window):
+def _ptrs(*xs):
+    return [x.data_ptr() for x in xs]
+
+
+def _launch_dq(q, k, v, dout, lse, delta, scale, causal, window,
+               q_offset=0):
     """K3: ``dq`` from the saved ``lse`` and ``delta [B, H, S]``."""
-    q, k, v, dout, ptrs, strides = _bwd_operands(q, k, v, dout, lse, delta)
+    ops = _bwd_operands(q, k, v, dout, lse, delta)
+    q, k = ops[0], ops[1]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     if dq.numel() == 0:
         return dq
     err = _build.load("flash_attention").tfos_flash_dq(
-        *ptrs, dq.data_ptr(), *strides, *_common(q, k, scale, causal, window))
+        *_ptrs(*ops), dq.data_ptr(), *_strides(*ops[:4]),
+        *_common(q, k, scale, causal, window, q_offset))
     _raise_on(err, "dq")
     flash_attention.launches["dq"] += 1
     return dq
 
 
-def _launch_dkv(q, k, v, dout, lse, delta, scale, causal, window):
+def _launch_dkv(q, k, v, dout, lse, delta, scale, causal, window,
+                q_offset=0):
     """K4: ``(dk, dv)``, the query heads of each kv head summed inside."""
-    q, k, v, dout, ptrs, strides = _bwd_operands(q, k, v, dout, lse, delta)
+    ops = _bwd_operands(q, k, v, dout, lse, delta)
+    q, k, v = ops[:3]
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     if dk.numel() == 0:
         return dk, dv
     err = _build.load("flash_attention").tfos_flash_dkv(
-        *ptrs, dk.data_ptr(), dv.data_ptr(), *strides,
-        *_common(q, k, scale, causal, window))
+        *_ptrs(*ops), dk.data_ptr(), dv.data_ptr(), *_strides(*ops[:4]),
+        *_common(q, k, scale, causal, window, q_offset))
     _raise_on(err, "dkv")
     flash_attention.launches["dkv"] += 1
     return dk, dv
 
 
-def _launch_bwd(q, k, v, out, lse, dout, scale, causal, window):
-    # the softmax-jacobian correction, outside the kernels as in the
-    # reference
-    delta = _delta(out, dout)
-    dq = _launch_dq(q, k, v, dout, lse, delta, scale, causal, window)
-    dk, dv = _launch_dkv(q, k, v, dout, lse, delta, scale, causal, window)
+def _check_device(q):
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(
+            "flash attention runs on cuda or cpu tensors, got "
+            "{0}".format(q.device)
+        )
+    return q.device.type == "cuda"
+
+
+def _fwd_core(q, k, v, scale, causal, out_dtype=None, window=0, q_offset=0):
+    """The forward of one chunk (the reference's ``_fwd_core``, in the
+    port's ``[B, S, H, D]`` layout): ``(out in out_dtype or q's type, lse
+    f32 [B, H, S])``; K2 for CUDA tensors, its plain version for CPU
+    ones.  ``q_offset``: global position of query row 0 against keys
+    ``0..S-1``."""
+    if _check_device(q):
+        return _launch_fwd(q, k, v, scale, causal, window, q_offset,
+                           out_dtype)
+    return flash_forward_reference(q, k, v, causal=causal, scale=scale,
+                                   window=window, q_offset=q_offset,
+                                   out_dtype=out_dtype)
+
+
+def _bwd_core(q, k, v, dout, lse, delta, scale, causal, window=0,
+              q_offset=0):
+    """The backward of one chunk (the reference's ``_bwd_core``) from the
+    caller's ``lse`` and ``delta`` f32 ``[B, H, S]``: ``(dq, dk, dv)`` in
+    q's and k's/v's types; K3 and K4 for CUDA tensors, their plain
+    versions for CPU ones."""
+    if _check_device(q):
+        dq = _launch_dq(q, k, v, dout, lse, delta, scale, causal, window,
+                        q_offset)
+        dk, dv = _launch_dkv(q, k, v, dout, lse, delta, scale, causal,
+                             window, q_offset)
+        return dq, dk, dv
+    kw = dict(causal=causal, scale=scale, window=window, q_offset=q_offset)
+    dq = flash_dq_reference(q, k, v, dout, lse, delta, **kw)
+    dk, dv = flash_dkv_reference(q, k, v, dout, lse, delta, **kw)
     return dq, dk, dv
 
 
@@ -345,16 +413,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, window):
-        if q.device.type == "cpu":
-            out, lse = flash_forward_reference(
-                q, k, v, causal=causal, scale=scale, window=window)
-        elif q.device.type == "cuda":
-            out, lse = _launch_fwd(q, k, v, scale, causal, window)
-        else:
-            raise ValueError(
-                "flash_attention runs on cuda or cpu tensors, got "
-                "{0}".format(q.device)
-            )
+        out, lse = _fwd_core(q, k, v, scale, causal, window=window)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (scale, causal, window)
         return out
@@ -363,13 +422,11 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         scale, causal, window = ctx.args
-        if q.device.type == "cpu":
-            dq, dk, dv = flash_backward_reference(
-                q, k, v, out, lse, dout, causal=causal, scale=scale,
-                window=window)
-        else:
-            dq, dk, dv = _launch_bwd(q, k, v, out, lse, dout, scale, causal,
-                                     window)
+        # the softmax-jacobian correction, outside the kernels as in the
+        # reference
+        delta = _delta(out, dout)
+        dq, dk, dv = _bwd_core(q, k, v, dout, lse, delta, scale, causal,
+                               window)
         return dq, dk, dv, None, None, None
 
 

@@ -1,5 +1,5 @@
-"""Synchronous training on one GPU (port of the JAX package's
-``parallel/dp.py``: ``TrainState``, ``SyncTrainer`` and its feed loop).
+"""Synchronous training (port of the JAX package's ``parallel/dp.py``:
+``TrainState``, ``SyncTrainer`` and its feed loop).
 
 The reference jits one train step over a device mesh and donates the
 old state to it.  Here the step runs eagerly on the device the
@@ -21,9 +21,21 @@ group on the CPU, so the flag never waits for the device).
 of every step on the device batch, so a narrow wire dtype (uint8,
 uint16) crosses the host-to-device link narrow and widens on the card.
 
+Several processes (one GPU each): the reference's default mesh puts
+every device on ``data``, so under an initialised process group of more
+than one rank every step averages the gradients over the ranks, and
+:meth:`SyncTrainer.create_state` starts every rank from rank 0's
+weights.  With ``mesh=`` (a :class:`..parallel.mesh.Mesh`) each rank's
+loss is its share of the global loss: the gradients (and the reported
+loss) are summed over the mesh's other axes (``seq``: each rank's loss
+covers its slice of the sequence) and averaged over its ``data_axes``.
+Either way it is one coalesced all-reduce after the backward, on the
+default group's backend (NCCL on GPUs, gloo on the CPU), so every rank
+applies the same update and reports the same loss.
+
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: data parallelism over several GPUs (``mesh``, ``rules``,
-``annotations``), model state (``has_model_state``) and checkpoint hooks
+ROADMAP item: sharded parameters (``rules``, ``annotations``), model
+state (``has_model_state``) and checkpoint hooks
 (``train_on_feed(checkpointer=...)``).
 """
 
@@ -34,6 +46,7 @@ import torch
 
 from ..data import preprocess as pp_mod
 from ..data.feed import place_tree
+from . import mesh as mesh_mod
 from ..utils import not_ported as _not_ported
 from ..utils.tree import leaves as _leaves
 from ..utils.tree import tree_map as _tree_map
@@ -81,18 +94,27 @@ class SyncTrainer(object):
         rng)``, which receives the step's generator) or a
         ``make_preprocess`` kwargs dict, applied to the device batch at
         the top of every step.
-      mesh, rules, annotations, has_model_state: the reference's; only
-        their defaults are ported.
-      data_axes: kept for the reference's signature.
+      mesh: ``None`` (every rank of an initialised process group on
+        ``data``) or a :class:`..parallel.mesh.Mesh` from
+        :func:`..parallel.mesh.build_mesh`.
+      data_axes: the mesh axes the batch is split over; gradients are
+        averaged over them and summed over the mesh's other axes.
+      rules, annotations, has_model_state: the reference's; only their
+        defaults are ported.
     """
 
     def __init__(self, loss_fn, optimizer, mesh=None, rules=None,
                  annotations=None, has_aux=False, has_model_state=False,
                  data_axes=("data", "fsdp"), device_preprocess=None):
-        for name, val in (("mesh", mesh), ("rules", rules),
-                          ("annotations", annotations)):
+        for name, val in (("rules", rules), ("annotations", annotations)):
             if val is not None:
                 raise _not_ported("SyncTrainer {0}=".format(name), _DP)
+        if mesh is not None and not isinstance(mesh, mesh_mod.Mesh):
+            raise TypeError(
+                "mesh must be a tensorflowonspark_tpu_torch.parallel.mesh."
+                "Mesh (build_mesh), got {0!r}".format(type(mesh).__name__)
+            )
+        self.mesh = mesh
         if has_model_state:
             raise _not_ported(
                 "SyncTrainer has_model_state=True", "model state "
@@ -107,6 +129,9 @@ class SyncTrainer(object):
         self.has_aux = has_aux
         self.data_axes = data_axes
         self.device = None
+        # (process group, data-parallel width) of the gradient reduction;
+        # set by create_state
+        self._reduce = (None, 1)
 
     # -- state ---------------------------------------------------------
 
@@ -126,9 +151,48 @@ class SyncTrainer(object):
                     sorted(str(d) for d in devices))
             )
         self.device = devices.pop()
+        self._reduce, src = self._reduction()
+        if self._reduce[0] is not None:
+            import torch.distributed as dist
+
+            # every rank starts from the first rank's weights
+            with torch.no_grad():
+                for p in params.values():
+                    dist.broadcast(p, src, group=self._reduce[0])
         opt_state = self.optimizer.init(params)
         step = torch.zeros((), dtype=torch.int64, device=self.device)
         return TrainState(step, params, opt_state)
+
+    def _reduction(self):
+        """``((group, data width), broadcast source)`` of the gradient
+        reduction: ``group`` is ``None`` when there is one rank."""
+        if self.mesh is not None:
+            if self.mesh.world_group is None:
+                return (None, 1), 0
+            width = mesh_mod.mesh_axis_size(self.mesh, *self.data_axes)
+            return (self.mesh.world_group, width), self.mesh.ranks[0]
+        import torch.distributed as dist
+
+        if (not dist.is_available() or not dist.is_initialized()
+                or dist.get_world_size() == 1):
+            return (None, 1), 0
+        return (dist.group.WORLD, dist.get_world_size()), 0
+
+    def _all_reduce(self, grads, scalars):
+        """Gradients and scalar metrics summed over the reduction group
+        and divided by the data-parallel width, in one f32 all-reduce."""
+        import torch.distributed as dist
+
+        group, width = self._reduce
+        flat = torch.cat([g.reshape(-1).float() for g in grads]
+                         + [s.detach().reshape(1).float() for s in scalars])
+        dist.all_reduce(flat, group=group)
+        flat.mul_(1.0 / width)
+        out, at = [], 0
+        for g in grads:
+            out.append(flat[at:at + g.numel()].view(g.shape).to(g.dtype))
+            at += g.numel()
+        return out, list(flat[at:].unbind())
 
     # -- steps ---------------------------------------------------------
 
@@ -146,12 +210,18 @@ class SyncTrainer(object):
         out = self.loss_fn(params, batch, rng)
         loss, aux = out if self.has_aux else (out, {})
         grads = torch.autograd.grad(loss, list(params.values()))
-        # in place: parameters and moments are the long-lived state
-        self.optimizer.update(state.opt_state, params, grads)
         # detached: a metric keeps no autograd graph alive across steps
         metrics = {name: torch.as_tensor(v).detach()
                    for name, v in aux.items()}
         metrics["loss"] = loss.detach()
+        if self._reduce[0] is not None:
+            names = [n for n, v in metrics.items()
+                     if v.numel() == 1 and v.is_floating_point()]
+            grads, values = self._all_reduce(
+                grads, [metrics[n] for n in names])
+            metrics.update(zip(names, values))
+        # in place: parameters and moments are the long-lived state
+        self.optimizer.update(state.opt_state, params, grads)
         return state.replace(step=state.step + 1), metrics
 
     def step(self, state, batch, rng=None):

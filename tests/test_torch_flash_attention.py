@@ -9,6 +9,7 @@ version over the whole row), which moves f32 results by a few ulp of
 values of order 1, more for the gradients' longer sums.
 """
 
+import math
 import os
 
 import numpy as np
@@ -224,7 +225,9 @@ def _repo_script(name):
 @pytest.mark.parametrize("name", ["diag", "zero_dq", "fwd_wgmma_diag",
                                   "dq_wgmma_diag", "dkv_wgmma_diag",
                                   "dq_wgmma_diag_key",
-                                  "dkv_wgmma_first_head"])
+                                  "dkv_wgmma_first_head",
+                                  "offset_key_tiles",
+                                  "visible_global_bound"])
 def test_planted_faults_still_apply_to_the_kernel_source(name):
     """Each planted fault of ``chip_mutants.py`` finds its lines in the
     kernel source exactly once, so the card-side check of the checks
@@ -260,3 +263,39 @@ def test_flash_bounds_count_each_operand_once_and_the_visible_pairs(hkv):
         "dkv": (nbytes(q, kv, kv, q, rows, rows, kv, kv), 4 * product),
     }
     assert _repo_script("chip_smoke").flash_bounds(b, s, h, hkv, d, 2) == want
+
+
+@pytest.mark.parametrize("hkv", [4, 1])
+def test_flash_bounds_of_an_offset_chunk_read_only_what_is_seen(hkv):
+    """An offset chunk under a window (q_offset 64, window 16 over 96
+    rows): the bound reads q, dO, lse and delta only over the rows that
+    see a key and k, v only over the keys that are seen, writes every
+    output in full (K2's O in f32), and counts the visible pairs."""
+    b, s, h, d, q_offset, window = 2, 96, 4, 64, 64, 16
+    qpos = q_offset + torch.arange(s)[:, None]
+    kpos = torch.arange(s)[None, :]
+    vis = (qpos >= kpos) & (kpos > qpos - window)
+    pairs = int(vis.sum())
+    rows_seen, keys_seen = int(vis.any(1).sum()), int(vis.any(0).sum())
+    assert 0 < rows_seen < s and 0 < keys_seen < s
+
+    def nbytes(*shapes_and_sizes):
+        return sum(math.prod(shape) * size for shape, size in shapes_and_sizes)
+
+    q_in = ((b, rows_seen, h, d), 2)
+    kv_in = ((b, keys_seen, hkv, d), 2)
+    rows_in = ((b, h, rows_seen), 4)
+    product = 2 * d * b * h * pairs
+    want = {
+        "fwd": (nbytes(q_in, kv_in, kv_in, ((b, s, h, d), 4),
+                       ((b, h, s), 4)), 2 * product),
+        "dq": (nbytes(q_in, q_in, kv_in, kv_in, rows_in, rows_in,
+                      ((b, s, h, d), 2)), 3 * product),
+        "dkv": (nbytes(q_in, q_in, kv_in, kv_in, rows_in, rows_in,
+                       ((b, s, hkv, d), 2), ((b, s, hkv, d), 2)),
+                4 * product),
+    }
+    got = _repo_script("chip_smoke").flash_bounds(
+        b, s, h, hkv, d, 2, pairs=pairs, out_itemsize=4,
+        rows_seen=rows_seen, keys_seen=keys_seen)
+    assert got == want

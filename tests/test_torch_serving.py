@@ -180,8 +180,9 @@ def test_import_loads_no_jax():
         "prefix_cache, serving, serving_engine\n"
         "from tensorflowonspark_tpu_torch.models import moe, transformer\n"
         "from tensorflowonspark_tpu_torch.ops import _build, attention, "
-        "flash_attention, gmm, moe, paged_attention\n"
-        "from tensorflowonspark_tpu_torch.parallel import dp\n"
+        "flash_attention, gmm, moe, paged_attention, ring_attention, "
+        "ulysses\n"
+        "from tensorflowonspark_tpu_torch.parallel import cp, dp, mesh\n"
         "from tensorflowonspark_tpu_torch.planner import knobs\n"
         "from tensorflowonspark_tpu_torch import cluster, engine\n"
         "from tensorflowonspark_tpu_torch.cluster import gpu_info, manager, "

@@ -249,14 +249,32 @@ def test_bf16_model_keeps_f32_masters():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"mesh": object()}, "multi-GPU DP"),
     ({"rules": object()}, "multi-GPU DP"),
     ({"annotations": {}}, "multi-GPU DP"),
     ({"has_model_state": True}, "model state"),
-], ids=["mesh", "rules", "annotations", "model_state"])
+], ids=["rules", "annotations", "model_state"])
 def test_unported_trainer_knobs_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         dp.SyncTrainer(lambda p, b, r: 0.0, optim.sgd(0.1), **kw)
+
+
+def test_trainer_takes_a_mesh():
+    """``mesh=`` (once refused): over a one-process mesh the trainer is
+    the plain one, step for step (multi-process meshes:
+    ``test_torch_dp_reduce.py``, ``test_torch_sp_train.py``)."""
+    from tensorflowonspark_tpu_torch.parallel.mesh import build_mesh
+
+    tokens = _batches()
+    want, _, _ = _port_run(TINY, optim.sgd(0.05), tokens)
+    model = _port_model(TINY)
+    trainer = dp.SyncTrainer(ttr.loss_fn(model), optim.sgd(0.05),
+                             mesh=build_mesh())
+    state = trainer.create_state(dict(model.named_parameters()))
+    got = []
+    for t in tokens:
+        state, metrics = trainer.step(state, {"tokens": t})
+        got.append(metrics["loss"].item())
+    np.testing.assert_array_equal(got, want)
 
 
 def test_train_on_feed_is_not_ported():
@@ -295,14 +313,34 @@ def test_train_on_feed_runs_a_tiny_feed():
 @pytest.mark.parametrize("field,item", [
     ({"cache_dtype": "int8"}, "int8"),
     ({"fused_qkv": True}, "queue A: fused_qkv"),
-    ({"attention_impl": "ring"}, "ring/Ulysses"),
-    ({"attention_impl": "ulysses"}, "ring/Ulysses"),
-], ids=["int8_cache", "fused_qkv", "ring", "ulysses"])
+], ids=["int8_cache", "fused_qkv"])
 def test_unported_model_knobs_raise(field, item):
     with pytest.raises(NotImplementedError, match=item):
         model = ttr.Transformer(ttr.TransformerConfig(**dict(TINY, **field)),
                                 device="cpu")
         model(torch.zeros((1, 8), dtype=torch.long))
+
+
+@pytest.mark.parametrize("impl", ["ring", "ulysses"])
+def test_sequence_parallel_model_over_one_rank_is_the_flash_model(impl):
+    """``attention_impl="ring"``/``"ulysses"`` (once refused) need a mesh;
+    over a one-process mesh they train as the flash model (several
+    processes: ``test_torch_sp_train.py``)."""
+    from tensorflowonspark_tpu_torch.parallel.mesh import build_mesh
+
+    with pytest.raises(ValueError, match="needs cfg.mesh"):
+        ttr.Transformer(ttr.TransformerConfig(**dict(TINY,
+                                                     attention_impl=impl)),
+                        device="cpu")
+    tree = jax.tree.map(np.asarray, _tree(TINY)[1])
+    batch = {"tokens": torch.from_numpy(_batches()[0])}
+    losses = []
+    for extra in ({}, {"attention_impl": impl, "mesh": build_mesh()}):
+        model = _port_model(dict(TINY, **extra), tree)
+        loss = ttr.loss_fn(model)(dict(model.named_parameters()), batch,
+                                  None)
+        losses.append(loss.item())
+    assert losses[0] == losses[1]
 
 
 def test_optimizer_rejects_schedules():

@@ -247,13 +247,28 @@ class TestForwardPieces:
     @pytest.mark.parametrize("field,item", [
         ({"fused_qkv": True}, "queue A: fused_qkv"),
         ({"cache_dtype": "int8"}, "int8"),
-        ({"attention_impl": "ring"}, "ring/Ulysses"),
-    ], ids=["fused_qkv", "int8_cache", "ring"])
+    ], ids=["fused_qkv", "int8_cache"])
     def test_unported_model_options_raise(self, field, item):
         with pytest.raises(NotImplementedError, match=item):
             model = ttr.Transformer(
                 ttr.TransformerConfig(**dict(TINY, **field)), device="cpu")
             model(torch.zeros((1, 8), dtype=torch.long))
+
+    def test_ring_model_over_one_rank_is_the_dot_model(self):
+        """``attention_impl="ring"`` (once refused) over a one-process
+        mesh: one causal chunk per layer, the same logits as ``dot``."""
+        from tensorflowonspark_tpu_torch.parallel.mesh import build_mesh
+
+        tokens = torch.from_numpy(
+            np.random.default_rng(0).integers(0, 100, (2, 16)))
+        logits = []
+        for extra in ({}, {"attention_impl": "ring", "mesh": build_mesh()}):
+            torch.manual_seed(0)
+            model = ttr.Transformer(
+                ttr.TransformerConfig(**dict(TINY, **extra)), device="cpu")
+            with torch.no_grad():
+                logits.append(model(tokens))
+        torch.testing.assert_close(logits[1], logits[0], atol=1e-5, rtol=0)
 
     def test_shared_counter_decode_is_not_ported(self):
         model = ttr.Transformer(ttr.TransformerConfig(**TINY), device="cpu")

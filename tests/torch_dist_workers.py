@@ -1,0 +1,174 @@
+"""Processes for the port's multi-process tests: ``torch.distributed``
+over ``gloo`` on the CPU, one spawned process per rank.
+
+Kept apart from the test files so that the spawned ranks import only
+``torch`` and the port (never ``jax``).  Every worker makes its inputs
+from numpy seeds, as the test that compares it with the JAX package
+does, and writes what it computed to ``out_dir`` as ``.npz`` files.
+"""
+
+import os
+import pickle
+import time
+import uuid
+
+import numpy as np
+import torch
+
+#: seconds a group of ranks may take before the test fails
+TIMEOUT = 150
+
+
+def _entry(rank, fn, world, init, args):
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method="file://" + init,
+                            world_size=world, rank=rank)
+    try:
+        fn(rank, world, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn, world, tmp_dir, *args):
+    """``fn(rank, world, *args)`` in ``world`` spawned processes joined in
+    one gloo group; raises if a rank fails or :data:`TIMEOUT` passes."""
+    import torch.multiprocessing as mp
+
+    init = os.path.join(str(tmp_dir), "rdv-" + uuid.uuid4().hex)
+    ctx = mp.start_processes(_entry, args=(fn, world, init, args),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + TIMEOUT
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise TimeoutError("ranks of {0} did not finish in {1} s".format(
+                fn.__name__, TIMEOUT))
+
+
+# -- attention -------------------------------------------------------------
+
+
+def attention_inputs(spec):
+    """Global q, k, v and the output cotangent of an attention case."""
+    rng = np.random.default_rng(spec["seed"])
+    b, s, h, hkv, d = (spec[n] for n in ("b", "s", "h", "hkv", "d"))
+    shapes = [(b, s, h, d), (b, s, hkv, d), (b, s, hkv, d), (b, s, h, d)]
+    return [rng.standard_normal(sh).astype(np.float32) for sh in shapes]
+
+
+def attention_worker(rank, world, out_dir, cases):
+    """Each case's ring or Ulysses attention over a ``{"seq": world}``
+    mesh on this rank's shards: output and gradients of
+    ``sum(out * cot)``, written to ``<case>.<rank>.npz``."""
+    from tensorflowonspark_tpu_torch.ops import ring_attention as ra
+    from tensorflowonspark_tpu_torch.ops import ulysses as ul
+    from tensorflowonspark_tpu_torch.parallel.mesh import build_mesh
+
+    mesh = build_mesh({"seq": world})
+    for name, spec in cases.items():
+        q, k, v, cot = attention_inputs(spec)
+        sl = spec["s"] // world
+        part = slice(rank * sl, (rank + 1) * sl)
+        ql, kl, vl = (torch.from_numpy(x[:, part].copy()).requires_grad_(True)
+                      for x in (q, k, v))
+        kw = dict(causal=spec["causal"], window=spec["window"])
+        if spec["mode"] == "ring":
+            out = ra.ring_attention_sharded(ql, kl, vl, mesh,
+                                            impl=spec["impl"], **kw)
+        else:
+            out = ul.ulysses_attention_sharded(ql, kl, vl, mesh, **kw)
+        out.backward(torch.from_numpy(cot[:, part].copy()))
+        np.savez(os.path.join(out_dir, "{0}.{1}.npz".format(name, rank)),
+                 out=out.detach().numpy(), dq=ql.grad.numpy(),
+                 dk=kl.grad.numpy(), dv=vl.grad.numpy())
+
+
+# -- training --------------------------------------------------------------
+
+
+def _port_model(tree, cfg_kw, mesh):
+    from tensorflowonspark_tpu_torch import convert
+    from tensorflowonspark_tpu_torch.models import transformer as ttr
+
+    cfg = ttr.TransformerConfig(**dict(cfg_kw, mesh=mesh))
+    return convert.params_from_flax(tree, cfg, device="cpu",
+                                    param_dtype=torch.float32)
+
+
+def train_worker(rank, world, out_dir, specs):
+    """For each named spec, train the port's Transformer with
+    ``SyncTrainer`` and write ``<name>.<rank>.npz``: the losses and every
+    weight after the last step.
+
+    A spec holds ``cfg`` (``TransformerConfig`` fields), ``tree`` (a
+    pickled Flax tree to start from, or ``None`` for a rank-seeded init
+    that differs on every rank, to show the rank-0 start), ``mesh``
+    (``None`` for the default trainer, else ``build_mesh``'s axes),
+    ``lr`` and ``tokens`` ``[steps, B, S]``: each rank takes the rows of
+    its ``data`` coordinate."""
+    from tensorflowonspark_tpu_torch import convert, optim
+    from tensorflowonspark_tpu_torch.models import transformer as ttr
+    from tensorflowonspark_tpu_torch.parallel import dp
+
+    for name, spec in specs.items():
+        mesh = None
+        if spec["mesh"] is not None:
+            from tensorflowonspark_tpu_torch.parallel.mesh import build_mesh
+
+            mesh = build_mesh(spec["mesh"])
+        if spec["tree"] is None:
+            torch.manual_seed(100 + rank)  # a different start on every rank
+            model = ttr.Transformer(ttr.TransformerConfig(**spec["cfg"]),
+                                    device="cpu", param_dtype=torch.float32)
+        else:
+            with open(spec["tree"], "rb") as f:
+                tree = pickle.load(f)
+            model = _port_model(tree, spec["cfg"], mesh)
+        trainer = dp.SyncTrainer(ttr.loss_fn(model),
+                                 optim.sgd(spec["lr"], momentum=0.9),
+                                 mesh=mesh, data_axes=("data",))
+        state = trainer.create_state(dict(model.named_parameters()))
+        if mesh is None:
+            data_size, data_index = world, rank
+        else:
+            data_size = mesh.axis_size("data")
+            data_index = mesh.axis_index("data")
+        tokens = np.asarray(spec["tokens"])
+        rows = tokens.shape[1] // data_size
+        part = slice(data_index * rows, (data_index + 1) * rows)
+        losses = []
+        for batch in tokens:
+            state, metrics = trainer.step(state, {"tokens": batch[part]})
+            losses.append(metrics["loss"].item())
+        flat = convert._flatten(convert.tree_from_model(model))
+        np.savez(os.path.join(out_dir, "{0}.{1}.npz".format(name, rank)),
+                 losses=np.asarray(losses),
+                 **{"param/" + k: np.asarray(v) for k, v in flat.items()})
+
+
+def mesh_worker(rank, world, out_dir, axes):
+    """``build_mesh(axes)`` seen from this rank, and a sum over each of
+    its axis groups: writes ``mesh.<rank>.npz``."""
+    import torch.distributed as dist
+
+    from tensorflowonspark_tpu_torch.parallel.mesh import build_mesh
+
+    mesh = build_mesh(axes)
+    out = {"ranks": np.asarray(mesh.ranks)}
+    for name in mesh.axis_names:
+        out["coord/" + name] = np.asarray(mesh.axis_index(name))
+        out["line/" + name] = np.asarray(mesh.line(name))
+        x = torch.tensor([float(rank)])
+        if mesh.group(name) is not None:
+            dist.all_reduce(x, group=mesh.group(name))
+        out["sum/" + name] = x.numpy()
+    np.savez(os.path.join(out_dir, "mesh.{0}.npz".format(rank)), **out)
+
+
+def load_ranks(out_dir, name, world):
+    """The ``.npz`` files ``<name>.<rank>.npz`` of every rank."""
+    return [dict(np.load(os.path.join(out_dir, "{0}.{1}.npz".format(
+        name, r)))) for r in range(world)]
