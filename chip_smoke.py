@@ -136,6 +136,23 @@ caught):
     row order within :data:`INFER_RTOL` of the driver's own scores of
     the same batches, with 128 K2 launches and none of K3/K4, on the
     card ``gpu_info`` chose.
+21. ``checkpoint_resume_serve``: restartable training and the export.
+    Run 1: a one-executor cluster (as ``feed_train_flagship``) trains the
+    flagship from the seed-0 tree on the rows of batches 1-6 through
+    ``train_on_feed(checkpointer=Checkpointer(d, max_to_keep=2),
+    checkpoint_every=6, max_steps=6)`` (K=3), and its compute process
+    exits.  Run 2: a new cluster, fed batches 7-12, resumes at step 6
+    from the checkpoint, trains to step 12, publishes the weights with
+    ``publish_for_serving`` (``model_ref`` naming the JAX package's
+    builder) and serves 16 requests from them in memory.  The driver
+    then loads the export with ``serving.load_predictor`` and serves the
+    same requests.  Checks: ``all_steps() == [6, 12]``; both runs'
+    losses within :data:`FEED_LOSS_RTOL` of ``train_flagship``'s steps
+    1-6 and 7-12; 96 launches of each of K2-K4 in run 2; the export
+    listed as step 12; greedy tokens from the export equal to the
+    in-memory ones, with K1 launched on every decode step.  Prints the
+    save, restore, export and load seconds and GB/s, bytes on disk, the
+    disk's free bytes before the phase and run 2's tokens/s.
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit
 line, and as the last line ``{"ok": true, "device": {...}}``.  Without a
@@ -697,15 +714,22 @@ def make_requests(rng, n, vocab, lo, hi):
 
 
 def serve(model_cfg, serving_cfg, params, rows):
-    from tensorflowonspark_tpu_torch import serving
     from tensorflowonspark_tpu_torch.models.transformer import (
         serving_builder,
     )
+
+    return serve_rows(serving_builder(params, dict(model_cfg, **serving_cfg)),
+                      rows)
+
+
+def serve_rows(predict, rows):
+    """``(outputs, stats, wall seconds, K1 launches)`` of ``predict`` over
+    ``rows`` on :data:`SLOTS` slots, continuous schedule."""
+    from tensorflowonspark_tpu_torch import serving
     from tensorflowonspark_tpu_torch.ops.paged_attention import (
         paged_attention,
     )
 
-    predict = serving_builder(params, dict(model_cfg, **serving_cfg))
     stats = {}
     paged_attention.launches = 0
     torch.cuda.synchronize()
@@ -3158,6 +3182,285 @@ def phase_feed_inference_flagship():
     return line
 
 
+#: phase ``checkpoint_resume_serve``: the step spacing of the saves, the
+#: steps of run 1 and of the whole run, the steps of one group, and the
+#: reference's builder named in the export (resolved to the port's)
+CKPT_EVERY, CKPT_RUN1_STEPS, CKPT_STEPS, CKPT_K = 6, 6, 12, 3
+CKPT_MODEL_REF = "tensorflowonspark_tpu.models.transformer:serving_builder"
+
+
+def tree_bytes(path):
+    """The bytes of every file under ``path``."""
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def ckpt_train_fn(args, ctx):
+    """The user fn of ``checkpoint_resume_serve``, run in the compute
+    process: the flagship from the seed-0 tree (f32 masters, adamw(1e-4),
+    flash), trained from the node's feed by ``train_on_feed`` with a
+    ``Checkpointer`` (restoring its latest step first, when it holds one)
+    up to ``args["max_steps"]``.  With ``args["export"]`` it then
+    publishes the trained weights for serving and serves
+    ``args["requests"]`` from them in memory.  Writes ``args["out"]``,
+    with host-clock marks of its stages."""
+    marks = [("start", time.perf_counter())]
+    from tensorflowonspark_tpu_torch import checkpoint, compat, convert, optim
+    from tensorflowonspark_tpu_torch.models import transformer
+    from tensorflowonspark_tpu_torch.ops import _build
+    from tensorflowonspark_tpu_torch.ops.flash_attention import (
+        flash_attention,
+    )
+    from tensorflowonspark_tpu_torch.parallel import dp
+
+    device = compat.resolve_device()
+    _build.build(["flash_attention"])
+    ctx.initialize_distributed()
+    feed = ctx.get_data_feed()
+    tree = convert.init_params_tree(
+        transformer.TransformerConfig(**FLAGSHIP), seed=0)  # as flagship_tree
+    cfg = transformer.TransformerConfig(**dict(FLAGSHIP,
+                                               attention_impl="flash"))
+    model = convert.params_from_flax(tree, cfg, device=device,
+                                     param_dtype=torch.float32)
+    del tree
+    trainer = dp.SyncTrainer(transformer.loss_fn(model), optim.adamw(1e-4))
+    state = trainer.create_state(dict(model.named_parameters()))
+    ckptr = checkpoint.Checkpointer(args["dir"], max_to_keep=2)
+    timed = {"save": [], "save_copy": [], "restore": []}
+    save, restore = ckptr.save, ckptr.restore
+
+    def timed_save(step, state, wait=False):
+        # save(wait=True) as save(wait=False) + wait: the copy to the host
+        # timed apart from the writes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saved = save(step, state, wait=False)
+        t1 = time.perf_counter()
+        if wait:
+            ckptr.wait_until_finished()
+        timed["save_copy"].append(t1 - t0)
+        timed["save"].append(time.perf_counter() - t0)
+        return saved
+
+    def timed_restore(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = restore(*a, **kw)
+        torch.cuda.synchronize()
+        timed["restore"].append(time.perf_counter() - t0)
+        return out
+
+    ckptr.save, ckptr.restore = timed_save, timed_restore
+    marks.append(("model_ready", time.perf_counter()))
+    losses, groups = [], []
+    multi = trainer.multi_step_on_device
+
+    def multi_step_on_device(*a):
+        out = multi(*a)
+        losses.append(out[1]["loss"])  # a device tensor: no sync
+        return out
+
+    def group_start(step):
+        torch.cuda.synchronize()
+        groups.append([step, time.perf_counter()])
+
+    def group_end(step, metrics):
+        torch.cuda.synchronize()
+        groups[-1] += [step, time.perf_counter()]
+
+    trainer.multi_step_on_device = multi_step_on_device
+    flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
+    t0 = time.perf_counter()
+    state = trainer.train_on_feed(
+        state, feed, batch_size=args["batch"], columnar=True,
+        steps_per_execution=CKPT_K, max_steps=args["max_steps"],
+        checkpointer=ckptr, checkpoint_every=CKPT_EVERY,
+        step_callback=group_start, metrics_callback=group_end)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    marks.append(("trained", time.perf_counter()))
+    launches = dict(flash_attention.launches)
+    ckptr.close()
+    n_state = sum(a.numel() * a.element_size() for a in
+                  [p for p in state.params.values()]
+                  + [t for st in state.opt_state.state.values()
+                     for t in st.values() if isinstance(t, torch.Tensor)])
+    result = dict(
+        losses=torch.cat(losses).float().cpu().numpy().tolist(),
+        launches=launches, steps=int(state.step), wall_sec=wall,
+        groups=groups, save_sec=timed["save"],
+        save_copy_sec=timed["save_copy"], restore_sec=timed["restore"],
+        state_bytes=n_state, all_steps=ckptr.all_steps(),
+        device=torch.cuda.get_device_name(device), pid=os.getpid(),
+    )
+    if args.get("export"):
+        del state, trainer
+        t1 = time.perf_counter()
+        tree = convert.tree_from_model(model)
+        t2 = time.perf_counter()
+        checkpoint.publish_for_serving(
+            args["export"], int(result["steps"]), tree, extra_metadata={
+                "model_ref": CKPT_MODEL_REF,
+                "model_config": dict(FLAGSHIP, **SERVING)})
+        t3 = time.perf_counter()
+        marks.append(("exported", t3))
+        del model
+        gc_collect()
+        out, _, _, _ = serve(FLAGSHIP, SERVING, tree, args["requests"])
+        marks.append(("served", time.perf_counter()))
+        result.update(
+            tree_from_model_sec=t2 - t1, export_sec=t3 - t2,
+            export_bytes=int(sum(a.nbytes for a in
+                                 convert._flatten(tree).values())),
+            memory_tokens=[np.asarray(r["generated"]).tolist() for r in out])
+    marks.append(("end", time.perf_counter()))
+    result["stage_sec"] = {name: t - prev for (_, prev), (name, t)
+                           in zip(marks, marks[1:])}
+    with open(args["out"], "w") as f:
+        json.dump(result, f)
+
+
+def gc_collect():
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_checkpoint_resume_serve(train):
+    """Checkpoints and serving exports: see the module docstring, phase
+    21.  ``train`` is :func:`phase_train_flagship`'s result."""
+    import importlib
+    import tempfile
+
+    from tensorflowonspark_tpu_torch import checkpoint, serving
+    from tensorflowonspark_tpu_torch.ops.paged_attention import (
+        paged_attention,
+    )
+
+    t_phase = time.perf_counter()
+    gc_collect()
+    smoke = importlib.import_module("chip_smoke")
+    tmp = tempfile.mkdtemp(prefix="ckpt_resume_")
+    try:
+        free_before = shutil.disk_usage(tmp).free
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        root = os.path.join(tmp, "export")
+        rng = np.random.default_rng(7)  # flagship_trainer's tokens, as rows
+        tokens = rng.integers(0, FLAGSHIP["vocab_size"],
+                              (TRAIN_K, TRAIN_B, TRAIN_S)).astype(np.int32)
+        batches = [tokens[i % TRAIN_K] for i in range(CKPT_STEPS)]
+        requests = make_requests(np.random.default_rng(2), REQUESTS,
+                                 FLAGSHIP["vocab_size"], 16,
+                                 SERVING["max_prompt_len"])
+        runs = []
+        for first, last, export in ((0, CKPT_RUN1_STEPS, None),
+                                    (CKPT_RUN1_STEPS, CKPT_STEPS, root)):
+            out = os.path.join(tmp, "result-{0}.json".format(last))
+            rows = [{"tokens": r} for b in batches[first:last] for r in b]
+            args = {"out": out, "dir": ckpt_dir, "batch": TRAIN_B,
+                    "max_steps": last, "export": export,
+                    "requests": requests}
+            t_run = time.perf_counter()
+            startup, call_sec, error = feed_cluster(
+                smoke.ckpt_train_fn, args, rows, epochs=1)
+            if error is not None:
+                raise error
+            with open(out) as f:
+                runs.append(dict(json.load(f), cluster_startup_sec=startup,
+                                 train_call_sec=call_sec,
+                                 run_sec=time.perf_counter() - t_run))
+        run1, run2 = runs
+        on_disk = checkpoint.Checkpointer(ckpt_dir, max_to_keep=2)
+        ckpt_bytes = tree_bytes(ckpt_dir)
+        export_steps = checkpoint.list_serving_steps(root)
+        t0 = time.perf_counter()
+        predict = serving.load_predictor(os.path.join(root, "12"))
+        load_sec = time.perf_counter() - t0
+        export_disk_bytes = tree_bytes(root)
+        got, stats, serve_wall, k1 = serve_rows(
+            predict, [dict(r) for r in requests])
+        del predict
+        gc_collect()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    want = np.asarray(train["losses"])
+    rel1 = max_rel_diff(np.asarray(run1["losses"]), want[:CKPT_RUN1_STEPS])
+    rel2 = max_rel_diff(np.asarray(run2["losses"]),
+                        want[CKPT_RUN1_STEPS:CKPT_STEPS])
+    got_tokens = [np.asarray(r["generated"]).tolist() for r in got]
+    decode_steps = stats["chunks"] * SERVING["chunk_size"]
+    steady = run2["groups"][-1]  # the last group: no warm-up, no save
+    steady_tokens = (steady[2] - steady[0]) * TRAIN_B * TRAIN_S
+    line = dict(
+        model=train["model"], steps=[CKPT_RUN1_STEPS, CKPT_STEPS],
+        checkpoint_every=CKPT_EVERY, steps_per_execution=CKPT_K,
+        latest_step=on_disk.latest_step(), all_steps=on_disk.all_steps(),
+        resumed_losses=run2["losses"], max_rel_loss_diff=rel2,
+        losses_equal_to_the_bit=run2["losses"] == train["losses"][
+            CKPT_RUN1_STEPS:CKPT_STEPS],
+        run1_max_rel_loss_diff=rel1, resume_launches=run2["launches"],
+        run1_launches=run1["launches"], run2_steps=run2["steps"],
+        state_bytes=run2["state_bytes"],
+        save_sec=run1["save_sec"] + run2["save_sec"],
+        save_copy_sec=run1["save_copy_sec"] + run2["save_copy_sec"],
+        save_gb_per_sec=[run2["state_bytes"] / s / 1e9
+                         for s in run1["save_sec"] + run2["save_sec"]],
+        restore_sec=run2["restore_sec"],
+        restore_gb_per_sec=[run2["state_bytes"] / s / 1e9
+                            for s in run2["restore_sec"]],
+        export_bytes=run2["export_bytes"], export_sec=run2["export_sec"],
+        export_gb_per_sec=run2["export_bytes"] / run2["export_sec"] / 1e9,
+        tree_from_model_sec=run2["tree_from_model_sec"],
+        load_predictor_sec=load_sec, checkpoint_disk_bytes=ckpt_bytes,
+        export_disk_bytes=export_disk_bytes, free_bytes_before=free_before,
+        run2_wall_sec=run2["wall_sec"],
+        run2_tokens_per_sec=(CKPT_STEPS - CKPT_RUN1_STEPS) * TRAIN_B
+        * TRAIN_S / run2["wall_sec"],
+        run2_steady_tokens_per_sec=steady_tokens / (steady[3] - steady[1]),
+        train_flagship_tokens_per_sec=train["tokens_per_sec"],
+        cluster_startup_sec=[r["cluster_startup_sec"] for r in runs],
+        train_call_sec=[r["train_call_sec"] for r in runs],
+        run_sec=[r["run_sec"] for r in runs],
+        fn_stage_sec=[r["stage_sec"] for r in runs],
+        phase_sec=time.perf_counter() - t_phase,
+        export_steps=export_steps, requests=len(got),
+        tokens_out=stats["tokens_out"], serve_wall_sec=serve_wall,
+        decode_steps=decode_steps, export_serve_launches=k1,
+        tokens_equal_to_memory=got_tokens == run2["memory_tokens"],
+        first_tokens=[t[:4] for t in got_tokens[:4]],
+        nvidia_smi=nvidia_smi(),
+    )
+    emit("checkpoint_resume_serve", **line)
+    if not rel2 <= FEED_LOSS_RTOL or not rel1 <= FEED_LOSS_RTOL:
+        raise AssertionError("losses differ from train_flagship's by {0} "
+                             "(run 1) and {1} (resumed)".format(rel1, rel2))
+    if run2["steps"] != CKPT_STEPS or line["latest_step"] != CKPT_STEPS \
+            or line["all_steps"] != [CKPT_RUN1_STEPS, CKPT_STEPS]:
+        raise AssertionError("checkpoint steps {0}, latest {1}, trained to "
+                             "{2}".format(line["all_steps"],
+                                          line["latest_step"], run2["steps"]))
+    want_launches = FLAGSHIP["num_layers"] * (CKPT_STEPS - CKPT_RUN1_STEPS)
+    if run2["launches"] != {n: want_launches for n in ("fwd", "dq", "dkv")}:
+        raise AssertionError("resumed flash launches {0}, want {1} "
+                             "each".format(run2["launches"], want_launches))
+    if len(run2["restore_sec"]) != 1 or run1["restore_sec"]:
+        raise AssertionError("restores: run 1 {0}, run 2 {1}".format(
+            run1["restore_sec"], run2["restore_sec"]))
+    if export_steps != [CKPT_STEPS]:
+        raise AssertionError("exported steps {0}".format(export_steps))
+    if not line["tokens_equal_to_memory"] or len(got) != REQUESTS:
+        raise AssertionError("tokens served from the export differ from the "
+                             "in-memory hand-off")
+    if not (decode_steps > 0
+            and k1 == FLAGSHIP["num_layers"] * decode_steps):
+        raise AssertionError("paged_attention launches {0} != {1} layers x "
+                             "{2} decode steps".format(
+                                 k1, FLAGSHIP["num_layers"], decode_steps))
+    return line
+
+
 def global_stop_fn(args, ctx):
     """The user fn of :func:`phase_feed_global_stop`: a linear model
     trained from the node's feed under ``torch.distributed``, then one
@@ -3595,6 +3898,7 @@ def main():
     fed = phase_feed_train_flagship(train)
     ring = phase_feed_ring_train_flagship(train)
     inference = phase_feed_inference_flagship()
+    resumed = phase_checkpoint_resume_serve(train)
     jax_flash = "tensorflowonspark_tpu/ops/flash_attention.py:"
     jax_gmm = "tensorflowonspark_tpu/ops/gmm.py:"
     print(json.dumps({"kernels": [dict(
@@ -3608,12 +3912,14 @@ def main():
         bound_by=timing["bound_by"], library_ms=timing["library_ms"],
         library_note="gather_pool of K and V, then "
                      "scaled_dot_product_attention with the length mask",
+        export_serve_launches=resumed["export_serve_launches"],
     )] + [
         kernel_entry("flash_" + name, kernel, jax_flash + line,
                      train["launches"][name], flash[name],
                      fed_launches=fed["launches"][name],
                      ring_fed_launches=ring["launches"][name],
                      inference_launches=inference["launches"][name],
+                     resume_launches=resumed["resume_launches"][name],
                      ring_attention_launches=ring_hops["launches"][name],
                      **{"offset_" + k: offset[name][k] for k in (
                          "ms", "plain_ms", "bound_ms", "bound_by",

@@ -2,8 +2,9 @@
 :class:`~tensorflowonspark_tpu_torch.models.transformer.Transformer`.
 
 A tree is nested dicts of numpy arrays (``jax.tree.map(np.asarray,
-variables["params"])`` of the JAX model, or :func:`init_params_tree`),
-named as the JAX model's ``LOGICAL_AXES_RULES`` name them:
+variables["params"])`` of the JAX model, or :func:`init_params_tree`) or
+of tensors (bf16 leaves as :func:`..checkpoint.load_for_serving` returns
+them), named as the JAX model's ``LOGICAL_AXES_RULES`` name them:
 
 =============================  ============  =============================
 Flax leaf                      shape         port
@@ -132,17 +133,22 @@ def params_from_flax(tree, cfg, device=None, param_dtype=None):
     dev = model_device(cfg, device)
     state = {}
     for path, shape in want.items():
-        arr = np.asarray(leaves[path])
-        if tuple(arr.shape) != shape:
+        leaf = leaves[path]
+        if not isinstance(leaf, torch.Tensor):
+            leaf = np.asarray(leaf)
+        if tuple(leaf.shape) != shape:
             raise ValueError(
                 "leaf {0!r} has shape {1}, the config needs {2}".format(
-                    path, tuple(arr.shape), shape
+                    path, tuple(leaf.shape), shape
                 )
             )
         dtype = torch.float32 if path.endswith(("/scale", "/router")) \
             else (param_dtype or cfg.torch_dtype)
-        # a copy: the model never aliases the caller's arrays
-        t = torch.tensor(arr, dtype=dtype, device=dev)
+        # a copy: the model never aliases the caller's arrays or tensors
+        if isinstance(leaf, torch.Tensor):
+            t = leaf.detach().to(device=dev, dtype=dtype, copy=True)
+        else:
+            t = torch.tensor(leaf, dtype=dtype, device=dev)
         if path.endswith("/kernel"):
             t = t.reshape(-1, shape[-1]) if path.endswith("out/kernel") \
                 else t.reshape(shape[0], -1)

@@ -23,6 +23,11 @@ The update rules are optax's:
 
 The step is plain PyTorch: in the reference it is XLA code, not a
 Pallas kernel.
+
+:func:`state_tree` and :func:`load_state_tree` carry the optimizer's
+state to a checkpoint and back (:mod:`..checkpoint`): AdamW's ``mu``,
+``nu`` and ``count``, SGD's momentum buffers, each keyed by parameter
+name, so a resumed run's updates equal an uninterrupted run's.
 """
 
 import numpy as np
@@ -122,3 +127,82 @@ def sgd(learning_rate, momentum=None, nesterov=False):
     return Optimizer(lambda tensors: torch.optim.SGD(
         tensors, lr=lr, momentum=mom, nesterov=bool(nesterov) and mom > 0,
     ))
+
+
+def _names(opt_state, params):
+    """``{tensor id: name}`` of the optimizer's parameters."""
+    names = {id(p): n for n, p in params.items()}
+    for group in opt_state.param_groups:
+        for p in group["params"]:
+            if id(p) not in names:
+                raise ValueError("the optimizer holds a tensor that is not "
+                                 "among the named parameters")
+    return names
+
+
+def state_tree(opt_state, params):
+    """The optimizer state of ``opt_state`` (what :meth:`Optimizer.init`
+    returned over ``params``, a ``{name: tensor}`` dict) as a tree of
+    tensors keyed by parameter name: ``{"mu": {...}, "nu": {...},
+    "count": int64}`` for ``adamw`` (empty before the first step),
+    ``{"momentum": {...}}`` for ``sgd`` (the buffers that exist).  The
+    tensors are the optimizer's own, not copies."""
+    names = _names(opt_state, params)
+    if isinstance(opt_state, _AdamW):
+        mu, nu, count = {}, {}, 0
+        for p, st in opt_state.state.items():
+            if st:
+                mu[names[id(p)]] = st["mu"]
+                nu[names[id(p)]] = st["nu"]
+                count = st["count"]
+        return {"mu": mu, "nu": nu, "count": np.asarray(count, np.int64)}
+    if isinstance(opt_state, torch.optim.SGD):
+        return {"momentum": {
+            names[id(p)]: st["momentum_buffer"]
+            for p, st in opt_state.state.items()
+            if st.get("momentum_buffer") is not None
+        }}
+    raise TypeError("no state tree for optimizer {0!r}".format(
+        type(opt_state).__name__))
+
+
+def _moment(p, value):
+    """``value`` (a tensor or numpy array) as a new tensor like ``p``."""
+    src = value if isinstance(value, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(value))
+    if tuple(src.shape) != tuple(p.shape):
+        raise ValueError("optimizer state of shape {0} for a parameter of "
+                         "shape {1}".format(tuple(src.shape), tuple(p.shape)))
+    return torch.empty_like(p).copy_(src)
+
+
+def load_state_tree(opt_state, params, tree):
+    """Set ``opt_state`` (over ``params``) from a :func:`state_tree` tree
+    (arrays or tensors, e.g. as a checkpoint returns it); the state it
+    held before is dropped."""
+    names = _names(opt_state, params)
+    by_name = {names[id(p)]: p for g in opt_state.param_groups
+               for p in g["params"]}
+    opt_state.state.clear()
+    if isinstance(opt_state, _AdamW):
+        mu, nu = tree.get("mu", {}), tree.get("nu", {})
+        if set(mu) != set(nu) or not set(mu) <= set(by_name):
+            raise ValueError("AdamW state names {0} do not match the "
+                             "parameters".format(sorted(mu)))
+        count = int(np.asarray(tree.get("count", 0)))
+        for name in mu:
+            p = by_name[name]
+            opt_state.state[p] = {"mu": _moment(p, mu[name]),
+                                  "nu": _moment(p, nu[name]),
+                                  "count": count}
+    elif isinstance(opt_state, torch.optim.SGD):
+        bufs = tree.get("momentum", {})
+        if not set(bufs) <= set(by_name):
+            raise ValueError("SGD state names {0} do not match the "
+                             "parameters".format(sorted(bufs)))
+        for name, buf in bufs.items():
+            opt_state.state[by_name[name]] = {
+                "momentum_buffer": _moment(by_name[name], buf)}
+    else:
+        raise TypeError("no state tree for optimizer {0!r}".format(
+            type(opt_state).__name__))

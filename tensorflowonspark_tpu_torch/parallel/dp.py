@@ -33,10 +33,14 @@ Either way it is one coalesced all-reduce after the backward, on the
 default group's backend (NCCL on GPUs, gloo on the CPU), so every rank
 applies the same update and reports the same loss.
 
+``train_on_feed(checkpointer=)`` is the resume hook: at entry it
+restores the checkpointer's latest step into the state and counts on
+from it; every ``checkpoint_every`` steps, and at exit, it saves
+durably and then commits the feed's partitions.
+
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: sharded parameters (``rules``, ``annotations``), model
-state (``has_model_state``) and checkpoint hooks
-(``train_on_feed(checkpointer=...)``).
+ROADMAP item: sharded parameters (``rules``, ``annotations``) and model
+state (``has_model_state``).
 """
 
 import logging
@@ -53,7 +57,6 @@ from ..utils.tree import tree_map as _tree_map
 
 
 _DP = "multi-GPU DP over torch.distributed"
-_CKPT = "Checkpointing"
 
 logger = logging.getLogger(__name__)
 
@@ -296,17 +299,26 @@ class SyncTrainer(object):
           terminate_on_max_steps: when the step cap ends training with
             data in flight, terminate the feed so the feeders' joins
             return; pass False to resume from the same feed later.
-          checkpointer, checkpoint_every: not ported (Checkpointing).
+          checkpointer: a :class:`~..checkpoint.Checkpointer`, the resume
+            hook.  At entry, when it holds a step, ``state`` is restored
+            from the latest one and the step count goes on from it (so
+            ``max_steps`` caps the total); every ``checkpoint_every``
+            steps and at exit the state is saved with ``wait=True`` and
+            then ``feed.commit_partitions()`` is called.
+          checkpoint_every: step spacing of the periodic saves (0: only
+            the final save).
           step_callback: ``fn(step)`` before each executed group.
 
         Returns the final state.
         """
-        if checkpointer is not None or checkpoint_every:
-            raise _not_ported("train_on_feed checkpointer=", _CKPT)
         if steps_per_execution < 1:
             raise ValueError("steps_per_execution must be >= 1, got "
                              "{0}".format(steps_per_execution))
         steps = 0
+        if checkpointer is not None and checkpointer.latest_step() is not None:
+            state = checkpointer.restore(state)
+            steps = int(state.step)  # one host read, before the loop
+            logger.info("resumed from checkpoint at step %d", steps)
         stop = False
         while not stop:
             if max_steps is not None and steps >= max_steps:
@@ -334,6 +346,12 @@ class SyncTrainer(object):
             steps += len(group)
             if metrics_callback is not None:
                 metrics_callback(steps, metrics)
+            if (checkpointer is not None and checkpoint_every
+                    and steps % checkpoint_every < len(group)):
+                # durable before the commit: a committed partition must
+                # not be lost to a crash between the two
+                checkpointer.save(steps, state, wait=True)
+                feed.commit_partitions()
             if (log_every and steps % log_every < len(group)
                     and logger.isEnabledFor(logging.INFO)):
                 logger.info("step %d loss %.4f", steps,
@@ -344,6 +362,11 @@ class SyncTrainer(object):
             # mark the node 'terminating' so feeders stop waiting
             logger.info("max_steps reached; terminating the feed")
             feed.terminate()
+        if checkpointer is not None and checkpointer.latest_step() != steps:
+            # the final save, unless this step is already on disk (a
+            # resumed run that made no progress)
+            checkpointer.save(steps, state, wait=True)
+            feed.commit_partitions()
         return state
 
 
@@ -399,6 +422,12 @@ def set_host_group(group):
     """Use ``group`` (a ``gloo`` process group) for :func:`all_hosts_ready`;
     ``None`` means the default group, which must then be ``gloo``."""
     _HOST_GROUP[0] = group
+
+
+def host_group():
+    """The group of :func:`all_hosts_ready` and the checkpoint barriers
+    (``None``: the default group)."""
+    return _HOST_GROUP[0]
 
 
 def all_hosts_ready(local_flag):

@@ -344,10 +344,32 @@ def test_train_on_feed_matches_jax(mgrs, columnar, spe, max_steps):
             mgr.get_queue("input").join()
 
 
-def test_train_on_feed_rejects_checkpointer():
-    trainer = dp.SyncTrainer(lambda p, b, r: 0.0, optim.sgd(0.1))
-    with pytest.raises(NotImplementedError, match="Checkpointing"):
-        trainer.train_on_feed(None, None, 8, checkpointer=object())
+def test_train_on_feed_rejects_checkpointer(tmp_path):
+    """Once a refusal ("Checkpointing"); now the same call takes a
+    checkpointer: a DataFeed-driven run saves its final step and a second
+    call over the same directory resumes from it."""
+    from tensorflowonspark_tpu_torch.checkpoint import Checkpointer
+
+    rows = token_rows(3 * B)
+    mgr, _ = tmanager.start(b"ckpt-feed", ["input", "output", "error"])
+    try:
+        q = mgr.get_queue("input")
+        for row in rows:
+            q.put(row)
+        q.put(None)
+        _, trainer, state = port_trainer(tiny_tree())
+        ck = Checkpointer(tmp_path / "ck")
+        state = trainer.train_on_feed(state, tfeed.DataFeed(mgr),
+                                      batch_size=B, checkpointer=ck)
+        assert int(state.step) == 3 and ck.all_steps() == [3]
+        q.put(None)  # a second feed that ends at once
+        _, trainer, fresh = port_trainer(tiny_tree())
+        resumed = trainer.train_on_feed(fresh, tfeed.DataFeed(mgr),
+                                        batch_size=B, checkpointer=ck)
+        # nothing left to feed: restored, no step taken, no second save
+        assert int(resumed.step) == 3 and ck.all_steps() == [3]
+    finally:
+        mgr.shutdown()
 
 
 def test_all_hosts_ready_at_world_size_one():

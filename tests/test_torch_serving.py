@@ -176,8 +176,8 @@ def test_import_loads_no_jax():
     code = (
         "import sys\n"
         "import tensorflowonspark_tpu_torch\n"
-        "from tensorflowonspark_tpu_torch import compat, convert, optim, "
-        "prefix_cache, serving, serving_engine\n"
+        "from tensorflowonspark_tpu_torch import checkpoint, compat, "
+        "convert, optim, prefix_cache, serving, serving_engine\n"
         "from tensorflowonspark_tpu_torch.models import moe, transformer\n"
         "from tensorflowonspark_tpu_torch.ops import _build, attention, "
         "flash_attention, gmm, moe, paged_attention, ring_attention, "
@@ -190,7 +190,8 @@ def test_import_loads_no_jax():
         "from tensorflowonspark_tpu_torch.data import _native, columnar, "
         "example, feed, preprocess, shm_ring, tfrecord\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'tensorflowonspark_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
+        "'tensorflowonspark_tpu'))\n"
         "assert not bad, bad\n"
         "import torch\n"
         "assert not torch.cuda.is_initialized()\n"

@@ -277,14 +277,44 @@ def test_trainer_takes_a_mesh():
     np.testing.assert_array_equal(got, want)
 
 
-def test_train_on_feed_is_not_ported():
-    """What of ``train_on_feed`` is still not ported: its checkpoint
-    hooks."""
-    trainer = dp.SyncTrainer(lambda p, b, r: 0.0, optim.sgd(0.1))
-    with pytest.raises(NotImplementedError, match="Checkpointing"):
-        trainer.train_on_feed(None, None, 8, checkpointer=object())
-    with pytest.raises(NotImplementedError, match="Checkpointing"):
-        trainer.train_on_feed(None, None, 8, checkpoint_every=2)
+def test_train_on_feed_is_not_ported(tmp_path):
+    """Once the refusal of ``train_on_feed``'s checkpoint hooks
+    ("Checkpointing"); now the same two calls run: ``checkpoint_every``
+    without a checkpointer is ignored, as in the reference, and with one
+    every second step is saved and the final step too."""
+    from tensorflowonspark_tpu_torch.checkpoint import Checkpointer
+
+    class Feed(object):
+        def __init__(self, n):
+            self.left, self.commits = n, 0
+
+        def should_stop(self):
+            return False
+
+        def next_batch(self, batch_size):
+            self.left -= 1
+            return [] if self.left < 0 else [
+                {"tokens": t} for t in _batches()[self.left % STEPS]]
+
+        def commit_partitions(self):
+            self.commits += 1
+            return 0
+
+    model = _port_model(TINY)
+    trainer = dp.SyncTrainer(ttr.loss_fn(model), optim.sgd(0.01))
+    state = trainer.create_state(dict(model.named_parameters()))
+    feed = Feed(2)
+    state = trainer.train_on_feed(state, feed, B, checkpoint_every=2)
+    assert int(state.step) == 2 and feed.commits == 0
+    ck = Checkpointer(tmp_path / "ck", max_to_keep=None)
+    model = _port_model(TINY)
+    trainer = dp.SyncTrainer(ttr.loss_fn(model), optim.sgd(0.01))
+    state = trainer.create_state(dict(model.named_parameters()))
+    feed = Feed(5)
+    state = trainer.train_on_feed(state, feed, B, checkpointer=ck,
+                                  checkpoint_every=2)
+    assert int(state.step) == 5
+    assert ck.all_steps() == [2, 4, 5] and feed.commits == 3
 
 
 def test_train_on_feed_runs_a_tiny_feed():

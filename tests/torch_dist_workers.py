@@ -172,3 +172,87 @@ def load_ranks(out_dir, name, world):
     """The ``.npz`` files ``<name>.<rank>.npz`` of every rank."""
     return [dict(np.load(os.path.join(out_dir, "{0}.{1}.npz".format(
         name, r)))) for r in range(world)]
+
+
+# -- checkpoints -------------------------------------------------------------
+
+#: the tiny Transformer of the checkpoint tests
+CKPT_TINY = dict(vocab_size=256, num_layers=2, num_heads=4, num_kv_heads=2,
+                 head_dim=16, embed_dim=64, mlp_dim=128, max_seq_len=64,
+                 dtype="float32", attention_impl="flash")
+
+
+def checkpoint_worker(rank, world, out_dir, ckpt_dir):
+    """Two steps of the tiny Transformer from rank 0's start, saved at
+    step 2 (rank 0 writes, every rank waits), then restored into a state
+    whose weights each rank perturbed its own way: writes the saved and
+    the restored weights and what this rank saw on disk when ``save``
+    returned, as ``ckpt.<rank>.npz``."""
+    from tensorflowonspark_tpu_torch import checkpoint, convert, optim
+    from tensorflowonspark_tpu_torch.models import transformer as ttr
+    from tensorflowonspark_tpu_torch.parallel import dp
+
+    def trained(seed):
+        torch.manual_seed(seed)
+        model = ttr.Transformer(ttr.TransformerConfig(**CKPT_TINY),
+                                device="cpu", param_dtype=torch.float32)
+        trainer = dp.SyncTrainer(ttr.loss_fn(model), optim.adamw(1e-3))
+        return model, trainer, trainer.create_state(
+            dict(model.named_parameters()))
+
+    model, trainer, state = trained(100 + rank)
+    tokens = np.random.default_rng(5).integers(0, 256, (2, 2, 64))
+    for t in tokens:
+        state, _ = trainer.step(state, {"tokens": t.astype(np.int32)})
+    saved = convert._flatten(convert.tree_from_model(model))
+    ckptr = checkpoint.Checkpointer(ckpt_dir)
+    ckptr.save(2, state, wait=True)
+    on_disk = checkpoint.list_serving_steps(ckpt_dir)
+    ckptr.close()
+
+    model2, _, fresh = trained(200 + rank)
+    with torch.no_grad():
+        for p in model2.parameters():
+            p.add_(float(rank + 1))
+    restored = checkpoint.Checkpointer(ckpt_dir).restore(fresh)
+    got = convert._flatten(convert.tree_from_model(model2))
+    np.savez(os.path.join(out_dir, "ckpt.{0}.npz".format(rank)),
+             on_disk=np.asarray(on_disk), step=int(restored.step),
+             count=int(fresh.opt_state.state[
+                 next(iter(fresh.params.values()))]["count"]),
+             **{"saved/" + k: v for k, v in saved.items()},
+             **{"restored/" + k: v for k, v in got.items()})
+
+
+def resumable_train_fn(args, ctx):
+    """The user fn of the cluster crash-and-resume test (the reference's
+    ``tests/test_checkpoint.py`` ``_resumable_train_fn``, on the port): a
+    linear model trained one step at a time, each step saved; it raises
+    after saving ``args["fail_at"]``, and a restart resumes from the
+    latest step (its batches drawn anew from the seed, as the
+    reference's).  A run that completes writes ``w-final.npy``."""
+    from tensorflowonspark_tpu_torch import checkpoint, optim
+    from tensorflowonspark_tpu_torch.parallel import dp
+
+    def loss(params, batch, rng):
+        x, y = batch
+        return ((x @ params["w"] - y) ** 2).mean()
+
+    trainer = dp.SyncTrainer(loss, optim.sgd(0.05))
+    state = trainer.create_state({"w": torch.zeros(2, requires_grad=True)})
+    ckptr = checkpoint.Checkpointer(args["dir"], max_to_keep=None)
+    latest = ckptr.latest_step()
+    if latest is not None:
+        state = ckptr.restore(state, step=latest)
+    rng = np.random.RandomState(0)
+    w_true = np.array([3.0, -1.0], np.float32)
+    for _ in range(int(state.step), args["total_steps"]):
+        x = rng.rand(16, 2).astype(np.float32)
+        state, _ = trainer.step(state, (x, (x @ w_true).astype(np.float32)))
+        ckptr.save(int(state.step), state, wait=True)
+        if args["fail_at"] is not None and int(state.step) == args["fail_at"]:
+            ckptr.close()
+            raise RuntimeError("injected crash at step %d" % args["fail_at"])
+    ckptr.close()
+    np.save(os.path.join(args["dir"], "w-final.npy"),
+            state.params["w"].detach().numpy())
