@@ -153,6 +153,28 @@ caught):
     in-memory ones, with K1 launched on every decode step.  Prints the
     save, restore, export and load seconds and GB/s, bytes on disk, the
     disk's free bytes before the phase and run 2's tokens/s.
+22. ``elastic_flagship``: elastic supervision.  ``cluster.run(
+    LocalEngine(1), elastic_flagship_fn, elastic=True, max_restarts=1,
+    heartbeat_interval=0.5, num_chips_per_node=1)`` trains the flagship
+    (f32 masters, ``adamw(1e-4)``, flash) on ``feed_train_flagship``'s 32
+    rows, one batch of 8 per partition, for three epochs, through
+    ``train_on_feed(checkpointer=Checkpointer(d, max_to_keep=2),
+    checkpoint_every=4)``; a ``ChaosPlan().kill_worker(0, at_step=6)``
+    SIGKILLs the compute process before step 7.  Checks: the node reaches
+    generation 1 with one restart and the run completes; the reborn
+    process restored step 4; every partition id is committed in the
+    node's ledger and none is pending; the batches trained on the
+    surviving trajectory cover every batch of every epoch and their
+    repeats are of requeued partitions (uncommitted at the kill),
+    covering the dead incarnation's steps 5-6; the reborn losses equal,
+    to the bit, those of a ``SyncTrainer`` in this process that restores
+    the same checkpoint and takes the same logged batches in order; both
+    incarnations run on the card ``gpu_info`` chose; K2-K4 launch 16
+    times per step each incarnation took.  Prints the recovery's parts
+    in seconds (kill, the monitor's sight of the death, REBIRTH, the
+    re-registration after the queue resets, the barrier and spawn, the
+    process start, model and restore, the first reborn step) and the
+    saves' seconds.
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit
 line, and as the last line ``{"ok": true, "device": {...}}``.  Without a
@@ -169,17 +191,23 @@ after training; ``phase_sp_train_flagship(4)`` (not run by it either;
 four cards) trains the flagship sequence-parallel at S=8192 (ring with
 and without a window, Ulysses, and a data x seq mesh) through
 ``cluster.run`` and ``SyncTrainer(mesh=)``, and holds the ranks' losses
-and weights equal and the losses to one card's full-sequence run.  NCCL
+and weights equal and the losses to one card's full-sequence run;
+``phase_elastic_dp(4)`` (not run by it either; four cards) kills rank 1
+of four NCCL ranks mid-training under ``elastic=True`` and holds every
+rank to one generation, equal weights, committed partitions and its
+card in both generations.  NCCL
 refuses two ranks on one card, so :func:`main` holds the ring's per-hop
 arithmetic on one card instead (``ring_flagship``).
 """
 
 import json
+import logging
 import os
 import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -3461,6 +3489,532 @@ def phase_checkpoint_resume_serve(train):
     return line
 
 
+# ----------------------------------------------------------------------
+# elastic supervision (phase 22, and phase_elastic_dp on four cards)
+# ----------------------------------------------------------------------
+
+#: the elastic phases' checkpoint spacing, kill step and epochs: saves at
+#: steps 4, 8 and 12, the kill before step 7, so the reborn process
+#: restores step 4 and the dead one's steps 5 and 6 are trained again
+ELASTIC_CKPT_EVERY, ELASTIC_KILL_STEP, ELASTIC_EPOCHS = 4, 6, 3
+
+
+def token_fp(tokens):
+    """sha256 of a token batch's bytes (int32): the id of a batch in the
+    elastic fns' step logs."""
+    import hashlib
+
+    return hashlib.sha256(
+        np.ascontiguousarray(tokens, dtype=np.int32).tobytes()).hexdigest()
+
+
+class StepLog(object):
+    """One JSON line per event, written and flushed at once, with the
+    wall clock: what a process leaves behind when it is SIGKILLed."""
+
+    def __init__(self, path):
+        self._f = open(path, "a")
+
+    def __call__(self, event, **fields):
+        self._f.write(json.dumps(dict(fields, event=event,
+                                      t=time.time())) + "\n")
+        self._f.flush()
+
+
+def read_log(path):
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def elastic_model(config, device, seeded=True):
+    """The model of the elastic phase (f32 masters, flash attention), its
+    ``SyncTrainer(adamw(1e-4))`` and a fresh state: what each incarnation
+    trains, from the seed-0 tree, and what the driver replays from a
+    checkpoint over torch's own init (``seeded=False``: the restore must
+    overwrite every tensor for the replay to agree)."""
+    from tensorflowonspark_tpu_torch import convert, optim
+    from tensorflowonspark_tpu_torch.models import transformer
+    from tensorflowonspark_tpu_torch.parallel import dp
+
+    cfg = transformer.TransformerConfig(**dict(config,
+                                               attention_impl="flash"))
+    if seeded:
+        model = convert.params_from_flax(
+            convert.init_params_tree(
+                transformer.TransformerConfig(**config), seed=0),
+            cfg, device=device, param_dtype=torch.float32)
+    else:
+        model = transformer.Transformer(cfg, device=device,
+                                        param_dtype=torch.float32)
+    trainer = dp.SyncTrainer(transformer.loss_fn(model), optim.adamw(1e-4))
+    return trainer, trainer.create_state(dict(model.named_parameters()))
+
+
+def elastic_flagship_fn(args, ctx):
+    """The user fn of ``elastic_flagship``, run in the compute process of
+    each incarnation: :func:`elastic_model` trained from the node's feed
+    by ``train_on_feed`` with a ``Checkpointer`` (every
+    :data:`ELASTIC_CKPT_EVERY` steps, two kept) and the chaos plan's kill
+    hook.  It logs to ``<log>/gen<g>.jsonl``: ``start`` and ``model``,
+    ``restored`` (a process that restored a checkpoint also hard-links
+    that step under ``args["keep"]``), ``saved``, ``group`` before each
+    step (the kill hook runs right after it), ``step`` after it (the
+    batch's fingerprint, the loss read on the host, the flash launch
+    counts so far) and ``end``."""
+    log = StepLog(os.path.join(args["log"], "gen%d.jsonl" % ctx.generation))
+    log("start", pid=os.getpid(),
+        cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"))
+    from tensorflowonspark_tpu_torch import checkpoint, compat
+    from tensorflowonspark_tpu_torch.ops import _build
+    from tensorflowonspark_tpu_torch.ops.flash_attention import (
+        flash_attention,
+    )
+    from tensorflowonspark_tpu_torch.testing import chaos
+
+    device = compat.resolve_device(args["device"])
+    if device.type == "cuda":
+        _build.build(["flash_attention"])
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    feed = ctx.get_data_feed()
+    trainer, state = elastic_model(args["config"], device)
+    sync()
+    log("model", device=(torch.cuda.get_device_name(device)
+                         if device.type == "cuda" else "cpu"),
+        uuid=card_uuid(device) if device.type == "cuda" else None)
+    ckptr = checkpoint.Checkpointer(args["ckpt"], max_to_keep=2)
+    save, restore = ckptr.save, ckptr.restore
+
+    def logged_restore(state_like, step=None):
+        step = ckptr.latest_step() if step is None else step
+        out = restore(state_like, step=step)
+        sync()
+        log("restored", step=int(step))
+        shutil.copytree(os.path.join(args["ckpt"], str(step)),
+                        os.path.join(args["keep"], str(step)),
+                        copy_function=os.link)
+        return out
+
+    def logged_save(step, state, wait=False):
+        sync()
+        t0 = time.perf_counter()
+        out = save(step, state, wait=wait)
+        log("saved", step=int(step), sec=time.perf_counter() - t0)
+        return out
+
+    ckptr.save, ckptr.restore = logged_save, logged_restore
+    fps = []
+    place = trainer._place
+
+    def logged_place(batch):
+        fps.append(token_fp(batch["tokens"]))
+        return place(batch)
+
+    trainer._place = logged_place
+    fault = chaos.step_fault_fn(ctx)
+
+    def before(step):
+        log("group", step=step)
+        fault(step)
+
+    def after(step, metrics):
+        log("step", step=step, fp=fps[-1], loss=float(metrics["loss"]),
+            launches=dict(flash_attention.launches))
+
+    flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
+    state = trainer.train_on_feed(
+        state, feed, batch_size=args["batch"], columnar=True,
+        checkpointer=ckptr, checkpoint_every=ELASTIC_CKPT_EVERY,
+        step_callback=before, metrics_callback=after)
+    ckptr.close()
+    log("end", steps=int(state.step), launches=dict(flash_attention.launches))
+
+
+class RequeueLog(logging.Handler):
+    """The driver's requeue rounds: ``(wall time, partition ids)``."""
+
+    def __init__(self):
+        super(RequeueLog, self).__init__(logging.WARNING)
+        self.rounds = []
+
+    def emit(self, record):
+        if record.msg.startswith("elastic requeue round"):
+            self.rounds.append((record.created, list(record.args[2])))
+
+
+class RecoveryWatch(object):
+    """Polls the driver's side of a one-node rebirth every 10 ms and
+    keeps the wall time each stage was first seen: ``dead`` (the
+    monitor's recovery window opened), ``rebirth`` (the server's
+    generation rose: REBIRTH), ``register`` (the node's REG under the new
+    generation, after its queue resets) and ``spawn`` (the node's kv
+    holds the new generation: the barrier passed, the process started)."""
+
+    def __init__(self, c):
+        from tensorflowonspark_tpu_torch.cluster import manager
+
+        self.c = c
+        node = c.cluster_info[0]
+        self._mgr = manager.connect(tuple(node["addr"]),
+                                    bytes.fromhex(node["authkey"]))
+        self.marks = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def start(self):
+        self._thread.start()
+        return self
+
+    def _seen(self, name, cond):
+        if name not in self.marks and cond():
+            self.marks[name] = time.time()
+
+    def _run(self):
+        c = self.c
+        while not self._stop.wait(0.01):
+            self._seen("dead", lambda: bool(c.monitor._first_dead))
+            self._seen("rebirth", lambda: c.server.generation >= 1)
+            self._seen("register", lambda: any(
+                r.get("generation") for r in c.server.reservations.get()))
+            self._seen("spawn", lambda: (
+                self._mgr.get("generation")._getvalue() or 0) >= 1)
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join()
+
+
+def elastic_replay(config, device, keep, step, batches):
+    """The reborn incarnation's trajectory in this process: the model
+    restored from checkpoint ``step`` under ``keep`` and stepped through
+    ``batches`` in order; returns the losses read on the host."""
+    from tensorflowonspark_tpu_torch import checkpoint
+
+    trainer, state = elastic_model(config, device, seeded=False)
+    state = checkpoint.Checkpointer(keep).restore(state, step=step)
+    losses = []
+    for tokens in batches:
+        state, metrics = trainer.step(state, {"tokens": tokens})
+        losses.append(float(metrics["loss"]))
+    del trainer, state
+    return losses
+
+
+def phase_elastic_flagship(config=FLAGSHIP, chips=1, device=None):
+    """Elastic supervision: see the module docstring, phase 22.  The
+    defaults are the phase; ``chips=None, device="cpu"`` with a small
+    ``config`` rehearses it on the CPU (where no kernel launches)."""
+    import importlib
+    import tempfile
+
+    from tensorflowonspark_tpu_torch.cluster import cluster, manager
+    from tensorflowonspark_tpu_torch.engine import LocalEngine
+    from tensorflowonspark_tpu_torch.testing import chaos
+
+    t_phase = time.perf_counter()
+    on_card = device is None
+    if on_card:
+        gc_collect()
+    smoke = importlib.import_module("chip_smoke")
+    chosen, chosen_uuid = gpu_choice() if chips else (None, None)
+    rng = np.random.default_rng(7)  # flagship_trainer's tokens, as rows
+    tokens = rng.integers(0, config["vocab_size"],
+                          (TRAIN_K, TRAIN_B, config["max_seq_len"])
+                          ).astype(np.int32)
+    by_fp = {token_fp(t): t for t in tokens}
+    batch_of = {token_fp(t): i for i, t in enumerate(tokens)}
+    parts = [[{"tokens": r} for r in t] for t in tokens]
+    tmp = tempfile.mkdtemp(prefix="elastic_flagship_")
+    requeues = RequeueLog()
+    driver_log = logging.getLogger(cluster.__name__)
+    try:
+        free_before = shutil.disk_usage(tmp).free
+        log_dir, keep = os.path.join(tmp, "log"), os.path.join(tmp, "keep")
+        os.makedirs(log_dir)
+        os.makedirs(keep)
+        args = {"log": log_dir, "keep": keep, "ckpt": os.path.join(tmp, "ckpt"),
+                "batch": TRAIN_B, "config": config, "device": device}
+        plan = chaos.ChaosPlan().kill_worker(0, at_step=ELASTIC_KILL_STEP)
+        engine = LocalEngine(1, env=plan.env(plan.save(
+            os.path.join(tmp, "plan.json"))))
+        driver_log.addHandler(requeues)
+        try:
+            t0 = time.perf_counter()
+            c = cluster.run(engine, smoke.elastic_flagship_fn, args,
+                            num_executors=1, num_chips_per_node=chips,
+                            elastic=True, max_restarts=1,
+                            heartbeat_interval=0.5, reservation_timeout=120)
+            watch = RecoveryWatch(c).start()
+            c.train(parts, num_epochs=ELASTIC_EPOCHS, feed_timeout=600)
+            c.shutdown(timeout=600)
+            watch.stop()
+            run_sec = time.perf_counter() - t0
+            node = c.cluster_info[0]
+            m = manager.connect(tuple(node["addr"]),
+                                bytes.fromhex(node["authkey"]))
+            ledger = m.ledger("snapshot")._getvalue()
+            restarts = m.get("restarts")._getvalue()
+            generation = c.server.generation
+        finally:
+            driver_log.removeHandler(requeues)
+            engine.stop()
+        gens = [read_log(os.path.join(log_dir, "gen%d.jsonl" % g))
+                for g in range(generation + 1)]
+        steps = [[r for r in g if r["event"] == "step"] for g in gens]
+        restored = [r["step"] for r in gens[-1] if r["event"] == "restored"]
+        if on_card:
+            gc_collect()
+        t1 = time.perf_counter()
+        replayed = (elastic_replay(config, device, keep, restored[0],
+                                   [by_fp[r["fp"]] for r in steps[1]])
+                    if len(gens) == 2 and len(restored) == 1 else None)
+        replay_sec = time.perf_counter() - t1
+        if on_card:
+            gc_collect()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gen0, gen1 = gens[0], gens[-1]
+    first = {name: next((r for r in g if r["event"] == name), None)
+             for g, name in ((gen1, "start"), (gen1, "model"),
+                             (gen1, "restored"))}
+    kill = [r for r in gen0 if r["event"] == "group"][-1]
+    first_step = steps[-1][0] if steps[-1] else None
+    marks = dict(watch.marks, kill=kill["t"], start=first["start"]["t"],
+                 model=first["model"]["t"], restored=first["restored"]["t"],
+                 first_step=first_step["t"])
+    if requeues.rounds:
+        marks["requeue"] = requeues.rounds[0][0]
+    # the node's chain is sequential; the monitor's sight of the death
+    # and the driver's requeue run beside it
+    chain = ("kill", "rebirth", "register", "spawn", "start", "model",
+             "restored", "first_step")
+    recovery = {"{0}_to_{1}".format(a, b): marks[b] - marks[a]
+                for a, b in zip(chain, chain[1:])}
+    recovery_at = {k: marks[k] - marks["kill"] for k in sorted(
+        marks, key=marks.get)}
+    # check 4: the surviving trajectory (the dead incarnation's steps up
+    # to the restored checkpoint, then the reborn's) trains every batch
+    # of every epoch; its repeats are of requeued partitions, which were
+    # uncommitted at the kill, and cover what the dead one trained past
+    # the checkpoint
+    from collections import Counter
+
+    step0 = restored[0] if restored else 0
+    effective = Counter(r["fp"] for r in steps[0][:step0] + steps[-1])
+    want = Counter({fp: ELASTIC_EPOCHS for fp in by_fp})
+    requeued = Counter(token_fp(tokens[int(pid.split("p")[1])])
+                       for _, pids in requeues.rounds for pid in pids)
+    lost = Counter(r["fp"] for r in steps[0][step0:])
+    pids = {"e{0}p{1}".format(e, i) for e in range(ELASTIC_EPOCHS)
+            for i in range(TRAIN_K)}
+    layers = config["num_layers"]
+    saves = [r for g in gens for r in g if r["event"] == "saved"]
+    line = dict(
+        model=dict(config), steps_per_incarnation=[len(s) for s in steps],
+        kill_step=ELASTIC_KILL_STEP, checkpoint_every=ELASTIC_CKPT_EVERY,
+        generation=generation, restarts=restarts, restored_step=restored,
+        batches_trained=[[batch_of[r["fp"]] for r in s] for s in steps],
+        requeued=[pids for _, pids in requeues.rounds],
+        ledger_pending=sorted(p for p, st in ledger.items()
+                              if st != "committed"),
+        ledger_committed=len([p for p, st in ledger.items()
+                              if st == "committed"]),
+        reborn_losses=[r["loss"] for r in steps[-1]],
+        replay_losses=replayed,
+        losses_equal_to_the_bit=replayed == [r["loss"] for r in steps[-1]],
+        launches=[s[-1]["launches"] if s else None for s in steps],
+        end_launches=[r for r in gen1 if r["event"] == "end"][-1]["launches"]
+        if any(r["event"] == "end" for r in gen1) else None,
+        cuda_visible_devices=[g[0]["cuda_visible_devices"] for g in gens],
+        compute_uuid=[next(r["uuid"] for r in g if r["event"] == "model")
+                      for g in gens],
+        chosen_gpus=chosen, chosen_uuid=chosen_uuid,
+        recovery_sec=recovery, recovery_at_sec=recovery_at, save_sec=[r["sec"] for r in saves],
+        saved_steps=[r["step"] for r in saves], run_sec=run_sec,
+        replay_sec=replay_sec, free_bytes_before=free_before,
+        phase_sec=time.perf_counter() - t_phase,
+        nvidia_smi=nvidia_smi() if on_card else None,
+    )
+    emit("elastic_flagship", **line)
+    if generation != 1 or restarts != 1 or not any(
+            r["event"] == "end" for r in gen1):
+        raise AssertionError("generation {0} after {1} restarts; the reborn "
+                             "process did not finish".format(generation,
+                                                             restarts))
+    if restored != [ELASTIC_CKPT_EVERY] or [r["step"] for r in steps[0]] \
+            != list(range(1, ELASTIC_KILL_STEP + 1)):
+        raise AssertionError("restored {0}; the dead incarnation took steps "
+                             "{1}".format(restored,
+                                          [r["step"] for r in steps[0]]))
+    if line["ledger_pending"] or set(ledger) != pids:
+        raise AssertionError("ledger {0}".format(ledger))
+    if want - effective or (effective - want) - requeued \
+            or lost - requeued or not requeues.rounds:
+        raise AssertionError("batches trained {0}, requeued {1}".format(
+            line["batches_trained"], line["requeued"]))
+    if not line["losses_equal_to_the_bit"]:
+        raise AssertionError("the reborn losses differ from the replay's")
+    if chips and (line["cuda_visible_devices"] != [",".join(
+            map(str, chosen))] * 2 or line["compute_uuid"]
+            != [chosen_uuid] * 2):
+        raise AssertionError("incarnations ran on {0} (visible {1}), "
+                             "gpu_info chose {2}".format(
+                                 line["compute_uuid"],
+                                 line["cuda_visible_devices"], chosen))
+    want_launches = [{n: layers * len(s) for n in ("fwd", "dq", "dkv")}
+                     for s in steps]
+    if line["launches"] != want_launches \
+            or line["end_launches"] != want_launches[-1]:
+        raise AssertionError("flash launches {0}, want {1}".format(
+            line["launches"], want_launches))
+    return line
+
+
+def elastic_dp_fn(args, ctx):
+    """The user fn of :func:`phase_elastic_dp`: a linear model trained
+    from the node's feed under ``torch.distributed`` (NCCL, joined anew in
+    every generation) with averaged gradients, a ``Checkpointer`` and the
+    chaos plan's kill hook.  Logs to ``<log>/gen<g>.rank<r>.jsonl``:
+    ``start`` (rank, backend, card) and, at the end, the step count and
+    the digest of the weights."""
+    from tensorflowonspark_tpu_torch import checkpoint, compat, optim
+    from tensorflowonspark_tpu_torch.parallel import dp
+    from tensorflowonspark_tpu_torch.testing import chaos
+
+    dist = ctx.initialize_distributed()
+    device = compat.resolve_device()
+    log = StepLog(os.path.join(args["log"], "gen{0}.rank{1}.jsonl".format(
+        ctx.generation, dist.get_rank())))
+    log("start", rank=dist.get_rank(), world=dist.get_world_size(),
+        backend=dist.get_backend(), pid=os.getpid(),
+        cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"),
+        uuid=card_uuid(device))
+    torch.manual_seed(0)
+    model = torch.nn.Linear(4, 1).to(device)
+
+    def loss_fn(params, batch, rng):
+        x, y = batch
+        return torch.mean((x @ params["weight"].T + params["bias"] - y) ** 2)
+
+    trainer = dp.SyncTrainer(loss_fn, optim.sgd(0.1))
+    state = trainer.create_state(dict(model.named_parameters()))
+    ckptr = checkpoint.Checkpointer(args["ckpt"], max_to_keep=2)
+    state = trainer.train_on_feed(
+        state, ctx.get_data_feed(), batch_size=4, columnar=True,
+        checkpointer=ckptr, checkpoint_every=ELASTIC_CKPT_EVERY,
+        step_callback=chaos.step_fault_fn(ctx))
+    ckptr.close()
+    log("end", steps=int(state.step), weights=params_digest(
+        model.parameters()))
+    dist.destroy_process_group()
+
+
+def phase_elastic_dp(n=4):
+    """Not run by :func:`main` (``n`` cards): ``n`` executors with a card
+    each under ``elastic=True, max_restarts=1``, :func:`elastic_dp_fn`
+    fed four batches per rank and epoch for three epochs, rank 1 killed
+    before step 7.  Every rank must reach the same generation (1) within
+    its restart budget, the ranks' weights must be equal at the end,
+    every partition must be committed, and each rank must hold the card
+    that ``gpu_info`` gave its executor in both generations.  Prints each
+    node's restarts: a survivor with one spent it on its own death (its
+    compute process failed before it parked)."""
+    import importlib
+    import tempfile
+
+    from tensorflowonspark_tpu_torch.cluster import cluster, gpu_info, manager
+    from tensorflowonspark_tpu_torch.engine import LocalEngine
+    from tensorflowonspark_tpu_torch.testing import chaos
+
+    smoke = importlib.import_module("chip_smoke")
+    pool = {_bare_uuid(g["uuid"]): str(g["id"])
+            for g in gpu_info.allocatable_gpus()}
+    gen = np.random.default_rng(0)
+    parts = [[(gen.standard_normal(4).astype(np.float32),
+               gen.standard_normal(1).astype(np.float32))
+              for _ in range(4)] for _ in range(4 * n)]
+    tmp = tempfile.mkdtemp(prefix="elastic_dp_")
+    requeues = RequeueLog()
+    driver_log = logging.getLogger(cluster.__name__)
+    try:
+        log_dir = os.path.join(tmp, "log")
+        os.makedirs(log_dir)
+        plan = chaos.ChaosPlan().kill_worker(1, at_step=ELASTIC_KILL_STEP)
+        engine = LocalEngine(n, env=plan.env(plan.save(
+            os.path.join(tmp, "plan.json"))), deterministic=True)
+        driver_log.addHandler(requeues)
+        try:
+            t0 = time.perf_counter()
+            c = cluster.run(engine, smoke.elastic_dp_fn,
+                            {"log": log_dir, "ckpt": os.path.join(tmp, "c")},
+                            num_executors=n, num_chips_per_node=1,
+                            elastic=True, max_restarts=1,
+                            heartbeat_interval=0.5, reservation_timeout=120)
+            c.train(parts, num_epochs=ELASTIC_EPOCHS, feed_timeout=300)
+            c.shutdown(timeout=300)
+            wall = time.perf_counter() - t0
+            nodes = sorted(c.cluster_info, key=lambda x: x["executor_id"])
+            mgrs = [manager.connect(tuple(x["addr"]),
+                                    bytes.fromhex(x["authkey"]))
+                    for x in nodes]
+            ledgers = [m.ledger("snapshot")._getvalue() for m in mgrs]
+            restarts = [m.get("restarts")._getvalue() for m in mgrs]
+            generation = c.server.generation
+        finally:
+            driver_log.removeHandler(requeues)
+            engine.stop()
+        logs = {(g, r): read_log(os.path.join(
+            log_dir, "gen{0}.rank{1}.jsonl".format(g, r)))
+            for g in range(generation + 1) for r in range(n)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ends = [[e for e in logs[(generation, r)] if e["event"] == "end"]
+            for r in range(n)]
+    starts = {k: v[0] for k, v in logs.items() if v}
+    committed = set()
+    for ledger in ledgers:
+        committed |= {p for p, st in ledger.items() if st == "committed"}
+    pids = {"e{0}p{1}".format(e, i) for e in range(ELASTIC_EPOCHS)
+            for i in range(4 * n)}
+    line = dict(
+        executors=n, wall_sec=wall, generation=generation,
+        restarts=restarts, requeued=[p for _, p in requeues.rounds],
+        steps=[e[-1]["steps"] if e else None for e in ends],
+        weights=[e[-1]["weights"] if e else None for e in ends],
+        committed=len(committed & pids), partitions=len(pids),
+        cards={"gen{0}.rank{1}".format(*k): [v["cuda_visible_devices"],
+                                             v["uuid"], v["backend"]]
+               for k, v in sorted(starts.items())},
+        pool=pool, nvidia_smi=nvidia_smi(),
+    )
+    emit("elastic_dp", **line)
+    if generation != 1 or any(not e for e in ends):
+        raise AssertionError("generation {0}; ranks that did not finish at "
+                             "it: {1}".format(generation, [
+                                 r for r in range(n) if not ends[r]]))
+    if any(r is None or r > 1 for r in restarts) or restarts[1] != 1:
+        raise AssertionError("restarts {0} (budget 1)".format(restarts))
+    if len(set(line["weights"])) != 1 or len(set(line["steps"])) != 1:
+        raise AssertionError("the ranks' weights or steps differ at the end")
+    if committed != pids:
+        raise AssertionError("uncommitted partitions: {0}".format(
+            sorted(pids - committed)))
+    for g in range(generation + 1):
+        cards = [starts.get((g, r)) for r in range(n)]
+        if any(s is None for s in cards) or len({s["uuid"] for s in cards}) \
+                != n or any(pool.get(s["uuid"]) != s["cuda_visible_devices"]
+                            for s in cards):
+            raise AssertionError("generation {0}: the ranks do not hold one "
+                                 "distinct card each, the one gpu_info "
+                                 "chose".format(g))
+    return line
+
+
 def global_stop_fn(args, ctx):
     """The user fn of :func:`phase_feed_global_stop`: a linear model
     trained from the node's feed under ``torch.distributed``, then one
@@ -3899,6 +4453,7 @@ def main():
     ring = phase_feed_ring_train_flagship(train)
     inference = phase_feed_inference_flagship()
     resumed = phase_checkpoint_resume_serve(train)
+    elastic = phase_elastic_flagship()
     jax_flash = "tensorflowonspark_tpu/ops/flash_attention.py:"
     jax_gmm = "tensorflowonspark_tpu/ops/gmm.py:"
     print(json.dumps({"kernels": [dict(
@@ -3920,6 +4475,7 @@ def main():
                      ring_fed_launches=ring["launches"][name],
                      inference_launches=inference["launches"][name],
                      resume_launches=resumed["resume_launches"][name],
+                     elastic_launches=[g[name] for g in elastic["launches"]],
                      ring_attention_launches=ring_hops["launches"][name],
                      **{"offset_" + k: offset[name][k] for k in (
                          "ms", "plain_ms", "bound_ms", "bound_by",

@@ -9,16 +9,22 @@ returns a :class:`TPUCluster` handle with ``train``, ``train_stream``,
 Shutdown is driver-direct: every node manager is reachable over TCP, so
 the driver posts the end-of-feed sentinels and collects errors itself.
 A :class:`ClusterMonitor` watches the heartbeat registry and fails the
-feed within seconds of a worker's death, naming the executor.
+feed within seconds of a worker's death, naming the executor.  With
+``elastic=True`` a death opens a recovery window instead: the node's
+supervisor respawns the compute process under a new generation, and
+``train`` requeues every partition that no checkpoint committed.
 
-Not ported (ROADMAP queue A): ``elastic=True`` with partition requeue,
-parameter-server and evaluator nodes (``num_ps``, ``driver_ps_nodes``,
-``eval_node``), the planner (``plan``), profiling and tensorboard, the
-health, remediation and journal planes, and Spark's native datasets
-(there is no ``SparkEngine``: partitions are lists or zero-argument
-callables, and a stream's micro-batches are duck-typed RDDs).
+Not ported (ROADMAP queue A): remediation holds (``hold_executor``,
+``release_executor``), parameter-server and evaluator nodes (``num_ps``,
+``driver_ps_nodes``, ``eval_node``), the planner (``plan``), profiling
+and tensorboard, the health, remediation and journal planes, and Spark's
+native datasets (there is no ``SparkEngine``: partitions are lists or
+zero-argument callables, and a stream's micro-batches are duck-typed
+RDDs).
 """
 
+import functools
+import itertools
 import logging
 import pickle
 import queue as _queue_mod
@@ -27,6 +33,7 @@ import time
 import uuid
 
 from . import manager, node, reservation
+from .marker import PartitionStart
 from ..utils import not_ported as _not_ported
 
 logger = logging.getLogger(__name__)
@@ -44,20 +51,34 @@ class DeadExecutorError(RuntimeError):
 
 class ClusterMonitor(object):
     """Driver-side liveness watcher over the rendezvous server's
-    heartbeat registry (non-elastic: the first dead executor is a
-    permanent failure).
+    heartbeat registry.
 
-    Polls ``server.liveness`` every half heartbeat interval; :meth:`check`
-    then raises :class:`DeadExecutorError` naming the node, with the
-    node's error-queue traceback when one is reachable.
+    Polls ``server.liveness`` every half heartbeat interval:
+
+    - ``elastic=False``: the first dead executor is a permanent failure;
+      :meth:`check` raises :class:`DeadExecutorError` naming the node,
+      with the node's error-queue traceback when one is reachable.
+    - ``elastic=True``: a death opens a recovery window of
+      ``recovery_timeout`` seconds.  A raised generation or resumed
+      beats close it (each generation step counts in
+      ``restart_events``, the feed loop's cue to requeue uncommitted
+      partitions); an executor still dead past the window is a
+      permanent failure.
     """
 
-    def __init__(self, server, cluster_info, error_peek=None):
+    def __init__(self, server, cluster_info, elastic=False,
+                 recovery_timeout=120.0, error_peek=None):
         self.server = server
         self.cluster_info = cluster_info
+        self.elastic = bool(elastic)
+        self.recovery_timeout = float(recovery_timeout)
         self.error = None
         self.dead_executor_id = None
+        #: per-executor generation steps observed so far (monotonic)
+        self.restart_events = 0
         self._by_id = {n["executor_id"]: n for n in cluster_info}
+        self._first_dead = {}
+        self._known_gen = {}
         self._error_peek = error_peek  # fn(node_meta) -> str | None
         self._stop = threading.Event()
         self._thread = None
@@ -82,18 +103,40 @@ class ClusterMonitor(object):
                 return
 
     def _poll(self):
-        for eid, diag in sorted(self.server.liveness.dead().items()):
-            self._fail(eid, diag)
-            return
+        for eid_s, rec in self.server.liveness.snapshot().items():
+            eid = int(eid_s)
+            known = self._known_gen.get(eid, 0)
+            if rec["generation"] > known:
+                self.restart_events += rec["generation"] - known
+                self._known_gen[eid] = rec["generation"]
+                logger.info("monitor: executor %d reborn at generation %d",
+                            eid, rec["generation"])
+        dead = self.server.liveness.dead()
+        now = time.monotonic()
+        for eid in list(self._first_dead):
+            if eid not in dead:
+                logger.info("monitor: executor %d recovered", eid)
+                self._first_dead.pop(eid)
+        for eid, diag in sorted(dead.items()):
+            if not self.elastic:
+                self._fail(eid, diag)
+                return
+            first = self._first_dead.setdefault(eid, now)
+            if now - first > self.recovery_timeout:
+                self._fail(eid, dict(
+                    diag, reason="{0}; no recovery within the {1:.0f}s "
+                    "elastic window".format(diag["reason"],
+                                            self.recovery_timeout)))
+                return
 
     def _fail(self, eid, diag):
         node_meta = self._by_id.get(eid, {})
         msg = ("executor {0} (host {1}, {2}:{3}) declared dead: {4} "
-               "[last heartbeat {5:.1f}s ago]".format(
+               "[last heartbeat {5:.1f}s ago, generation {6}]".format(
                    eid, diag.get("host") or node_meta.get("host", "?"),
                    node_meta.get("job_name", "?"),
                    node_meta.get("task_index", "?"),
-                   diag["reason"], diag["age"]))
+                   diag["reason"], diag["age"], diag.get("generation", 0)))
         # the user should see WHY it died, not just THAT it died
         if self._error_peek is not None and node_meta:
             try:
@@ -107,7 +150,8 @@ class ClusterMonitor(object):
         self.dead_executor_id = eid
 
     def check(self):
-        """Raise :class:`DeadExecutorError` if a failure was detected."""
+        """Raise :class:`DeadExecutorError` if a permanent failure was
+        detected; feed loops call it every poll."""
         if self.error is not None:
             raise DeadExecutorError(self.error, self.dead_executor_id)
 
@@ -153,8 +197,12 @@ class TPUCluster(object):
         self.queues = queues
         self._owns_engine = owns_engine
         self.cluster_id = cluster_meta["id"]
+        self.elastic = bool(cluster_meta.get("elastic", False))
         #: liveness watcher (started by run())
         self.monitor = monitor
+        #: elastic feeding: partitions fed (this epoch or an earlier one)
+        #: that no checkpoint has committed yet, id -> partition
+        self._uncommitted = {}
 
     # -- data plane ----------------------------------------------------
 
@@ -167,6 +215,11 @@ class TPUCluster(object):
           num_epochs: epochs are fed by re-running the feed job.
           feed_timeout: seconds a feed task waits for its rows to be
             consumed before it fails.
+
+        On an elastic cluster every partition leads with its
+        :class:`~.marker.PartitionStart` (id ``"e<epoch>p<index>"``),
+        and after a restart the partitions that no checkpoint committed
+        are fed again (at-least-once).
         """
         assert self.input_mode == InputMode.SPARK, (
             "train() requires InputMode.SPARK")
@@ -177,8 +230,11 @@ class TPUCluster(object):
         data = [p if callable(p) else list(p) for p in data]
         logger.info("feeding %d partitions x %d epochs", len(data),
                     num_epochs)
-        for _ in range(num_epochs):
-            self._run_feed_monitored(feed_fn, data)
+        for epoch in range(num_epochs):
+            if self.elastic:
+                self._feed_epoch_elastic(feed_fn, data, epoch)
+            else:
+                self._run_feed_monitored(feed_fn, data)
 
     def train_stream(self, batches, feed_timeout=600, qname="input"):
         """Feed a stream of micro-batches, each a list of partitions fed
@@ -239,6 +295,132 @@ class TPUCluster(object):
         if lazy:
             return self.engine.run_job_lazy(feed_fn, data)
         return self.engine.run_job(feed_fn, data, collect=True)
+
+    def _check_monitor(self):
+        if self.monitor is not None:
+            self.monitor.check()
+
+    def _feed_epoch_elastic(self, feed_fn, partitions, epoch):
+        """Feed one epoch with partition requeue: every partition leads
+        with a PartitionStart marker feeding the node's ledger; after a
+        restart event, the partitions no checkpoint committed are fed
+        again, for at most ``max_restarts`` rounds.  Those include
+        partitions of earlier epochs: a feeder may deliver a partition
+        just after the checkpoint that holds its rows was committed, and
+        a rebirth discards every partition not committed."""
+        pending = {"e{0}p{1}".format(epoch, i): p
+                   for i, p in enumerate(partitions)}
+        seen_restarts = (self.monitor.restart_events
+                         if self.monitor is not None else 0)
+        max_rounds = 1 + int(self.cluster_meta["max_restarts"])
+        for round_no in range(max_rounds):
+            if round_no:
+                self._await_respawn()
+                logger.warning("elastic requeue round %d: re-feeding %d "
+                               "uncommitted partition(s): %s", round_no,
+                               len(pending), sorted(pending))
+            self._uncommitted.update(pending)
+            wrapped = [_with_partition_marker(pid, p)
+                       for pid, p in sorted(pending.items())]
+            handle = self.engine.run_job_async(feed_fn, wrapped)
+            while not handle.done():
+                self._check_monitor()
+                time.sleep(0.2)
+            try:
+                handle.wait(timeout=0)
+            except RuntimeError:
+                # a feed task failed mid-restart (it saw the dead
+                # incarnation's error queue): the requeue below re-feeds
+                # if a rebirth explains it, otherwise the failure is real
+                if not self._await_restart_signal(seen_restarts):
+                    raise
+                logger.warning("feed job failed during an elastic restart; "
+                               "requeuing uncommitted partitions",
+                               exc_info=True)
+            committed = self._ledger_committed()
+            self._uncommitted = {pid: p for pid, p
+                                 in self._uncommitted.items()
+                                 if pid not in committed}
+            pending = dict(self._uncommitted)
+            if not pending:
+                return
+            # a rebirth releases blocked feeders before it re-registers
+            # under the new generation, so a round can end a beat ahead
+            # of the restart signal: settle before concluding that
+            # nothing happened (which would skip the requeue)
+            if not self._await_restart_signal(seen_restarts):
+                logger.info("epoch %d: %d partition(s) fed but not yet "
+                            "committed by a checkpoint (no restart "
+                            "occurred)", epoch, len(pending))
+                return
+            seen_restarts = self.monitor.restart_events
+        logger.warning("elastic requeue budget exhausted with %d "
+                       "partition(s) still uncommitted: %s", len(pending),
+                       sorted(pending))
+
+    def _await_restart_signal(self, seen_restarts, window=None):
+        """True if a restart event beyond ``seen_restarts`` surfaces
+        within the settle window; raises through ``check()`` if the
+        monitor declared a permanent failure meanwhile."""
+        if self.monitor is None:
+            return False
+        window = (max(2.0, 4.0 * self.monitor.interval) if window is None
+                  else window)
+        deadline = time.monotonic() + window
+        while True:
+            self.monitor.check()
+            if self.monitor.restart_events > seen_restarts:
+                return True
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(0.1)
+
+    def _await_respawn(self):
+        """Wait until every compute node has respawned its compute
+        process at the cluster's generation.  A rebirth resets the
+        node's queues twice and drains its error queue before it
+        respawns: a requeue round fed earlier would have its rows thrown
+        away by the second reset, or fail on the dead incarnation's
+        error.  Bounded by the monitor's recovery window (the monitor
+        raises for a node that stays dead)."""
+        workers = [n for n in self.cluster_info
+                   if n["job_name"] in node.COMPUTE_JOBS]
+        deadline = time.monotonic() + self.monitor.recovery_timeout
+        while True:
+            self.monitor.check()
+            want = self.server.generation
+            behind = []
+            for n in workers:
+                try:
+                    gen = self._connect(n).get("generation")._getvalue()
+                except Exception:  # noqa: BLE001 - node mid-restart
+                    gen = None
+                if gen is None or gen < want:
+                    behind.append(n["executor_id"])
+            if not behind:
+                return
+            if time.monotonic() >= deadline:
+                logger.warning("executors %s did not respawn at generation "
+                               "%d within the recovery window; requeuing "
+                               "anyway", behind, want)
+                return
+            time.sleep(0.1)
+
+    def _ledger_committed(self):
+        """The union of checkpoint-committed partition ids over the
+        compute nodes."""
+        committed = set()
+        for n in self.cluster_info:
+            if n["job_name"] not in node.COMPUTE_JOBS:
+                continue
+            try:
+                committed.update(
+                    self._connect(n).ledger("committed")._getvalue())
+            except Exception:  # noqa: BLE001 - node mid-restart: its
+                logger.warning(  # partitions simply stay pending
+                    "unable to read the partition ledger of executor %d",
+                    n["executor_id"], exc_info=True)
+        return committed
 
     def _run_feed_monitored(self, feed_fn, partitions):
         """Run one feed job while watching the liveness plane: a dead
@@ -392,16 +574,24 @@ class TPUCluster(object):
             return None
 
 
-_ELASTIC = "elastic supervision with PartitionLedger"
+def _with_partition_marker(pid, partition):
+    """A partition led by its PartitionStart marker (lazily for a
+    callable partition: its rows still never transit the driver)."""
+    if callable(partition):
+        return functools.partial(_marked_rows, pid, partition)
+    return [PartitionStart(pid)] + list(partition)
+
+
+def _marked_rows(pid, partition):
+    return itertools.chain([PartitionStart(pid)], iter(partition()))
+
+
 _UNPORTED_RUN_ARGS = {
     "num_ps": (0, "the rest: parameter-server nodes"),
     "driver_ps_nodes": (False, "the rest: parameter-server nodes"),
     "eval_node": (False, "the rest: evaluator nodes"),
     "tensorboard": (False, "the rest: tensorboard"),
     "log_dir": (None, "the rest: tensorboard"),
-    "elastic": (False, _ELASTIC),
-    "max_restarts": (3, _ELASTIC),
-    "recovery_timeout": (120.0, _ELASTIC),
     "profile_dir": (None, "the rest: profiling"),
     "profile_steps": (None, "the rest: profiling"),
     "plan": (None, "the rest: the planner"),
@@ -413,7 +603,7 @@ def run(engine, map_fun, args=None, num_executors=None,
         input_mode=InputMode.SPARK, master_node=None,
         reservation_timeout=600, queues=("input", "output", "error"),
         num_chips_per_node=None, name="tpucluster", heartbeat_interval=None,
-        **unported):
+        elastic=False, max_restarts=3, recovery_timeout=120.0, **unported):
     """Start a cluster over an executor fleet.
 
     Args:
@@ -432,10 +622,19 @@ def run(engine, map_fun, args=None, num_executors=None,
         ``None`` leaves visibility alone.
       heartbeat_interval: seconds between node heartbeats (a node is
         dead after 3 missed intervals).
+      elastic: treat a worker's death as recoverable: its supervisor
+        respawns the compute process under a new rendezvous generation,
+        the survivors park and respawn at the re-rendezvous barrier,
+        training resumes from the last checkpoint (the
+        ``train_on_feed(checkpointer=...)`` hook), and uncommitted feed
+        partitions are requeued.  Default False: a dead worker fails
+        the feed at once, naming the node.
+      max_restarts: per-node restart budget under ``elastic``.
+      recovery_timeout: under ``elastic``, seconds a dead node may take
+        to come back before the failure is permanent.
 
     The reference's other arguments (``num_ps``, ``driver_ps_nodes``,
-    ``eval_node``, ``tensorboard``, ``log_dir``, ``elastic``,
-    ``max_restarts``, ``recovery_timeout``, ``profile_dir``,
+    ``eval_node``, ``tensorboard``, ``log_dir``, ``profile_dir``,
     ``profile_steps``, ``plan``, ``plan_hint``) are accepted at their
     defaults and raise ``NotImplementedError`` otherwise.
     """
@@ -492,6 +691,8 @@ def run(engine, map_fun, args=None, num_executors=None,
         "reservation_timeout": reservation_timeout,
         "queues": list(queues),
         "num_chips_per_node": num_chips_per_node,
+        "elastic": bool(elastic),
+        "max_restarts": int(max_restarts),
         "heartbeat_interval": heartbeat_interval,
     }
     mapfn = node.run(map_fun, args, cluster_meta, input_mode)
@@ -509,6 +710,8 @@ def run(engine, map_fun, args=None, num_executors=None,
                     n["job_name"], n["task_index"], n["host"])
     cluster = TPUCluster(engine, cluster_meta, cluster_info, server, handle,
                          input_mode, list(queues), owns_engine=owns_engine)
-    cluster.monitor = ClusterMonitor(server, cluster_info,
-                                     error_peek=cluster._peek_error).start()
+    cluster.monitor = ClusterMonitor(
+        server, cluster_info, elastic=elastic,
+        recovery_timeout=recovery_timeout,
+        error_peek=cluster._peek_error).start()
     return cluster

@@ -19,8 +19,10 @@ class EndPartition(Marker):
 
 class PartitionStart(Marker):
     """First element of an elastic feed partition, carrying the driver's
-    partition id.  Elastic feeding is not ported; the class is kept so a
-    feed stream's vocabulary matches the reference's."""
+    partition id (``"e<epoch>p<index>"``).  The feeder strips it and
+    opens the partition's record in the node's
+    :class:`~.manager.PartitionLedger`; it never reaches the compute
+    process."""
 
     __slots__ = ("pid",)
 

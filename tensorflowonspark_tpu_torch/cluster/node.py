@@ -16,7 +16,8 @@ It
    (``num_chips_per_node``), and
 7. launches the user's ``main_fun(args, ctx)``: in a spawned compute
    process under a :class:`~.supervisor.Supervisor` for
-   ``InputMode.SPARK``, or in the foreground for
+   ``InputMode.SPARK`` (with ``elastic=True`` the supervisor respawns it
+   under a new generation after a death), or in the foreground for
    ``InputMode.TENSORFLOW``.
 
 The feed map function (:func:`feed_partition`) reconnects to the node's
@@ -24,7 +25,10 @@ manager from whatever executor the feed task landed on, ships the rows
 as :class:`~.marker.ColumnarBlock`s (or row :class:`~.marker.Block`s)
 through the node's queue or, with ``TFOS_SHM_FEED=1``, as columnar wire
 records through the node's shared-memory ring, and polls the node's
-error queue while it waits for consumption.  The inference map function
+error queue while it waits for consumption.  An elastic partition leads
+with a :class:`~.marker.PartitionStart`: the feeder strips it, records
+the partition ``inflight`` in the node's ledger, and ``delivered`` once
+its rows were consumed.  The inference map function
 (:func:`inference_partition`) feeds a partition and drains exactly as
 many results.  Teardown is driver-direct (``TPUCluster.shutdown``).
 
@@ -36,12 +40,13 @@ executor forks its queue manager, and a CUDA context does not survive a
 fork); only the spawned compute process touches the GPU.
 
 Not ported (ROADMAP queue A): ps/evaluator service nodes, tensorboard,
-the telemetry publishers, the flight recorder, chaos hooks and elastic
-partition ledgers.
+the telemetry publishers, the flight recorder, the heartbeat chaos hook
+and the feeders' routing around a remediation hold.
 """
 
 import collections
 import functools
+import itertools
 import json
 import logging
 import multiprocessing
@@ -55,7 +60,7 @@ import time
 import uuid
 
 from . import gpu_info, manager, reservation
-from .marker import (Block, ColumnarBlock, EndPartition,
+from .marker import (Block, ColumnarBlock, EndPartition, PartitionStart,
                      encode_columnar_parts, encode_rows_parts, pack_columnar)
 from ..utils import not_ported
 from ..utils import paths as path_utils
@@ -80,14 +85,15 @@ class NodeContext(object):
     ``cluster_spec``, ``num_workers``, ``default_fs``, ``working_dir``,
     ``mgr`` (the node's manager proxy), ``coordinator`` (``host:port``
     of rank 0's ``torch.distributed`` store), ``process_id`` /
-    ``num_processes`` (this node's rank among the compute nodes) and
-    ``device_info``.
+    ``num_processes`` (this node's rank among the compute nodes),
+    ``device_info`` and ``generation``.
     """
 
     def __init__(self, executor_id=0, job_name="", task_index=0,
                  cluster_spec=None, default_fs="file://", working_dir=".",
                  mgr=None, coordinator=None, process_id=0, num_processes=1,
-                 device_info=None, manager_addr=None, manager_authkey=None):
+                 device_info=None, manager_addr=None, manager_authkey=None,
+                 generation=0):
         self.executor_id = executor_id
         self.job_name = job_name
         self.task_index = task_index
@@ -103,6 +109,11 @@ class NodeContext(object):
         #: its manager proxy (proxies do not survive pickling)
         self.manager_addr = manager_addr
         self.manager_authkey = manager_authkey
+        #: elastic re-rendezvous generation: 0 at the first launch, N
+        #: after the Nth supervised restart (``train_on_feed(
+        #: checkpointer=...)`` restores whenever a checkpoint exists, so
+        #: resuming needs no branch on it)
+        self.generation = generation
         self.num_workers = sum(
             len(v) for k, v in self.cluster_spec.items() if k in COMPUTE_JOBS
         )
@@ -124,7 +135,9 @@ class NodeContext(object):
         """Join this cluster's ``torch.distributed`` process group.
 
         ``backend`` defaults to ``nccl`` when CUDA is available, else
-        ``gloo``; rank 0 hosts the TCP store at :attr:`coordinator`.
+        ``gloo``; rank 0 hosts the TCP store at :attr:`coordinator`,
+        with every key scoped by :attr:`generation`, so the processes an
+        elastic rebirth respawns meet in a rendezvous of their own.
         Beside an NCCL group it makes a ``gloo`` group on the CPU for
         the trainer's global-stop flag (``dp.all_hosts_ready``), so the
         per-batch flag never waits for the device.  A no-op for
@@ -140,8 +153,15 @@ class NodeContext(object):
                 and not dist.is_initialized()):
             if backend is None:
                 backend = "nccl" if torch.cuda.is_available() else "gloo"
+            from torch.distributed.constants import default_pg_timeout
+
+            host, port = self.coordinator.rsplit(":", 1)
+            store = dist.TCPStore(host, int(port), self.num_processes,
+                                  self.process_id == 0,
+                                  timeout=default_pg_timeout)
             dist.init_process_group(
-                backend, init_method="tcp://" + self.coordinator,
+                backend, store=dist.PrefixStore(
+                    "generation{0}/".format(self.generation), store),
                 world_size=self.num_processes, rank=self.process_id)
             dp.set_host_group(
                 None if backend == "gloo" else dist.new_group(backend="gloo"))
@@ -398,6 +418,10 @@ def start_node(fn_bytes, args, cluster_meta, input_mode, iterator):
         except (ConnectionError, OSError):
             state = "dead"
         if state == "running":
+            # a true duplicate: a retry after the node died finds a dead
+            # manager and starts fresh (above), and under elastic an
+            # in-place compute death never fails the start task at all
+            # (the supervisor respawns the compute process locally)
             raise RuntimeError("TFOS node already running on executor {0}; "
                                "duplicate start task".format(executor_id))
 
@@ -467,8 +491,10 @@ def start_node(fn_bytes, args, cluster_meta, input_mode, iterator):
     if input_mode == InputMode.SPARK:
         from . import supervisor as _supervisor
 
+        compute_eids = [n["executor_id"] for n in cluster_info
+                        if n["job_name"] in COMPUTE_JOBS]
         sup = _supervisor.Supervisor(fn_bytes, args, ctx, mgr, cluster_meta,
-                                     node_meta)
+                                     compute_eids, node_meta)
         sup.start()
         _supervisor.register_local_supervisor(sup)
         # the executor returns at once, free for feed tasks; the compute
@@ -730,6 +756,10 @@ def feed_partition(cluster_info, cluster_meta, feed_timeout, qname,
     then wait until the compute process has taken every block, raising
     if it reported an error or ``feed_timeout`` passes.
 
+    A partition that leads with a :class:`~.marker.PartitionStart` (the
+    elastic feed) is recorded in the node's ledger: ``begin`` before
+    its rows ship, ``deliver`` once they were all consumed.
+
     Ring policy: the first block decides for the whole task, ring when
     its first row carries at least ``TFOS_SHM_RING_MIN_ROW_BYTES``
     (default 4096) payload bytes, queue otherwise; ``TFOS_SHM_FEED=force``
@@ -738,8 +768,17 @@ def feed_partition(cluster_info, cluster_meta, feed_timeout, qname,
     def _probe(m):
         return str(m.get("state")._getvalue())
 
+    iterator = iter(iterator)
+    first = next(iterator, None)
+    pid = None
+    if isinstance(first, PartitionStart):
+        pid = first.pid
+    elif first is not None:
+        iterator = itertools.chain([first], iterator)
     local_eid = _local_executor_id()
     mgr, state = _manager_first_call(cluster_info, local_eid, _probe)
+    if pid is not None and state != "terminating":
+        mgr.ledger("begin", pid)
     queue = mgr.get_queue(qname)
     if state == "terminating":
         # compute is done: discard the partition and ask the driver to
@@ -836,6 +875,10 @@ def feed_partition(cluster_info, cluster_meta, feed_timeout, qname,
     while not joiner.wait(0.1):
         _poll()
     _check_error_queue(mgr, err_q, local_eid)
+    if pid is not None:
+        # every row was consumed: the partition is delivered, and becomes
+        # committed when the compute process checkpoints past it
+        mgr.ledger("deliver", pid)
     logger.info("fed %d items (%d ring wire bytes)", count, wire_sent[0])
     return []
 

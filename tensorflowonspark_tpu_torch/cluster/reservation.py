@@ -5,16 +5,21 @@ tensorflowonspark/reservation.py).
 A TCP server on the driver that executors register with, plus a
 client-side barrier.  Frames are 4-byte big-endian length + UTF-8 JSON
 (never pickle on an open port).  Message vocabulary: REG / QINFO /
-QUERY / STOP, plus HEARTBEAT / FAREWELL for the liveness registry:
-every node beats every ``HEARTBEAT_INTERVAL`` seconds with its executor
-id and whether its compute process is alive, and :class:`Liveness`
-marks an executor dead after ``HEARTBEAT_MISS_THRESHOLD`` missed
-intervals, so the driver's monitor names a dead worker in seconds.
+QUERY / STOP, plus HEARTBEAT / FAREWELL / LIVENESS for the liveness
+registry: every node beats every ``HEARTBEAT_INTERVAL`` seconds with its
+executor id, its rendezvous *generation* and whether its compute process
+is alive, and :class:`Liveness` marks an executor dead after
+``HEARTBEAT_MISS_THRESHOLD`` missed intervals, so the driver's monitor
+names a dead worker in seconds.
+
+Elastic supervision adds REBIRTH: a node whose compute process died
+claims the next cluster generation (:meth:`Server.next_generation`),
+re-registers under it, and every heartbeat reply carries the cluster
+generation, so the surviving nodes learn of the rebirth.
 
 Not ported: the telemetry plane's ``MetricsStore``, ``EventStore`` and
 ``ClockSync`` (their METRICS / JOURNAL frames and the beats' metric,
-event and clock payloads), and the LIVENESS and REBIRTH frames of
-elastic supervision (ROADMAP queue A).
+event and clock payloads; ROADMAP queue A, item 12).
 """
 
 import json
@@ -93,6 +98,7 @@ class Liveness(object):
     An executor is *dead* when its newest beat is older than ``interval
     * miss_threshold`` or when its node reported ``compute_alive=False``
     (immediately).  Executors are only tracked once they have beaten.
+    Each record carries the node's rendezvous generation.
     """
 
     def __init__(self, interval=None, miss_threshold=None):
@@ -112,10 +118,11 @@ class Liveness(object):
         """Seconds of silence after which an executor is dead."""
         return self.interval * self.miss_threshold
 
-    def beat(self, executor_id, compute_alive=True, host=""):
+    def beat(self, executor_id, generation=0, compute_alive=True, host=""):
         with self._lock:
             self._beats[int(executor_id)] = {
                 "t": time.monotonic(),
+                "generation": int(generation),
                 "compute_alive": bool(compute_alive),
                 "host": host,
             }
@@ -130,10 +137,17 @@ class Liveness(object):
         with self._lock:
             return len(self._beats)
 
+    def generation(self, executor_id):
+        """The executor's last reported generation (0 if never seen)."""
+        with self._lock:
+            rec = self._beats.get(int(executor_id))
+        return 0 if rec is None else rec["generation"]
+
     def dead(self):
         """``{executor_id: diagnosis}`` for every tracked executor now
         considered dead; a diagnosis carries ``age`` (seconds of
-        silence), ``reason`` and the last known ``host``."""
+        silence), ``reason`` and the last known ``host`` and
+        ``generation``."""
         now = time.monotonic()
         out = {}
         with self._lock:
@@ -149,8 +163,24 @@ class Liveness(object):
                     )
                 else:
                     continue
-                out[eid] = {"age": age, "reason": reason, "host": rec["host"]}
+                out[eid] = {"age": age, "reason": reason, "host": rec["host"],
+                            "generation": rec["generation"]}
         return out
+
+    def snapshot(self):
+        """Age, generation, ``compute_alive`` and host of every tracked
+        executor, keyed by the id as a string (the LIVENESS payload)."""
+        now = time.monotonic()
+        with self._lock:
+            return {
+                str(eid): {
+                    "age": now - rec["t"],
+                    "generation": rec["generation"],
+                    "compute_alive": rec["compute_alive"],
+                    "host": rec["host"],
+                }
+                for eid, rec in self._beats.items()
+            }
 
 
 class MessageSocket(object):
@@ -196,6 +226,27 @@ class Server(MessageSocket):
         self.done = threading.Event()
         self._stop_requested = threading.Event()
         self._listener = None
+        #: elastic re-rendezvous generation, raised by REBIRTH frames
+        self._generation = 0
+        self._gen_lock = threading.Lock()
+
+    @property
+    def generation(self):
+        with self._gen_lock:
+            return self._generation
+
+    def next_generation(self, executor_id, old_generation):
+        """Atomically claim the generation a reborn executor joins.
+
+        The first rebirth raises the cluster generation; a second
+        executor dying in the same window joins that generation instead
+        of raising it again (its ``old_generation`` is still the value
+        before the deaths)."""
+        with self._gen_lock:
+            self._generation = max(self._generation, int(old_generation) + 1)
+            gen = self._generation
+        self.liveness.beat(executor_id, generation=gen)
+        return gen
 
     @property
     def stop_requested(self):
@@ -264,20 +315,43 @@ class Server(MessageSocket):
     def _handle(self, sock, msg):
         mtype = msg.get("type")
         if mtype == "REG":
-            self.reservations.add(msg["data"])
+            data = msg["data"]
+            self.reservations.add(data)
+            # a REG with a generation > 0 is an elastic re-rendezvous: it
+            # primes the registry, so the monitor stops counting the old
+            # incarnation's silence
+            if isinstance(data, dict) and data.get("generation"):
+                self.liveness.beat(data.get("executor_id", -1),
+                                   generation=data.get("generation", 0),
+                                   host=data.get("host", ""))
             self.send(sock, {"type": "OK"})
         elif mtype == "HEARTBEAT":
             self.liveness.beat(
                 msg.get("executor_id", -1),
+                generation=msg.get("generation", 0),
                 compute_alive=msg.get("compute_alive", True),
                 host=msg.get("host", ""),
             )
-            self.send(sock, {"type": "OK", "stop": self.stop_requested})
+            # the stop flag and the cluster generation ride the reply, so
+            # heartbeaters double as the survivors' rebirth signal
+            self.send(sock, {"type": "OK", "stop": self.stop_requested,
+                             "generation": self.generation})
         elif mtype == "FAREWELL":
             # orderly departure: a node whose work completed is never
             # misread as dead-by-silence
             self.liveness.forget(msg.get("executor_id", -1))
             self.send(sock, {"type": "OK"})
+        elif mtype == "REBIRTH":
+            gen = self.next_generation(msg.get("executor_id", -1),
+                                       msg.get("generation", 0))
+            self.send(sock, {"type": "REBIRTH_RESP", "generation": gen})
+        elif mtype == "LIVENESS":
+            self.send(sock, {
+                "type": "LIVENESS_RESP",
+                "executors": self.liveness.snapshot(),
+                "dead": {str(k): v for k, v in self.liveness.dead().items()},
+                "generation": self.generation,
+            })
         elif mtype == "QUERY":
             self.send(sock, {
                 "type": "QUERY_RESP",
@@ -410,20 +484,37 @@ class Client(MessageSocket):
         """Ask the server to set the cluster-wide stop flag."""
         return self._request({"type": "STOP"})
 
-    def heartbeat(self, executor_id, compute_alive=True, host=""):
+    def heartbeat(self, executor_id, generation=0, compute_alive=True,
+                  host=""):
         """Send one HEARTBEAT frame; the reply carries the cluster-wide
-        ``stop`` flag."""
+        ``stop`` flag and the cluster generation."""
         return self._request({
             "type": "HEARTBEAT",
             "executor_id": int(executor_id),
+            "generation": int(generation),
             "compute_alive": bool(compute_alive),
             "host": host,
         })
+
+    def get_liveness(self):
+        """The server's liveness snapshot: ``(executors, dead)`` dicts
+        keyed by the executor id as a string."""
+        resp = self._request({"type": "LIVENESS"})
+        return resp["executors"], resp["dead"]
 
     def farewell(self, executor_id):
         """Remove this executor from liveness tracking (orderly exit)."""
         return self._request({"type": "FAREWELL",
                               "executor_id": int(executor_id)})
+
+    def rebirth(self, executor_id, generation):
+        """Claim the generation a reborn executor rejoins under (see
+        :meth:`Server.next_generation` for the simultaneous-death
+        rule)."""
+        resp = self._request({"type": "REBIRTH",
+                              "executor_id": int(executor_id),
+                              "generation": int(generation)})
+        return int(resp["generation"])
 
     def close(self):
         try:
@@ -443,6 +534,8 @@ class Heartbeater(object):
       alive_fn: zero-arg callable polled each beat; its bool rides the
         frame as ``compute_alive`` so a node whose compute process died
         is reported immediately instead of after the miss threshold.
+      generation_fn: zero-arg callable returning the node's rendezvous
+        generation (elastic restarts raise it).
 
     A beat that cannot reach the server is logged and dropped: missing
     frames is the very signal the server's registry measures, so the
@@ -450,14 +543,18 @@ class Heartbeater(object):
     """
 
     def __init__(self, server_addr, executor_id, interval=None,
-                 alive_fn=None, host=""):
+                 alive_fn=None, generation_fn=None, host=""):
         self.server_addr = tuple(server_addr)
         self.executor_id = int(executor_id)
         self.interval = (
             HEARTBEAT_INTERVAL if interval is None else float(interval)
         )
         self.alive_fn = alive_fn
+        self.generation_fn = generation_fn
         self.host = host
+        #: the newest cluster generation seen in a reply: supervisors
+        #: poll it to learn that a peer was reborn
+        self.cluster_generation = 0
         self._stop = threading.Event()
         self._client = None
         self._thread = None
@@ -474,11 +571,14 @@ class Heartbeater(object):
         """Send a single beat synchronously (primes the registry so
         death-by-silence is measured from now)."""
         alive = True if self.alive_fn is None else bool(self.alive_fn())
+        gen = 0 if self.generation_fn is None else int(self.generation_fn())
         if self._client is None:
             self._client = Client(self.server_addr,
                                   retry_deadline=max(1.0, self.interval))
-        self._client.heartbeat(self.executor_id, compute_alive=alive,
-                               host=self.host)
+        resp = self._client.heartbeat(self.executor_id, generation=gen,
+                                      compute_alive=alive, host=self.host)
+        self.cluster_generation = max(self.cluster_generation,
+                                      int(resp.get("generation", 0)))
 
     def _run(self):
         while not self._stop.wait(self.interval):

@@ -344,10 +344,22 @@ class DataFeed(object):
         return self.done_feeding
 
     def commit_partitions(self):
-        """Elastic feeding is not ported: there is no partition ledger,
-        so nothing is promoted (the reference returns 0 when feeding is
-        not elastic)."""
-        return 0
+        """Promote every *delivered* feed partition to *committed* in
+        this node's :class:`~..cluster.manager.PartitionLedger`.
+
+        Call it right after a checkpoint save was made durable
+        (``Checkpointer.save(..., wait=True)``): a committed partition
+        is one the elastic restart path never requeues, so committing
+        before durability would turn a crash into silent data loss.
+        ``train_on_feed(checkpointer=...)`` does it in that order.
+        Returns the number of partitions promoted (0 when feeding is
+        not elastic: the ledger is empty)."""
+        try:
+            return int(self.mgr.ledger("commit")._getvalue())
+        except Exception:  # noqa: BLE001 - the requeue stays conservative
+            logger.warning("partition-ledger commit failed; partitions stay "
+                           "requeue-eligible", exc_info=True)
+            return 0
 
     def batch_results(self, results):
         """Push a batch of results to the output queue as one Block (one

@@ -304,7 +304,8 @@ class SyncTrainer(object):
             from the latest one and the step count goes on from it (so
             ``max_steps`` caps the total); every ``checkpoint_every``
             steps and at exit the state is saved with ``wait=True`` and
-            then ``feed.commit_partitions()`` is called.
+            then ``feed.commit_partitions()`` is called (at exit also
+            when that step was already saved).
           checkpoint_every: step spacing of the periodic saves (0: only
             the final save).
           step_callback: ``fn(step)`` before each executed group.
@@ -362,10 +363,16 @@ class SyncTrainer(object):
             # mark the node 'terminating' so feeders stop waiting
             logger.info("max_steps reached; terminating the feed")
             feed.terminate()
-        if checkpointer is not None and checkpointer.latest_step() != steps:
-            # the final save, unless this step is already on disk (a
-            # resumed run that made no progress)
-            checkpointer.save(steps, state, wait=True)
+        if checkpointer is not None:
+            if checkpointer.latest_step() != steps:
+                # the final save, unless this step is already on disk (a
+                # periodic save, or a resumed run that made no progress)
+                checkpointer.save(steps, state, wait=True)
+            # the last commit, also when the final save was skipped: a
+            # partition whose feeder delivered it after the last periodic
+            # commit was consumed by the steps this durable state holds
+            # (the reference commits only after a final save, and leaves
+            # it delivered: ROADMAP C4)
             feed.commit_partitions()
         return state
 

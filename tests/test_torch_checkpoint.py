@@ -14,7 +14,8 @@ on the CPU.
   on the same step sequences, the host copy taken before an async save
   returns, and two gloo ranks (rank 0 writes, both restore).
 - ``train_on_feed(checkpointer=)``: the reference's resume-hook test on
-  both packages (same steps, commits and kept steps); a tiny
+  both packages (same steps and kept steps; the same commits but one at
+  the exit of a run that ended on a periodic save, ROADMAP C4); a tiny
   Transformer trained 4 steps, checkpointed and resumed by a fresh
   trainer for 3 more equals 7 straight steps to the bit (SGD and
   AdamW), and the JAX trainer's 7 steps at rtol 1e-5 (losses) and atol
@@ -492,7 +493,11 @@ def _hook_sequence(package, tmp_path):
 
 def test_resume_hook_steps_and_commits_match_the_reference(tmp_path):
     got = _hook_sequence("port", tmp_path)
-    assert got == _hook_sequence("jax", tmp_path)
+    want = _hook_sequence("jax", tmp_path)
+    # run 1 ends on a periodic save (step 4): the port commits once more
+    # at exit, where the reference leaves later deliveries uncommitted
+    # (ROADMAP C4); run 2 ends with a final save in both
+    assert got == [(want[0][0], want[0][1] + 1) + want[0][2:], want[1]]
     assert got[0][0] == 4 and got[1][0] == 7  # resumed at 4, not from 0
 
 
@@ -529,7 +534,8 @@ def test_resumed_training_equals_straight_training(tmp_path, opt):
     ck = tck.Checkpointer(tmp_path / "ck")
     first, _, steps1, feed1 = _port_on_feed(
         opt, _feed_batches(0, 4), checkpointer=ck, checkpoint_every=4)
-    assert steps1 == 4 and feed1.commits == 1 and ck.all_steps() == [4]
+    # the periodic save at step 4 commits, and so does the exit
+    assert steps1 == 4 and feed1.commits == 2 and ck.all_steps() == [4]
     ck2 = tck.Checkpointer(tmp_path / "ck")
     second, got_params, steps2, feed2 = _port_on_feed(
         opt, _feed_batches(4, 7), checkpointer=ck2, checkpoint_every=4)
@@ -599,17 +605,57 @@ def test_cluster_failure_then_resume(tmp_path):
 
 
 # ----------------------------------------------------------------------
-# what stays unported
+# the elastic arguments of cluster.run
 # ----------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("kw", [{"elastic": True}, {"max_restarts": 1},
                                 {"recovery_timeout": 5.0}],
                          ids=["elastic", "max_restarts", "recovery_timeout"])
-def test_elastic_restarts_stay_unported(kw):
+def test_elastic_args_reach_the_cluster(kw):
+    """Each argument lands where the reference's ``run`` puts it:
+    ``elastic`` and ``max_restarts`` in ``cluster_meta`` (which every
+    node's supervisor reads), ``elastic`` and ``recovery_timeout`` on the
+    monitor; the others keep their defaults."""
     from tensorflowonspark_tpu_torch.cluster import cluster
+    from tensorflowonspark_tpu_torch.engine import LocalEngine
 
-    with pytest.raises(NotImplementedError,
-                       match="elastic supervision with PartitionLedger"):
-        cluster.run(object(), workers.resumable_train_fn, num_executors=1,
-                    **kw)
+    want = dict({"elastic": False, "max_restarts": 3,
+                 "recovery_timeout": 120.0}, **kw)
+    engine = LocalEngine(1)
+    try:
+        c = cluster.run(engine, workers.idle_fn, num_executors=1,
+                        reservation_timeout=60, **kw)
+        c.shutdown(timeout=60)
+    finally:
+        engine.stop()
+    assert c.cluster_meta["elastic"] is want["elastic"] is c.elastic
+    assert c.cluster_meta["max_restarts"] == want["max_restarts"]
+    assert c.monitor.elastic is want["elastic"]
+    assert c.monitor.recovery_timeout == want["recovery_timeout"]
+
+
+def test_no_restart_budget_fails_at_the_first_death(tmp_path):
+    from tensorflowonspark_tpu_torch.cluster import cluster
+    from tensorflowonspark_tpu_torch.engine import LocalEngine
+    from tensorflowonspark_tpu_torch.testing import chaos
+
+    plan = chaos.ChaosPlan().kill_worker(0, at_step=1)
+    args = {"ckpt": str(tmp_path / "ckpt"), "keep": str(tmp_path),
+            "log": str(tmp_path), "batch": 2}
+    tokens = workers.elastic_tokens(0, 4, 2)
+    engine = LocalEngine(1, env=plan.env(plan.save(tmp_path / "plan.json")))
+    try:
+        c = cluster.run(engine, workers.elastic_train_fn, args,
+                        num_executors=1, elastic=True, max_restarts=0,
+                        heartbeat_interval=0.5, reservation_timeout=60)
+        with pytest.raises(RuntimeError,
+                           match=r"died 1 times \(restart budget 0 "
+                                 r"exhausted\)"):
+            c.train([[{"tokens": r} for r in t] for t in tokens],
+                    feed_timeout=60)
+        assert c.server.generation == 0
+        with pytest.raises(RuntimeError, match="restart budget 0 exhausted"):
+            c.shutdown(timeout=60)
+    finally:
+        engine.stop()

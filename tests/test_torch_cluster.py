@@ -195,12 +195,12 @@ def test_failure_during_feed_names_the_executor(engine):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"elastic": True}, "elastic supervision with PartitionLedger"),
+    ({"profile_dir": "profiles"}, "the rest: profiling"),
     ({"num_ps": 1}, "the rest: parameter-server nodes"),
     ({"eval_node": True}, "the rest: evaluator nodes"),
     ({"tensorboard": True}, "the rest: tensorboard"),
     ({"plan": "auto"}, "the rest: the planner"),
-], ids=["elastic", "num_ps", "eval_node", "tensorboard", "plan"])
+], ids=["profile_dir", "num_ps", "eval_node", "tensorboard", "plan"])
 def test_run_refuses_unported_args(kw, item):
     # raised before any process starts: no engine needed
     with pytest.raises(NotImplementedError, match=item):

@@ -256,3 +256,129 @@ def resumable_train_fn(args, ctx):
     ckptr.close()
     np.save(os.path.join(args["dir"], "w-final.npy"),
             state.params["w"].detach().numpy())
+
+
+# -- elastic supervision -----------------------------------------------------
+
+#: steps between the elastic fns' checkpoints
+ELASTIC_CKPT_EVERY = 4
+
+
+def tokens_fingerprint(tokens):
+    """sha256 of a token batch's bytes (int32, C order): the id of a
+    batch in the elastic fns' step logs."""
+    import hashlib
+
+    return hashlib.sha256(
+        np.ascontiguousarray(tokens, dtype=np.int32).tobytes()).hexdigest()
+
+
+def elastic_model():
+    """The tiny Transformer (seed 0, f32 masters), its ``SyncTrainer``
+    (adamw 1e-3) and a fresh state: what the elastic fn trains and what
+    the tests replay."""
+    from tensorflowonspark_tpu_torch import optim
+    from tensorflowonspark_tpu_torch.models import transformer as ttr
+    from tensorflowonspark_tpu_torch.parallel import dp
+
+    torch.manual_seed(0)
+    model = ttr.Transformer(ttr.TransformerConfig(**CKPT_TINY), device="cpu",
+                            param_dtype=torch.float32)
+    trainer = dp.SyncTrainer(ttr.loss_fn(model), optim.adamw(1e-3))
+    return model, trainer, trainer.create_state(
+        dict(model.named_parameters()))
+
+
+def link_step(ckpt_dir, step, keep_dir):
+    """Hard-link checkpoint ``step`` of ``ckpt_dir`` under ``keep_dir``,
+    so it outlives the checkpointer's retention at no cost in disk."""
+    import shutil
+
+    shutil.copytree(os.path.join(ckpt_dir, str(step)),
+                    os.path.join(keep_dir, str(step)), copy_function=os.link,
+                    dirs_exist_ok=True)
+
+
+def elastic_train_fn(args, ctx):
+    """The user fn of the elastic tests: the tiny Transformer trained from
+    the feed by ``train_on_feed`` with a ``Checkpointer`` (every
+    ``ELASTIC_CKPT_EVERY`` steps, two kept) and the chaos plan's kill
+    hook, under ``torch.distributed`` (gloo) when the cluster has several
+    compute nodes.
+
+    Each step appends ``{"step", "fp", "loss"}`` to
+    ``<log>/gen<g>.rank<r>.jsonl`` as it ends (a killed incarnation
+    leaves the steps it took); a process that restored a checkpoint
+    hard-links that step under ``args["keep"]`` (rank 0) and logs it as
+    ``{"restored": step}``; a process that finishes writes
+    ``<log>/final.rank<r>.json`` with its generation, step count and the
+    digest of its weights."""
+    import hashlib
+    import json
+
+    from tensorflowonspark_tpu_torch import checkpoint
+    from tensorflowonspark_tpu_torch.testing import chaos
+
+    torch.set_num_threads(1)
+    ctx.initialize_distributed()
+    rank = ctx.process_id
+    model, trainer, state = elastic_model()
+    ckptr = checkpoint.Checkpointer(args["ckpt"], max_to_keep=2)
+    log = open(os.path.join(args["log"], "gen{0}.rank{1}.jsonl".format(
+        ctx.generation, rank)), "a")
+
+    def write(rec):
+        log.write(json.dumps(rec) + "\n")
+        log.flush()
+
+    restore = ckptr.restore
+
+    def keep_restored(state_like, step=None):
+        step = ckptr.latest_step() if step is None else step
+        out = restore(state_like, step=step)
+        if rank == 0:
+            link_step(args["ckpt"], step, args["keep"])
+        write({"restored": int(step)})
+        return out
+
+    ckptr.restore = keep_restored
+    fps = []
+    place = trainer._place
+
+    def logged_place(batch):
+        fps.append(tokens_fingerprint(batch["tokens"]))
+        return place(batch)
+
+    trainer._place = logged_place
+    state = trainer.train_on_feed(
+        state, ctx.get_data_feed(), batch_size=args["batch"], columnar=True,
+        checkpointer=ckptr, checkpoint_every=ELASTIC_CKPT_EVERY,
+        step_callback=chaos.step_fault_fn(ctx),
+        metrics_callback=lambda step, m: write(
+            {"step": step, "fp": fps[-1], "loss": float(m["loss"])}))
+    ckptr.close()
+    digest = hashlib.sha256()
+    for p in model.parameters():
+        digest.update(p.detach().numpy().tobytes())
+    with open(os.path.join(args["log"], "final.rank{0}.json".format(rank)),
+              "w") as f:
+        json.dump({"generation": ctx.generation, "steps": int(state.step),
+                   "weights": digest.hexdigest()}, f)
+
+
+def elastic_tokens(seed, batches, batch, seq=64, vocab=256):
+    """``[batches, batch, seq]`` int32 tokens drawn from ``seed``: the
+    elastic tests' data, one partition per batch."""
+    return np.random.default_rng(seed).integers(
+        0, vocab, (batches, batch, seq)).astype(np.int32)
+
+
+def elastic_rows(seed, batches, batch, index):
+    """Partition ``index`` of :func:`elastic_tokens` as rows, made on the
+    executor (the callable form of a partition)."""
+    return [{"tokens": r} for r in elastic_tokens(seed, batches,
+                                                  batch)[index]]
+
+
+def idle_fn(args, ctx):
+    """A user fn that returns at once."""
