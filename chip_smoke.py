@@ -176,6 +176,33 @@ caught):
     process start, model and restore, the first reborn step) and the
     saves' seconds.
 
+23. ``pipeline_flagship``: the ML Pipeline API.  ``feed_train_flagship``'s
+    96 rows (its three epochs) written as four Example shards by
+    ``interchange.save_as_tfrecords(schema="struct<tokens:array<int>>")``
+    and read back equal by ``load_tfrecords``.  ``TFEstimator(
+    pipeline_train_fn).setInputMapping({"tokens": "tokens"})
+    .setClusterSize(1).setBatchSize(8).fit(rows)`` on its default
+    ``LocalEngine(1)``: the compute process, on the card ``gpu_info``
+    chose, trains as ``feed_train_flagship`` does from the feed of
+    sorted-column tuples and exports with ``save_for_serving`` (the
+    port's ``model_ref``, the generation ``model_config``, the schema of
+    ``serving.infer_output_schema``).  Checks: the 12 losses within
+    :data:`FEED_LOSS_RTOL` of ``feed_train_flagship``'s, 192 launches of
+    each of K2-K4.  The returned ``TFModel``, continuous schedule on 8
+    slots, transforms ``slice_flagship``'s 16 requests on a
+    ``LocalEngine(1)``: its greedy tokens must equal the export served in
+    the driver (``load_predictor`` -> ``predict_rows``), K1 must launch
+    16 times per decode step in the executor, and its columns and types
+    must be the export's ``output_schema``.  ``python -m
+    tensorflowonspark_tpu_torch.serving`` on the requests written with
+    ``interchange`` must write the transform's tokens.  Last,
+    ``Dataset.from_tfrecords(shards).batch(8).prefetch(sharding=card)``
+    feeds the flagship trainer in the driver for 12 steps, whose losses
+    must be within :data:`FEED_LOSS_RTOL` of the fit's.  Prints the
+    interchange's seconds and bytes, the fed tokens/s beside
+    ``feed_train_flagship``'s and the feed wait, and the transform split
+    into the executor's start, the predictor's load and the serving.
+
 Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit
 line, and as the last line ``{"ok": true, "device": {...}}``.  Without a
 CUDA device the script exits non-zero before printing any result.
@@ -2723,10 +2750,20 @@ def max_rel_diff(got, want):
 
 def feed_train_fn(args, ctx):
     """The user fn of ``feed_train_flagship`` and
-    ``feed_ring_train_flagship``, run in the compute process: the
-    flagship from the seed-0 tree, trained from the node's feed by two
-    ``train_on_feed`` calls (with ``args["preprocess"]`` as the trainer's
-    ``device_preprocess`` when given); writes ``args["out"]``.
+    ``feed_ring_train_flagship``, run in the compute process:
+    :func:`train_from_feed` on the node's feed; writes ``args["out"]``."""
+    result, _ = train_from_feed(args, ctx, ctx.get_data_feed())
+    with open(args["out"], "w") as f:
+        json.dump(result, f)
+
+
+def train_from_feed(args, ctx, feed):
+    """The flagship from the seed-0 tree, trained from ``feed`` by two
+    ``train_on_feed`` calls of ``args["k"]`` and ``2 * args["k"]`` steps
+    of ``args["batch"]`` rows (with ``args["preprocess"]`` as the
+    trainer's ``device_preprocess`` when given).  Returns ``(result,
+    model)``: the losses, launches and timings as a JSON-able dict, and
+    the trained model.
 
     Neither callback synchronises: a host timestamp in each measures
     the feed wait between groups."""
@@ -2742,7 +2779,6 @@ def feed_train_fn(args, ctx):
     device = compat.resolve_device()
     build_s = _build.build(["flash_attention"])["flash_attention"]
     ctx.initialize_distributed()
-    feed = ctx.get_data_feed()
     tree = convert.init_params_tree(
         transformer.TransformerConfig(**FLAGSHIP), seed=0)  # as flagship_tree
     cfg = transformer.TransformerConfig(**dict(FLAGSHIP,
@@ -2804,8 +2840,7 @@ def feed_train_fn(args, ctx):
         pid=os.getpid(), wire=feed.wire_stats(), hot_source=hot_source,
         ring=ring, peak_memory_bytes=torch.cuda.max_memory_allocated(device),
     )
-    with open(args["out"], "w") as f:
-        json.dump(result, f)
+    return result, model
 
 
 def feed_fail_fn(args, ctx):
@@ -4401,6 +4436,359 @@ def phase_sp_train_flagship(n=4):
     return summary
 
 
+# ----------------------------------------------------------------------
+# the ML Pipeline API (phase 23)
+# ----------------------------------------------------------------------
+
+#: phase ``pipeline_flagship``: the port's builder named in its export,
+#: the shards of the interchange files, and the input mapping of the
+#: serving phases
+PIPELINE_MODEL_REF = \
+    "tensorflowonspark_tpu_torch.models.transformer:serving_builder"
+PIPELINE_SHARDS = 4
+PIPELINE_SCHEMA = "struct<tokens:array<int>>"
+SERVE_MAPPING = {"tokens": "tokens"}
+
+
+def pipeline_train_fn(args, ctx):
+    """The ``TFEstimator`` train fn of ``pipeline_flagship``, run in the
+    compute process: on the card ``gpu_info`` gives worker
+    ``ctx.task_index``, :func:`train_from_feed` on the feed of
+    sorted-column tuples (``args.input_mapping``), with the merged args'
+    batch size; then worker 0 exports the trained weights with
+    ``save_for_serving``: the port's ``model_ref``, the flagship's
+    generation ``model_config`` and the output schema that
+    ``serving.infer_output_schema`` derives from one request.  Writes
+    ``args.out``."""
+    from tensorflowonspark_tpu_torch import checkpoint, convert, serving
+    from tensorflowonspark_tpu_torch.cluster import gpu_info
+    from tensorflowonspark_tpu_torch.models import transformer
+
+    gpu_info.set_visible_gpus(gpu_info.get_gpus(
+        1, worker_index=ctx.task_index))
+    feed = ctx.get_data_feed(input_mapping=args.input_mapping)
+    result, model = train_from_feed(
+        {"k": args.k, "batch": args.batch_size}, ctx, feed)
+    if ctx.job_name == "worker" and ctx.task_index == 0:
+        gc_collect()
+        t0 = time.perf_counter()
+        tree = convert.tree_from_model(model)
+        del model
+        gc_collect()
+        config = dict(FLAGSHIP, **SERVING)
+        predict = transformer.serving_builder(tree, config)
+        t1 = time.perf_counter()
+        schema = serving.infer_output_schema(
+            predict, dict(args.sample), SERVE_MAPPING)
+        t2 = time.perf_counter()
+        del predict
+        gc_collect()
+        checkpoint.save_for_serving(
+            args.export_dir, tree, output_schema=schema, extra_metadata={
+                "model_ref": PIPELINE_MODEL_REF, "model_config": config})
+        result.update(export_schema=schema, schema_sec=t2 - t1,
+                      build_predictor_sec=t1 - t0,
+                      export_sec=time.perf_counter() - t2)
+    with open(args.out, "w") as f:
+        json.dump(result, f)
+
+
+def pipeline_executor_ready():
+    """Run on the transform's executor before the transform: zeroes the
+    K1 count there and times every ``serving.load_predictor`` call of
+    that process.  Returns the executor's wall clock."""
+    from tensorflowonspark_tpu_torch import serving
+    from tensorflowonspark_tpu_torch.ops.paged_attention import (
+        paged_attention,
+    )
+
+    paged_attention.launches = 0
+    load = serving.load_predictor
+    loads = PIPELINE_EXECUTOR["load_sec"]
+
+    def timed_load(*a, **kw):
+        t0 = time.perf_counter()
+        out = load(*a, **kw)
+        torch.cuda.synchronize()
+        loads.append(time.perf_counter() - t0)
+        return out
+
+    serving.load_predictor = timed_load
+    return time.time()
+
+
+#: what the transform's executor process measured (see above)
+PIPELINE_EXECUTOR = {"load_sec": []}
+
+
+def pipeline_executor_counts():
+    """Run on the transform's executor after it: K1's count, the predictor
+    loads' seconds, the process and its card."""
+    from tensorflowonspark_tpu_torch.ops.paged_attention import (
+        paged_attention,
+    )
+
+    return dict(k1=paged_attention.launches,
+                load_sec=list(PIPELINE_EXECUTOR["load_sec"]),
+                pid=os.getpid(), uuid=card_uuid(torch.cuda.current_device()))
+
+
+def run_on_executor(engine, fn):
+    """``fn()`` (a function of this module) run once as a task of
+    ``engine``; returns its result."""
+    import functools
+    import importlib
+
+    smoke = importlib.import_module("chip_smoke")
+    return engine.run_job(functools.partial(smoke._call_ignoring_rows, fn),
+                          [[0]], collect=True)[0]
+
+
+def _call_ignoring_rows(fn, rows):
+    list(rows)
+    return [fn()]
+
+
+def phase_pipeline_flagship(fed):
+    """The ML Pipeline API at the flagship's width: see the module
+    docstring, phase 23.  ``fed`` is :func:`phase_feed_train_flagship`'s
+    result."""
+    import importlib
+    import tempfile
+
+    from tensorflowonspark_tpu_torch import serving
+    from tensorflowonspark_tpu_torch.data import interchange
+    from tensorflowonspark_tpu_torch.data.dataset import Dataset
+    from tensorflowonspark_tpu_torch.engine import LocalEngine
+    from tensorflowonspark_tpu_torch.pipeline import (
+        TFEstimator,
+        TFModel,
+        _infer_output_type,
+    )
+
+    t_phase = time.perf_counter()
+    gc_collect()
+    smoke = importlib.import_module("chip_smoke")
+    chosen, chosen_uuid = gpu_choice()
+    tmp = tempfile.mkdtemp(prefix="pipeline_")
+    try:
+        # 1. interchange: feed_train_flagship's rows of its three epochs
+        # as Example shards, written so that the shards, read in order,
+        # give the rows in order
+        rng = np.random.default_rng(7)  # flagship_trainer's tokens
+        tokens = rng.integers(0, FLAGSHIP["vocab_size"],
+                              (TRAIN_K, TRAIN_B, TRAIN_S)).astype(np.int32)
+        rows = [{"tokens": t} for t in tokens.reshape(-1, TRAIN_S)] * 3
+        per = len(rows) // PIPELINE_SHARDS
+        written = [rows[s * per + k] for k in range(per)
+                   for s in range(PIPELINE_SHARDS)]
+        shards = os.path.join(tmp, "shards")
+        t0 = time.perf_counter()
+        n_written = interchange.save_as_tfrecords(
+            written, shards, schema=PIPELINE_SCHEMA,
+            num_shards=PIPELINE_SHARDS)
+        t1 = time.perf_counter()
+        loaded, schema = interchange.load_tfrecords(shards,
+                                                    schema=PIPELINE_SCHEMA)
+        t2 = time.perf_counter()
+        rows_equal = (len(loaded) == len(rows) and all(
+            np.array_equal(a["tokens"], b["tokens"])
+            for a, b in zip(loaded, rows)))
+        shard_bytes = tree_bytes(shards)
+        del loaded
+
+        # 2. fit through the pipeline on LocalEngine(1)
+        export = os.path.join(tmp, "export")
+        out = os.path.join(tmp, "fit.json")
+        requests = make_requests(np.random.default_rng(2), REQUESTS,
+                                 FLAGSHIP["vocab_size"], 16,
+                                 SERVING["max_prompt_len"])
+        est = (TFEstimator(smoke.pipeline_train_fn, {
+            "out": out, "k": TRAIN_K, "sample": requests[0]})
+            .setInputMapping(SERVE_MAPPING).setClusterSize(1).setEpochs(1)
+            .setBatchSize(TRAIN_B).setExportDir(export).setGraceSecs(600)
+            .setFeedTimeout(600).setReservationTimeout(120))
+        t3 = time.perf_counter()
+        model = est.fit(rows)
+        fit_sec = time.perf_counter() - t3
+        with open(out) as f:
+            res = json.load(f)
+        with open(os.path.join(export, "metadata.json")) as f:
+            meta = json.load(f)
+
+        # 3. transform the export on LocalEngine(1), continuous schedule
+        if not isinstance(model, TFModel):
+            raise AssertionError("fit returned {0!r}".format(model))
+        t4 = time.time()
+        engine = LocalEngine(1)
+        try:
+            ready = run_on_executor(engine, smoke.pipeline_executor_ready)
+            model = (model.setInputMapping(SERVE_MAPPING)
+                     .setSchedule("continuous").setBatchSize(SLOTS))
+            model.engine = engine
+            t5 = time.perf_counter()
+            transformed = model.transform([dict(r) for r in requests])
+            transform_sec = time.perf_counter() - t5
+            executor = run_on_executor(engine, smoke.pipeline_executor_counts)
+        finally:
+            engine.stop()
+
+        # the same export served in the driver
+        t6 = time.perf_counter()
+        predict = serving.load_predictor(export)
+        driver_load_sec = time.perf_counter() - t6
+        driven, stats, serve_wall, k1 = serve_rows(
+            predict, [dict(r) for r in requests])
+        del predict
+        gc_collect()
+
+        # 4. the command line, in a subprocess, on prompts from interchange
+        cli_in, cli_out = (os.path.join(tmp, "cli-in"),
+                           os.path.join(tmp, "cli-out"))
+        interchange.save_as_tfrecords(requests, cli_in,
+                                      schema=PIPELINE_SCHEMA)
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(smoke.__file__)))
+        t7 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tensorflowonspark_tpu_torch.serving",
+             "--export_dir", export, "--input", cli_in,
+             "--input_mapping", "tokens=tokens", "--output", cli_out,
+             "--batch_size", str(SLOTS), "--schedule", "continuous"],
+            env=env, capture_output=True, text=True, timeout=600)
+        cli_sec = time.perf_counter() - t7
+        if proc.returncode != 0:
+            raise AssertionError("serving CLI exited {0}:\n{1}".format(
+                proc.returncode, proc.stderr[-4000:]))
+        with open(os.path.join(cli_out, "part-00000.jsonl")) as f:
+            cli_tokens = [json.loads(line)["generated"] for line in f]
+
+        # 5. Dataset from the shards into the flagship trainer, in the driver
+        from tensorflowonspark_tpu_torch.ops.flash_attention import (
+            flash_attention,
+        )
+
+        tree, _ = flagship_tree()
+        _, _, trainer, state, _ = flagship_trainer(tree)
+        del tree
+        ds = Dataset.from_tfrecords(shards, {"tokens": ("int32", TRAIN_S)})
+        flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
+        ds_losses, group = [], []
+        torch.cuda.synchronize()
+        t8 = time.perf_counter()
+        for batch in ds.batch(TRAIN_B).prefetch(
+                sharding=trainer.batch_sharding()):
+            group.append(batch["tokens"])
+            if len(group) == TRAIN_K:
+                state, metrics = trainer.multi_step_on_device(
+                    state, {"tokens": torch.stack(group)})
+                ds_losses.append(metrics["loss"])
+                group = []
+        torch.cuda.synchronize()
+        ds_sec = time.perf_counter() - t8
+        ds_launches = dict(flash_attention.launches)
+        ds_losses = torch.cat(ds_losses).float().cpu().numpy().tolist()
+        ds_rows = ds.num_rows
+        del trainer, state, ds
+        gc_collect()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    want = np.asarray(fed["losses"])
+    rel = max_rel_diff(np.asarray(res["losses"]), want)
+    ds_rel = max_rel_diff(np.asarray(ds_losses), np.asarray(res["losses"]))
+    steps = res["timed_steps"]
+    tokens_per_sec = steps * TRAIN_B * TRAIN_S / res["wall_sec"]
+    got_tokens = [np.asarray(r["generated"]).tolist() for r in transformed]
+    driven_tokens = [np.asarray(r["generated"]).tolist() for r in driven]
+    decode_steps = stats["chunks"] * SERVING["chunk_size"]
+    out_schema = [tuple(f) for f in meta.get("output_schema") or []]
+    transformed_schema = sorted({tuple(sorted(
+        (k, _infer_output_type(v)) for k, v in r.items()))
+        for r in transformed})
+    line = dict(
+        model=fed["model"], rows=len(rows), shards=PIPELINE_SHARDS,
+        interchange_write_sec=t1 - t0, interchange_read_sec=t2 - t1,
+        interchange_rows=n_written, interchange_bytes=shard_bytes,
+        interchange_schema=interchange.format_schema(schema),
+        rows_equal=rows_equal,
+        fit_sec=fit_sec, fit_losses=res["losses"], max_rel_loss_diff=rel,
+        fit_launches=res["launches"], fit_steps=len(res["losses"]),
+        timed_steps=steps, tokens_per_sec=tokens_per_sec,
+        feed_train_flagship_tokens_per_sec=fed["tokens_per_sec"],
+        fed_over_feed_train=tokens_per_sec / fed["tokens_per_sec"],
+        feed_wait_ms=[1e3 * w for w in res["feed_wait_sec"]],
+        feed_wait_share=sum(res["feed_wait_sec"]) / res["wall_sec"],
+        fit_startup_sec=res["startup_sec"],
+        export_build_predictor_sec=res.get("build_predictor_sec"),
+        export_schema_sec=res.get("schema_sec"),
+        export_save_sec=res.get("export_sec"),
+        export_schema=out_schema,
+        compute_cuda_visible_devices=res["cuda_visible_devices"],
+        compute_uuid=res["uuid"], chosen_gpus=chosen,
+        chosen_uuid=chosen_uuid,
+        transform_sec=transform_sec,
+        transform_executor_start_sec=ready - t4,
+        transform_load_predictor_sec=executor["load_sec"],
+        transform_serving_sec=transform_sec - sum(executor["load_sec"]),
+        transform_launches=executor["k1"], transform_uuid=executor["uuid"],
+        transformed_schema=[list(s) for s in transformed_schema],
+        driver_load_predictor_sec=driver_load_sec,
+        driver_serve_wall_sec=serve_wall, driver_launches=k1,
+        decode_steps=decode_steps, requests=len(transformed),
+        tokens_equal_to_driver=got_tokens == driven_tokens,
+        cli_sec=cli_sec, cli_tokens_equal=cli_tokens == got_tokens,
+        dataset_rows=ds_rows, dataset_losses=ds_losses,
+        dataset_max_rel_loss_diff=ds_rel, dataset_launches=ds_launches,
+        dataset_train_sec=ds_sec,
+        first_tokens=[t[:4] for t in got_tokens[:4]],
+        phase_sec=time.perf_counter() - t_phase, nvidia_smi=nvidia_smi(),
+    )
+    emit("pipeline_flagship", **line)
+    if not rows_equal or n_written != len(rows):
+        raise AssertionError("interchange rows differ after a round trip")
+    if not rel <= FEED_LOSS_RTOL:
+        raise AssertionError("pipeline losses differ from feed_train_"
+                             "flagship's by {0} relative".format(rel))
+    want_launches = FLAGSHIP["num_layers"] * len(want)
+    if res["launches"] != {n: want_launches for n in ("fwd", "dq", "dkv")}:
+        raise AssertionError("fit flash launches {0}, want {1} each".format(
+            res["launches"], want_launches))
+    if (res["cuda_visible_devices"] != ",".join(map(str, chosen))
+            or res["uuid"] != chosen_uuid):
+        raise AssertionError("fit ran on {0} (visible {1}), gpu_info chose "
+                             "{2} ({3})".format(res["uuid"],
+                                                res["cuda_visible_devices"],
+                                                chosen, chosen_uuid))
+    if out_schema != [("generated", "array<int>")] \
+            or res.get("export_schema") is None:
+        raise AssertionError("export output_schema {0}".format(out_schema))
+    if transformed_schema != [tuple(out_schema)]:
+        raise AssertionError("transform output columns {0}, export schema "
+                             "{1}".format(transformed_schema, out_schema))
+    if len(transformed) != REQUESTS or not line["tokens_equal_to_driver"]:
+        raise AssertionError("transformed tokens differ from the export "
+                             "served in the driver")
+    if not (decode_steps > 0
+            and k1 == FLAGSHIP["num_layers"] * decode_steps
+            and executor["k1"] == k1):
+        raise AssertionError("paged_attention launches: transform {0}, "
+                             "driver {1}, want {2} layers x {3} decode "
+                             "steps".format(executor["k1"], k1,
+                                            FLAGSHIP["num_layers"],
+                                            decode_steps))
+    if not line["cli_tokens_equal"]:
+        raise AssertionError("the serving CLI's tokens differ from the "
+                             "transform's")
+    if not ds_rel <= FEED_LOSS_RTOL or len(ds_losses) != len(want):
+        raise AssertionError("Dataset-fed losses {0} differ from the fit's "
+                             "by {1} relative".format(ds_losses, ds_rel))
+    if ds_launches != {n: want_launches for n in ("fwd", "dq", "dkv")}:
+        raise AssertionError("Dataset-fed flash launches {0}".format(
+            ds_launches))
+    return line
+
+
 def kernel_entry(name, kernel, replaces, launches, timing,
                  source="tensorflowonspark_tpu_torch/csrc/flash_attention.cu",
                  **extra):
@@ -4454,6 +4842,7 @@ def main():
     inference = phase_feed_inference_flagship()
     resumed = phase_checkpoint_resume_serve(train)
     elastic = phase_elastic_flagship()
+    pipeline = phase_pipeline_flagship(fed)
     jax_flash = "tensorflowonspark_tpu/ops/flash_attention.py:"
     jax_gmm = "tensorflowonspark_tpu/ops/gmm.py:"
     print(json.dumps({"kernels": [dict(
@@ -4468,6 +4857,7 @@ def main():
         library_note="gather_pool of K and V, then "
                      "scaled_dot_product_attention with the length mask",
         export_serve_launches=resumed["export_serve_launches"],
+        pipeline_launches=pipeline["transform_launches"],
     )] + [
         kernel_entry("flash_" + name, kernel, jax_flash + line,
                      train["launches"][name], flash[name],
@@ -4477,6 +4867,7 @@ def main():
                      resume_launches=resumed["resume_launches"][name],
                      elastic_launches=[g[name] for g in elastic["launches"]],
                      ring_attention_launches=ring_hops["launches"][name],
+                     pipeline_launches=pipeline["fit_launches"][name],
                      **{"offset_" + k: offset[name][k] for k in (
                          "ms", "plain_ms", "bound_ms", "bound_by",
                          "library_ms", "max_abs_err")})

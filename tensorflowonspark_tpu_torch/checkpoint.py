@@ -69,7 +69,7 @@ def _local_path(directory):
     path = os.fspath(directory)
     if "://" in str(path):
         raise _not_ported("remote checkpoint URI {0!r}".format(path),
-                          "SparkEngine")
+                          "remote checkpoint URIs")
     return os.path.abspath(path)
 
 

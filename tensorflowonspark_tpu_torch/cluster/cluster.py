@@ -17,10 +17,7 @@ supervisor respawns the compute process under a new generation, and
 Not ported (ROADMAP queue A): remediation holds (``hold_executor``,
 ``release_executor``), parameter-server and evaluator nodes (``num_ps``,
 ``driver_ps_nodes``, ``eval_node``), the planner (``plan``), profiling
-and tensorboard, the health, remediation and journal planes, and Spark's
-native datasets (there is no ``SparkEngine``: partitions are lists or
-zero-argument callables, and a stream's micro-batches are duck-typed
-RDDs).
+and tensorboard, and the health, remediation and journal planes.
 """
 
 import functools
@@ -210,22 +207,37 @@ class TPUCluster(object):
         """Feed a dataset to the cluster for training.
 
         Args:
-          data: a list of partitions, each a row list or a zero-arg
-            callable returning rows (generated on the executors).
+          data: an engine-native dataset (a Spark RDD or DataFrame on a
+            :class:`~..engine.SparkEngine`, fed in place by
+            ``foreachPartition``: its rows never pass through the driver),
+            or a list of partitions, each a row list or a zero-arg callable
+            returning rows (generated on the executors).
           num_epochs: epochs are fed by re-running the feed job.
           feed_timeout: seconds a feed task waits for its rows to be
             consumed before it fails.
 
-        On an elastic cluster every partition leads with its
+        On an elastic cluster every partition of a list leads with its
         :class:`~.marker.PartitionStart` (id ``"e<epoch>p<index>"``),
         and after a restart the partitions that no checkpoint committed
-        are fed again (at-least-once).
+        are fed again (at-least-once).  A native dataset is not
+        requeued: its recovery is the engine's task retries and the
+        checkpoint resume.
         """
         assert self.input_mode == InputMode.SPARK, (
             "train() requires InputMode.SPARK")
         assert num_epochs >= 1
         feed_fn = node.train(self.cluster_info, self.cluster_meta,
                              feed_timeout, qname)
+        if self.engine.is_native_dataset(data):
+            logger.info("feeding native dataset x %d epochs", num_epochs)
+            if self.elastic:
+                logger.info("native dataset on an elastic cluster: no "
+                            "partition requeue (the engine's task retries "
+                            "and the checkpoint resume recover it)")
+            for _ in range(num_epochs):
+                self.engine.run_data_job(feed_fn, data)
+                self._check_monitor()
+            return
         # normalize once so generators of partitions survive re-feeding
         data = [p if callable(p) else list(p) for p in data]
         logger.info("feeding %d partitions x %d epochs", len(data),
@@ -237,8 +249,8 @@ class TPUCluster(object):
                 self._run_feed_monitored(feed_fn, data)
 
     def train_stream(self, batches, feed_timeout=600, qname="input"):
-        """Feed a stream of micro-batches, each a list of partitions fed
-        as one job (the DStream role).  Ends when ``batches`` is
+        """Feed a stream of micro-batches, each a list of partitions (or a
+        native dataset) fed as one job (the DStream role).  Ends when ``batches`` is
         exhausted or someone posts STOP on the reservation server
         (``reservation.Client(addr).request_stop()``); returns the
         number of micro-batches fed."""
@@ -252,15 +264,21 @@ class TPUCluster(object):
                 logger.info("stop requested after %d stream batches; "
                             "ending feed", fed)
                 break
-            self._run_feed_monitored(
-                feed_fn, [p if callable(p) else list(p) for p in partitions])
+            if self.engine.is_native_dataset(partitions):
+                # a stream of RDDs: the foreachRDD contract
+                self.engine.run_data_job(feed_fn, partitions)
+            else:
+                self._run_feed_monitored(
+                    feed_fn,
+                    [p if callable(p) else list(p) for p in partitions])
             fed += 1
         logger.info("stream feed complete after %d batches", fed)
         return fed
 
     def train_dstream(self, dstream, feed_timeout=600, qname="input"):
         """Hook a stream with ``foreachRDD``: each micro-batch RDD is fed
-        in place (``rdd.foreachPartition`` of the feeder) as it arrives;
+        in place (the engine's :meth:`~..engine.Engine.run_data_job`, or
+        ``rdd.foreachPartition`` of the feeder) as it arrives;
         after a STOP on the reservation server, later micro-batches are
         skipped."""
         assert self.input_mode == InputMode.SPARK, (
@@ -268,12 +286,16 @@ class TPUCluster(object):
         feed_fn = node.train(self.cluster_info, self.cluster_meta,
                              feed_timeout, qname)
         server = self.server
+        engine = self.engine
 
         def _each_rdd(rdd):
             if server.stop_requested:
                 logger.info("stop requested; skipping stream micro-batch")
                 return
-            rdd.foreachPartition(feed_fn)
+            if engine.is_native_dataset(rdd):
+                engine.run_data_job(feed_fn, rdd)
+            else:  # a duck-typed RDD on an engine without native datasets
+                rdd.foreachPartition(feed_fn)
 
         dstream.foreachRDD(_each_rdd)
 
@@ -282,15 +304,20 @@ class TPUCluster(object):
         order.
 
         Args:
-          data: a list of partitions (see :meth:`train`).
-          lazy: return a generator of per-partition result lists, each
-            yielded as soon as it and its predecessors complete, instead
-            of one flat list.
+          data: an engine-native dataset or a list of partitions (see
+            :meth:`train`).
+          lazy: return the results without collecting them on the
+            driver: a lazy result RDD for a native dataset, else a
+            generator of per-partition result lists, each yielded as soon
+            as it and its predecessors complete.
         """
         assert self.input_mode == InputMode.SPARK, (
             "inference() requires InputMode.SPARK")
         feed_fn = node.inference(self.cluster_info, self.cluster_meta,
                                  feed_timeout, qname)
+        if self.engine.is_native_dataset(data):
+            result = self.engine.map_partitions_native(feed_fn, data)
+            return result if lazy else result.collect()
         data = [p if callable(p) else list(p) for p in data]
         if lazy:
             return self.engine.run_job_lazy(feed_fn, data)
@@ -607,7 +634,8 @@ def run(engine, map_fun, args=None, num_executors=None,
     """Start a cluster over an executor fleet.
 
     Args:
-      engine: an :class:`~..engine.Engine`, or an int (the number of
+      engine: an :class:`~..engine.Engine`, a ``SparkContext`` (wrapped
+        in a :class:`~..engine.SparkEngine`), or an int (the number of
         local executor processes to launch).
       map_fun: user function ``main_fun(args, ctx)``; module-level, since
         it travels by ``pickle`` (by reference).
@@ -638,7 +666,7 @@ def run(engine, map_fun, args=None, num_executors=None,
     ``profile_steps``, ``plan``, ``plan_hint``) are accepted at their
     defaults and raise ``NotImplementedError`` otherwise.
     """
-    from ..engine import LocalEngine
+    from ..engine import Engine, LocalEngine, SparkEngine
 
     for key, val in unported.items():
         if key not in _UNPORTED_RUN_ARGS:
@@ -663,6 +691,8 @@ def run(engine, map_fun, args=None, num_executors=None,
                     num_executors, engine))
         engine = LocalEngine(engine)
         owns_engine = True
+    elif not isinstance(engine, Engine) and hasattr(engine, "parallelize"):
+        engine = SparkEngine(engine)
     if num_executors is None:
         num_executors = engine.num_executors
     if num_executors > engine.num_executors:

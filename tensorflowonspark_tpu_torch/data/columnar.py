@@ -23,7 +23,6 @@ compute dtype happens on the device (:mod:`.preprocess`).
 
 import ctypes
 import logging
-import os
 
 import numpy as np
 
@@ -244,28 +243,11 @@ def decode_batch(records, columns):
     return out
 
 
-def _record_files(path):
-    """The record files of a TFRecord file or directory: a directory's
-    files, sorted, without those whose names start with ``_`` or ``.``
-    (the reference's ``interchange._record_files``, local paths)."""
-    from . import tfrecord as tfr
-
-    base = tfr.local_path(path)
-    if os.path.isdir(base):
-        files = sorted(
-            e.path for e in os.scandir(base)
-            if e.is_file() and not e.name.startswith(("_", "."))
-        )
-        if not files:
-            raise FileNotFoundError("no record files under {0}".format(path))
-        return files
-    return [path]
-
-
 def load_tfrecords_columnar(path, columns):
     """TFRecord file/dir -> columnar arrays in one pass (see
     :func:`decode_batch` for ``columns``)."""
     from . import tfrecord as tfr
+    from .interchange import _record_files
 
     records = []
     for f in _record_files(path):

@@ -1,5 +1,5 @@
 """TFRecord file I/O over the native C++ codec (a copy of the JAX
-package's ``data/tfrecord.py``, cut to local files).
+package's ``data/tfrecord.py``).
 
 The C++ library (``native/tfrecord_codec.cc``, built by
 :mod:`._native`) does the framing and slice-by-8 CRC32C; a pure-Python
@@ -7,9 +7,9 @@ fallback keeps the package working where no compiler exists (CRC via a
 generated table: the same numbers, about 100x slower).  Files are byte
 for byte the reference's.
 
-Remote URIs (``gs://``, ``hdfs://``, ...), which the reference routes
-through ``fsspec``, are not ported: paths are local, ``file://``
-accepted.
+Remote URIs (``gs://``, ``hdfs://``, ``s3://``, ``memory://``, ...) go
+through ``fsspec`` (:mod:`..utils.fs`) with the pure-Python framing;
+local paths and ``file://`` URIs keep the native codec.
 """
 
 import ctypes
@@ -18,6 +18,7 @@ import os
 import struct
 
 from . import _native
+from ..utils import fs as fs_utils
 
 logger = logging.getLogger(__name__)
 
@@ -55,19 +56,6 @@ def _configure(lib):
 
 def native_available():
     return _load_native() is not None
-
-
-def local_path(path):
-    """``path`` as a local filesystem path (``file://`` stripped);
-    other URI schemes raise."""
-    path = os.fspath(path)
-    if path.startswith("file://"):
-        return path[len("file://"):]
-    if "://" in path:
-        raise NotImplementedError(
-            "remote TFRecord URIs ({0}) are not ported to the PyTorch "
-            "package; pass a local path".format(path))
-    return path
 
 
 # ----------------------------------------------------------------------
@@ -115,16 +103,17 @@ class TFRecordWriter(object):
     """Append-only TFRecord writer (context manager)."""
 
     def __init__(self, path):
-        self.path = local_path(path)
-        self._lib = _load_native()
+        self.path = os.fspath(path)
+        self._lib = None if fs_utils.is_remote(self.path) else _load_native()
         if self._lib is not None:
-            self._h = self._lib.tfr_writer_open(self.path.encode())
+            local = fs_utils.local_path(self.path)
+            self._h = self._lib.tfr_writer_open(local.encode())
             if not self._h:
                 raise IOError("cannot open {0} for writing".format(path))
             self._f = None
         else:
             self._h = None
-            self._f = open(self.path, "wb")
+            self._f = fs_utils.open_file(self.path, "wb")
 
     def write(self, record):
         record = bytes(record)
@@ -163,19 +152,20 @@ class TFRecordReader(object):
     """Iterates records of one TFRecord file (context manager)."""
 
     def __init__(self, path):
-        self.path = local_path(path)
-        self._lib = _load_native()
+        self.path = os.fspath(path)
+        self._lib = None if fs_utils.is_remote(self.path) else _load_native()
         if self._lib is not None:
-            if not os.path.exists(self.path):
+            local = fs_utils.local_path(self.path)
+            if not os.path.exists(local):
                 # builtin open()'s error class
-                raise FileNotFoundError(self.path)
-            self._h = self._lib.tfr_reader_open(self.path.encode())
+                raise FileNotFoundError(local)
+            self._h = self._lib.tfr_reader_open(local.encode())
             if not self._h:
                 raise IOError("cannot open {0}".format(path))
             self._f = None
         else:
             self._h = None
-            self._f = open(self.path, "rb")
+            self._f = fs_utils.open_file(self.path, "rb")
 
     def __iter__(self):
         return self

@@ -2,20 +2,28 @@
 JAX package's ``engine.py``).
 
 The executor fleet sits behind a small :class:`Engine` interface so the
-cluster, data-plane and compute code run over :class:`LocalEngine`: N
-executor *processes* on one host with Spark-like scheduling semantics.
-Those semantics are load-bearing:
+cluster, data-plane and compute code run over either engine:
+
+- :class:`LocalEngine`: N executor *processes* on one host with
+  Spark-like scheduling semantics;
+- :class:`SparkEngine`: a thin adapter over a live ``SparkContext``
+  (``pyspark`` is never imported here: the adapter only calls the
+  context and the datasets it is given).  Its RDDs and DataFrames are
+  *native datasets*, fed in place on the executors.
+
+The scheduling semantics are load-bearing:
 
 - each executor runs ONE task at a time (a 1-core executor);
 - a task that blocks (TENSORFLOW-mode training) pins its executor, so
   feed tasks are only ever scheduled on free executors;
 - a task failure fails the whole job and carries the remote traceback.
 
-Functions and partitions travel to the executors with the standard
-``pickle``, never ``cloudpickle``: a function is shipped by reference,
-so it must be importable by module and name (a module-level function,
-or a ``functools.partial`` of one), and closures are refused.  The
-reference's ``SparkEngine`` is not ported (ROADMAP queue A).
+Functions and partitions travel to :class:`LocalEngine`'s executors
+with the standard ``pickle``, never ``cloudpickle``: a function is
+shipped by reference, so it must be importable by module and name (a
+module-level function, or a ``functools.partial`` of one), and closures
+are refused.  :class:`SparkEngine` hands Spark its callables and
+partitions, and Spark serialises them itself.
 """
 
 import logging
@@ -90,6 +98,31 @@ class Engine(object):
         """
         raise NotImplementedError
 
+    def is_native_dataset(self, dataset):
+        """True when ``dataset`` is this engine's own distributed dataset
+        type (an RDD or DataFrame for Spark), fed in place by
+        :meth:`run_data_job` without passing through the driver."""
+        return False
+
+    def run_data_job(self, mapfn, dataset, collect=False):
+        """Run ``mapfn(row_iterator)`` over each partition of a native
+        dataset (see :meth:`is_native_dataset`); blocks."""
+        raise NotImplementedError(
+            "{0} has no native dataset type".format(type(self).__name__))
+
+    def map_partitions_native(self, mapfn, dataset):
+        """Lazily map ``mapfn`` over a native dataset's partitions; returns
+        the engine's lazy result (a result RDD for Spark)."""
+        raise NotImplementedError(
+            "{0} has no native dataset type".format(type(self).__name__))
+
+    def run_job_lazy(self, mapfn, partitions):
+        """Run a collect-style job, yielding each partition's result list
+        in partition order (here one job per partition, so nothing runs
+        until the consumer advances)."""
+        for part in partitions:
+            yield self.run_job(mapfn, [part], collect=True)
+
     def run_job_async(self, mapfn, partitions):
         """Launch a job without blocking; returns a :class:`JobHandle`."""
         handle = JobHandle()
@@ -105,6 +138,10 @@ class Engine(object):
         threading.Thread(target=_runner, daemon=True,
                          name="job-runner").start()
         return handle
+
+    def num_active_jobs(self):
+        """Approximate count of running jobs."""
+        return 0
 
     def stop(self):
         pass
@@ -325,3 +362,77 @@ class LocalEngine(Engine):
                 except (OSError, ProcessLookupError):
                     pass
         logger.info("LocalEngine stopped")
+
+
+class SparkEngine(Engine):
+    """Adapter over a live ``SparkContext``: jobs of partition lists run as
+    ``sc.parallelize(...).mapPartitions``, and RDDs and DataFrames are
+    native datasets, fed in place."""
+
+    def __init__(self, sc):
+        self.sc = sc
+        self._num_executors = int(
+            sc.getConf().get("spark.executor.instances", "1"))
+        try:
+            self._default_fs = sc._jsc.hadoopConfiguration().get(
+                "fs.defaultFS")
+        except Exception:  # noqa: BLE001 - the py4j surface varies
+            self._default_fs = "file://"
+
+    @property
+    def num_executors(self):
+        return self._num_executors
+
+    @property
+    def default_fs(self):
+        return self._default_fs
+
+    def run_job(self, mapfn, partitions, collect=False):
+        # a callable (lazy) partition travels as data and generates its
+        # rows on the executor
+        encoded = [("lazy", p) if callable(p) else ("rows", list(p))
+                   for p in partitions]
+        rdd = self.sc.parallelize(encoded, len(encoded))
+
+        def _decode(part):
+            tag, payload = part
+            return payload() if tag == "lazy" else payload
+
+        if collect:
+            def _adapter(it):
+                out = []
+                for part in it:
+                    r = mapfn(iter(_decode(part)))
+                    if r is not None:
+                        out.extend(r)
+                return out
+
+            return rdd.mapPartitions(_adapter).collect()
+
+        def _each(it):
+            part = next(it, None)
+            mapfn(iter(_decode(part) if part is not None else []))
+
+        rdd.foreachPartition(_each)
+        return None
+
+    def is_native_dataset(self, dataset):
+        return hasattr(dataset, "mapPartitions") or hasattr(dataset, "rdd")
+
+    @staticmethod
+    def _as_rdd(dataset):
+        return dataset if hasattr(dataset, "mapPartitions") else dataset.rdd
+
+    def run_data_job(self, mapfn, dataset, collect=False):
+        rdd = self._as_rdd(dataset)
+        if collect:
+            return rdd.mapPartitions(mapfn).collect()
+        rdd.foreachPartition(mapfn)
+        return None
+
+    def map_partitions_native(self, mapfn, dataset):
+        """A lazy result RDD, evaluated when the caller acts on it."""
+        return self._as_rdd(dataset).mapPartitions(mapfn)
+
+    def num_active_jobs(self):
+        return len(self.sc.statusTracker().getActiveJobsIds())

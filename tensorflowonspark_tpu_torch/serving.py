@@ -7,6 +7,10 @@ Only the continuous schedule is ported: :func:`predict_rows` with
 static schedule, fleet replicas and the lifecycle knobs raise
 ``NotImplementedError``.
 
+:func:`main` is the batch-inference command line (``python -m
+tensorflowonspark_tpu_torch.serving``): an export over TFRecords,
+predictions written as JSON lines.
+
 :func:`load_predictor` builds a predictor from a serving export
 (:func:`..checkpoint.save_for_serving`) through the builder its
 metadata names in ``model_ref``.  An export written by the JAX package
@@ -18,8 +22,11 @@ either package.
 import hashlib
 import importlib
 import json
+import logging
 import os
 import pickle
+
+import numpy as np
 
 from tensorflowonspark_tpu_torch import serving_engine
 from tensorflowonspark_tpu_torch.serving_engine import (  # noqa: F401
@@ -32,6 +39,8 @@ from tensorflowonspark_tpu_torch.serving_engine import (  # noqa: F401
     error_record,
 )
 from tensorflowonspark_tpu_torch.utils import not_ported as _not_ported
+
+logger = logging.getLogger(__name__)
 
 
 def predict_rows(
@@ -251,3 +260,182 @@ def load_predictor(export_dir, builder=None, use_cache=True,
     if use_cache:
         _PREDICTOR_CACHE[key] = predict
     return predict
+
+
+def infer_output_schema(predict, sample_row, input_mapping,
+                        output_mapping=None):
+    """The output schema of ``predict``, from ONE row run through
+    :func:`predict_rows` at export time, so it can be written into the
+    serving metadata (``save_for_serving(..., output_schema=...)``) and
+    the distributed transform never runs its one-row probe job.
+
+    The reference runs the row through the static schedule, which is not
+    ported; this runs it through the continuous schedule with one slot
+    (greedy decode gives the same row under both).  Returns an
+    interchange field list ``[(column, type_str), ...]``.
+    """
+    from tensorflowonspark_tpu_torch.pipeline import _infer_output_type
+
+    out = next(iter(predict_rows(
+        predict, [sample_row], input_mapping, output_mapping,
+        batch_size=1, schedule="continuous",
+    )))
+    return [(name, _infer_output_type(out[name])) for name in sorted(out)]
+
+
+# ----------------------------------------------------------------------
+# the batch-inference command line (the reference's Inference.scala)
+# ----------------------------------------------------------------------
+
+
+def _parse_mapping(text):
+    """Accept JSON (``{"col":"x"}``) or ``col=x,col2=y`` shorthand."""
+    text = text.strip()
+    if text.startswith("{"):
+        return json.loads(text)
+    out = {}
+    for part in text.split(","):
+        k, sep, v = part.partition("=")
+        if not sep:
+            raise ValueError("mapping entries must be key=value: " + part)
+        out[k.strip()] = v.strip()
+    return out
+
+
+def _json_default(o):
+    if isinstance(o, np.ndarray):
+        return o.tolist()
+    if isinstance(o, (np.floating, np.integer)):
+        return o.item()
+    if isinstance(o, bytes):
+        return o.decode("utf-8", "replace")
+    raise TypeError("not JSON serializable: {0}".format(type(o)))
+
+
+def main(argv=None):
+    """Batch inference: load a serving export, read TFRecords, write one
+    JSON line per row to ``<output>/part-00000.jsonl``; returns the
+    number of rows written.  The reference's arguments; those of planes
+    not ported yet raise ``NotImplementedError`` naming their item.  The
+    device is the export's ``model_config["device"]`` (default
+    ``cuda``)."""
+    import argparse
+
+    p = argparse.ArgumentParser(
+        prog="tensorflowonspark_tpu_torch.serving",
+        description="Batch inference over TFRecords with a serving export",
+    )
+    p.add_argument("--export_dir", required=True,
+                   help="serving export directory (save_for_serving output)")
+    p.add_argument("--input", required=True,
+                   help="TFRecord file or directory of shards")
+    p.add_argument("--schema_hint", default=None,
+                   help="struct<name:type,...> schema for the input records")
+    p.add_argument("--input_mapping", required=True,
+                   help="JSON or col=input,... mapping of record columns "
+                        "to predictor inputs")
+    p.add_argument("--output_mapping", default=None,
+                   help="JSON or output=col,... mapping of predictor "
+                        "outputs to result columns")
+    p.add_argument("--output", required=True,
+                   help="output directory for JSON-line part files")
+    p.add_argument("--batch_size", type=int, default=128,
+                   help="in-flight KV-cache slots (continuous schedule)")
+    p.add_argument("--schedule", choices=("static", "continuous"),
+                   default="static",
+                   help="batching schedule; only 'continuous' (in-flight "
+                        "batching for generation exports) is ported")
+    p.add_argument("--on_error", choices=serving_engine.ON_ERROR,
+                   default="raise",
+                   help="per-request failure policy: 'raise' fails "
+                        "fast naming the request, 'record' isolates "
+                        "poison rows as typed error records")
+    p.add_argument("--policy", choices=serving_engine.POLICIES,
+                   default="block", help="admission policy under overload")
+    p.add_argument("--queue_depth", type=int, default=None,
+                   help="admission-queue bound")
+    p.add_argument("--watchdog_timeout", type=float, default=None,
+                   help="seconds before a wedged decode chunk is abandoned")
+    p.add_argument("--deadline", type=float, default=None,
+                   help="default per-request deadline in seconds")
+    p.add_argument("--checkpoint_dir", default=None,
+                   help="step-numbered serving-export root to watch for "
+                        "live weight hot swaps")
+    p.add_argument("--checkpoint_poll", type=float, default=5.0,
+                   help="seconds between checkpoint_dir scans")
+    p.add_argument("--rollback_window", type=int, default=8,
+                   help="clean requests a swapped-in generation must serve "
+                        "before the previous weights are released")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="serve through a fleet of N engine replicas")
+    p.add_argument("--replica_policy", default="least_loaded",
+                   choices=("least_loaded", "prefix_affinity",
+                            "weighted_rr", "random"),
+                   help="fleet dispatch policy")
+    p.add_argument("--fleet_queue_depth", type=int, default=None,
+                   help="fleet admission-queue bound")
+    p.add_argument("--tp", type=int, default=None,
+                   help="tensor-parallel degree of the serving mesh")
+    p.add_argument("--disaggregate", action="store_true",
+                   help="split prefill and decode into separate programs")
+    args = p.parse_args(argv)
+
+    if args.schedule != "continuous":
+        raise _not_ported("--schedule {0}".format(args.schedule),
+                          "contiguous KV and static generate")
+    if args.replicas > 1:
+        raise _not_ported("--replicas {0}".format(args.replicas), "fleet")
+    if args.tp:
+        raise _not_ported("--tp", "TP")
+    if args.disaggregate:
+        raise _not_ported("--disaggregate", "disaggregation")
+    if args.checkpoint_dir:
+        raise _not_ported("--checkpoint_dir (live weight hot swap)",
+                          "the engine's robustness planes")
+
+    from tensorflowonspark_tpu_torch.data import interchange
+    from tensorflowonspark_tpu_torch.utils import fs as fs_utils
+
+    rows, schema = interchange.load_tfrecords(args.input,
+                                              schema=args.schema_hint)
+    logger.info("loaded %d rows (schema: %s)", len(rows),
+                interchange.format_schema(schema))
+    predict = load_predictor(args.export_dir)
+    input_mapping = _parse_mapping(args.input_mapping)
+    output_mapping = (_parse_mapping(args.output_mapping)
+                      if args.output_mapping else None)
+    fs_utils.makedirs(args.output)
+    out_path = fs_utils.join(args.output, "part-00000.jsonl")
+    count = 0
+    stats = {}
+    with fs_utils.open_file(out_path, "w") as f:
+        for out_row in predict_rows(
+            predict, rows, input_mapping, output_mapping, args.batch_size,
+            schedule=args.schedule, stats=stats, on_error=args.on_error,
+            queue_depth=args.queue_depth, policy=args.policy,
+            watchdog_timeout=args.watchdog_timeout,
+            default_deadline=args.deadline,
+            rollback_window=args.rollback_window,
+        ):
+            f.write(json.dumps(out_row, default=_json_default) + "\n")
+            count += 1
+    if stats.get("errors"):
+        logger.warning("%d error record(s)", stats["errors"])
+    latency = sorted((stats.get("latency_sec") or {}).values())
+    if latency:
+        logger.info(
+            "continuous schedule: %d request(s) over %d chunks, "
+            "per-request latency p50=%.1fms p99=%.1fms", len(latency),
+            stats.get("chunks", 0), 1e3 * float(np.percentile(latency, 50)),
+            1e3 * float(np.percentile(latency, 99)))
+    logger.info("wrote %d predictions to %s", count, out_path)
+    return count
+
+
+if __name__ == "__main__":
+    # run the package's module, not this __main__ copy, so model_ref
+    # resolution and the predictor cache see the package's names
+    from tensorflowonspark_tpu_torch import serving as _serving
+
+    logging.basicConfig(level=logging.INFO)
+    _serving.main()

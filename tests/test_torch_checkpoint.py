@@ -167,9 +167,9 @@ def test_compressed_chunks_are_refused(tmp_path):
 
 
 def test_remote_uri_is_refused():
-    with pytest.raises(NotImplementedError, match="SparkEngine"):
+    with pytest.raises(NotImplementedError, match="remote checkpoint URIs"):
         tck.load_for_serving("gs://bucket/export")
-    with pytest.raises(NotImplementedError, match="SparkEngine"):
+    with pytest.raises(NotImplementedError, match="remote checkpoint URIs"):
         tck.Checkpointer("s3://bucket/ckpt")
 
 

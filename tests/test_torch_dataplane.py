@@ -9,6 +9,8 @@ byte, and where the reference raises the port raises the same error
 class with the same message."""
 
 import os
+import sys
+import uuid
 
 import numpy as np
 import pytest
@@ -233,9 +235,35 @@ def test_corrupt_record_raises_like_jax(framing, tmp_path):
             list(mod.read_records(path))
 
 
-def test_remote_uris_are_refused():
-    with pytest.raises(NotImplementedError, match="remote TFRecord"):
-        ttfr.TFRecordWriter("gs://bucket/x.tfrecord")
+def test_remote_uris_are_refused(monkeypatch):
+    """Without ``fsspec`` a remote URI raises the reference's
+    ``ImportError`` in both packages (local paths need no ``fsspec``)."""
+    monkeypatch.setitem(sys.modules, "fsspec", None)
+    for mod in (ttfr, jtfr):
+        with pytest.raises(ImportError, match="fsspec is required"):
+            mod.TFRecordWriter("gs://bucket/x.tfrecord")
+        with pytest.raises(ImportError, match="fsspec is required"):
+            list(mod.read_records("memory://bucket/x.tfrecord"))
+
+
+def test_remote_uris_round_trip_through_fsspec():
+    """A ``memory://`` URI goes through ``fsspec`` with the Python
+    framing: the port's file is byte for byte the reference's, and each
+    package reads the other's."""
+    fsspec = pytest.importorskip("fsspec")
+    recs = [b"", b"alpha", bytes(range(256)) * 3]
+    root = "memory://tfos-dataplane-" + uuid.uuid4().hex
+    try:
+        paths = {}
+        for p in ("jax", "torch"):
+            paths[p] = root + "/" + p + ".tfrecord"
+            assert TFRECORD[p].write_records(paths[p], recs) == len(recs)
+        fs = fsspec.filesystem("memory")
+        assert fs.cat(paths["jax"]) == fs.cat(paths["torch"])
+        assert list(ttfr.read_records(paths["jax"])) == recs
+        assert list(jtfr.read_records(paths["torch"])) == recs
+    finally:
+        fsspec.filesystem("memory").rm(root, recursive=True)
 
 
 def test_load_tfrecords_columnar_matches_jax(tmp_path):

@@ -29,7 +29,7 @@ import pytest
 import torch
 
 from tensorflowonspark_tpu_torch.cluster import cluster, parallel_run
-from tensorflowonspark_tpu_torch.engine import LocalEngine
+from tensorflowonspark_tpu_torch.engine import Engine, LocalEngine
 
 BOUNDS = dict(reservation_timeout=60)
 FEED_TIMEOUT = 60
@@ -199,7 +199,10 @@ class _StopServer(object):
     stop_requested = False
 
 
-class _RecordingEngine(object):
+class _RecordingEngine(Engine):
+    """Records its jobs; the ``Engine`` base answers the native-dataset
+    questions (it has none)."""
+
     def __init__(self):
         self.jobs = []
 

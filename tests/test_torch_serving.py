@@ -188,7 +188,10 @@ def test_import_loads_no_jax():
         "from tensorflowonspark_tpu_torch.cluster import gpu_info, manager, "
         "node, parallel_run, reservation, supervisor\n"
         "from tensorflowonspark_tpu_torch.data import _native, columnar, "
-        "example, feed, preprocess, shm_ring, tfrecord\n"
+        "dataset, example, feed, interchange, preprocess, shm_ring, "
+        "spark_io, tfrecord\n"
+        "from tensorflowonspark_tpu_torch import pipeline\n"
+        "from tensorflowonspark_tpu_torch.utils import fs\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
         "'tensorflowonspark_tpu'))\n"
@@ -220,6 +223,31 @@ def test_cluster_plane_imports_no_torch():
         "from tensorflowonspark_tpu_torch.utils import tree\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('torch', 'jax', 'tensorflowonspark_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.dirname(PKG)
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_spark_side_imports_no_jax_pyspark_or_fsspec():
+    """The Spark side and the pipeline (``pipeline``, ``engine``, the
+    interchange, ``spark_io``, ``dataset``, ``utils/fs``) load no JAX,
+    ``pyspark`` or ``fsspec`` when imported, nor ``torch``: ``pyspark``
+    and ``fsspec`` are imported only when a DataFrame or a remote path
+    shows up."""
+    code = (
+        "import sys\n"
+        "from tensorflowonspark_tpu_torch import engine, pipeline\n"
+        "from tensorflowonspark_tpu_torch.data import dataset, interchange, "
+        "spark_io\n"
+        "from tensorflowonspark_tpu_torch.utils import fs\n"
+        "assert engine.SparkEngine and pipeline.TFEstimator\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tensorflowonspark_tpu', "
+        "'pyspark', 'fsspec', 'torch'))\n"
         "assert not bad, bad\n"
     )
     env = dict(os.environ)

@@ -382,3 +382,85 @@ def elastic_rows(seed, batches, batch, index):
 
 def idle_fn(args, ctx):
     """A user fn that returns at once."""
+
+
+# -- the pipeline API --------------------------------------------------------
+
+#: the serving knobs of the pipeline tests' exports (the CPU device is a
+#: deployment knob of the port's builder)
+PIPELINE_GEN = dict(mode="generate", kv_layout="paged", kv_page_tokens=8,
+                    max_new_tokens=8, chunk_size=4, pad_multiple=16,
+                    max_prompt_len=40)
+PORT_MODEL_REF = "tensorflowonspark_tpu_torch.models.transformer:serving_builder"
+
+
+def pipeline_model(tree):
+    """The tiny Transformer on the CPU from a Flax-layout tree (f32), its
+    ``SyncTrainer`` (adamw 1e-3) and a fresh state."""
+    from tensorflowonspark_tpu_torch import convert, optim
+    from tensorflowonspark_tpu_torch.models import transformer as ttr
+    from tensorflowonspark_tpu_torch.parallel import dp
+
+    model = convert.params_from_flax(
+        tree, ttr.TransformerConfig(**CKPT_TINY), device="cpu",
+        param_dtype=torch.float32)
+    trainer = dp.SyncTrainer(ttr.loss_fn(model), optim.adamw(1e-3))
+    return model, trainer, trainer.create_state(
+        dict(model.named_parameters()))
+
+
+def pipeline_train_fn(args, ctx):
+    """The ``TFEstimator`` train fn of the pipeline tests: the tiny
+    Transformer from ``args.tree`` trained on the feed's ``tokens`` column
+    (one thread, so the losses can be replayed to the bit), the losses
+    written to ``args.losses``; worker 0 exports the weights with the
+    port's ``model_ref``, a CPU generation ``model_config`` and the output
+    schema that ``serving.infer_output_schema`` gives for a sample
+    prompt."""
+    import json
+
+    from tensorflowonspark_tpu_torch import checkpoint, convert, serving
+    from tensorflowonspark_tpu_torch.models import transformer as ttr
+
+    torch.set_num_threads(1)
+    model, trainer, state = pipeline_model(args.tree)
+    losses = []
+    trainer.train_on_feed(
+        state, ctx.get_data_feed(input_mapping=args.input_mapping),
+        batch_size=args.batch_size, columnar=True,
+        metrics_callback=lambda step, m: losses.append(float(m["loss"])))
+    with open(args.losses, "w") as f:
+        json.dump(losses, f)
+    if ctx.job_name == "worker" and ctx.task_index == 0:
+        tree = convert.tree_from_model(model)
+        config = dict(CKPT_TINY, **PIPELINE_GEN, device="cpu")
+        config.pop("attention_impl")
+        schema = serving.infer_output_schema(
+            ttr.serving_builder(tree, config),
+            {"prompt": np.arange(5, dtype=np.int32)}, {"prompt": "tokens"})
+        checkpoint.save_for_serving(
+            args.export_dir, tree, output_schema=schema, extra_metadata={
+                "model_ref": PORT_MODEL_REF, "model_config": config})
+
+
+def pipeline_count_fn(args, ctx):
+    """A ``TFEstimator`` train fn that consumes its feed and writes the
+    rows it got to ``<args.out>/rows-<executor>.json``."""
+    import json
+
+    feed = ctx.get_data_feed(input_mapping=args.input_mapping)
+    rows = []
+    while not feed.should_stop():
+        batch = feed.next_batch(4)
+        rows.extend([np.asarray(v).tolist() for v in row]
+                    for row in zip(*(batch[k] for k in sorted(batch))))
+    with open(os.path.join(args.out, "rows-{0}.json".format(
+            ctx.executor_id)), "w") as f:
+        json.dump(rows, f)
+
+
+def pipeline_export_fn(args, ctx):
+    """A ``TFEstimator`` export fn that records which node ran it."""
+    with open(os.path.join(args.out, "export-{0}-{1}".format(
+            ctx.job_name, ctx.task_index)), "w") as f:
+        f.write(str(ctx.executor_id))
