@@ -17,12 +17,13 @@ caught):
    them, nor for the paged-decode kernels (:data:`SPILL_FREE_KERNELS`).
 3. ``kernel_case``: the paged-decode kernels (split, combine) against
    their plain PyTorch version on the card, case by case
-   (:data:`KERNEL_CASES`: bf16 flagship geometry, f32 GQA, sliding
-   windows, int8 pools with scales, a length-1 slot, one long GQA
-   request, more splits than live pages, narrow head-dim rows, two
-   chunks of query heads, D=256); bf16 outputs held element by element
-   to the row-relative rule of ``flash_case``.  ``paged_repeat``: two
-   runs of the bf16 kernel give bit-identical outputs.
+   (:data:`KERNEL_CASES`: bf16 flagship geometry on bf16 and on int8
+   pools, f32 GQA, sliding windows, int8 pools with scales, a length-1
+   slot, one long GQA request, more splits than live pages, narrow
+   head-dim rows, two chunks of query heads, D=256); bf16 outputs held
+   element by element to the row-relative rule of ``flash_case``.
+   ``paged_repeat``: two runs of the bf16 kernel give bit-identical
+   outputs.
 4. ``kernel_timing``: the kernel, its plain version and a library
    yardstick (gather + ``scaled_dot_product_attention``) beside the byte
    bound, at the flagship decode shape, a full 2048-token serving bank
@@ -32,7 +33,33 @@ caught):
    bf16, paged KV) with random weights made from a seed; the kernel's
    launch count over that run must be 16 per decode step.
 6. ``slice_kernel_vs_gather``: the same path in f32 at two layers with
-   ``paged_impl="kernel"`` and ``"gather"``; greedy tokens must agree.
+   ``paged_impl="kernel"`` and ``"gather"``, on float pools and on the
+   int8 KV cache's pools; greedy tokens must agree.
+   ``static_serve_flagship`` (phase 7 in the code's comments): the
+   reference's default serving paths at the flagship's width on the same
+   16 requests, 8 rows a batch.  (1) Static generate (contiguous KV, dot
+   attention): tokens/s, latency p50/p99, each batch's prefill and decode
+   ms, the share of requests equal to ``slice_flagship``'s paged
+   continuous tokens; in f32 every request must equal the contiguous
+   continuous schedule's or differ first at a near tie (a top-2 logit
+   gap under :data:`NEAR_TIE` of the step's logit spread).  (2) Logits
+   serving on 8 x 2048 tokens against the flagship model's own bf16
+   forward on the same weights (the :data:`FLASH_TOL` bf16 row rule,
+   ``next_token`` equal), rows/s; in f32 on two rows against the f32
+   flash forward (K2), to :data:`LOGITS_F32_ROW_REL`; the bf16 flash
+   forward's distance printed.  (3) int8 weights, int4 weights (groups
+   of 64) and the int8 KV cache, each static and paged continuous:
+   tokens/s, decode step ms beside bf16's, the bytes of weights,
+   dequantized copies and KV a decode step reads, agreement with bf16;
+   K1 16 launches per decode step in every paged run (on int8 pools in
+   the int8 KV one).  In f32 each variant's static tokens must equal its
+   contiguous continuous schedule's, and int4's paged tokens its
+   contiguous ones, near ties apart (the int8 KV cache's on rows of one
+   bucket, to :data:`NEAR_TIE_INT8_KV`).  (4) The MoE flagship
+   (``MOE_FLAGSHIP``) through static generate and logits serving, K5
+   counted exactly (3 per layer per forward).  (5) ``TFModel.transform``
+   at its default schedule and the CLI with ``--schedule static`` on an
+   export of the same weights: tokens equal to (1)'s.
 7. ``flash_case``: the flash kernels (forward, dQ, dK/dV) against their
    plain versions on the card (bf16 flagship geometry, bf16 D=64 GQA, and
    in both types a window across tiles, non-causal, a ragged S=1000 with
@@ -417,11 +444,17 @@ PAGED_F32_TOL = 1e-5
 
 #: (name, make_paged_case spec, window); the split counts are the
 #: wrapper's (``ops/paged_attention.num_splits`` on 132 SMs: 9 for the
-#: flagship case, 128 for the long request, 16 and 8 for the two cases
-#: with more splits than some slots' live pages)
+#: two flagship cases, 128 for the long request, 16 and 8 for the two
+#: cases with more splits than some slots' live pages)
 KERNEL_CASES = [
     ("flagship_bf16_mha", dict(
         b=8, h=8, hkv=8, d=128, t=16, nb=32, dtype=torch.bfloat16,
+        lengths=[1, 17, 100, 255, 256, 257, 511, 512], idle=(0,),
+    ), 0),
+    # the int8 KV cache's pools at the flagship's serving shapes
+    ("flagship_bf16_int8_pools", dict(
+        b=8, h=8, hkv=8, d=128, t=16, nb=32, dtype=torch.bfloat16,
+        pool_dtype=torch.int8,
         lengths=[1, 17, 100, 255, 256, 257, 511, 512], idle=(0,),
     ), 0),
     ("f32_gqa", dict(
@@ -842,10 +875,14 @@ def phase_slice_flagship(params, init_s):
         device=torch.cuda.get_device_name(0),
     )
     emit("slice_flagship", **res)
+    res["tokens"] = tokens_of(out)
     return res
 
 
 def phase_kernel_vs_gather():
+    """Greedy tokens of the paged schedule through K1 and through the
+    plain gather, on the float pools and on the int8 KV cache's pools
+    (int8 codes scattered with their scale pools, read by K1)."""
     from tensorflowonspark_tpu_torch import convert
     from tensorflowonspark_tpu_torch.models.transformer import (
         TransformerConfig,
@@ -856,26 +893,31 @@ def phase_kernel_vs_gather():
     rows = make_requests(np.random.default_rng(4), REQUESTS,
                          model_cfg["vocab_size"], 16,
                          SERVING["max_prompt_len"])
-    runs = {}
-    for impl in ("kernel", "gather"):
-        out, stats, wall, launches = serve(
-            model_cfg, dict(SERVING, paged_impl=impl), params, rows)
-        runs[impl] = (np.stack([r["generated"] for r in out]), launches,
-                      wall)
-    same = bool(np.array_equal(runs["kernel"][0], runs["gather"][0]))
-    emit("slice_kernel_vs_gather", model="L2 H8 Dh128 Dm1024 f32",
-         identical_tokens=same,
-         kernel_launches=runs["kernel"][1], gather_launches=runs["gather"][1],
-         kernel_wall_sec=runs["kernel"][2], gather_wall_sec=runs["gather"][2])
-    if not same:
-        rows_diff = np.nonzero(
-            (runs["kernel"][0] != runs["gather"][0]).any(axis=1))[0]
-        raise AssertionError(
-            "greedy tokens differ between paged_impl kernel and gather "
-            "for requests {0}".format(rows_diff.tolist()))
-    if runs["kernel"][1] == 0 or runs["gather"][1] != 0:
-        raise AssertionError("launch counts {0}/{1}".format(
-            runs["kernel"][1], runs["gather"][1]))
+    for cache in ({}, {"cache_dtype": "int8"}):
+        runs = {}
+        for impl in ("kernel", "gather"):
+            out, stats, wall, launches = serve(
+                dict(model_cfg, **cache), dict(SERVING, paged_impl=impl),
+                params, rows)
+            runs[impl] = (np.stack([r["generated"] for r in out]), launches,
+                          wall)
+        same = bool(np.array_equal(runs["kernel"][0], runs["gather"][0]))
+        emit("slice_kernel_vs_gather", model="L2 H8 Dh128 Dm1024 f32",
+             cache_dtype=cache.get("cache_dtype", "float32"),
+             identical_tokens=same,
+             kernel_launches=runs["kernel"][1],
+             gather_launches=runs["gather"][1],
+             kernel_wall_sec=runs["kernel"][2],
+             gather_wall_sec=runs["gather"][2])
+        if not same:
+            rows_diff = np.nonzero(
+                (runs["kernel"][0] != runs["gather"][0]).any(axis=1))[0]
+            raise AssertionError(
+                "greedy tokens differ between paged_impl kernel and gather "
+                "({0}) for requests {1}".format(cache, rows_diff.tolist()))
+        if runs["kernel"][1] == 0 or runs["gather"][1] != 0:
+            raise AssertionError("launch counts {0}/{1} ({2})".format(
+                runs["kernel"][1], runs["gather"][1], cache))
 
 
 #: flash kernels against their plain versions.  f32 O to 1e-5 and f32
@@ -4789,6 +4831,535 @@ def phase_pipeline_flagship(fed):
     return line
 
 
+# ----------------------------------------------------------------------
+# static generate, logits serving, quantized serving (phase 7)
+# ----------------------------------------------------------------------
+
+#: the static schedule's knobs: ``SERVING`` on the contiguous layout
+#: (``kv_layout`` unset, the reference's default)
+STATIC_SERVING = {k: v for k, v in SERVING.items()
+                  if k not in ("kv_layout", "kv_page_tokens")}
+#: f32 token checks: tokens of two paths over the same weights must be
+#: equal, or differ first at a near tie: a step whose top-2 logit gap
+#: (the model's own f32 forward over the prompt and the common tokens)
+#: is under this share of the step's logit spread (top-1 minus the
+#: median logit), a gap that the paths' different f32 rounding can close
+NEAR_TIE = 1e-3
+#: the same for the int8 KV cache's paths: their K/V differ in f32
+#: rounding before the int8 rounding, and where that moves a value
+#: across a rounding boundary its code flips by one step, 1/127 of its
+#: row's absolute max; a tie within that share of the spread is one such
+#: flip can close
+NEAR_TIE_INT8_KV = 1 / 127
+#: f32 logits serving (dot attention over 16 layers) against the f32
+#: flash forward (K2): every element to this share of |ref| + the RMS of
+#: its row of V logits (:func:`row_relative_error`): K2's f32 O agrees
+#: to ``FLASH_TOL["f32_out"]`` with its plain version, and each of the
+#: 16 layers can add that much through the residual stream
+LOGITS_F32_ROW_REL = 16 * FLASH_TOL["f32_out"]
+#: quantized variants of ``quantized_serving``: the knobs on top of the
+#: bf16 flagship's
+QUANT_VARIANTS = {
+    "int8_weights": {"weights": "int8"},
+    "int4_weights": {"weights": "int4", "int4_group": 64},
+    "int8_kv": {"cache_dtype": "int8"},
+}
+LOGITS_ROWS, LOGITS_S = 8, 2048
+#: rows of the f32 logits check (the f32 logits of 8 rows would hold
+#: 2 GiB a copy)
+LOGITS_F32_ROWS = 2
+MOE_STATIC_ROWS, MOE_STATIC_NEW = 8, 16
+
+
+def serve_static(predict, rows, batch_size=SLOTS):
+    """``(outputs, stats, wall seconds, [(prefill_sec, decode_sec)] of
+    each batch)`` of ``predict`` over ``rows``, static schedule."""
+    from tensorflowonspark_tpu_torch import serving
+
+    timings = []
+
+    def timed(batch):
+        out = predict(batch)
+        timings.append(predict.last_timing)
+        return out
+
+    timed.__dict__.update(predict.__dict__)
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = list(serving.predict_rows(
+        timed, [dict(r) for r in rows], SERVE_MAPPING,
+        batch_size=batch_size, stats=stats))
+    torch.cuda.synchronize()
+    return out, stats, time.perf_counter() - t0, timings
+
+
+def tokens_of(out):
+    return [np.asarray(r["generated"]).tolist() for r in out]
+
+
+def first_difference(a, b):
+    """Index of the first differing token of two rows (None if equal)."""
+    for j, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return j
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def agreement(got, want):
+    """Share of requests whose tokens equal to the end, and the first
+    differing step of each request that does not."""
+    firsts = [first_difference(g, w) for g, w in zip(got, want)]
+    return (sum(f is None for f in firsts) / len(firsts),
+            [f for f in firsts if f is not None])
+
+
+def near_tie_check(model, rows, got, want, tie=NEAR_TIE):
+    """``(ok, ties)``: each request whose tokens differ must differ first
+    at a near tie (``tie``), measured on ``model``'s own forward
+    over the prompt and the tokens both paths agree on; ``ties`` holds
+    each such step's top-2 gap, logit spread and their ratio."""
+    ties = []
+    for r, g, w in zip(rows, got, want):
+        j = first_difference(g, w)
+        if j is None:
+            continue
+        seq = np.concatenate([np.asarray(r["tokens"], np.int64),
+                              np.asarray(g[:j], np.int64)])
+        with torch.no_grad():
+            logits = model(torch.from_numpy(seq[None]).cuda())[0, -1].float()
+        top = torch.topk(logits, 2).values
+        gap = float(top[0] - top[1])
+        spread = float(top[0] - logits.median())
+        ties.append(dict(step=j, gap=gap, spread=spread,
+                         relative=gap / spread))
+    return all(t["relative"] < tie for t in ties), ties
+
+
+def decode_bytes(model, batch, context):
+    """Bytes one decode step reads: the weights (every parameter but the
+    embedding, of which it gathers ``batch`` rows; quantized leaves as
+    their codes and scales), the dequantized copies it writes and reads
+    back (quantized models), and the KV it attends over (``context``
+    tokens for each of ``batch`` rows, with the int8 scales)."""
+    cfg = model.cfg
+    qw = model.qweights
+    qnames = set(qw.names()) if qw is not None else set()
+    item = torch.empty((), dtype=cfg.torch_dtype).element_size()
+    weights = batch * cfg.embed_dim * item
+    temps = 0
+    for name, p in model.named_parameters():
+        if name == "embedding":
+            continue
+        if name in qnames:
+            temps += 2 * p.numel() * item
+        else:
+            weights += p.numel() * p.element_size()
+    if qw is not None:
+        weights += qw.nbytes
+    hkv = cfg.num_kv_heads or cfg.num_heads
+    per_token = 2 * hkv * (cfg.head_dim * (1 if cfg.cache_dtype == "int8"
+                                           else item)
+                           + (4 if cfg.cache_dtype == "int8" else 0))
+    kv = int(cfg.num_layers * per_token * context)
+    return dict(weight_bytes=int(weights), dequant_temp_bytes=int(temps),
+                kv_bytes=kv)
+
+
+def static_bank_tokens(rows, batch_size, predict):
+    """Mean over the static run's decode steps of the bank tokens read
+    (``rows x bucket + max_new`` per batch)."""
+    m, new, cap = predict.pad_multiple, predict.max_new_tokens, \
+        predict.pad_cap
+    banks = []
+    for i in range(0, len(rows), batch_size):
+        n = max(len(r["tokens"]) for r in rows[i:i + batch_size])
+        bucket = max(n, min(-(-n // m) * m, cap))
+        banks.append(batch_size * (bucket + new))
+    return float(np.mean(banks))
+
+
+def paged_live_tokens(rows, new, page_tokens, steps):
+    """Page tokens K1 reads per decode step, averaged over the run's
+    ``steps``: each request's live pages over its ``new - 1`` decode
+    steps (its first token comes from the prefill)."""
+    total = 0
+    for r in rows:
+        n = len(r["tokens"])
+        for j in range(1, new):
+            total += -(-(n + j) // page_tokens) * page_tokens
+    return total / steps
+
+
+def static_run(tree, config, rows):
+    """Build the predictor, serve ``rows`` on the static schedule, and
+    return the record and the tokens."""
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        serving_builder,
+    )
+
+    t0 = time.perf_counter()
+    predict = serving_builder(tree, config)
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t0
+    out, stats, wall, timings = serve_static(predict, rows)
+    toks = tokens_of(out)
+    new = predict.max_new_tokens
+    decode_ms = [1e3 * d / (new - 1) for _, d in timings]
+    rec = dict(
+        build_sec=build, wall_sec=wall,
+        tokens_per_sec=sum(len(t) for t in toks) / wall,
+        latency_p50_ms=1e3 * pct(stats["latency_sec"].values(), 50),
+        latency_p99_ms=1e3 * pct(stats["latency_sec"].values(), 99),
+        batch_prefill_ms=[1e3 * p for p, _ in timings],
+        batch_decode_ms=[1e3 * d for _, d in timings],
+        decode_step_ms=float(np.mean(decode_ms)),
+    )
+    return predict, rec, toks
+
+
+def continuous_run(tree, config, rows):
+    """The same on the continuous schedule: the record (with K1's
+    launches), the tokens and the predictor."""
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        serving_builder,
+    )
+
+    predict = serving_builder(tree, config)
+    out, stats, wall, k1 = serve_rows(predict, [dict(r) for r in rows])
+    steps = stats["chunks"] * config["chunk_size"]
+    rec = dict(
+        wall_sec=wall, tokens_per_sec=stats["tokens_out"] / wall,
+        decode_steps=steps,
+        decode_step_ms=1e3 * stats["decode_wall_sec"] / steps,
+        latency_p50_ms=1e3 * pct(stats["latency_sec"].values(), 50),
+        latency_p99_ms=1e3 * pct(stats["latency_sec"].values(), 99),
+        paged_attention_launches=k1,
+    )
+    return predict, rec, tokens_of(out)
+
+
+def phase_static_serve_flagship(tree, slice_tokens):
+    """Static generate, logits serving, quantized weights and the int8
+    KV cache, MoE static serving, and the pipeline at its default
+    schedule: see the module docstring, ``static_serve_flagship``.  ``tree`` is the
+    flagship's seed-0 tree, ``slice_tokens`` ``slice_flagship``'s tokens
+    (the paged continuous schedule on the same requests)."""
+    import importlib
+    import tempfile
+
+    from tensorflowonspark_tpu_torch import checkpoint, convert, serving
+    from tensorflowonspark_tpu_torch.models import transformer
+    from tensorflowonspark_tpu_torch.ops.paged_attention import (
+        paged_attention,
+    )
+
+    t_phase = time.perf_counter()
+    smoke = importlib.import_module("chip_smoke")
+    vocab = FLAGSHIP["vocab_size"]
+    layers = FLAGSHIP["num_layers"]
+    rows = make_requests(np.random.default_rng(2), REQUESTS, vocab, 16,
+                         SERVING["max_prompt_len"])
+    static_cfg = dict(FLAGSHIP, **STATIC_SERVING)
+    line = dict(model="L16 H8 Dh128 Dm1024", requests=REQUESTS,
+                batch_size=SLOTS)
+    problems = []
+
+    # 1. static generate, bf16, contiguous; against the paged continuous
+    # schedule's tokens; in f32 against the contiguous continuous one
+    paged_attention.launches = 0
+    predict, bf16, static_tokens = static_run(tree, static_cfg, rows)
+    if paged_attention.launches:
+        problems.append("the static schedule launched K1")
+    bad = [t for t in static_tokens
+           if len(t) != SERVING["max_new_tokens"] or min(t) < 0
+           or max(t) >= vocab]
+    if bad or len(static_tokens) != REQUESTS:
+        problems.append("static rows malformed")
+    share, firsts = agreement(static_tokens, slice_tokens)
+    bf16.update(agree_with_paged_continuous=share,
+                first_differing_steps=firsts,
+                **decode_bytes(predict.make_slot_decoder(SLOTS).model, SLOTS,
+                               static_bank_tokens(rows, SLOTS, predict)))
+    line["static_bf16"] = bf16
+    del predict
+    gc_collect()
+    f32_cfg = dict(static_cfg, dtype="float32")
+    predict, f32, f32_static = static_run(tree, f32_cfg, rows)
+    _, f32_cont, f32_tokens = continuous_run(tree, f32_cfg, rows)
+    ok, ties = near_tie_check(predict.make_slot_decoder(SLOTS).model, rows,
+                              f32_static, f32_tokens)
+    share, firsts = agreement(f32_static, f32_tokens)
+    line["static_f32"] = dict(
+        f32, agree_with_contiguous_continuous=share,
+        first_differing_steps=firsts, near_ties=ties,
+        continuous=f32_cont)
+    if not ok:
+        problems.append("f32 static tokens differ from the contiguous "
+                        "continuous schedule's beyond a near tie: "
+                        "{0}".format(ties))
+    del predict
+    gc_collect()
+
+    # 2. logits serving: bf16 against the flagship model's own forward on
+    # the same weights (the dot attention serving runs) and, for scale,
+    # the flash forward (K2); f32 against the f32 flash forward
+    tokens = np.random.default_rng(21).integers(
+        0, vocab, (LOGITS_ROWS, LOGITS_S)).astype(np.int32)
+    predict = transformer.serving_builder(tree, dict(FLAGSHIP))
+    predict({"tokens": tokens[:1, :64]})  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = predict({"tokens": tokens})
+    logits_sec = time.perf_counter() - t0
+    del predict
+    gc_collect()
+    predict = transformer.serving_builder(tree, dict(FLAGSHIP,
+                                                     dtype="float32"))
+    got_f32 = predict({"tokens": tokens[:LOGITS_F32_ROWS]})
+    del predict
+    gc_collect()
+    got_logits = torch.from_numpy(got["logits"]).cuda()
+    f32_logits = torch.from_numpy(got_f32["logits"]).cuda()
+    batch = torch.from_numpy(tokens.astype(np.int64)).cuda()
+    refs = {}
+    for name, extra in (("own", {}), ("flash", {"attention_impl": "flash"}),
+                        ("f32_flash", {"attention_impl": "flash",
+                                       "dtype": "float32"})):
+        model = convert.params_from_flax(tree, transformer.TransformerConfig(
+            **dict(FLAGSHIP, **extra)))
+        with torch.no_grad():
+            refs[name] = model(batch[:LOGITS_F32_ROWS]
+                               if name == "f32_flash" else batch)
+        del model
+        gc_collect()
+    row_err = row_relative_error(got_logits, refs["own"])
+    f32_err = row_relative_error(f32_logits, refs["f32_flash"])
+    own_next = refs["own"][:, -1].argmax(dim=-1).cpu().numpy()
+    flash_next = refs["flash"][:, -1].argmax(dim=-1).cpu().numpy()
+    line["logits"] = dict(
+        rows=LOGITS_ROWS, seq=LOGITS_S, wall_sec=logits_sec,
+        rows_per_sec=LOGITS_ROWS / logits_sec,
+        max_abs_err=(got_logits - refs["own"]).abs().max().item(),
+        row_relative_error=row_err, tol=FLASH_TOL["bf16_row_rel"],
+        flash_max_abs_err=(got_logits - refs["flash"]).abs().max().item(),
+        flash_row_relative_error=row_relative_error(got_logits,
+                                                    refs["flash"]),
+        next_token_equal_flash=bool((flash_next == got["next_token"]).all()),
+        f32_rows=LOGITS_F32_ROWS,
+        f32_max_abs_err=(f32_logits - refs["f32_flash"]).abs().max().item(),
+        f32_row_relative_error=f32_err, f32_tol=LOGITS_F32_ROW_REL,
+        bf16_vs_f32_row_relative_error=row_relative_error(
+            got_logits[:LOGITS_F32_ROWS], f32_logits),
+        shape=list(got["logits"].shape), dtype=str(got["logits"].dtype))
+    if not (row_err <= FLASH_TOL["bf16_row_rel"]
+            and got["logits"].shape == (LOGITS_ROWS, LOGITS_S, vocab)
+            and got["logits"].dtype == np.float32
+            and (own_next == got["next_token"]).all()):
+        problems.append("logits serving: row error {0}, next tokens {1} vs "
+                        "{2}".format(row_err, got["next_token"], own_next))
+    f32_next = refs["f32_flash"][:, -1].argmax(dim=-1).cpu().numpy()
+    if not (f32_err <= LOGITS_F32_ROW_REL
+            and (f32_next == got_f32["next_token"]).all()):
+        problems.append("f32 logits serving against the f32 flash forward: "
+                        "row error {0} (tol {1}), next tokens {2} vs "
+                        "{3}".format(f32_err, LOGITS_F32_ROW_REL,
+                                     got_f32["next_token"], f32_next))
+    del got, got_f32, got_logits, f32_logits, refs, batch
+    gc_collect()
+
+    # 3. quantized weights and the int8 KV cache, static and paged
+    # continuous, against bf16
+    line["quantized"] = {}
+    _, paged_bf16, _ = continuous_run(tree, dict(FLAGSHIP, **SERVING), rows)
+    for name, knobs in QUANT_VARIANTS.items():
+        paged_attention.launches = 0
+        predict, rec, toks = static_run(tree, dict(static_cfg, **knobs), rows)
+        if paged_attention.launches:
+            problems.append(name + ": the static schedule launched K1")
+        share, _ = agreement(toks, static_tokens)
+        rec.update(agree_with_bf16=share,
+                   decode_step_ms_bf16=bf16["decode_step_ms"],
+                   **decode_bytes(predict.make_slot_decoder(SLOTS).model,
+                                  SLOTS, static_bank_tokens(rows, SLOTS,
+                                                            predict)))
+        del predict
+        gc_collect()
+        predict, cont, ctoks = continuous_run(
+            tree, dict(FLAGSHIP, **SERVING, **knobs), rows)
+        share_c, _ = agreement(ctoks, slice_tokens)
+        steps = cont["decode_steps"]
+        cont.update(agree_with_bf16=share_c,
+                    decode_step_ms_bf16=paged_bf16["decode_step_ms"],
+                    **decode_bytes(predict.make_slot_decoder(SLOTS).model,
+                                   SLOTS, paged_live_tokens(
+                                       rows, SERVING["max_new_tokens"],
+                                       SERVING["kv_page_tokens"], steps)))
+        if cont["paged_attention_launches"] != layers * steps:
+            problems.append("{0}: K1 launches {1} != {2} x {3}".format(
+                name, cont["paged_attention_launches"], layers, steps))
+        if name == "int8_kv":
+            cache = predict.make_slot_decoder(SLOTS).cache[0]
+            if cache["k"].dtype != torch.int8 or "k_scale" not in cache:
+                problems.append("int8_kv: the pools are not int8")
+            line["int8_pool_launches"] = cont["paged_attention_launches"]
+        del predict
+        gc_collect()
+        line["quantized"][name] = dict(static=rec, paged_continuous=cont)
+    # in f32, each variant's static tokens against its contiguous
+    # continuous schedule's, and int4's paged tokens against its
+    # contiguous ones.  The int8 KV cache quantizes post-rope keys per
+    # absolute position, and the two schedules place a ragged row's
+    # tokens at different positions (a static batch pads to its longest
+    # row, a slot to its own bucket): its rows share one bucket, so both
+    # schedules write each token at the same position
+    bucket_rows = make_requests(
+        np.random.default_rng(22), REQUESTS, vocab,
+        SERVING["max_prompt_len"] - SERVING["pad_multiple"] + 1,
+        SERVING["max_prompt_len"])
+    line["quantized_f32"] = {}
+    for name, knobs in QUANT_VARIANTS.items():
+        vrows = bucket_rows if name == "int8_kv" else rows
+        tie = NEAR_TIE_INT8_KV if name == "int8_kv" else NEAR_TIE
+        predict, _, q_static = static_run(tree, dict(f32_cfg, **knobs),
+                                          vrows)
+        _, _, q_contig = continuous_run(tree, dict(f32_cfg, **knobs), vrows)
+        ok, ties = near_tie_check(predict.make_slot_decoder(SLOTS).model,
+                                  vrows, q_static, q_contig, tie)
+        share, firsts = agreement(q_static, q_contig)
+        rec = dict(rows="one bucket" if vrows is bucket_rows else "ragged",
+                   static_vs_contiguous=share, first_differing_steps=firsts,
+                   near_tie=tie, near_ties=ties)
+        if not ok:
+            problems.append("{0}: f32 static tokens differ from the "
+                            "contiguous continuous schedule's beyond a near "
+                            "tie: {1}".format(name, ties))
+        if name == "int4_weights":
+            _, _, i4_paged = continuous_run(
+                tree, dict(FLAGSHIP, dtype="float32", **SERVING, **knobs),
+                vrows)
+            ok, ties = near_tie_check(predict.make_slot_decoder(SLOTS).model,
+                                      vrows, i4_paged, q_contig)
+            share, firsts = agreement(i4_paged, q_contig)
+            rec.update(paged_vs_contiguous=share,
+                       paged_first_differing_steps=firsts,
+                       paged_near_ties=ties)
+            if not ok:
+                problems.append("int4 paged tokens differ from contiguous "
+                                "beyond a near tie: {0}".format(ties))
+        line["quantized_f32"][name] = rec
+        del predict
+        gc_collect()
+
+    # 4. MoE: static generate and logits serving, K5 counted
+    from tensorflowonspark_tpu_torch.ops import gmm
+
+    moe = moe_tree()
+    moe_rows = make_requests(np.random.default_rng(18), MOE_STATIC_ROWS,
+                             MOE_FLAGSHIP["vocab_size"], 16, 64)
+    moe_cfg = dict(MOE_FLAGSHIP, **dict(STATIC_SERVING,
+                                        max_new_tokens=MOE_STATIC_NEW,
+                                        max_prompt_len=64))
+    predict = transformer.serving_builder(moe, moe_cfg)
+    reset_launches()
+    moe_out, _, moe_wall, _ = serve_static(predict, moe_rows)
+    static_k5 = dict(gmm.grouped_matmul.launches)
+    del predict
+    gc_collect()
+    mlayers = MOE_FLAGSHIP["num_layers"]
+    batches = -(-MOE_STATIC_ROWS // SLOTS)
+    # each forward (the prefill and every decode step) runs wi, wg, wo
+    want_static = {"gmm": 3 * mlayers * MOE_STATIC_NEW * batches,
+                   "gmm_dxt": 0, "tgmm": 0}
+    predict = transformer.serving_builder(moe, dict(MOE_FLAGSHIP))
+    reset_launches()
+    moe_logits = predict({"tokens": tokens[:2, :512]})
+    logits_k5 = dict(gmm.grouped_matmul.launches)
+    want_logits = {"gmm": 3 * mlayers, "gmm_dxt": 0, "tgmm": 0}
+    del predict, moe
+    gc_collect()
+    moe_tokens = tokens_of(moe_out)
+    line["moe"] = dict(
+        requests=MOE_STATIC_ROWS, new_tokens=MOE_STATIC_NEW,
+        wall_sec=moe_wall,
+        tokens_per_sec=MOE_STATIC_ROWS * MOE_STATIC_NEW / moe_wall,
+        static_gmm_launches=static_k5, static_gmm_expected=want_static,
+        logits_gmm_launches=logits_k5, logits_gmm_expected=want_logits,
+        first_tokens=[t[:4] for t in moe_tokens[:4]])
+    if static_k5 != want_static or logits_k5 != want_logits:
+        problems.append("MoE K5 launches {0} / {1}".format(static_k5,
+                                                           logits_k5))
+    if not (all(len(t) == MOE_STATIC_NEW and max(t) < MOE_FLAGSHIP[
+            "vocab_size"] for t in moe_tokens)
+            and np.isfinite(moe_logits["logits"]).all()):
+        problems.append("MoE outputs malformed")
+    del moe_logits
+    gc_collect()
+
+    # 5. the pipeline at its default schedule, and the CLI's static one
+    from tensorflowonspark_tpu_torch.engine import LocalEngine
+    from tensorflowonspark_tpu_torch.pipeline import TFModel
+
+    tmp = tempfile.mkdtemp(prefix="static_serve_")
+    try:
+        export = os.path.join(tmp, "export")
+        t0 = time.perf_counter()
+        checkpoint.save_for_serving(export, tree, extra_metadata={
+            "model_ref": PIPELINE_MODEL_REF, "model_config": static_cfg})
+        export_sec = time.perf_counter() - t0
+        model = (TFModel().setExportDir(export).setInputMapping(
+            SERVE_MAPPING).setBatchSize(SLOTS))
+        schedule = model.getSchedule()
+        engine = LocalEngine(1)
+        try:
+            model.engine = engine
+            t1 = time.perf_counter()
+            transformed = model.transform([dict(r) for r in rows])
+            transform_sec = time.perf_counter() - t1
+        finally:
+            engine.stop()
+        from tensorflowonspark_tpu_torch.data import interchange
+
+        cli_in, cli_out = (os.path.join(tmp, "cli-in"),
+                           os.path.join(tmp, "cli-out"))
+        interchange.save_as_tfrecords(rows, cli_in, schema=PIPELINE_SCHEMA)
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(smoke.__file__)))
+        t2 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "tensorflowonspark_tpu_torch.serving",
+             "--export_dir", export, "--input", cli_in,
+             "--input_mapping", "tokens=tokens", "--output", cli_out,
+             "--batch_size", str(SLOTS), "--schedule", "static"],
+            env=env, capture_output=True, text=True, timeout=600)
+        cli_sec = time.perf_counter() - t2
+        if proc.returncode != 0:
+            raise AssertionError("serving CLI exited {0}:\n{1}".format(
+                proc.returncode, proc.stderr[-4000:]))
+        with open(os.path.join(cli_out, "part-00000.jsonl")) as f:
+            cli_tokens = [json.loads(line_)["generated"] for line_ in f]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    line["pipeline"] = dict(
+        schedule=schedule, export_sec=export_sec,
+        transform_sec=transform_sec, cli_sec=cli_sec,
+        transform_equal=tokens_of(transformed) == static_tokens,
+        cli_equal=cli_tokens == static_tokens)
+    if schedule != "static" or not line["pipeline"]["transform_equal"] \
+            or not line["pipeline"]["cli_equal"]:
+        problems.append("pipeline at its default schedule: {0}".format(
+            line["pipeline"]))
+
+    line.update(static_serve_launches=static_k5["gmm"],
+                phase_sec=time.perf_counter() - t_phase,
+                nvidia_smi=nvidia_smi(), ok=not problems,
+                problems=problems)
+    emit("static_serve_flagship", **line)
+    if problems:
+        raise AssertionError("static_serve_flagship: " + "; ".join(problems))
+    return line
+
+
 def kernel_entry(name, kernel, replaces, launches, timing,
                  source="tensorflowonspark_tpu_torch/csrc/flash_attention.cu",
                  **extra):
@@ -4819,6 +5390,7 @@ def main():
     tree, init_s = flagship_tree()
     flagship = phase_slice_flagship(tree, init_s)
     phase_kernel_vs_gather()
+    static = phase_static_serve_flagship(tree, flagship["tokens"])
     phase_flash_cases()
     phase_flash_repeat()
     flash = phase_flash_timing()
@@ -4858,6 +5430,7 @@ def main():
                      "scaled_dot_product_attention with the length mask",
         export_serve_launches=resumed["export_serve_launches"],
         pipeline_launches=pipeline["transform_launches"],
+        int8_pool_launches=static["int8_pool_launches"],
     )] + [
         kernel_entry("flash_" + name, kernel, jax_flash + line,
                      train["launches"][name], flash[name],
@@ -4876,7 +5449,10 @@ def main():
                                    ("dkv", "flash_dkv_wgmma", "256"))
     ] + [
         kernel_entry(name, GMM_WGMMA[name], jax_gmm + line,
-                     moe["launches"][name], gmm_timing[name], source=GMM_SRC)
+                     moe["launches"][name], gmm_timing[name], source=GMM_SRC,
+                     **({"static_serve_launches":
+                         static["static_serve_launches"]}
+                        if name == "gmm" else {}))
         for name, line in (("gmm", "71"), ("gmm_dxt", "144"),
                            ("tgmm", "219"))
     ]}), flush=True)

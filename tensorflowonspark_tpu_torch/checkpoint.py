@@ -100,18 +100,34 @@ def _dtype_name(leaf):
     return str(dtype).replace("torch.", "")
 
 
+def _census_items(params):
+    """``(key string, array)`` of every leaf, quantized leaves as the
+    reference's pytree flattening sees them: a ``QTensor`` as its codes
+    (the leaf's own shape), a ``QTensor4`` as its two children."""
+    qz = sys.modules.get(__package__ + ".quantize")
+    for path, leaf in _items(params):
+        if qz is not None and isinstance(leaf, qz.QTensor):
+            yield _keystr(path), leaf.q
+        elif qz is not None and isinstance(leaf, qz.QTensor4):
+            yield _keystr(path) + "[<flat index 0>]", leaf.packed
+            yield _keystr(path) + "[<flat index 1>]", leaf.scale
+        else:
+            yield _keystr(path), leaf
+
+
 def param_manifest(params):
     """Per-leaf ``{path: {"shape": [...], "dtype": str}}`` census of a
     parameter tree, with the reference's key strings
     (``"['block_0']['attn']['q']['kernel']"``) and dtype names
     (``"float32"``, ``"bfloat16"``); torch tensors are named as numpy
-    would name their dtype."""
+    would name their dtype.  Quantized leaves are censused as the
+    reference censuses them (:func:`_census_items`)."""
     return {
-        _keystr(path): {
+        key: {
             "shape": [int(s) for s in getattr(leaf, "shape", ())],
             "dtype": _dtype_name(leaf),
         }
-        for path, leaf in _items(params)
+        for key, leaf in _census_items(params)
     }
 
 

@@ -28,12 +28,22 @@ the layout the grouped-matmul kernels read.  Any missing, extra or
 misshapen leaf raises ``ValueError``; fused-QKV leaves raise
 ``NotImplementedError``.  :func:`tree_from_model` is the inverse: a
 model's weights as a tree of f32 numpy arrays in the Flax layout.
+
+A tree from :func:`..quantize.quantize_tree` or ``quantize_tree_int4``
+(``QTensor``/``QTensor4`` leaves) loads too: the model's weights are the
+tree dequantized once to ``cfg.dtype`` (the reference's
+``dequantize_tree(qparams, cfg.dtype)``, which its prefill and logits
+path use), and the model keeps the codes on its device as
+:class:`QuantizedWeights` (``model.qweights``) for the decode steps,
+which dequantize again at each step.
 """
 
 from collections.abc import Mapping
 
 import numpy as np
 import torch
+
+from tensorflowonspark_tpu_torch import quantize as qz
 
 
 def _not_ported(what, item):
@@ -101,13 +111,76 @@ def _port_name(path):
     return path.replace("/", ".")
 
 
+def _port_layout(path, t, shape):
+    """A leaf of Flax shape ``shape`` in the port's layout (a transposed
+    view for dense kernels)."""
+    if path.endswith("/kernel"):
+        t = t.reshape(-1, shape[-1]) if path.endswith("out/kernel") \
+            else t.reshape(shape[0], -1)
+        t = t.t()
+    return t
+
+
+def _leaf_to(qt, device):
+    if isinstance(qt, qz.QTensor4):
+        return qz.QTensor4(qt.packed.to(device), qt.scale.to(device),
+                           qt.shape, qt.group_size)
+    return qz.QTensor(qt.q.to(device), qt.scale.to(device))
+
+
+class QuantizedWeights(object):
+    """The quantized leaves of a tree, kept as codes and scales on the
+    model's device for the decode steps' dequantization.
+
+    :meth:`dequantize` returns ``{state_dict name: weight}`` in the
+    port's layout, for ``torch.func.functional_call``: int8 as ``q.to(
+    dtype) * scale.to(dtype)`` elementwise (which commutes with the
+    transpose), int4 unpacked and group-scaled in f32 and then cast, in
+    the Flax layout, then viewed transposed; equal to the bit to the
+    reference's ``dequantize_tree(qparams, dtype)`` permuted into the
+    port's layout.  The embedding is not among them: a step gathers only
+    its ``B`` rows, and gathers them from the table the model holds
+    (the same tree dequantized once: the same values).  A decode step
+    therefore reads the codes and scales of :attr:`nbytes` and writes
+    and reads one ``dtype`` copy of each dequantized weight (eager
+    PyTorch fuses nothing)."""
+
+    def __init__(self, leaves, device):
+        self.scheme = ("int4" if any(isinstance(x, qz.QTensor4)
+                                     for x in leaves.values()) else "int8")
+        self._leaves = {
+            _port_name(path): (path, _leaf_to(qt, device))
+            for path, qt in sorted(leaves.items()) if path != "embedding"
+        }
+
+    def names(self):
+        return sorted(self._leaves)
+
+    @property
+    def nbytes(self):
+        """Bytes of the codes and scales a decode step reads."""
+        total = 0
+        for _, qt in self._leaves.values():
+            for t in ((qt.packed, qt.scale) if isinstance(qt, qz.QTensor4)
+                      else (qt.q, qt.scale)):
+                total += t.numel() * t.element_size()
+        return total
+
+    def dequantize(self, dtype):
+        return {
+            name: _port_layout(path, qz.dequantize_leaf_any(qt, dtype),
+                               qt.shape)
+            for name, (path, qt) in self._leaves.items()
+        }
+
+
 def params_from_flax(tree, cfg, device=None, param_dtype=None):
     """A :class:`Transformer` over ``cfg`` holding ``tree``'s weights on
     ``device`` (default ``cuda``; raises without a GPU).  The embedding
     and dense weights are stored in ``param_dtype`` (default
     ``cfg.dtype``, the serving layout; ``torch.float32`` keeps f32
     master weights for training); norm scales and MoE routers stay
-    f32."""
+    f32.  Quantized leaves load as described in the module docstring."""
     from tensorflowonspark_tpu_torch.models.transformer import (
         Transformer, model_device,
     )
@@ -132,9 +205,15 @@ def params_from_flax(tree, cfg, device=None, param_dtype=None):
     model = Transformer(cfg, device="meta")
     dev = model_device(cfg, device)
     state = {}
+    qleaves = {}
     for path, shape in want.items():
         leaf = leaves[path]
-        if not isinstance(leaf, torch.Tensor):
+        if qz._is_any_q(leaf):
+            qleaves[path] = leaf
+            # dequantized once, on the device, in cfg.dtype
+            leaf = qz.dequantize_leaf_any(_leaf_to(leaf, dev),
+                                          cfg.torch_dtype)
+        elif not isinstance(leaf, torch.Tensor):
             leaf = np.asarray(leaf)
         if tuple(leaf.shape) != shape:
             raise ValueError(
@@ -155,6 +234,7 @@ def params_from_flax(tree, cfg, device=None, param_dtype=None):
             t = t.t().contiguous()
         state[_port_name(path)] = t
     model.load_state_dict(state, strict=True, assign=True)
+    model.qweights = QuantizedWeights(qleaves, dev) if qleaves else None
     return model
 
 

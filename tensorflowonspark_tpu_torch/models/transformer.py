@@ -1,15 +1,16 @@
 """Decoder-only Transformer LM (port of
 the JAX package's ``models/transformer.py``).
 
-Ported so far: the forward (``TransformerConfig``, ``rope``,
-``RMSNorm``, ``Attention`` with the ``dot`` and ``flash`` paths and the
-paged decode path, ``MLP``, MoE blocks (:class:`..models.moe.MoEMLP`),
-``Block``, ``Transformer`` with remat), ``loss_fn``, ``sample_logits``,
-the paged-layout ``SlotDecoder`` and ``serving_builder`` for
-``mode="generate"`` with ``kv_layout="paged"``.  Contiguous-cache
-decode, static ``generate``, speculative decoding, fused QKV, weight
-quantization, the prefix cache, TP meshes and disaggregation raise
-``NotImplementedError`` naming their ROADMAP item.
+Ported: the forward (``TransformerConfig``, ``rope``, ``RMSNorm``,
+``Attention`` with the ``dot``, ``flash``, ``ring`` and ``ulysses``
+paths and both decode layouts, ``MLP``, MoE blocks
+(:class:`..models.moe.MoEMLP`), ``Block``, ``Transformer`` with remat),
+``loss_fn``, ``init_cache``, ``sample_logits``, ``generate`` (the static
+schedule), the ``SlotDecoder`` in both KV layouts and
+``serving_builder`` (logits serving, static generate, the continuous
+schedule's slot decoders, int8/int4 weights and the int8 KV cache).
+Speculative decoding, fused QKV, the prefix cache, TP meshes and
+disaggregation raise ``NotImplementedError`` naming their ROADMAP item.
 
 Sequence parallelism (``attention_impl="ring"`` or ``"ulysses"`` with
 ``cfg.mesh``, a :class:`..parallel.mesh.Mesh`): each rank runs its
@@ -37,14 +38,32 @@ serving layout, no cast at use).  Norm scales are always f32 and logits
 are returned in f32.
 
 Layouts follow the reference: activations ``[B, S, H, D]`` inside
-attention, weights loaded from the Flax tree by :mod:`..convert`.
-Decode KV lives in one page pool per layer, updated in place (this
-replaces the reference's donated buffers).
+attention, weights loaded from the Flax tree by :mod:`..convert`.  Decode
+KV (:func:`init_cache`, a :class:`KVCache`) is updated in place, which
+replaces the reference's donated buffers: ``kv_layout="contiguous"``
+keeps banks ``[B, L, Hkv, D]`` per layer and a shared write counter on
+the device; ``"paged"`` keeps one page pool per layer.  Contiguous decode
+attention is plain PyTorch (:func:`..ops.attention.dot_attention`, as
+the reference computes it outside any Pallas kernel); paged single-token
+steps run the K1 kernel.  ``cache_dtype="int8"`` stores int8 codes with
+``[.., Hkv, 1]`` f32 scales per position and head in either layout.
+
+Quantized weights (``weights="int8"|"int4"``): a model loaded from a
+quantized tree holds the tree dequantized once (prefill and logits) and
+its codes as ``model.qweights`` (:class:`..convert.QuantizedWeights`);
+every decode step of :func:`generate` and of the ``SlotDecoder``'s chunk
+dequantizes the codes again and runs the model over them
+(``torch.func.functional_call``).  A decode step so reads the codes and
+scales (``QuantizedWeights.nbytes``: about one byte a weight for int8,
+0.56 for int4 at groups of 64) where bf16 weights take two, and writes
+and reads back a ``cfg.dtype`` copy of each dequantized weight besides
+(eager PyTorch fuses nothing; ``chip_smoke.py`` prints the bytes).
 """
 
 import dataclasses
 import functools
 import math
+import time
 from collections.abc import Mapping
 
 import numpy as np
@@ -53,9 +72,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from tensorflowonspark_tpu_torch import quantize as qz
 from tensorflowonspark_tpu_torch.compat import resolve_device
+from tensorflowonspark_tpu_torch.models import base
 from tensorflowonspark_tpu_torch.models.moe import MoEMLP
-from tensorflowonspark_tpu_torch.ops.attention import attention
+from tensorflowonspark_tpu_torch.ops.attention import attention, dot_attention
 from tensorflowonspark_tpu_torch.ops.flash_attention import (
     check_flash_shapes,
 )
@@ -188,7 +209,7 @@ class Attention(nn.Module):
         self.out = _Linear(h * d, cfg.embed_dim, **dense)
 
     def forward(self, x, positions, decode=False, block_tables=None,
-                cache=None):
+                cache=None, mask=None, per_slot=False):
         cfg = self.cfg
         b, s = x.shape[0], x.shape[1]
         h, d = cfg.num_heads, cfg.head_dim
@@ -196,13 +217,11 @@ class Attention(nn.Module):
         q = rope(self.q(x).view(b, s, h, d), positions)
         k = rope(self.k(x).view(b, s, hkv, d), positions)
         v = self.v(x).view(b, s, hkv, d)
-        if decode:
-            if cfg.kv_layout != "paged":
-                raise _not_ported(
-                    "contiguous-cache decode", "contiguous KV and static "
-                    "generate"
-                )
+        if decode and cfg.kv_layout == "paged":
             out = self._paged_decode(q, k, v, positions, block_tables, cache)
+        elif decode:
+            out = self._contiguous_decode(q, k, v, positions, cache, mask,
+                                          per_slot)
         else:
             out = attention(
                 q, k, v, impl=cfg.attention_impl, causal=True,
@@ -234,26 +253,95 @@ class Attention(nn.Module):
                 "paged decode needs the layer's page pools (init_cache) "
                 "and the slots' block tables"
             )
-        b, s, hkv, d = k.shape
-        k_pool, v_pool = cache["k"], cache["v"]
+        b, s = k.shape[:2]
         page = torch.gather(block_tables, 1, positions // t)
         flat = (page.to(torch.int64) * t + positions % t).reshape(-1)
         # in place: the pools are the decoder's long-lived state
-        k_pool.view(p * t, hkv, d).index_copy_(
-            0, flat, k.reshape(b * s, hkv, d).to(k_pool.dtype)
-        )
-        v_pool.view(p * t, hkv, d).index_copy_(
-            0, flat, v.reshape(b * s, hkv, d).to(v_pool.dtype)
-        )
+        for pool, val in _kv_writes(cfg, k, v, cache):
+            pool.view((p * t,) + pool.shape[2:]).index_copy_(
+                0, flat, val.reshape((b * s,) + val.shape[2:]).to(pool.dtype)
+            )
+        scales = dict(k_scale_pool=cache.get("k_scale"),
+                      v_scale_pool=cache.get("v_scale"))
         if s == 1 and cfg.paged_decode_impl == "kernel":
             return paged_attention(
-                q[:, 0], k_pool, v_pool, block_tables, positions[:, 0] + 1,
-                window=cfg.attention_window,
+                q[:, 0], cache["k"], cache["v"], block_tables,
+                positions[:, 0] + 1, window=cfg.attention_window, **scales
             )[:, None]
         return paged_gather_attention(
-            q, k_pool, v_pool, block_tables, positions,
-            span=cfg.kv_span or None, window=cfg.attention_window,
+            q, cache["k"], cache["v"], block_tables, positions,
+            span=cfg.kv_span or None, window=cfg.attention_window, **scales
         )
+
+    def _contiguous_decode(self, q, k, v, positions, cache, mask,
+                           per_slot):
+        """Contiguous-KV decode: the layer's banks ``[B, L, Hkv, D]``
+        take the new K/V (post-rope) at ``positions``, then every query
+        attends over the whole bank under ``mask``, the forward's
+        additive mask (:func:`_contiguous_mask`; dot attention, as the
+        reference).  Shared-counter mode writes the batch at
+        ``positions[0]`` (rows are identical); slot mode (``per_slot``)
+        writes each row at its own positions."""
+        if cache is None:
+            raise ValueError(
+                "contiguous decode needs the layer's banks (init_cache)"
+            )
+        b, s = k.shape[:2]
+        length = cache["k"].shape[1]
+        writes = _kv_writes(self.cfg, k, v, cache)
+        if per_slot:
+            rows = torch.arange(b, device=positions.device)[:, None]
+            flat = (rows * length + positions).reshape(-1)
+            for bank, val in writes:
+                bank.view((b * length,) + bank.shape[2:]).index_copy_(
+                    0, flat,
+                    val.reshape((b * s,) + val.shape[2:]).to(bank.dtype),
+                )
+        else:
+            for bank, val in writes:
+                bank.index_copy_(1, positions[0], val.to(bank.dtype))
+        return dot_attention(
+            q, cache["k"], cache["v"], causal=False, mask=mask,
+            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+        )
+
+
+def _contiguous_mask(cfg, positions, length, pad_start, per_slot):
+    """The additive f32 mask ``[B or 1, 1, S, length]`` of one
+    contiguous decode forward, shared by every layer.
+
+    Shared-counter mode masks causally from ``positions[0]``; ``pad_start
+    [B]`` (ragged left-padded rows) hides each row's pad slots, keeping
+    each query's own slot visible so a pad row's softmax stays finite.
+    Slot mode (``per_slot``) masks each row by its own horizon, window
+    and pad region, with the same self-visibility."""
+    b = positions.shape[0]
+    qpos = (positions if per_slot else positions[:1])[:, :, None]
+    kpos = torch.arange(length, device=positions.device)[None, None, :]
+    visible = kpos <= qpos
+    if cfg.attention_window:
+        visible = visible & (kpos > qpos - cfg.attention_window)
+    if per_slot and pad_start is None:
+        pad_start = torch.zeros((b,), dtype=torch.int64,
+                                device=positions.device)
+    if pad_start is not None:
+        visible = (visible & (kpos >= pad_start[:, None, None])) \
+            | (kpos == qpos)
+    return torch.zeros(visible.shape, dtype=torch.float32,
+                       device=visible.device).masked_fill_(
+                           ~visible, float("-inf"))[:, None]
+
+
+def _kv_writes(cfg, k, v, cache):
+    """``(bank, value)`` pairs of one decode write: K and V, or with
+    ``cache_dtype="int8"`` their int8 codes and the ``[B, S, Hkv, 1]``
+    f32 scales (per position and head, over ``head_dim``)."""
+    if cfg.cache_dtype != "int8":
+        return [(cache["k"], k), (cache["v"], v)]
+    kq = qz.quantize_leaf(k, reduce_axes=(3,))
+    vq = qz.quantize_leaf(v, reduce_axes=(3,))
+    return [(cache["k"], kq.q), (cache["v"], vq.q),
+            (cache["k_scale"], kq.scale), (cache["v_scale"], vq.scale)]
 
 
 class MLP(nn.Module):
@@ -296,10 +384,11 @@ class Block(nn.Module):
             self.mlp = MLP(cfg, device=device, param_dtype=param_dtype)
 
     def forward(self, x, positions, decode=False, block_tables=None,
-                cache=None):
+                cache=None, mask=None, per_slot=False):
         x = x + self.attn(
             self.ln1(x), positions, decode=decode,
-            block_tables=block_tables, cache=cache,
+            block_tables=block_tables, cache=cache, mask=mask,
+            per_slot=per_slot,
         )
         h = self.ln2(x)
         if hasattr(self, "moe"):
@@ -370,11 +459,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg, device=None, param_dtype=None):
         super().__init__()
-        if cfg.cache_dtype == "int8":
-            raise _not_ported(
-                "the int8 KV cache write path", "int8/int4 weights, int8 "
-                "KV cache and quantize"
-            )
         cfg.torch_dtype  # validates the dtype name
         if cfg.attention_impl in ("ring", "ulysses") and cfg.mesh is None:
             raise ValueError(
@@ -396,6 +480,9 @@ class Transformer(nn.Module):
         self.ln_f = RMSNorm(cfg.embed_dim, device=device)
         self.lm_head = _Linear(cfg.embed_dim, cfg.vocab_size, cfg, device,
                                param_dtype)
+        #: the quantized weights' codes (convert.QuantizedWeights) when the
+        #: model was loaded from a quantized tree, else None
+        self.qweights = None
 
     @property
     def blocks(self):
@@ -411,14 +498,21 @@ class Transformer(nn.Module):
         shares this one's parameter tensors — no copy."""
         twin = Transformer(cfg, device="meta")
         twin.load_state_dict(self.state_dict(), assign=True)
+        twin.qweights = self.qweights
         return twin
 
     def forward(self, tokens, decode=False, slot_positions=None,
-                block_tables=None, cache=None, return_aux=False):
-        """``decode=True`` is slot mode: ``slot_positions [B]`` are the
-        per-slot write pointers, ``block_tables [B, NB]`` address the
-        per-layer page pools in ``cache`` (a list of ``{"k", "v"}``
-        dicts, :func:`init_cache`), which are updated in place.
+                block_tables=None, cache=None, return_aux=False,
+                pad_start=None):
+        """``decode=True`` writes the new K/V into ``cache`` (a
+        :class:`KVCache` from :func:`init_cache`, updated in place) and
+        attends over it.  Without ``slot_positions`` the positions
+        continue from the cache's shared counter, which advances by the
+        token count (a device scalar: no host sync); ``pad_start [B]``
+        masks each row's left padding (contiguous layout).  With
+        ``slot_positions [B]`` (slot mode) each row starts at its own
+        write pointer and the counter is left alone; ``block_tables [B,
+        NB]`` address the paged layout's pools.
 
         ``return_aux=True`` returns ``(logits, aux_losses)``, the list of
         the MoE blocks' load-balancing losses (the reference's
@@ -429,10 +523,10 @@ class Transformer(nn.Module):
         cfg = self.cfg
         if not decode and (slot_positions is not None
                            or block_tables is not None
-                           or cache is not None):
+                           or cache is not None or pad_start is not None):
             raise ValueError(
-                "slot_positions/block_tables/cache are decode-path "
-                "arguments"
+                "slot_positions/block_tables/cache/pad_start are "
+                "decode-path arguments"
             )
         # gathered in the storage type, then cast (the reference's
         # emb[tokens].astype(dtype))
@@ -441,12 +535,13 @@ class Transformer(nn.Module):
         steps = torch.arange(s, device=tokens.device)
         if not decode:
             steps = steps + seq_shard(cfg)[1] * s
-        if decode:
-            if slot_positions is None:
-                raise _not_ported(
-                    "shared-counter decode (generate)", "contiguous KV "
-                    "and static generate"
-                )
+        if decode and slot_positions is None:
+            if cache is None:
+                raise ValueError("decode needs a cache (init_cache)")
+            positions = (cache.position + steps)[None, :].expand(
+                tokens.shape)
+            cache.position.add_(s)
+        elif decode:
             positions = slot_positions[:, None].to(torch.int64) + steps
         else:
             positions = steps[None, :].expand(tokens.shape)
@@ -455,6 +550,11 @@ class Transformer(nn.Module):
                 "remat_policy must be 'block' or 'dots', got {0!r}".format(
                     cfg.remat_policy)
             )
+        per_slot = slot_positions is not None
+        mask = None
+        if decode and cfg.kv_layout != "paged" and cache is not None:
+            mask = _contiguous_mask(cfg, positions, cache[0]["k"].shape[1],
+                                    pad_start, per_slot)
         # remat is a training trade (recompute in the backward)
         remat = cfg.remat and not decode and torch.is_grad_enabled()
         aux_losses = []
@@ -466,6 +566,7 @@ class Transformer(nn.Module):
                 x, aux = block(
                     x, positions, decode=decode, block_tables=block_tables,
                     cache=None if cache is None else cache[i],
+                    mask=mask, per_slot=per_slot,
                 )
             if aux is not None:
                 aux_losses.append(aux)
@@ -518,22 +619,74 @@ def loss_fn(model):
     return _loss
 
 
-def init_cache(model):
-    """Zeroed paged KV pools, one ``{"k", "v"}`` pair per layer, of
-    shape ``[kv_pages, kv_page_tokens, Hkv, D]`` on the model's device.
-    The geometry comes from the config (the SlotDecoder sized it)."""
-    cfg = model.cfg
-    if cfg.kv_layout != "paged":
-        raise _not_ported(
-            "contiguous KV caches", "contiguous KV and static generate"
+class KVCache(list):
+    """A decode cache: one dict of banks (contiguous) or pools (paged)
+    per layer, ``"k"``/``"v"`` and, for ``cache_dtype="int8"``,
+    ``"k_scale"``/``"v_scale"``; and ``position``, the shared write
+    counter (an int64 device scalar) that shared-counter decode reads and
+    advances in place."""
+
+    def __init__(self, layers, position):
+        super().__init__(layers)
+        self.position = position
+
+    def lane(self, slot):
+        """Lane ``slot`` of every contiguous bank, as views (writes land
+        in this cache), under a fresh counter at 0."""
+        return KVCache(
+            [{name: bank[slot:slot + 1] for name, bank in layer.items()}
+             for layer in self],
+            torch.zeros((), dtype=torch.int64, device=self.position.device),
         )
+
+
+def init_cache(model, batch_size, cache_len=None):
+    """A zeroed KV cache for ``batch_size`` sequences on the model's
+    device (the reference's signature).
+
+    Contiguous: banks ``[batch_size, cache_len, Hkv, D]`` per layer
+    (``cache_len`` defaults to ``cfg.max_seq_len``; decode reads and
+    masks the whole bank every step, so size it to the generation).
+    Paged: pools ``[kv_pages, kv_page_tokens, Hkv, D]`` whose geometry
+    comes from the config (the SlotDecoder sized it); ``batch_size`` and
+    ``cache_len`` do not apply.  Banks are int8 with ``[..., Hkv, 1]``
+    f32 scale banks when ``cfg.cache_dtype == "int8"``, else
+    ``cfg.dtype``."""
+    cfg = model.cfg
     hkv = cfg.num_kv_heads or cfg.num_heads
-    shape = (cfg.kv_pages, cfg.kv_page_tokens, hkv, cfg.head_dim)
-    return [
-        {name: torch.zeros(shape, dtype=cfg.torch_dtype, device=model.device)
-         for name in ("k", "v")}
-        for _ in range(cfg.num_layers)
-    ]
+    if cfg.kv_layout == "paged":
+        lead = (cfg.kv_pages, cfg.kv_page_tokens)
+    else:
+        length = cfg.max_seq_len if cache_len is None else int(cache_len)
+        lead = (int(batch_size), length)
+    int8 = cfg.cache_dtype == "int8"
+    bank = torch.int8 if int8 else cfg.torch_dtype
+    dev = model.device
+
+    def layer():
+        out = {name: torch.zeros(lead + (hkv, cfg.head_dim), dtype=bank,
+                                 device=dev) for name in ("k", "v")}
+        if int8:
+            out.update({name: torch.zeros(lead + (hkv, 1),
+                                          dtype=torch.float32, device=dev)
+                        for name in ("k_scale", "v_scale")})
+        return out
+
+    return KVCache([layer() for _ in range(cfg.num_layers)],
+                   torch.zeros((), dtype=torch.int64, device=dev))
+
+
+def decode_call(model, *args, **kwargs):
+    """One decode forward of ``model``: over its own weights, or, when it
+    holds quantized codes (``model.qweights``), over the codes
+    dequantized for this step (the reference's per-step
+    ``dequantize_tree`` under its barrier)."""
+    if model.qweights is None:
+        return model(*args, **kwargs)
+    return torch.func.functional_call(
+        model, model.qweights.dequantize(model.cfg.torch_dtype), args,
+        kwargs,
+    )
 
 
 def sample_logits(logits, generator=None, temperature=0.0, top_k=0,
@@ -575,27 +728,154 @@ def sample_logits(logits, generator=None, temperature=0.0, top_k=0,
     return torch.argmax(logits + gumbel, dim=-1)
 
 
+class _Clock(object):
+    """Marks on the device's stream (CUDA events: nothing waits for them
+    until :meth:`spans` is read after a sync) or on the host's clock."""
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+        self.marks = []
+
+    def mark(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def spans(self):
+        """Seconds between consecutive marks (call after a sync)."""
+        if self.cuda:
+            return [a.elapsed_time(b) / 1e3
+                    for a, b in zip(self.marks, self.marks[1:])]
+        return [b - a for a, b in zip(self.marks, self.marks[1:])]
+
+
+@torch.no_grad()
+def generate(model, params, prompt, max_new_tokens, temperature=0.0,
+             generator=None, top_k=0, top_p=0.0, pad_start=None,
+             eos_id=None, timing=None):
+    """Autoregressive sampling with a contiguous KV cache (the
+    reference's ``generate``).
+
+    Phase 1 prefills the cache with the whole prompt in one forward;
+    phase 2 runs ``max_new_tokens - 1`` single-token decode steps as an
+    eager loop with no host sync inside (the cache, the counter and the
+    eos flags stay on the device).
+
+    Args:
+      model: a :class:`Transformer` with ``kv_layout="contiguous"``
+        (decode always runs dot attention over the cache).
+      params: ``None`` (the model's weights) or a Flax-layout tree,
+        float or quantized, loaded into a model over ``model.cfg``.  A
+        quantized model prefills with the weights dequantized once and
+        dequantizes its codes again at each decode step.
+      prompt: ``[B, P]`` int tokens; ``P + max_new_tokens`` must fit
+        ``cfg.max_seq_len``.
+      temperature: 0 is greedy; otherwise sampling (needs
+        ``generator``, a ``torch.Generator`` on the model's device),
+        filtered by ``top_k``/``top_p`` (:func:`sample_logits`).
+      pad_start: optional ``[B]`` pad counts of left-padded ragged rows;
+        their pad slots are masked out of every attention.
+      eos_id: optional stop token: once a row samples it, every later
+        position emits ``eos_id`` again (rows stay ``[B,
+        max_new_tokens]``).
+      timing: optional list; ``(prefill_sec, decode_sec)`` is appended,
+        measured on the device's stream (read after the result's copy).
+    Returns ``[B, max_new_tokens]`` int32 tokens on the model's device.
+    """
+    if params is not None:
+        from tensorflowonspark_tpu_torch import convert
+
+        model = convert.params_from_flax(params, model.cfg,
+                                         device=model.device)
+    cfg = model.cfg
+    if cfg.kv_layout == "paged":
+        raise ValueError(
+            "generate runs the contiguous KV cache; kv_layout='paged' is "
+            "the SlotDecoder's layout"
+        )
+    dev = model.device
+    prompt = torch.as_tensor(prompt).to(device=dev, dtype=torch.int64)
+    b, p = prompt.shape
+    if p + max_new_tokens > cfg.max_seq_len:
+        raise ValueError(
+            "prompt ({0}) + max_new_tokens ({1}) exceeds the cache "
+            "capacity max_seq_len={2}".format(
+                p, max_new_tokens, cfg.max_seq_len
+            )
+        )
+    if max_new_tokens <= 0:
+        return torch.zeros((b, 0), dtype=torch.int32, device=dev)
+    if temperature > 0 and generator is None:
+        raise ValueError("temperature sampling needs a generator")
+    if pad_start is not None:
+        pad_start = torch.as_tensor(pad_start).to(device=dev,
+                                                  dtype=torch.int64)
+
+    def sample(logits):
+        return sample_logits(logits, generator, temperature=temperature,
+                             top_k=top_k, top_p=top_p)
+
+    clock = _Clock(dev)
+    clock.mark()
+    # sized to the live positions: every decode step reads the whole bank
+    cache = init_cache(model, b, cache_len=p + max_new_tokens)
+    logits = model(prompt, decode=True, cache=cache, pad_start=pad_start)
+    tok = sample(logits[:, -1])
+    clock.mark()
+    out = torch.empty((b, max_new_tokens), dtype=torch.int64, device=dev)
+    out[:, 0] = tok
+    done = tok == eos_id if eos_id is not None else None
+    for i in range(1, max_new_tokens):
+        logits = decode_call(model, tok[:, None], decode=True, cache=cache,
+                             pad_start=pad_start)
+        nxt = sample(logits[:, 0])
+        if eos_id is not None:
+            nxt = torch.where(done, eos_id, nxt)
+            done = done | (nxt == eos_id)
+        out[:, i] = nxt
+        tok = nxt
+    clock.mark()
+    out = out.to(torch.int32)
+    if timing is not None:
+        if clock.cuda:
+            torch.cuda.current_stream(dev).synchronize()
+        timing.append(tuple(clock.spans()))
+    return out
+
+
 class SlotDecoder:
-    """Slot-level KV-cache engine for continuous in-flight batching,
-    paged layout only (port of the reference's ``SlotDecoder``).
+    """Slot-level KV-cache engine for continuous in-flight batching, in
+    the contiguous or the paged layout (port of the reference's
+    ``SlotDecoder``).
 
     Each batch lane is a slot: an independent request with its own
-    block-table row, write pointer and eos flag, so the serving engine
-    can evict a finished request and admit a queued prompt into the
-    freed lane between decode chunks.
+    cache region, write pointer, pad region and eos flag, so the serving
+    engine can evict a finished request and admit a queued prompt into
+    the freed lane between decode chunks.
 
-    - :meth:`admit` prefills the prompt at canonical positions (token
-      ``i`` at cache position ``i``) straight into the slot's freshly
-      allocated pool pages and returns the first token as a device
-      scalar, without synchronising.
+    - :meth:`admit` prefills the prompt and returns the first token as a
+      device scalar, without synchronising.  Contiguous: the prompt is
+      left-padded to its bucket (:meth:`bucket_len`) and prefilled into
+      views of the slot's lane of every bank (the reference's
+      ``_lane_of``/``_merge_lane``), with ``pad_start`` masking.  Paged:
+      at canonical positions (token ``i`` at position ``i``) straight
+      into the slot's freshly allocated pool pages.
     - :meth:`dispatch_chunk` runs ``chunk_size`` single-token decode
-      steps over every slot as an eager loop; :meth:`resolve_chunk`
-      pulls the token block to the host — the one host sync per chunk.
+      steps over every slot as an eager loop (per-row writes and masks);
+      :meth:`resolve_chunk` pulls the token block to the host — the one
+      host sync per chunk.
 
-    Per-slot state (``positions``, ``last_tok``, ``done``) lives on the
-    device; the host keeps the ``active`` mask and the block tables.
-    ``model`` is a port :class:`Transformer`; ``params`` is ``None``
-    (use the model's weights) or a Flax-layout tree to load into it.
+    Per-slot state (``positions``, ``pad_start``, ``last_tok``,
+    ``done``) lives on the device; the host keeps the ``active`` mask
+    and the paged block tables.  ``model`` is a port
+    :class:`Transformer`; ``params`` is ``None`` (use the model's
+    weights) or a Flax-layout tree (float or quantized) to load into it.
+    With quantized weights (:attr:`_quantized`, scheme :attr:`_wq`, the
+    codes :attr:`_qparams`) the prefill runs the weights dequantized
+    once and every decode step of a chunk dequantizes the codes again.
     """
 
     def __init__(self, model, params, num_slots, max_new_tokens, *,
@@ -611,10 +891,10 @@ class SlotDecoder:
                 "kv_layout must be 'contiguous' or 'paged', got "
                 "{0!r}".format(kv_layout)
             )
-        if self.kv_layout != "paged":
-            raise _not_ported(
-                "the contiguous-layout SlotDecoder", "contiguous KV and "
-                "static generate"
+        if model.cfg.kv_layout == "paged" and self.kv_layout != "paged":
+            raise ValueError(
+                "model is configured kv_layout='paged' but the decoder "
+                "was asked for 'contiguous'; pass kv_layout='paged'"
             )
         if prefix_cache is not None:
             raise _not_ported("the prefix cache", "prefix cache and "
@@ -623,7 +903,8 @@ class SlotDecoder:
             raise _not_ported("draft-model speculation", "speculation")
         if mesh is not None:
             raise _not_ported("TP meshes", "TP")
-        if paged_impl not in ("kernel", "gather"):
+        self._paged = self.kv_layout == "paged"
+        if self._paged and paged_impl not in ("kernel", "gather"):
             raise ValueError(
                 "paged_impl must be 'kernel' or 'gather', got "
                 "{0!r}".format(paged_impl)
@@ -651,11 +932,22 @@ class SlotDecoder:
                     self.cache_len, self.max_new_tokens
                 )
             )
-        self.paged_impl = str(paged_impl)
-        self._setup_paged(model, kv_pages, page_tokens)
+        if self._paged:
+            self.paged_impl = str(paged_impl)
+            self._setup_paged(model, kv_pages, page_tokens)
+        else:
+            self.model = model
+            self.page_pool = None
+            self.tables = None
+        #: the weight scheme ("int8" | "int4" | None) and the codes the
+        #: decode steps dequantize (None for float weights)
+        self._qparams = self.model.qweights
+        self._quantized = self._qparams is not None
+        self._wq = self._qparams.scheme if self._quantized else None
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
-        self.cache = init_cache(self.model)
+        self.cache = init_cache(self.model, self.num_slots,
+                                cache_len=self.cache_len)
         self.state = self._idle_state()
         self.active = np.zeros((self.num_slots,), bool)
 
@@ -692,6 +984,9 @@ class SlotDecoder:
         b, dev = self.num_slots, self.device
         return {
             "positions": torch.zeros((b,), dtype=torch.int64, device=dev),
+            # idle slots mask everything but self: pad_start=cache_len
+            "pad_start": torch.full((b,), self.cache_len,
+                                    dtype=torch.int64, device=dev),
             "last_tok": torch.zeros((b,), dtype=torch.int64, device=dev),
             "done": torch.ones((b,), dtype=torch.bool, device=dev),
         }
@@ -749,9 +1044,39 @@ class SlotDecoder:
             )
         if self.active[slot]:
             raise ValueError("slot {0} is still active".format(slot))
-        first = self._admit_paged(slot, prompt, n)
+        if self._paged:
+            first = self._admit_paged(slot, prompt, n)
+        else:
+            b = self.bucket_len(n)
+            padded = np.zeros((1, b), np.int64)
+            padded[0, b - n:] = prompt
+            first = self._prefill_lane(slot, padded, b - n)
         self.active[slot] = True
         return first
+
+    @torch.no_grad()
+    def _prefill_lane(self, slot, tokens, pad):
+        """Contiguous prefill of the left-padded ``tokens [1, bucket]``
+        into lane ``slot`` (views of every bank, a counter at 0), with
+        ``pad`` pad slots masked; scatters the slot's state entries."""
+        dev = self.device
+        logits = self.model(
+            self._to_device(tokens), decode=True,
+            cache=self.cache.lane(slot),
+            pad_start=torch.full((1,), pad, dtype=torch.int64, device=dev),
+        )
+        first = self._sample(logits[:, -1])[0]
+        self._set_slot(slot, tokens.shape[1], pad, first)
+        return first
+
+    def _set_slot(self, slot, position, pad, first):
+        self.state["positions"][slot] = position
+        self.state["pad_start"][slot] = pad
+        self.state["last_tok"][slot] = first
+        if self.eos_id is not None:
+            self.state["done"][slot] = first == self.eos_id
+        else:
+            self.state["done"][slot] = False
 
     def _admit_paged(self, slot, prompt, n):
         """Allocate the slot's pages, point its table row at them, and
@@ -780,12 +1105,7 @@ class SlotDecoder:
             cache=self.cache,
         )
         first = self._sample(logits[:, n - kpref - 1])[0]
-        self.state["positions"][slot] = n
-        self.state["last_tok"][slot] = first
-        if self.eos_id is not None:
-            self.state["done"][slot] = first == self.eos_id
-        else:
-            self.state["done"][slot] = False
+        self._set_slot(slot, n, 0, first)
         return first
 
     @torch.no_grad()
@@ -795,18 +1115,20 @@ class SlotDecoder:
         block as an unresolved device tensor.  Done rows keep emitting
         ``eos_id``; active rows advance their pointer (clamped so a
         completed-but-not-evicted row stays inside the cache), idle
-        rows hold still."""
-        tables = self._to_device(self.tables)
+        rows hold still.  Quantized weights are dequantized at every
+        step (:func:`decode_call`)."""
+        tables = self._to_device(self.tables) if self._paged else None
         active = self._to_device(self.active)
         pos = self.state["positions"]
+        pad = self.state["pad_start"]
         tok = self.state["last_tok"]
         done = self.state["done"]
         toks = torch.empty((self.num_slots, self.chunk_size),
                            dtype=torch.int64, device=self.device)
         for i in range(self.chunk_size):
-            logits = self.model(
-                tok[:, None], decode=True, slot_positions=pos,
-                block_tables=tables, cache=self.cache,
+            logits = decode_call(
+                self.model, tok[:, None], decode=True, slot_positions=pos,
+                block_tables=tables, cache=self.cache, pad_start=pad,
             )
             nxt = self._sample(logits[:, 0])
             if self.eos_id is not None:
@@ -817,7 +1139,7 @@ class SlotDecoder:
             )
             toks[:, i] = nxt
             tok = nxt
-        self.state = {"positions": pos, "last_tok": tok, "done": done}
+        self.state = dict(self.state, positions=pos, last_tok=tok, done=done)
         return toks
 
     def resolve_chunk(self, pending):
@@ -831,12 +1153,14 @@ class SlotDecoder:
         return self.resolve_chunk(self.dispatch_chunk())
 
     def evict(self, slot):
-        """Free lane ``slot`` between chunks — host bookkeeping only: the
-        slot's pages return to the pool and its table row parks on the
-        trash page so the lane's dead decode writes never land in a
-        live page."""
+        """Free lane ``slot`` between chunks — host bookkeeping only.  A
+        contiguous lane's stale KV needs no scrubbing (a later request's
+        masks only reach positions its own prefill and decode wrote);
+        a paged slot's pages return to the pool and its table row parks
+        on the trash page so the lane's dead decode writes never land in
+        a live page."""
         self.active[slot] = False
-        if self._slot_pages[slot]:
+        if self._paged and self._slot_pages[slot]:
             self.page_pool.release(self._slot_pages[slot])
             self._slot_pages[slot] = []
             self.tables[slot, :] = 0
@@ -846,28 +1170,26 @@ class SlotDecoder:
         self.evict(slot)
 
     def reset(self):
-        """Return every slot to idle (between serving jobs); the pools
-        stay allocated, their stale KV is unreachable."""
-        for slot in range(self.num_slots):
-            if self._slot_pages[slot]:
-                self.page_pool.release(self._slot_pages[slot])
-                self._slot_pages[slot] = []
-        self.tables[:, :] = 0
+        """Return every slot to idle (between serving jobs); the banks and
+        pools stay allocated, their stale KV is unreachable."""
+        if self._paged:
+            for slot in range(self.num_slots):
+                if self._slot_pages[slot]:
+                    self.page_pool.release(self._slot_pages[slot])
+                    self._slot_pages[slot] = []
+            self.tables[:, :] = 0
         self.state = self._idle_state()
         self.active[:] = False
 
     def reuse_stats(self):
-        """Page-pool occupancy gauges."""
-        return self.page_pool.stats()
+        """Page-pool occupancy gauges (paged layout; none for contiguous)."""
+        return self.page_pool.stats() if self._paged else {}
 
 
 #: serving_builder keys that select a plane this package has not ported
 #: yet, with the ROADMAP item that brings it; a truthy value raises
 _UNPORTED_KNOBS = {
     "auto": "the cost-model planner (engine planes)",
-    "weights": "int8/int4 weights, int8 KV cache and quantize",
-    "quantize": "int8/int4 weights, int8 KV cache and quantize",
-    "int4_group": "int8/int4 weights, int8 KV cache and quantize",
     "prefix_cache": "prefix cache and PrefixCache",
     "prefix_mem_mb": "prefix cache and PrefixCache",
     "speculative": "speculation",
@@ -886,8 +1208,6 @@ _UNPORTED_KNOBS = {
 def _check_unported(config):
     for key, item in _UNPORTED_KNOBS.items():
         val = config.get(key)
-        if key in ("weights", "quantize") and val in ("float", "none"):
-            continue
         if val:
             raise _not_ported(
                 "serving_builder config {0}={1!r}".format(key, val), item
@@ -906,33 +1226,62 @@ def _unwrap_params(params):
     return params
 
 
+def _tree_to(tree, device):
+    """Every float leaf of ``tree`` as a tensor on ``device`` (where the
+    quantizer then runs); quantized leaves as they are."""
+    if isinstance(tree, Mapping):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree if qz._is_any_q(tree) else qz.as_tensor(tree, device)
+
+
+def _quantized_tree(tree, config, cfg, device):
+    """The ``weights``/``quantize`` knob (``int4_group`` sizes the int4
+    groups): the tree quantized on ``device``, or as it was."""
+    weights = config.get("weights") or config.get("quantize")
+    if weights in ("int8", "int4"):
+        tree = _tree_to(tree, device)
+        if weights == "int8":
+            return qz.quantize_tree(tree)
+        return qz.quantize_tree_int4(
+            tree, group_size=int(config.get("int4_group", 64)))
+    if weights not in (None, "float", "none"):
+        raise ValueError(
+            "weights/quantize must be 'int8', 'int4', 'float' or "
+            "unset; got {0!r}".format(weights)
+        )
+    return tree
+
+
 def serving_builder(params, config):
-    """Generation predictor over a Flax-layout parameter tree (port of
-    the reference's ``serving_builder``, ``mode="generate"`` with
-    ``kv_layout="paged"``).
+    """Predictor over a Flax-layout parameter tree (port of the
+    reference's ``serving_builder``).
 
     ``config`` takes the reference's keys (TransformerConfig fields and
     the serving knobs) plus ``device`` (default ``cuda``).  Unknown keys
     raise :class:`~..planner.knobs.UnknownKnobError`; knobs of planes
-    not ported yet raise ``NotImplementedError``.  The returned
-    ``predict`` carries ``make_slot_decoder`` for
-    ``serving.predict_rows(..., schedule="continuous")``; calling it
-    directly (the static schedule) is not ported.
+    not ported yet raise ``NotImplementedError``.  Attention is coerced
+    to ``dot`` (the decode paths read their caches).
+
+    - Without ``mode``: logits serving.  ``predict({"tokens": [B, S]})``
+      returns ``{"logits": f32 [B, S, V], "next_token": [B]}`` (through
+      :func:`..models.base.make_serving_predict`); quantized weights are
+      dequantized once.
+    - ``mode="generate"``: calling ``predict`` is the static schedule
+      (:func:`generate` over a left-padded batch with its ``<input>_pad``
+      counts; ``{"generated"}``, plus ``"generated_len"`` under
+      ``eos_id``), on the contiguous cache even when ``kv_layout`` is
+      ``"paged"`` (the pools are the slot decoders' layout); the last
+      call's ``(prefill_sec, decode_sec)`` is ``predict.last_timing``.  ``predict.make_slot_decoder`` builds
+      the continuous schedule's :class:`SlotDecoder` in ``kv_layout``,
+      its cache sized from ``max_prompt_len``.
+    - ``weights``/``quantize`` ``"int8"|"int4"`` (``int4_group``)
+      quantize the tree on the device (:mod:`..quantize`); decode steps
+      dequantize the codes at each step.  ``cache_dtype="int8"`` stores
+      the KV cache as int8 with scales, in either layout.
     """
     cfg_fields = {f.name for f in dataclasses.fields(TransformerConfig)}
     knob_registry.validate_keys(config, cfg_fields | {"device"})
     _check_unported(config)
-    if config.get("mode") != "generate":
-        raise _not_ported(
-            "logits serving (mode != 'generate')", "contiguous KV and "
-            "static generate"
-        )
-    kv_layout = str(config.get("kv_layout", "contiguous"))
-    if kv_layout != "paged":
-        raise _not_ported(
-            "kv_layout={0!r}".format(kv_layout), "contiguous KV and static "
-            "generate"
-        )
     device = resolve_device(config.get("device"))
     overrides = dict(config, attention_impl="dot", mesh=None)
     cfg = TransformerConfig(
@@ -940,45 +1289,82 @@ def serving_builder(params, config):
     )
     from tensorflowonspark_tpu_torch import convert
 
-    model = convert.params_from_flax(_unwrap_params(params), cfg, device=device)
+    variables = base.as_variables(_unwrap_params(params))
+    tree = _quantized_tree(variables["params"], config, cfg, device)
+    if config.get("mode") != "generate":
+        # batch logits are compute-bound: dequantize once, up front
+        return _logits_predictor(
+            qz.dequantize_tree(tree, cfg.torch_dtype, barrier=False), cfg,
+            device, config.get("input_name", "tokens"))
+    model = convert.params_from_flax(tree, cfg, device=device)
     model.requires_grad_(False)
 
     max_new = int(config["max_new_tokens"])
     temperature = float(config.get("temperature", 0.0))
     top_k = int(config.get("top_k", 0))
     top_p = float(config.get("top_p", 0.0))
+    seed = int(config.get("seed", 0))
     pad_id = int(config.get("pad_id", 0))
     eos_id = config.get("eos_id")
     eos_id = None if eos_id is None else int(eos_id)
     input_name = config.get("input_name", "tokens")
+    kv_layout = str(config.get("kv_layout", "contiguous"))
     chunk_size = int(config.get("chunk_size", 16))
     max_prompt = config.get("max_prompt_len")
     paged_impl = str(config.get("paged_impl") or "kernel")
     page_tokens = config.get("kv_page_tokens", config.get("prefix_block"))
-    enforce = config.get("check_tiles")
-    if enforce is None:
-        # the kernel only runs on the GPU; the CPU path takes any geometry
-        enforce = paged_impl == "kernel" and device.type == "cuda"
-    if enforce:
-        check_tiles(
-            int(page_tokens or 16), cfg.head_dim, cfg.torch_dtype,
-            group=cfg.num_heads // (cfg.num_kv_heads or cfg.num_heads),
-        )
+    if kv_layout == "paged":
+        enforce = config.get("check_tiles")
+        if enforce is None:
+            # the kernel only runs on the GPU; the CPU path takes any
+            # geometry
+            enforce = paged_impl == "kernel" and device.type == "cuda"
+        if enforce:
+            check_tiles(
+                int(page_tokens or 16), cfg.head_dim,
+                torch.int8 if cfg.cache_dtype == "int8" else cfg.torch_dtype,
+                group=cfg.num_heads // (cfg.num_kv_heads or cfg.num_heads),
+            )
+    # the static schedule runs the contiguous cache in every layout
+    static_model = model if cfg.kv_layout != "paged" else model.with_config(
+        dataclasses.replace(cfg, kv_layout="contiguous"))
 
     def predict(batch):
-        raise _not_ported(
-            "the static generate schedule (calling the predictor "
-            "directly)", "contiguous KV and static generate"
-        )
+        tokens = np.asarray(batch[input_name])
+        pads = batch.get(input_name + "_pad")
+        if pads is None:
+            pads = np.zeros((tokens.shape[0],), np.int64)
+        gen, timing = None, []
+        if temperature > 0:
+            # the reference samples every call from the same key
+            gen = torch.Generator(device=device)
+            gen.manual_seed(seed)
+        out = generate(
+            static_model, None, torch.from_numpy(tokens.astype(np.int64)),
+            max_new, temperature=temperature, generator=gen, top_k=top_k,
+            top_p=top_p, pad_start=torch.from_numpy(
+                np.asarray(pads, np.int64)),
+            eos_id=eos_id, timing=timing,
+        ).cpu().numpy()
+        predict.last_timing = timing[0]
+        res = {"generated": out}
+        if eos_id is not None:
+            hit = out == eos_id
+            res["generated_len"] = np.where(
+                hit.any(axis=1), hit.argmax(axis=1), out.shape[1]
+            ).astype(np.int32)
+        return res
 
+    predict.last_timing = None
     predict.column_padding = {input_name: pad_id}
     predict.pad_multiple = int(config.get("pad_multiple", 64))
+    # bucketing must never push a fitting prompt past the cache
     predict.pad_cap = max(1, cfg.max_seq_len - max_new)
     slot_decoders = {}
 
     def make_slot_decoder(num_slots, chunk=None):
         # memoized per (slots, chunk); a reused decoder only resets its
-        # host-side slot table and keeps its pools
+        # host-side slot table and keeps its banks or pools
         key = (int(num_slots),
                int(chunk) if chunk is not None else chunk_size)
         dec = slot_decoders.get(key)
@@ -994,9 +1380,9 @@ def serving_builder(params, config):
             model, None, key[0], max_new, cache_len=cache_len,
             chunk_size=key[1], pad_multiple=predict.pad_multiple,
             temperature=temperature, top_k=top_k, top_p=top_p,
-            eos_id=eos_id, seed=int(config.get("seed", 0)),
-            kv_layout="paged", kv_pages=config.get("kv_pages"),
-            page_tokens=page_tokens, paged_impl=paged_impl,
+            eos_id=eos_id, seed=seed, kv_layout=kv_layout,
+            kv_pages=config.get("kv_pages"), page_tokens=page_tokens,
+            paged_impl=paged_impl,
         )
         slot_decoders[key] = dec
         return dec
@@ -1005,3 +1391,19 @@ def serving_builder(params, config):
     predict.max_new_tokens = max_new
     predict.eos_id = eos_id
     return predict
+
+
+def _logits_predictor(tree, cfg, device, input_name):
+    from tensorflowonspark_tpu_torch import convert
+
+    model = convert.params_from_flax(tree, cfg, device=device)
+    model.requires_grad_(False)
+
+    def outputs(logits):
+        return {
+            "logits": logits.to(torch.float32).cpu().numpy(),
+            "next_token": torch.argmax(logits[:, -1], dim=-1).to(
+                torch.int32).cpu().numpy(),
+        }
+
+    return base.make_serving_predict(model, input_name, outputs)

@@ -1,11 +1,13 @@
 """Batch serving entry point (port of the JAX package's ``serving.py``).
 
-Only the continuous schedule is ported: :func:`predict_rows` with
-``schedule="continuous"`` runs a generation predictor (from
-``models.transformer.serving_builder``) through the port's
-:class:`~tensorflowonspark_tpu_torch.serving_engine.ServingEngine`.  The
-static schedule, fleet replicas and the lifecycle knobs raise
-``NotImplementedError``.
+:func:`predict_rows` runs a predictor (from
+``models.transformer.serving_builder``) over dict rows on either
+schedule: ``"static"`` (the default: fixed-size batches, ragged prompts
+left-padded, each batch one ``predict`` call) or ``"continuous"``
+(in-flight batching through the port's
+:class:`~tensorflowonspark_tpu_torch.serving_engine.ServingEngine`).
+Fleet replicas, the lifecycle knobs and the telemetry histogram and
+usage ledger raise ``NotImplementedError``.
 
 :func:`main` is the batch-inference command line (``python -m
 tensorflowonspark_tpu_torch.serving``): an export over TFRecords,
@@ -25,6 +27,7 @@ import json
 import logging
 import os
 import pickle
+import time
 
 import numpy as np
 
@@ -41,6 +44,184 @@ from tensorflowonspark_tpu_torch.serving_engine import (  # noqa: F401
 from tensorflowonspark_tpu_torch.utils import not_ported as _not_ported
 
 logger = logging.getLogger(__name__)
+
+
+def _stack_column(values, column=None):
+    """Stack uniform rows into one batch array; ragged rows raise a
+    ``ValueError`` naming the offending rows (a predictor without
+    ``column_padding`` for this input takes uniform rows only)."""
+    arrs = [np.asarray(v) for v in values]
+    shapes = {a.shape for a in arrs}
+    if len(shapes) > 1:
+        majority = max(shapes, key=lambda s: sum(
+            1 for a in arrs if a.shape == s
+        ))
+        ragged = [
+            (i, a.shape) for i, a in enumerate(arrs)
+            if a.shape != majority
+        ][:8]
+        raise ValueError(
+            "cannot stack ragged rows for input {0}: batch majority "
+            "shape is {1} but row(s) {2} differ.  This predictor "
+            "declares no padding for this input — uniform-length rows "
+            "only".format(
+                repr(column) if column else "batch", majority, ragged
+            )
+        )
+    return np.stack(arrs)
+
+
+def _stack_ragged_left(values, pad_value, multiple=1, cap=None):
+    """Stack ragged 1-D rows by LEFT-padding to the batch's longest row
+    rounded up to ``multiple``; returns ``(stacked [n, max_len],
+    pad_counts [n] int32)``.  ``cap`` bounds the rounded length
+    (generation predictors set it to ``max_seq_len - max_new_tokens``);
+    a row longer than ``cap`` still stacks at its own length and fails
+    in the model's capacity check."""
+    arrs = [np.asarray(v) for v in values]
+    if any(a.ndim != 1 for a in arrs):
+        raise ValueError(
+            "ragged padding supports 1-D token rows; got shapes %s"
+            % ([a.shape for a in arrs],)
+        )
+    raw_max = max(a.shape[0] for a in arrs)
+    max_len = ((raw_max + multiple - 1) // multiple) * multiple
+    if cap is not None:
+        max_len = max(raw_max, min(max_len, int(cap)))
+    pads = np.asarray([max_len - a.shape[0] for a in arrs], np.int32)
+    out = np.full((len(arrs), max_len), pad_value, arrs[0].dtype)
+    for i, a in enumerate(arrs):
+        if a.shape[0]:
+            out[i, max_len - a.shape[0]:] = a
+    return out, pads
+
+
+def _validate_static_row(row, idx, input_mapping):
+    """Static-schedule admission: every mapped input column must be
+    present (a typed ``missing_input`` error naming the request and the
+    column)."""
+    for col in sorted(input_mapping):
+        if col not in row:
+            raise serving_engine.RequestValidationError(
+                "request {0} is missing input column {1!r} (mapped to "
+                "predictor input {2!r}); present columns: {3}".format(
+                    idx, col, input_mapping[col],
+                    sorted(row) if isinstance(row, dict) else type(row),
+                ),
+                kind="missing_input", request_index=idx,
+            )
+
+
+def _predict_rows_static(predict, rows, input_mapping, output_mapping,
+                         batch_size, pad_to_batch, stats, on_error):
+    """Fixed-size batches in input order: ragged prompt columns (those in
+    ``predict.column_padding``) stack left-padded with a ``<input>_pad``
+    count column; the last short batch pads with zero rows up to
+    ``batch_size`` when ``pad_to_batch`` (outputs cut back).  With
+    ``on_error="record"`` a failed batch is re-run row by row at the same
+    padded shape and only the rows that fail alone become error records.
+    ``stats["latency_sec"]`` gets each request's seconds from its pull
+    off ``rows`` to its emission."""
+    serving_engine.refuse_reserved_inputs(input_mapping)
+    cols = sorted(input_mapping)
+    column_padding = getattr(predict, "column_padding", None) or {}
+    submit_t = {}
+    if stats is not None:
+        stats.setdefault("latency_sec", {})
+
+    def _assemble(chunk_rows, n_pad):
+        batch = {}
+        for c in cols:
+            name = input_mapping[c]
+            values = [r[c] for r in chunk_rows]
+            if name in column_padding:
+                batch[name], batch[name + "_pad"] = _stack_ragged_left(
+                    values, column_padding[name],
+                    getattr(predict, "pad_multiple", 1),
+                    cap=getattr(predict, "pad_cap", None),
+                )
+            else:
+                batch[name] = _stack_column(values, column=name)
+        n = len(chunk_rows)
+        if pad_to_batch and n < n_pad:
+            batch = {
+                k: np.concatenate(
+                    [v, np.zeros((n_pad - n,) + v.shape[1:], v.dtype)]
+                )
+                for k, v in batch.items()
+            }
+        return batch
+
+    def _predict_batch(chunk_rows):
+        out = predict(_assemble(chunk_rows, batch_size))
+        return {
+            k: np.asarray(v)[:len(chunk_rows)] for k, v in out.items()
+        }
+
+    def _flush(chunk):
+        ok = [(i, row) for i, (tag, row, _) in enumerate(chunk)
+              if tag == "ok"]
+        per_row = {}
+        out = None
+        if ok:
+            try:
+                out = _predict_batch([row for _, row in ok])
+            except Exception as e:  # noqa: BLE001 - poison isolation
+                if on_error == "raise":
+                    raise
+                logger.warning(
+                    "batch of %d rows failed (%s); isolating per-row",
+                    len(ok), e,
+                )
+                for pos, row in ok:
+                    idx = chunk[pos][2]
+                    try:
+                        per_row[pos] = ("out", _predict_batch([row]))
+                    except Exception as re:  # noqa: BLE001
+                        per_row[pos] = ("rec", serving_engine.error_record(
+                            "predict", idx,
+                            "request {0} failed in predict: "
+                            "{1}".format(idx, re),
+                        ))
+        ok_pos = {p: i for i, (p, _) in enumerate(ok)}
+        for pos, (tag, payload, idx) in enumerate(chunk):
+            if tag == "rec":
+                yield idx, payload
+            elif out is not None:
+                i = ok_pos[pos]
+                yield idx, apply_output_mapping(
+                    {k: v[i] for k, v in out.items()}, output_mapping
+                )
+            else:
+                kind, o = per_row[pos]
+                yield idx, o if kind == "rec" else apply_output_mapping(
+                    {k: v[0] for k, v in o.items()}, output_mapping
+                )
+
+    def _emit(flushed):
+        for idx, r in flushed:
+            t_sub = submit_t.pop(idx, None)
+            if t_sub is not None and stats is not None:
+                stats["latency_sec"][idx] = time.monotonic() - t_sub
+            yield r
+
+    buf = []  # ("ok", row, idx) | ("rec", error_record, idx), input order
+    for idx, row in enumerate(rows):
+        submit_t[idx] = time.monotonic()
+        try:
+            _validate_static_row(row, idx, input_mapping)
+            buf.append(("ok", row, idx))
+        except serving_engine.RequestValidationError as e:
+            if on_error == "raise":
+                raise
+            buf.append((
+                "rec", serving_engine.error_record(e.kind, idx, e), idx
+            ))
+        if len(buf) == batch_size:
+            yield from _emit(_flush(buf))
+            buf = []
+    if buf:
+        yield from _emit(_flush(buf))
 
 
 def predict_rows(
@@ -68,15 +249,24 @@ def predict_rows(
     order.  The reference's signature; see its docstring for each
     argument.
 
-    ``schedule="continuous"`` is in-flight batching: ``batch_size`` is
-    the number of KV-cache slots, finished rows are evicted and queued
-    rows admitted between decode chunks.  ``stats`` (optional dict) is
-    filled with ``latency_sec`` / ``ttft_sec`` (per request, input
-    index keys), ``admitted`` / ``chunks`` / ``completed`` /
-    ``tokens_out`` and the page-pool gauges.  ``on_error="record"``
-    turns a bad row into a typed error record at its position.
+    ``schedule="static"`` stacks ``batch_size`` rows per ``predict``
+    call (see :func:`_predict_rows_static`); ``"continuous"`` is
+    in-flight batching: ``batch_size`` is the number of KV-cache slots,
+    finished rows are evicted and queued rows admitted between decode
+    chunks; ``"auto"`` is continuous for a predictor with
+    ``make_slot_decoder``, else static.  ``stats`` (optional dict) is
+    filled with ``latency_sec`` (per request, input index keys) and, on
+    the continuous schedule, ``ttft_sec`` / ``admitted`` / ``chunks`` /
+    ``completed`` / ``tokens_out`` and the page-pool gauges.
+    ``on_error="record"`` turns a bad row into a typed error record at
+    its position.
     """
-    if schedule not in ("static", "continuous", "auto"):
+    if batch_size == "auto":
+        raise _not_ported("batch_size='auto'", "the engine planes")
+    if schedule == "auto":
+        schedule = ("continuous" if hasattr(predict, "make_slot_decoder")
+                    else "static")
+    if schedule not in ("static", "continuous"):
         raise ValueError(
             "schedule must be 'static' or 'continuous', got %r"
             % (schedule,)
@@ -86,16 +276,23 @@ def predict_rows(
             "on_error must be one of %s, got %r"
             % (serving_engine.ON_ERROR, on_error)
         )
-    if schedule != "continuous":
-        raise _not_ported(
-            "schedule={0!r}".format(schedule),
-            "contiguous KV and static generate",
-        )
-    if batch_size == "auto":
-        raise _not_ported("batch_size='auto'", "the engine planes")
     if int(replicas or 1) > 1 or replica_policy != "least_loaded" \
             or fleet_queue_depth is not None:
         raise _not_ported("fleet replicas", "fleet")
+    if schedule == "static":
+        if (policy != "block" or queue_depth is not None
+                or watchdog_timeout is not None
+                or default_deadline is not None
+                or checkpoint_dir is not None or watcher is not None):
+            raise ValueError(
+                "queue_depth/policy/watchdog_timeout/default_deadline/"
+                "checkpoint_dir/watcher are continuous-schedule knobs; "
+                "the static schedule has no admission queue or swap plane"
+            )
+        yield from _predict_rows_static(
+            predict, rows, input_mapping, output_mapping, int(batch_size),
+            pad_to_batch, stats, on_error)
+        return
     if checkpoint_dir is not None or watcher is not None \
             or rollback_window != 8:
         raise _not_ported("live weight hot swap",
@@ -269,16 +466,14 @@ def infer_output_schema(predict, sample_row, input_mapping,
     serving metadata (``save_for_serving(..., output_schema=...)``) and
     the distributed transform never runs its one-row probe job.
 
-    The reference runs the row through the static schedule, which is not
-    ported; this runs it through the continuous schedule with one slot
-    (greedy decode gives the same row under both).  Returns an
-    interchange field list ``[(column, type_str), ...]``.
+    The row runs through the static schedule, as in the reference.
+    Returns an interchange field list ``[(column, type_str), ...]``.
     """
     from tensorflowonspark_tpu_torch.pipeline import _infer_output_type
 
     out = next(iter(predict_rows(
         predict, [sample_row], input_mapping, output_mapping,
-        batch_size=1, schedule="continuous",
+        batch_size=1,
     )))
     return [(name, _infer_output_type(out[name])) for name in sorted(out)]
 
@@ -340,11 +535,14 @@ def main(argv=None):
     p.add_argument("--output", required=True,
                    help="output directory for JSON-line part files")
     p.add_argument("--batch_size", type=int, default=128,
-                   help="in-flight KV-cache slots (continuous schedule)")
+                   help="rows per batch (static schedule) or in-flight "
+                        "KV-cache slots (continuous schedule)")
     p.add_argument("--schedule", choices=("static", "continuous"),
                    default="static",
-                   help="batching schedule; only 'continuous' (in-flight "
-                        "batching for generation exports) is ported")
+                   help="batching schedule: 'static' fixed-size batches, "
+                        "or 'continuous' in-flight batching for "
+                        "generation exports (batch_size = in-flight "
+                        "slots)")
     p.add_argument("--on_error", choices=serving_engine.ON_ERROR,
                    default="raise",
                    help="per-request failure policy: 'raise' fails "
@@ -380,9 +578,6 @@ def main(argv=None):
                    help="split prefill and decode into separate programs")
     args = p.parse_args(argv)
 
-    if args.schedule != "continuous":
-        raise _not_ported("--schedule {0}".format(args.schedule),
-                          "contiguous KV and static generate")
     if args.replicas > 1:
         raise _not_ported("--replicas {0}".format(args.replicas), "fleet")
     if args.tp:
@@ -408,14 +603,19 @@ def main(argv=None):
     out_path = fs_utils.join(args.output, "part-00000.jsonl")
     count = 0
     stats = {}
-    with fs_utils.open_file(out_path, "w") as f:
-        for out_row in predict_rows(
-            predict, rows, input_mapping, output_mapping, args.batch_size,
-            schedule=args.schedule, stats=stats, on_error=args.on_error,
+    kwargs = {}
+    if args.schedule == "continuous":
+        kwargs = dict(
             queue_depth=args.queue_depth, policy=args.policy,
             watchdog_timeout=args.watchdog_timeout,
             default_deadline=args.deadline,
             rollback_window=args.rollback_window,
+        )
+    with fs_utils.open_file(out_path, "w") as f:
+        for out_row in predict_rows(
+            predict, rows, input_mapping, output_mapping, args.batch_size,
+            schedule=args.schedule, stats=stats, on_error=args.on_error,
+            **kwargs
         ):
             f.write(json.dumps(out_row, default=_json_default) + "\n")
             count += 1
@@ -424,9 +624,10 @@ def main(argv=None):
     latency = sorted((stats.get("latency_sec") or {}).values())
     if latency:
         logger.info(
-            "continuous schedule: %d request(s) over %d chunks, "
-            "per-request latency p50=%.1fms p99=%.1fms", len(latency),
-            stats.get("chunks", 0), 1e3 * float(np.percentile(latency, 50)),
+            "%s schedule: %d request(s)%s, per-request latency "
+            "p50=%.1fms p99=%.1fms", args.schedule, len(latency),
+            " over %d chunks" % stats["chunks"] if stats.get("chunks")
+            else "", 1e3 * float(np.percentile(latency, 50)),
             1e3 * float(np.percentile(latency, 99)))
     logger.info("wrote %d predictions to %s", count, out_path)
     return count

@@ -54,6 +54,20 @@ class RequestValidationError(RequestError):
     shape/dtype, oversized prompt, bad budget value)."""
 
 
+def refuse_reserved_inputs(input_mapping):
+    """Raise ``NotImplementedError`` when a row column is mapped to a
+    reserved input whose plane is not ported (deadlines, the usage
+    ledger, tracing); both schedules call it."""
+    for name, plane in ((DEADLINE_INPUT, "request deadlines"),
+                        (TENANT_INPUT, "the usage ledger"),
+                        (TRACE_INPUT, "request tracing")):
+        if name in input_mapping.values():
+            raise _not_ported(
+                "the reserved input {0!r} ({1})".format(name, plane),
+                "the engine's robustness and telemetry planes",
+            )
+
+
 def error_record(kind, request_index, message, tokens_done=0,
                  partial=None):
     """The typed record a failed request yields at its input-order
@@ -149,14 +163,7 @@ class ServingEngine(object):
         if disaggregate or getattr(predict, "disaggregate", False):
             raise _not_ported("prefill/decode disaggregation",
                               "disaggregation")
-        for name, plane in ((DEADLINE_INPUT, "request deadlines"),
-                            (TENANT_INPUT, "the usage ledger"),
-                            (TRACE_INPUT, "request tracing")):
-            if name in input_mapping.values():
-                raise _not_ported(
-                    "the reserved input {0!r} ({1})".format(name, plane),
-                    "the engine's robustness and telemetry planes",
-                )
+        refuse_reserved_inputs(input_mapping)
         factory = getattr(predict, "make_slot_decoder", None)
         if factory is None:
             raise ValueError(

@@ -309,10 +309,19 @@ def test_transform_tokens_equal_the_jax_package(fitted, transformed,
     assert untrained != want
 
 
+def test_transform_at_the_default_schedule(fitted, transformed):
+    """``TFModel.transform`` at its default schedule (static, once
+    refused) serves the export: the continuous schedule's tokens."""
+    model = (tpl.TFModel().setExportDir(fitted["export"])
+             .setInputMapping(MAPPING).setBatchSize(SLOTS))
+    assert model.getSchedule() == "static"
+    got = model.transform([dict(r) for r in _prompts()])
+    assert _tokens(got) == _tokens(transformed)
+
+
 def test_output_schema_equals_the_reference(fitted):
-    """The reference derives the schema through its static schedule; the
-    port through the continuous one with one slot.  On the same export
-    the schemas must be equal."""
+    """Both packages derive the schema through their static schedule.  On
+    the same export the schemas must be equal."""
     with open(os.path.join(fitted["export"], "metadata.json")) as f:
         meta = json.load(f)
     sample = {"prompt": np.arange(5, dtype=np.int32)}
@@ -361,17 +370,21 @@ def test_serving_cli_in_process_and_refusals(fitted, transformed, tmp_path):
     with open(os.path.join(out, "part-00000.jsonl")) as f:
         assert [json.loads(line)["g"] for line in f] == \
             _tokens(transformed)
-    for extra, item in ((["--schedule", "static"],
-                         "contiguous KV and static generate"),
-                        (["--replicas", "2"], "fleet"),
+    # the default schedule (static; once refused) serves the same tokens
+    out2 = str(tmp_path / "out-static")
+    argv2 = argv[:argv.index("--output")] + ["--output", out2] + \
+        argv[argv.index("--output") + 2:]
+    assert serving.main(argv2 + ["--schedule", "static"]) == 7
+    with open(os.path.join(out2, "part-00000.jsonl")) as f:
+        assert [json.loads(line)["generated"] for line in f] == \
+            _tokens(transformed)
+    for extra, item in ((["--replicas", "2"], "fleet"),
                         (["--tp", "2"], "TP"),
                         (["--disaggregate"], "disaggregation"),
                         (["--checkpoint_dir", out],
                          "the engine's robustness planes")):
-        argv2 = argv + (extra if extra[0] == "--schedule"
-                        else extra + ["--schedule", "continuous"])
         with pytest.raises(NotImplementedError, match=item):
-            serving.main(argv2)
+            serving.main(argv + extra + ["--schedule", "continuous"])
     assert serving._parse_mapping("a=b, c = d") == \
         jserving._parse_mapping("a=b, c = d") == {"a": "b", "c": "d"}
     with pytest.raises(ValueError, match="key=value"):
@@ -551,13 +564,13 @@ def test_transform_native_on_error_record(monkeypatch, fitted, port_predict):
     assert got[1][1]["request_index"] == 1
 
 
-def test_transform_native_static_schedule_is_not_ported(monkeypatch,
-                                                        fitted):
-    parts, _ = _parts(1, 1)
+def test_transform_native_static_schedule_serves(monkeypatch, fitted,
+                                                 port_predict):
+    """The static schedule (once refused) at ``TFModel``'s default: the
+    same greedy tokens as the continuous schedule's."""
+    parts, prompts = _parts(1, 3)
     m = _native_model(fitted["export"], monkeypatch,
                       {"output_schema": "struct<generated:array<int>>"})
     m.setSchedule("static")
-    out = m.transform(_FakeDataFrame(parts, []))
-    with pytest.raises(NotImplementedError,
-                       match="contiguous KV and static generate"):
-        out.collect()
+    got = m.transform(_FakeDataFrame(parts, [])).collect()
+    assert [r[0] for r in got] == _want(port_predict, prompts, 1)

@@ -1,7 +1,8 @@
 """The port's ``serving_builder`` + ``predict_rows(schedule="continuous")``
 against the JAX package's pair, on the CPU in f32: identical generated
 tokens (and ``generated_len`` under eos) in input order, typed error
-records, every unported knob raising, and the package's import hygiene.
+records, every unported knob raising, the knobs this package has ported
+since building, and the package's import hygiene.
 """
 
 import os
@@ -125,16 +126,40 @@ def test_output_mapping_and_missing_column(tree):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("weights", "int8"), ("quantize", "int4"), ("prefix_cache", True),
+    ("prefix_cache", True),
     ("speculative", True), ("draft_config", {"num_layers": 1}),
     ("tp", 2), ("mesh_shape", {"model": 2}), ("disaggregate", True),
     ("auto", True), ("profile_dir", "/nonexistent"),
-    ("kv_layout", "contiguous"), ("mode", "logits"),
 ])
 def test_unported_builder_knobs_raise(tree, knob, value):
     with pytest.raises(NotImplementedError):
         ttr.serving_builder(tree, dict(TINY, **dict(GEN, device="cpu",
                                                     **{knob: value})))
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("weights", "int8"), ("quantize", "int4"),
+    ("kv_layout", "contiguous"), ("mode", "logits"),
+])
+def test_ported_builder_knobs_serve_like_jax(tree, knob, value):
+    """Once refused: int8/int4 weights, the contiguous layout and logits
+    serving (``mode`` other than ``"generate"``) now build, and serve
+    what the JAX package serves."""
+    cfg = dict(TINY, **dict(GEN, **{knob: value}))
+    jax_cfg = dict(cfg, paged_impl="gather")
+    port = ttr.serving_builder(tree, dict(cfg, device="cpu"))
+    ref = jtr.serving_builder(tree, jax_cfg)
+    if knob == "mode":
+        tokens = np.random.RandomState(1).randint(0, 256, (2, 12))
+        got, want = port({"tokens": tokens}), ref({"tokens": tokens})
+        np.testing.assert_allclose(got["logits"], want["logits"],
+                                   rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(got["next_token"],
+                                      want["next_token"])
+        return
+    got, _ = _serve(serving, port, _rows())
+    want, _ = _serve(jserving, ref, _rows())
+    _assert_same(got, want)
 
 
 def test_unknown_key_raises_like_the_registry(tree):
@@ -144,7 +169,7 @@ def test_unknown_key_raises_like_the_registry(tree):
 
 
 @pytest.mark.parametrize("kw", [
-    {"schedule": "static"}, {"replicas": 2}, {"policy": "reject"},
+    {"replicas": 2}, {"policy": "reject"},
     {"queue_depth": 4}, {"watchdog_timeout": 1.0},
     {"default_deadline": 1.0}, {"checkpoint_dir": "/nonexistent"},
 ])
@@ -155,9 +180,33 @@ def test_unported_predict_rows_knobs_raise(tree, kw):
                                   {"prompt": "tokens"}, batch_size=2, **kw))
 
 
-def test_static_predict_call_is_not_ported(tree):
-    with pytest.raises(NotImplementedError, match="static generate"):
-        _port(tree)({"tokens": np.zeros((1, 4), np.int32)})
+def test_static_schedule_serves_like_jax(tree):
+    """``schedule="static"`` (once refused) runs: the paged export's
+    static batches go through the contiguous cache, as the JAX package's
+    static schedule does on a contiguous build of the same weights."""
+    rows = _rows()
+    got = list(serving.predict_rows(_port(tree), [dict(r) for r in rows],
+                                    {"prompt": "tokens"}, batch_size=3))
+    want = list(jserving.predict_rows(
+        jtr.serving_builder(tree, dict(TINY, **dict(
+            GEN, kv_layout="contiguous"))),
+        [dict(r) for r in rows], {"prompt": "tokens"}, batch_size=3))
+    _assert_same(got, want)
+
+
+def test_static_predict_call_generates_like_jax(tree):
+    """Calling the generation predictor (once refused) is the static
+    schedule's batch: left-padded rows with their pad counts."""
+    tokens = np.random.RandomState(2).randint(0, 256, (2, 16))
+    pads = np.asarray([0, 9], np.int32)
+    tokens[1, :9] = 0
+    batch = {"tokens": tokens.astype(np.int32), "tokens_pad": pads}
+    got = _port(tree)(dict(batch))
+    want = jtr.serving_builder(tree, dict(TINY, **dict(
+        GEN, kv_layout="contiguous")))(dict(batch))
+    assert sorted(got) == sorted(want) == ["generated"]
+    np.testing.assert_array_equal(got["generated"], want["generated"])
+    assert got["generated"].dtype == np.int32
 
 
 def test_predictor_surface(tree):
@@ -177,8 +226,9 @@ def test_import_loads_no_jax():
         "import sys\n"
         "import tensorflowonspark_tpu_torch\n"
         "from tensorflowonspark_tpu_torch import checkpoint, compat, "
-        "convert, optim, prefix_cache, serving, serving_engine\n"
-        "from tensorflowonspark_tpu_torch.models import moe, transformer\n"
+        "convert, optim, prefix_cache, quantize, serving, serving_engine\n"
+        "from tensorflowonspark_tpu_torch.models import base, moe, "
+        "transformer\n"
         "from tensorflowonspark_tpu_torch.ops import _build, attention, "
         "flash_attention, gmm, moe, paged_attention, ring_attention, "
         "ulysses\n"

@@ -341,14 +341,28 @@ def test_train_on_feed_runs_a_tiny_feed():
 
 
 @pytest.mark.parametrize("field,item", [
-    ({"cache_dtype": "int8"}, "int8"),
     ({"fused_qkv": True}, "queue A: fused_qkv"),
-], ids=["int8_cache", "fused_qkv"])
+], ids=["fused_qkv"])
 def test_unported_model_knobs_raise(field, item):
     with pytest.raises(NotImplementedError, match=item):
         model = ttr.Transformer(ttr.TransformerConfig(**dict(TINY, **field)),
                                 device="cpu")
         model(torch.zeros((1, 8), dtype=torch.long))
+
+
+def test_int8_cache_model_trains_like_the_default():
+    """``cache_dtype="int8"`` (once refused) changes only the decode
+    cache: the training forward and loss are the default model's."""
+    tokens = torch.from_numpy(
+        np.random.default_rng(0).integers(0, TINY["vocab_size"], (2, 16)))
+    losses = []
+    for extra in ({}, {"cache_dtype": "int8"}):
+        torch.manual_seed(0)
+        model = ttr.Transformer(ttr.TransformerConfig(**dict(TINY, **extra)),
+                                device="cpu")
+        losses.append(ttr.loss_fn(model)(dict(model.named_parameters()),
+                                          {"tokens": tokens}, None))
+    assert torch.equal(losses[0], losses[1])
 
 
 @pytest.mark.parametrize("impl", ["ring", "ulysses"])

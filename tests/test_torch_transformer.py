@@ -1,10 +1,12 @@
-"""The port's paged ``SlotDecoder`` against the JAX package's, on the CPU
-in f32: the same weights (a JAX ``init`` tree through the converter)
-and the same admit / chunk / evict script must give identical greedy
-tokens, including the first token of every admit.  The JAX side runs
-``paged_impl="gather"``; the port runs both of its paths, ``"kernel"``
-(the plain version of the kernel on a CPU tensor) and ``"gather"``.  A
-tiny MoE model is held the same way in each of its dispatch modes.
+"""The port's ``SlotDecoder`` against the JAX package's, on the CPU in
+f32: the same weights (a JAX ``init`` tree through the converter) and
+the same admit / chunk / evict script must give identical greedy
+tokens, including the first token of every admit.  Paged: the JAX side
+runs ``paged_impl="gather"``; the port runs both of its paths,
+``"kernel"`` (the plain version of the kernel on a CPU tensor) and
+``"gather"``.  Contiguous: both sides' left-padded lane prefill and
+per-slot decode, with a window and with the int8 KV cache.  A tiny MoE
+model is held the same way in each of its dispatch modes.
 """
 
 import functools
@@ -121,6 +123,31 @@ def test_moe_slot_decoder_matches_jax(dispatch, impl):
     assert _drive(dec, prompts) == ref
 
 
+@pytest.mark.parametrize("extra", [
+    {}, {"attention_window": 12}, {"cache_dtype": "int8"},
+], ids=["causal", "window", "int8_cache"])
+def test_contiguous_slot_decoder_matches_jax(extra):
+    """The contiguous layout (once refused): bucketed left-padded admits
+    into lane views, per-row writes and masks in the chunk."""
+    cfg_kw = dict(TINY, **extra)
+    jmodel, tree = _jax_params(cfg_kw)
+    prompts = _prompts(cfg_kw["vocab_size"], [5, 17, 9, 30, 2, 12])
+    dec_kw = dict(DEC, kv_layout="contiguous")
+    del dec_kw["page_tokens"]
+    ref = _drive(jtr.SlotDecoder(jmodel, tree, 3, MAX_NEW, **dec_kw),
+                 prompts)
+    model = convert.params_from_flax(tree, ttr.TransformerConfig(**cfg_kw),
+                                     device="cpu")
+    dec = ttr.SlotDecoder(model, None, 3, MAX_NEW, **dec_kw)
+    assert dec.kv_layout == "contiguous" and dec.tables is None
+    bank = dec.cache[0]["k"]
+    assert tuple(bank.shape) == (3, DEC["cache_len"], 2, 16)
+    assert bank.dtype == (torch.int8 if extra.get("cache_dtype")
+                          else torch.float32)
+    assert _drive(dec, prompts) == ref
+    assert dec.reuse_stats() == {}
+
+
 def test_params_tree_loads_through_the_decoder():
     jmodel, tree = _jax_params(TINY, seed=1)
     prompts = _prompts(TINY["vocab_size"], [7, 3, 20, 11, 4, 9], seed=5)
@@ -194,7 +221,6 @@ class TestSlotBookkeeping:
             _port_decoder(kv_pages=4)
 
     @pytest.mark.parametrize("kw,item", [
-        ({"kv_layout": "contiguous"}, "contiguous KV"),
         ({"prefix_cache": object()}, "prefix cache"),
         ({"draft_model": object()}, "speculation"),
         ({"mesh": object()}, "TP"),
@@ -246,8 +272,7 @@ class TestForwardPieces:
 
     @pytest.mark.parametrize("field,item", [
         ({"fused_qkv": True}, "queue A: fused_qkv"),
-        ({"cache_dtype": "int8"}, "int8"),
-    ], ids=["fused_qkv", "int8_cache"])
+    ], ids=["fused_qkv"])
     def test_unported_model_options_raise(self, field, item):
         with pytest.raises(NotImplementedError, match=item):
             model = ttr.Transformer(
@@ -270,7 +295,47 @@ class TestForwardPieces:
                 logits.append(model(tokens))
         torch.testing.assert_close(logits[1], logits[0], atol=1e-5, rtol=0)
 
-    def test_shared_counter_decode_is_not_ported(self):
+    def test_shared_counter_decode_matches_the_forward(self):
+        """Shared-counter decode (once refused): a 5-token prefill and
+        two single-token steps advance the cache's device counter and
+        give the logits of one full forward over the 7 tokens."""
         model = ttr.Transformer(ttr.TransformerConfig(**TINY), device="cpu")
-        with pytest.raises(NotImplementedError, match="contiguous KV"):
-            model(torch.zeros((1, 3), dtype=torch.long), decode=True)
+        tokens = torch.from_numpy(
+            np.random.default_rng(1).integers(0, 256, (2, 7)))
+        with torch.no_grad():
+            full = model(tokens)
+            cache = ttr.init_cache(model, 2, cache_len=16)
+            steps = [model(tokens[:, :5], decode=True, cache=cache)]
+            assert int(cache.position) == 5
+            for i in (5, 6):
+                steps.append(model(tokens[:, i:i + 1], decode=True,
+                                   cache=cache))
+        assert int(cache.position) == 7
+        torch.testing.assert_close(torch.cat(steps, dim=1), full,
+                                   atol=1e-5, rtol=0)
+        with pytest.raises(ValueError, match="needs a cache"):
+            model(tokens, decode=True)
+
+    @pytest.mark.parametrize("layout", ["contiguous", "paged"])
+    def test_int8_cache_holds_codes_and_scales(self, layout):
+        """``cache_dtype="int8"`` (once refused): int8 banks or pools with
+        ``[..., Hkv, 1]`` f32 scales, which the decode writes."""
+        cfg = ttr.TransformerConfig(**dict(
+            TINY, cache_dtype="int8", kv_layout=layout, kv_pages=5,
+            kv_slot_blocks=2, kv_page_tokens=8))
+        model = ttr.Transformer(cfg, device="cpu")
+        cache = ttr.init_cache(model, 2, cache_len=16)
+        lead = (2, 16) if layout == "contiguous" else (5, 8)
+        assert tuple(cache[0]["k"].shape) == lead + (2, 16)
+        assert cache[0]["k"].dtype == torch.int8
+        assert tuple(cache[0]["v_scale"].shape) == lead + (2, 1)
+        assert cache[1]["k_scale"].dtype == torch.float32
+        kw = {} if layout == "contiguous" else dict(
+            slot_positions=torch.zeros((2,), dtype=torch.long),
+            block_tables=torch.tensor([[1, 2], [3, 4]]))
+        with torch.no_grad():
+            out = model(torch.ones((2, 3), dtype=torch.long), decode=True,
+                        cache=cache, **kw)
+        assert bool(torch.isfinite(out).all())
+        assert bool((cache[0]["k_scale"] > 0).any())
+        assert int(cache[0]["k"].abs().max()) == 127
