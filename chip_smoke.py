@@ -229,6 +229,43 @@ caught):
     interchange's seconds and bytes, the fed tokens/s beside
     ``feed_train_flagship``'s and the feed wait, and the transform split
     into the executor's start, the predictor's load and the serving.
+24. ``mnist_spark_flagship``: ``examples/mnist/mnist_spark.py``'s flow on
+    the port.  ``cluster.run(LocalEngine(1), mnist_spark_fn,
+    num_chips_per_node=1, input_mode=InputMode.SPARK)`` and
+    ``TPUCluster.train`` of 4096 ``synthetic_mnist`` rows ``(image[784],
+    label)`` (the example's data, copied here: its module imports the JAX
+    package); the compute process trains ``MNISTNet`` under
+    ``adam(1e-3)`` with ``has_aux=True`` through ``train_on_feed(
+    columnar=True)`` at batch 64 (64 steps, dropout from a seeded
+    generator), exports with ``save_for_serving`` (the JAX package's
+    ``model_ref``) and predicts 256 test rows in memory; the driver
+    serves them from the export through ``serving.load_predictor``.
+    Checks: the mean loss of the last 8 steps under half the first 8's,
+    the served predictions equal to the in-memory ones, the fn in
+    another process.  Prints steps/s and rows/s (from the second step
+    on), the cluster's start and the served accuracy.
+25. ``resnet_train_flagship``: bench.py's two ResNet workloads, ResNet56
+    on 32 px and ResNet50 (``conv7`` stem) on 224 px, batch 128, bf16
+    over f32 masters, seeded weights and the example's synthetic batch,
+    under ``SyncTrainer(resnet.loss_fn(model), sgd(
+    piecewise_constant_schedule(0.1, {91 epochs: 0.1, 136 epochs: 0.1}),
+    momentum=0.9), has_model_state=True)`` as in
+    ``examples/resnet/resnet_cifar_tpu.py``: 3 warm-up and 10 timed
+    steps.  Checks: losses finite and the last below the first, the
+    running statistics moved, the export (``{"params",
+    "batch_stats"}``) served through ``load_predictor`` agreeing with
+    the in-memory eval forward on 32 images off near ties
+    (:data:`VISION_NEAR_TIE`), and ResNet56's f32 eval forward on the
+    card within :data:`RESNET_F32_ROW_REL` row-relative of the same
+    weights' f32 forward on the CPU, TF32 off.  Prints images/s and mfu
+    against 12.3e9 (ResNet50) and 0.357e9 (ResNet56) FLOPs per image
+    over :data:`BF16_FLOPS_PER_SEC`, and the peak memory.
+26. ``segmentation_flagship``: ``UNet(num_classes=3)`` at its 128x128x3
+    input, batch 16, ``adam(1e-3)``, on ``synthetic_shapes`` (copied from
+    ``examples/segmentation/segmentation_tpu.py``), 3 warm-up and 20
+    timed steps through the example's loop.  Checks: the mean loss of
+    the last 3 steps below the first 3's, and the served ``mask`` equal
+    to the in-memory argmax off near ties.  Prints images/s.
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit
 line, and as the last line ``{"ok": true, "device": {...}}``.  Without a
@@ -5360,6 +5397,432 @@ def phase_static_serve_flagship(tree, slice_tokens):
     return line
 
 
+# ----------------------------------------------------------------------
+# the vision and MNIST workloads (phases 24-26)
+# ----------------------------------------------------------------------
+
+#: the JAX package's builders, which the port resolves to its own
+MNIST_MODEL_REF = "tensorflowonspark_tpu.models.mlp:serving_builder"
+RESNET_MODEL_REF = "tensorflowonspark_tpu.models.resnet:serving_builder"
+UNET_MODEL_REF = "tensorflowonspark_tpu.models.unet:serving_builder"
+#: rows of ``mnist_spark_flagship`` (the example's synthetic default) and
+#: the example's batch
+MNIST_ROWS, MNIST_BATCH = 4096, 64
+#: bench.py's two ResNet workloads: (name, arch config, input size,
+#: classes, FLOPs per image of a training step as bench.py counts them)
+RESNET_WORKLOADS = [
+    ("resnet56", {"arch": "cifar", "depth": 56, "num_classes": 10}, 32,
+     10, 0.357e9),
+    ("resnet50", {"arch": "resnet50", "num_classes": 1000}, 224, 1000,
+     12.3e9),
+]
+RESNET_BATCH, RESNET_WARMUP, RESNET_TIMED = 128, 3, 10
+#: ResNet56's f32 eval forward on the card against the CPU's (TF32 off)
+RESNET_F32_ROW_REL = 1e-4
+#: UNet at its documented 128x128x3 input, batch 16
+UNET_HW, UNET_BATCH, UNET_WARMUP, UNET_TIMED = 128, 16, 3, 20
+#: a top-2 logit gap under this share of the logit spread is a near tie,
+#: where two bf16 forwards may disagree
+VISION_NEAR_TIE = 1e-3
+
+
+def sync(device):
+    """Wait for ``device`` (a no-op on the CPU, where the vision phases
+    are rehearsed with ``device="cpu"``)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def device_name(device):
+    device = torch.device(device)
+    return torch.cuda.get_device_name(device) if device.type == "cuda" \
+        else "cpu"
+
+
+def synthetic_mnist(n, seed=0):
+    """Learnable synthetic digits (``examples/mnist/mnist_data_setup.py``'s
+    ``synthetic_mnist``): label k lights a 7x4 patch at column block k of
+    the 28x28 canvas, plus noise."""
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, 10, size=n).astype(np.int64)
+    images = rng.uniform(0.0, 0.3, size=(n, 28, 28)).astype(np.float32)
+    for i, k in enumerate(labels):
+        r, c = divmod(int(k), 5)
+        images[i, 7 + r * 10:14 + r * 10, c * 5:c * 5 + 4] += 0.7
+    return images.reshape(n, 784), labels
+
+
+def synthetic_shapes(n, size, seed=0):
+    """Learnable synthetic segmentation data
+    (``examples/segmentation/segmentation_tpu.py``'s ``synthetic_shapes``):
+    a bright rectangle on noise, mask 1 inside, 2 on its border, 0 off."""
+    rng = np.random.RandomState(seed)
+    images = rng.uniform(0, 0.3, size=(n, size, size, 3)).astype(np.float32)
+    masks = np.zeros((n, size, size), np.int32)
+    for i in range(n):
+        h, w = rng.randint(size // 4, size // 2, size=2)
+        r, c = rng.randint(0, size - h), rng.randint(0, size - w)
+        images[i, r:r + h, c:c + w] += 0.6
+        masks[i, r:r + h, c:c + w] = 1
+        masks[i, r, c:c + w] = 2
+        masks[i, r + h - 1, c:c + w] = 2
+        masks[i, r:r + h, c] = 2
+        masks[i, r:r + h, c + w - 1] = 2
+    return images, masks
+
+
+def mnist_spark_fn(args, ctx):
+    """``examples/mnist/mnist_spark.py``'s ``main_fun`` on the port, in
+    the compute process: ``MNISTNet`` under ``adam(1e-3)`` with
+    ``has_aux=True`` through ``train_on_feed(columnar=True)`` (dropout
+    from a seeded generator), ``save_for_serving`` of the trained weights,
+    and the in-memory model's predictions on ``args["test"]``; writes
+    them, the losses and the timings to ``args["out"]``."""
+    t_start = time.perf_counter()
+    from tensorflowonspark_tpu_torch import compat, optim
+    from tensorflowonspark_tpu_torch.checkpoint import save_for_serving
+    from tensorflowonspark_tpu_torch.models import mlp
+    from tensorflowonspark_tpu_torch.parallel import dp
+
+    device = compat.resolve_device(args.get("device"))
+    ctx.initialize_distributed()
+    torch.manual_seed(0)
+    model = mlp.MNISTNet(device=device)
+    trainer = dp.SyncTrainer(mlp.loss_fn(model), optim.adam(1e-3),
+                             has_aux=True)
+    state = trainer.create_state(dict(model.named_parameters()))
+
+    def preprocess(cols):
+        images, labels = cols
+        return {"image": np.asarray(images, np.float32),
+                "label": np.asarray(labels, np.int64).reshape(-1)}
+
+    losses, marks = [], []
+    state = trainer.train_on_feed(
+        state, ctx.get_data_feed(train_mode=True), batch_size=args["batch"],
+        preprocess=preprocess, columnar=True,
+        rng=torch.Generator(device=device).manual_seed(0),
+        step_callback=lambda step: marks.append(time.perf_counter()),
+        metrics_callback=lambda step, m: losses.append(m["loss"]))
+    sync(device)
+    t_end = time.perf_counter()
+    save_for_serving(args["export"], mlp.tree_from_model(model)["params"],
+                     extra_metadata={"model_ref": MNIST_MODEL_REF,
+                                     "model_config": {"input_name": "image"}})
+    with torch.no_grad():
+        logits = model(torch.from_numpy(np.load(args["test"])).to(device))
+    with open(args["out"], "w") as f:
+        json.dump(dict(
+            losses=torch.stack(losses).float().cpu().numpy().tolist(),
+            steps=int(state.step), first_step_sec=marks[1] - t_start,
+            train_sec=t_end - marks[1], logits=logits.cpu().numpy().tolist(),
+            device=device_name(device), pid=os.getpid()), f)
+
+
+def phase_mnist_spark_flagship(device=None):
+    """``mnist_spark.py``'s flow on the port: see the module docstring,
+    phase 24.  ``device="cpu"`` rehearses it without a card."""
+    import importlib
+    import tempfile
+
+    from tensorflowonspark_tpu_torch import serving
+
+    smoke = importlib.import_module("chip_smoke")
+    x, y = synthetic_mnist(MNIST_ROWS)
+    rows = [(x[i], int(y[i])) for i in range(len(x))]
+    test_x, test_y = synthetic_mnist(256, seed=1)
+    tmp = tempfile.mkdtemp(prefix="mnist_")
+    args = {"batch": MNIST_BATCH, "out": os.path.join(tmp, "result.json"),
+            "export": os.path.join(tmp, "export"),
+            "test": os.path.join(tmp, "test.npy"), "device": device}
+    np.save(args["test"], test_x)
+    startup, train_sec, error = feed_cluster(smoke.mnist_spark_fn, args,
+                                             rows, epochs=1)
+    if error is not None:
+        raise error
+    with open(args["out"]) as f:
+        res = json.load(f)
+    t0 = time.perf_counter()
+    served = serving.load_predictor(
+        args["export"], use_cache=False,
+        config_overrides={"device": device} if device else None)(
+        {"image": test_x})
+    serve_sec = time.perf_counter() - t0
+    shutil.rmtree(tmp, ignore_errors=True)
+    losses = np.asarray(res["losses"])
+    logits = np.asarray(res["logits"], np.float32)
+    want = logits.argmax(-1)
+    steps = res["steps"]
+    line = dict(
+        rows=len(rows), batch=MNIST_BATCH, steps=steps,
+        steps_per_sec=(steps - 1) / res["train_sec"],
+        rows_per_sec=(steps - 1) * MNIST_BATCH / res["train_sec"],
+        first_step_sec=res["first_step_sec"], cluster_startup_sec=startup,
+        train_call_sec=train_sec, serve_sec=serve_sec,
+        loss_first8=float(losses[:8].mean()),
+        loss_last8=float(losses[-8:].mean()),
+        served_equal_share=float(np.mean(served["prediction"] == want)),
+        served_logits_max_abs_diff=float(np.abs(
+            served["logits"] - logits).max()),
+        served_accuracy=float(np.mean(served["prediction"] == test_y)),
+        compute_device=res["device"], compute_pid=res["pid"],
+        driver_pid=os.getpid(), nvidia_smi=nvidia_smi())
+    emit("mnist_spark_flagship", **line)
+    if steps != MNIST_ROWS // MNIST_BATCH or len(losses) != steps:
+        raise AssertionError("{0} steps, {1} losses, want {2}".format(
+            steps, len(losses), MNIST_ROWS // MNIST_BATCH))
+    if not np.isfinite(losses).all() or \
+            not losses[-8:].mean() < 0.5 * losses[:8].mean():
+        raise AssertionError("the MNIST loss did not fall: {0}".format(
+            losses.tolist()))
+    if not np.array_equal(served["prediction"], want):
+        raise AssertionError("served predictions differ from the in-memory "
+                             "model's in {0} of {1} rows".format(
+                                 int(np.sum(served["prediction"] != want)),
+                                 len(want)))
+    if res["pid"] == os.getpid():
+        raise AssertionError("the fn ran in the driver process")
+    return line
+
+
+def agree_but_near_ties(got, want, logits):
+    """``(share equal, ok)``: ``ok`` when two predictions of ``[..., K]``
+    logits agree wherever ``logits``' top-2 gap is at least
+    :data:`VISION_NEAR_TIE` of its spread."""
+    top = np.sort(logits, axis=-1)
+    spread = float(logits.max() - logits.min())
+    clear = (top[..., -1] - top[..., -2]) >= VISION_NEAR_TIE * spread
+    return float(np.mean(got == want)), bool(
+        np.array_equal(got[clear], want[clear]))
+
+
+def export_and_serve(tree, ref, config, images, device=None):
+    """``save_for_serving`` of a Flax tree under ``ref`` and ``config``,
+    ``serving.load_predictor`` on the card, and its outputs on
+    ``images``: ``(outputs, bytes on disk, export sec, load + serve
+    sec)``."""
+    import tempfile
+
+    from tensorflowonspark_tpu_torch import checkpoint, serving
+
+    tmp = tempfile.mkdtemp(prefix="vision_export_")
+    try:
+        t0 = time.perf_counter()
+        path = checkpoint.save_for_serving(
+            os.path.join(tmp, "export"), tree,
+            extra_metadata={"model_ref": ref, "model_config": config})
+        t1 = time.perf_counter()
+        out = serving.load_predictor(
+            path, use_cache=False,
+            config_overrides={"device": device} if device else None)(
+            {"image": images})
+        t2 = time.perf_counter()
+        return out, tree_bytes(path), t1 - t0, t2 - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def resnet_f32_card_vs_cpu(model, device):
+    """``(row-relative error, rows)``: ResNet56's f32 eval forward of
+    ``model``'s weights on the card (TF32 off for it) against the same
+    weights' f32 forward on the CPU, on 8 images."""
+    from tensorflowonspark_tpu_torch.models import resnet
+
+    tree = resnet.tree_from_model(model)
+    x = torch.from_numpy(np.random.default_rng(3).random(
+        (8, 32, 32, 3), dtype=np.float32))
+    outs = []
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in (device, "cpu"):
+            m = resnet.params_from_flax(tree, resnet.ResNetCIFAR(
+                depth=56, dtype="float32", device=dev))
+            with torch.no_grad():
+                outs.append(m(x.to(dev)).cpu())
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return row_relative_error(outs[0], outs[1]), x.shape[0]
+
+
+def resnet_train(name, config, hw, classes, flops, device=None):
+    """bench.py's ResNet workload ``name`` on the port: see the module
+    docstring, phase 25.  Returns the emitted line."""
+    from tensorflowonspark_tpu_torch import compat, optim
+    from tensorflowonspark_tpu_torch.models import resnet
+    from tensorflowonspark_tpu_torch.parallel import dp
+
+    device = compat.resolve_device(device)
+    torch.manual_seed(0)
+    if config["arch"] == "resnet50":
+        model = resnet.ResNet50(num_classes=classes, device=device)
+        dataset_size = 1281167
+    else:
+        model = resnet.ResNetCIFAR(depth=config["depth"], device=device)
+        dataset_size = 50000
+    # resnet_cifar_tpu.py's schedule: 0.1, /10 at epochs 91 and 136
+    spe = max(1, dataset_size // RESNET_BATCH)
+    schedule = optim.piecewise_constant_schedule(
+        0.1, {91 * spe: 0.1, 136 * spe: 0.1})
+    trainer = dp.SyncTrainer(resnet.loss_fn(model),
+                             optim.sgd(schedule, momentum=0.9),
+                             has_model_state=True)
+    state = trainer.create_state(dict(model.named_parameters()),
+                                 {"batch_stats": dict(model.named_buffers())})
+    # the example's synthetic batch (common.py's synthetic input mode)
+    rng = np.random.RandomState(0)
+    x = rng.rand(RESNET_BATCH, hw, hw, 3).astype(np.float32)
+    y = (np.arange(RESNET_BATCH) % classes).astype(np.int32)
+    batch = (torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))
+    before = {k: v.clone() for k, v in model.named_buffers()}
+    sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(RESNET_WARMUP):
+        state, metrics = trainer.step_on_device(state, batch)
+        losses.append(metrics["loss"])
+    sync(device)
+    t1 = time.perf_counter()
+    for _ in range(RESNET_TIMED):
+        state, metrics = trainer.step_on_device(state, batch)
+        losses.append(metrics["loss"])
+    sync(device)
+    timed = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" \
+        else None
+    losses = torch.stack(losses).float().cpu().numpy()
+    moved = max((v - before[k]).abs().max().item()
+                for k, v in model.named_buffers())
+    images_per_sec = RESNET_BATCH * RESNET_TIMED / timed
+    # the export against the in-memory eval forward, on 32 of the images
+    with torch.no_grad():
+        logits = model(batch[0][:32]).float().cpu().numpy()
+    served, nbytes, export_sec, serve_sec = export_and_serve(
+        resnet.tree_from_model(model), RESNET_MODEL_REF, config, x[:32],
+        device)
+    share, agree = agree_but_near_ties(served["prediction"],
+                                       logits.argmax(-1), logits)
+    f32_err, f32_rows = (resnet_f32_card_vs_cpu(model, device)
+                         if name == "resnet56" else (None, 0))
+    line = dict(
+        workload=name, batch=RESNET_BATCH, image_size=hw,
+        params=sum(p.numel() for p in model.parameters()),
+        dtype=str(model.dtype), warmup_steps=RESNET_WARMUP,
+        warmup_sec=t1 - t0, timed_steps=RESNET_TIMED, timed_sec=timed,
+        step_ms=1e3 * timed / RESNET_TIMED, images_per_sec=images_per_sec,
+        flops_per_image=flops, peak_flops=BF16_FLOPS_PER_SEC,
+        peak_source="H100 SXM dense bf16, NVIDIA data sheet",
+        mfu=images_per_sec * flops / BF16_FLOPS_PER_SEC,
+        losses=losses.tolist(), batch_stats_max_move=moved,
+        peak_memory_bytes=peak, export_bytes=nbytes, export_sec=export_sec,
+        load_and_serve_sec=serve_sec, served_equal_share=share,
+        served_logits_max_abs_diff=float(np.abs(
+            served["logits"] - logits).max()),
+        f32_card_vs_cpu_row_rel=f32_err, f32_rows=f32_rows,
+        device=device_name(device), nvidia_smi=nvidia_smi())
+    emit("resnet_train_flagship", **line)
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError("{0} loss did not fall: {1}".format(
+            name, losses.tolist()))
+    if not moved > 0:
+        raise AssertionError("{0}: the running statistics did not "
+                             "move".format(name))
+    if not agree:
+        raise AssertionError("{0}: served predictions differ from the "
+                             "in-memory forward off near ties".format(name))
+    if f32_err is not None and not f32_err <= RESNET_F32_ROW_REL:
+        raise AssertionError("ResNet56 f32 on the card is {0} row-relative "
+                             "from the CPU".format(f32_err))
+    del model, trainer, state, batch
+    gc_collect()
+    return line
+
+
+def phase_resnet_train_flagship(device=None):
+    """ResNet56 and ResNet50 at batch 128: see the module docstring,
+    phase 25."""
+    return {w[0]: resnet_train(*w, device=device) for w in RESNET_WORKLOADS}
+
+
+def phase_segmentation_flagship(device=None):
+    """UNet at 128x128x3, batch 16, ``adam(1e-3)``: see the module
+    docstring, phase 26."""
+    from tensorflowonspark_tpu_torch import compat, optim
+    from tensorflowonspark_tpu_torch.models import unet
+    from tensorflowonspark_tpu_torch.parallel import dp
+
+    device = compat.resolve_device(device)
+    x, m = synthetic_shapes(512, UNET_HW)
+    torch.manual_seed(0)
+    model = unet.UNet(num_classes=3, device=device)
+    trainer = dp.SyncTrainer(unet.loss_fn(model), optim.adam(1e-3),
+                             has_aux=True)
+    state = trainer.create_state(dict(model.named_parameters()))
+    images = torch.from_numpy(x).to(device)
+    masks = torch.from_numpy(m).to(device)
+    losses = []
+
+    def step(i):
+        # the example's loop over the data
+        lo = (i * UNET_BATCH) % max(1, len(x) - UNET_BATCH)
+        return trainer.step_on_device(state, {
+            "image": images[lo:lo + UNET_BATCH],
+            "mask": masks[lo:lo + UNET_BATCH]})
+
+    sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(UNET_WARMUP):
+        state, metrics = step(i)
+        losses.append(metrics["loss"])
+    sync(device)
+    t1 = time.perf_counter()
+    for i in range(UNET_WARMUP, UNET_WARMUP + UNET_TIMED):
+        state, metrics = step(i)
+        losses.append(metrics["loss"])
+    sync(device)
+    timed = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() if device.type == "cuda" \
+        else None
+    losses = torch.stack(losses).float().cpu().numpy()
+    with torch.no_grad():
+        logits = model(images[:UNET_BATCH]).float().cpu().numpy()
+    served, nbytes, export_sec, serve_sec = export_and_serve(
+        unet.tree_from_model(model)["params"], UNET_MODEL_REF,
+        {"num_classes": 3}, x[:UNET_BATCH], device)
+    share, agree = agree_but_near_ties(served["mask"], logits.argmax(-1),
+                                       logits)
+    line = dict(
+        image_size=UNET_HW, batch=UNET_BATCH,
+        params=sum(p.numel() for p in model.parameters()),
+        warmup_steps=UNET_WARMUP, warmup_sec=t1 - t0, timed_steps=UNET_TIMED,
+        timed_sec=timed, step_ms=1e3 * timed / UNET_TIMED,
+        images_per_sec=UNET_BATCH * UNET_TIMED / timed,
+        losses=losses.tolist(), peak_memory_bytes=peak, export_bytes=nbytes,
+        export_sec=export_sec, load_and_serve_sec=serve_sec,
+        served_mask_equal_share=share,
+        served_logits_max_abs_diff=float(np.abs(
+            served["logits"] - logits).max()),
+        device=device_name(device), nvidia_smi=nvidia_smi())
+    emit("segmentation_flagship", **line)
+    first, last = losses[:UNET_WARMUP].mean(), losses[-UNET_WARMUP:].mean()
+    if not np.isfinite(losses).all() or not last < first:
+        raise AssertionError("the UNet loss did not fall: {0}".format(
+            losses.tolist()))
+    if not agree:
+        raise AssertionError("the served mask differs from the in-memory "
+                             "argmax off near ties")
+    del model, trainer, state
+    gc_collect()
+    return line
+
+
 def kernel_entry(name, kernel, replaces, launches, timing,
                  source="tensorflowonspark_tpu_torch/csrc/flash_attention.cu",
                  **extra):
@@ -5415,6 +5878,9 @@ def main():
     resumed = phase_checkpoint_resume_serve(train)
     elastic = phase_elastic_flagship()
     pipeline = phase_pipeline_flagship(fed)
+    phase_mnist_spark_flagship()
+    phase_resnet_train_flagship()
+    phase_segmentation_flagship()
     jax_flash = "tensorflowonspark_tpu/ops/flash_attention.py:"
     jax_gmm = "tensorflowonspark_tpu/ops/gmm.py:"
     print(json.dumps({"kernels": [dict(

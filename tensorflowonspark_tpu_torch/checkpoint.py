@@ -476,7 +476,7 @@ def _state_tree(state):
     if isinstance(state, TrainState):
         return {"step": state.step, "params": dict(state.params),
                 "opt_state": optim.state_tree(state.opt_state, state.params),
-                "model_state": {}}
+                "model_state": state.model_state}
     if isinstance(state, Mapping):
         return state
     raise TypeError("a checkpoint holds a TrainState or a nested dict, got "
@@ -523,11 +523,13 @@ def _restore_state(state, tree):
     if not isinstance(state, TrainState):
         return _copy_into(_state_tree(state), tree, "state")
     _copy_into(state.params, tree.get("params", {}), "['params']")
+    model_state = _copy_into(state.model_state, tree.get("model_state", {}),
+                             "['model_state']")
     optim.load_state_tree(state.opt_state, state.params,
                           tree.get("opt_state", {}))
     step = torch.tensor(int(tree["step"]), dtype=torch.int64,
                         device=state.step.device)
-    return state.replace(step=step)
+    return state.replace(step=step, model_state=model_state)
 
 
 class Checkpointer(object):

@@ -44,13 +44,7 @@ import numpy as np
 import torch
 
 from tensorflowonspark_tpu_torch import quantize as qz
-
-
-def _not_ported(what, item):
-    return NotImplementedError(
-        "{0} is not ported to the PyTorch package yet (ROADMAP queue A: "
-        "{1})".format(what, item)
-    )
+from tensorflowonspark_tpu_torch.utils import not_ported as _not_ported
 
 
 def _check_ported(cfg):

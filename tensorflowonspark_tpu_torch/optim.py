@@ -1,6 +1,7 @@
 """Optimizers with optax's signatures, defaults and update rules (the
-port's counterpart of the ``optax.adamw`` / ``optax.sgd`` the JAX
-package trains with).
+port's counterpart of the ``optax.adam`` / ``optax.adamw`` /
+``optax.sgd`` and ``optax.piecewise_constant_schedule`` the JAX package
+trains with).
 
 Each factory returns an :class:`Optimizer` that the trainer applies to
 the master parameters: :meth:`Optimizer.init` builds the state, a
@@ -17,17 +18,24 @@ The update rules are optax's:
   rounding (:class:`_AdamW`; ``torch.optim.AdamW`` applies the decay
   as ``p *= 1 - lr * wd`` first and folds the bias corrections into its
   step size, an equal update rounded elsewhere, a few ulp apart);
+  ``adam`` is the same sequence without the decay term;
 - ``sgd`` (``torch.optim.SGD``): ``t = g + momentum * t``; ``p -= lr *
   t`` (Nesterov: ``p -= lr * (g + momentum * t)``), plain ``p -= lr *
   g`` without momentum.
+
+A learning rate may be a schedule, ``fn(count) -> rate``, as in optax:
+it is called with the update count as an ``np.int32`` (0 for the first
+update) and its value rounded to f32 before it scales the update.
+:func:`piecewise_constant_schedule` is optax's.
 
 The step is plain PyTorch: in the reference it is XLA code, not a
 Pallas kernel.
 
 :func:`state_tree` and :func:`load_state_tree` carry the optimizer's
-state to a checkpoint and back (:mod:`..checkpoint`): AdamW's ``mu``,
-``nu`` and ``count``, SGD's momentum buffers, each keyed by parameter
-name, so a resumed run's updates equal an uninterrupted run's.
+state to a checkpoint and back (:mod:`..checkpoint`): Adam's and
+AdamW's ``mu``, ``nu`` and ``count``, SGD's momentum buffers, each keyed
+by parameter name, and a scheduled SGD's update ``count``, so a resumed
+run's updates (and rates) equal an uninterrupted run's.
 """
 
 import numpy as np
@@ -53,10 +61,18 @@ class Optimizer:
         opt_state.zero_grad(set_to_none=True)
 
 
+def _rate(learning_rate, count):
+    """The learning rate of update ``count`` (0 for the first), in f32."""
+    if callable(learning_rate):
+        return float(np.float32(learning_rate(np.int32(count))))
+    return learning_rate
+
+
 class _AdamW(torch.optim.Optimizer):
     """``optax.adamw`` (``scale_by_adam`` -> ``add_decayed_weights`` ->
     ``scale(-lr)`` -> ``apply_updates``) as multi-tensor PyTorch ops in
-    the same order, the bias corrections in f32 as JAX computes them."""
+    the same order, the bias corrections in f32 as JAX computes them.
+    ``weight_decay=None`` leaves out the decay step: ``optax.adam``."""
 
     def __init__(self, params, lr, b1, b2, eps, weight_decay):
         super().__init__(params, dict(lr=lr, betas=(b1, b2), eps=eps,
@@ -96,19 +112,51 @@ class _AdamW(torch.optim.Optimizer):
             torch._foreach_add_(den, group["eps"])
             torch._foreach_div_(upd, den)
             del den
-            torch._foreach_add_(
-                upd, torch._foreach_mul(params, group["weight_decay"]))
-            torch._foreach_mul_(upd, -group["lr"])
+            if group["weight_decay"] is not None:
+                torch._foreach_add_(
+                    upd, torch._foreach_mul(params, group["weight_decay"]))
+            # a schedule's count is optax's: 0 at the first update
+            torch._foreach_mul_(upd, -_rate(group["lr"], count - 1))
             torch._foreach_add_(params, upd)
 
 
+class _ScheduledSGD(torch.optim.SGD):
+    """``torch.optim.SGD`` whose rate is ``schedule(count)``, with the
+    update ``count`` kept here (``scale_by_schedule``'s state)."""
+
+    def __init__(self, params, schedule, momentum, nesterov):
+        super().__init__(params, lr=0.0, momentum=momentum,
+                         nesterov=nesterov)
+        self.schedule = schedule
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            group["lr"] = _rate(self.schedule, self.count)
+        super().step()
+        self.count += 1
+
+
 def _number(learning_rate):
+    """A number as a float, a schedule (a callable) as it is."""
+    if callable(learning_rate):
+        return learning_rate
     if isinstance(learning_rate, bool) or not isinstance(
             learning_rate, (int, float)):
         raise TypeError(
-            "learning_rate must be a number, got {0!r}".format(learning_rate)
+            "learning_rate must be a number or a schedule, got "
+            "{0!r}".format(learning_rate)
         )
     return float(learning_rate)
+
+
+def adam(learning_rate, b1=0.9, b2=0.999, eps=1e-8):
+    """Adam with ``optax.adam``'s defaults."""
+    lr = _number(learning_rate)
+    return Optimizer(lambda tensors: _AdamW(
+        tensors, lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=None,
+    ))
 
 
 def adamw(learning_rate, b1=0.9, b2=0.999, eps=1e-8, weight_decay=1e-4):
@@ -124,9 +172,32 @@ def sgd(learning_rate, momentum=None, nesterov=False):
     takes effect only with a momentum, as in optax."""
     lr = _number(learning_rate)
     mom = float(momentum) if momentum else 0.0
+    nesterov = bool(nesterov) and mom > 0
+    if callable(lr):
+        return Optimizer(lambda tensors: _ScheduledSGD(
+            tensors, lr, momentum=mom, nesterov=nesterov))
     return Optimizer(lambda tensors: torch.optim.SGD(
-        tensors, lr=lr, momentum=mom, nesterov=bool(nesterov) and mom > 0,
+        tensors, lr=lr, momentum=mom, nesterov=nesterov,
     ))
+
+
+def piecewise_constant_schedule(init_value, boundaries_and_scales=None):
+    """``optax.piecewise_constant_schedule``: ``init_value`` times the
+    product of every ``scale`` whose ``boundary <= count``, in f32."""
+    if boundaries_and_scales is not None and any(
+            scale < 0.0 for scale in boundaries_and_scales.values()):
+        raise ValueError("`piecewise_constant_schedule` expects "
+                         "non-negative scale factors")
+    steps = sorted((boundaries_and_scales or {}).items())
+
+    def schedule(count):
+        value = np.float32(init_value)
+        for boundary, scale in steps:
+            if count >= boundary:
+                value = np.float32(np.float32(scale) * value)
+        return value
+
+    return schedule
 
 
 def _names(opt_state, params):
@@ -144,9 +215,10 @@ def state_tree(opt_state, params):
     """The optimizer state of ``opt_state`` (what :meth:`Optimizer.init`
     returned over ``params``, a ``{name: tensor}`` dict) as a tree of
     tensors keyed by parameter name: ``{"mu": {...}, "nu": {...},
-    "count": int64}`` for ``adamw`` (empty before the first step),
-    ``{"momentum": {...}}`` for ``sgd`` (the buffers that exist).  The
-    tensors are the optimizer's own, not copies."""
+    "count": int64}`` for ``adam`` and ``adamw`` (empty before the first
+    step), ``{"momentum": {...}}`` for ``sgd`` (the buffers that exist),
+    with ``"count": int64`` when its rate is a schedule.  The tensors are
+    the optimizer's own, not copies."""
     names = _names(opt_state, params)
     if isinstance(opt_state, _AdamW):
         mu, nu, count = {}, {}, 0
@@ -157,11 +229,14 @@ def state_tree(opt_state, params):
                 count = st["count"]
         return {"mu": mu, "nu": nu, "count": np.asarray(count, np.int64)}
     if isinstance(opt_state, torch.optim.SGD):
-        return {"momentum": {
+        tree = {"momentum": {
             names[id(p)]: st["momentum_buffer"]
             for p, st in opt_state.state.items()
             if st.get("momentum_buffer") is not None
         }}
+        if isinstance(opt_state, _ScheduledSGD):
+            tree["count"] = np.asarray(opt_state.count, np.int64)
+        return tree
     raise TypeError("no state tree for optimizer {0!r}".format(
         type(opt_state).__name__))
 
@@ -203,6 +278,8 @@ def load_state_tree(opt_state, params, tree):
         for name, buf in bufs.items():
             opt_state.state[by_name[name]] = {
                 "momentum_buffer": _moment(by_name[name], buf)}
+        if isinstance(opt_state, _ScheduledSGD):
+            opt_state.count = int(np.asarray(tree.get("count", 0)))
     else:
         raise TypeError("no state tree for optimizer {0!r}".format(
             type(opt_state).__name__))

@@ -38,18 +38,28 @@ restores the checkpointer's latest step into the state and counts on
 from it; every ``checkpoint_every`` steps, and at exit, it saves
 durably and then commits the feed's partitions.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP item: sharded parameters (``rules``, ``annotations``) and model
-state (``has_model_state``).
+Model state (``has_model_state=True``, the BatchNorm models): the loss
+takes and returns the non-trained collections, ``loss_fn(params,
+model_state, batch, rng) -> (loss, (aux, new_model_state))``, and the
+step writes the new state into the state's tensors in place (the
+model's buffers, when the state was built from them).  Under a process
+group the loss runs inside :func:`..models.layers.batch_stats_group` of
+the data group, so BatchNorm statistics are the global batch's, as in
+the reference's one program over the sharded batch.
+
+Not ported yet, raising ``NotImplementedError`` that names its ROADMAP
+item: sharded parameters (``rules``, ``annotations``).
 """
 
 import logging
+from collections.abc import Mapping
 
 import numpy as np
 import torch
 
 from ..data import preprocess as pp_mod
 from ..data.feed import place_tree
+from ..models.layers import batch_stats_group
 from . import mesh as mesh_mod
 from ..utils import not_ported as _not_ported
 from ..utils.tree import leaves as _leaves
@@ -66,7 +76,9 @@ class TrainState(object):
 
     ``step`` is an int64 device scalar, ``params`` a ``{name: tensor}``
     dict, ``opt_state`` the optimizer's state (a ``torch.optim``
-    optimizer over ``params``); ``model_state`` is always ``{}`` here.
+    optimizer over ``params``); ``model_state`` a nested dict of tensors
+    (``{"batch_stats": {buffer name: tensor}}``), ``{}`` for models
+    without one.
     """
 
     def __init__(self, step, params, opt_state, model_state=None):
@@ -90,9 +102,12 @@ class SyncTrainer(object):
     Args:
       loss_fn: ``loss_fn(params, batch, rng) -> loss`` or ``-> (loss,
         aux_dict)`` (with ``has_aux=True``), e.g.
-        :func:`~..models.transformer.loss_fn`.
-      optimizer: an :class:`~..optim.Optimizer` (``optim.adamw``,
-        ``optim.sgd``).
+        :func:`~..models.transformer.loss_fn`; with
+        ``has_model_state=True``, ``loss_fn(params, model_state, batch,
+        rng) -> (loss, (aux_dict, new_model_state))`` (e.g.
+        :func:`~..models.resnet.loss_fn`).
+      optimizer: an :class:`~..optim.Optimizer` (``optim.adam``,
+        ``optim.adamw``, ``optim.sgd``).
       device_preprocess: a callable ``fn(batch)`` (or ``fn(batch,
         rng)``, which receives the step's generator) or a
         ``make_preprocess`` kwargs dict, applied to the device batch at
@@ -102,8 +117,8 @@ class SyncTrainer(object):
         :func:`..parallel.mesh.build_mesh`.
       data_axes: the mesh axes the batch is split over; gradients are
         averaged over them and summed over the mesh's other axes.
-      rules, annotations, has_model_state: the reference's; only their
-        defaults are ported.
+      rules, annotations: the reference's; only their defaults are
+        ported.
     """
 
     def __init__(self, loss_fn, optimizer, mesh=None, rules=None,
@@ -118,11 +133,7 @@ class SyncTrainer(object):
                 "Mesh (build_mesh), got {0!r}".format(type(mesh).__name__)
             )
         self.mesh = mesh
-        if has_model_state:
-            raise _not_ported(
-                "SyncTrainer has_model_state=True", "model state "
-                "(BatchNorm models: ResNet/UNet)"
-            )
+        self.has_model_state = bool(has_model_state)
         self.device_preprocess = pp_mod.resolve_preprocess(
             device_preprocess)
         self._pre_takes_rng = (self.device_preprocess is not None
@@ -132,20 +143,20 @@ class SyncTrainer(object):
         self.has_aux = has_aux
         self.data_axes = data_axes
         self.device = None
-        # (process group, data-parallel width) of the gradient reduction;
-        # set by create_state
+        # (process group, data-parallel width) of the gradient reduction
+        # and the group of the BatchNorm statistics; set by create_state
         self._reduce = (None, 1)
+        self._stats_group = None
 
     # -- state ---------------------------------------------------------
 
     def create_state(self, params, model_state=None):
         """The state over ``params`` (``{name: tensor}``, all on one
-        device, which the trainer then runs on).  The tensors are used
-        as they are, not copied."""
-        if model_state:
-            raise _not_ported(
-                "model_state", "model state (BatchNorm models: ResNet/UNet)"
-            )
+        device, which the trainer then runs on) and ``model_state`` (a
+        nested dict of tensors on that device, e.g. ``{"batch_stats":
+        dict(model.named_buffers())}``).  The tensors are used as they
+        are, not copied; under a process group every rank starts from
+        the first rank's."""
         params = dict(params)
         devices = {p.device for p in params.values()}
         if len(devices) != 1:
@@ -154,17 +165,22 @@ class SyncTrainer(object):
                     sorted(str(d) for d in devices))
             )
         self.device = devices.pop()
+        model_state = {} if model_state is None else model_state
+        if any(t.device != self.device for t in _leaves(model_state)):
+            raise ValueError("model state must live on the parameters' "
+                             "device {0}".format(self.device))
         self._reduce, src = self._reduction()
+        self._stats_group = self._data_group()
         if self._reduce[0] is not None:
             import torch.distributed as dist
 
-            # every rank starts from the first rank's weights
+            # every rank starts from the first rank's weights and state
             with torch.no_grad():
-                for p in params.values():
+                for p in list(params.values()) + _leaves(model_state):
                     dist.broadcast(p, src, group=self._reduce[0])
         opt_state = self.optimizer.init(params)
         step = torch.zeros((), dtype=torch.int64, device=self.device)
-        return TrainState(step, params, opt_state)
+        return TrainState(step, params, opt_state, model_state)
 
     def _reduction(self):
         """``((group, data width), broadcast source)`` of the gradient
@@ -180,6 +196,19 @@ class SyncTrainer(object):
                 or dist.get_world_size() == 1):
             return (None, 1), 0
         return (dist.group.WORLD, dist.get_world_size()), 0
+
+    def _data_group(self):
+        """The process group the batch is split over (``None``: one
+        rank): BatchNorm reduces its statistics over it."""
+        group = self._reduce[0]
+        if group is None or self.mesh is None:
+            return group
+        axes = [a for a in self.data_axes if a in self.mesh.axis_names
+                and self.mesh.axis_size(a) > 1]
+        if len(axes) > 1:
+            raise _not_ported("model state over several data axes {0}"
+                              .format(axes), _DP)
+        return self.mesh.group(axes[0]) if axes else None
 
     def _all_reduce(self, grads, scalars):
         """Gradients and scalar metrics summed over the reduction group
@@ -210,8 +239,14 @@ class SyncTrainer(object):
         if pre is not None:
             batch = pre(batch, rng) if self._pre_takes_rng else pre(batch)
         params = state.params
-        out = self.loss_fn(params, batch, rng)
-        loss, aux = out if self.has_aux else (out, {})
+        new_state = None
+        if self.has_model_state:
+            with batch_stats_group(self._stats_group):
+                loss, (aux, new_state) = self.loss_fn(
+                    params, state.model_state, batch, rng)
+        else:
+            out = self.loss_fn(params, batch, rng)
+            loss, aux = out if self.has_aux else (out, {})
         grads = torch.autograd.grad(loss, list(params.values()))
         # detached: a metric keeps no autograd graph alive across steps
         metrics = {name: torch.as_tensor(v).detach()
@@ -225,7 +260,11 @@ class SyncTrainer(object):
             metrics.update(zip(names, values))
         # in place: parameters and moments are the long-lived state
         self.optimizer.update(state.opt_state, params, grads)
-        return state.replace(step=state.step + 1), metrics
+        state = state.replace(step=state.step + 1)
+        if new_state is not None:
+            state = state.replace(
+                model_state=_carry(state.model_state, new_state))
+        return state, metrics
 
     def step(self, state, batch, rng=None):
         """One synchronous step on a host batch (placed here)."""
@@ -375,6 +414,21 @@ class SyncTrainer(object):
             # it delivered: ROADMAP C4)
             feed.commit_partitions()
         return state
+
+
+def _carry(old, new):
+    """The new model state, written into the old state's tensors in place
+    where a leaf keeps its shape and type (so a model whose buffers are
+    the state holds the new statistics), taken as it is elsewhere."""
+    if isinstance(new, Mapping):
+        old = old if isinstance(old, Mapping) else {}
+        return {k: _carry(old.get(k), v) for k, v in new.items()}
+    if (isinstance(old, torch.Tensor) and isinstance(new, torch.Tensor)
+            and old.shape == new.shape and old.dtype == new.dtype):
+        with torch.no_grad():
+            old.copy_(new)
+        return old
+    return new
 
 
 def collect_ready_group(feed, batch_size, limit, columnar=False,

@@ -316,15 +316,6 @@ def predict_rows(
 _PACKAGE = __name__.partition(".")[0]
 _REFERENCE = _PACKAGE[:-len("_torch")]
 
-#: reference modules a ``model_ref`` may name that are not ported yet,
-#: and their ROADMAP queue A items
-_UNPORTED_MODULES = {
-    "models.mlp": "multi-GPU DP over torch.distributed",
-    "models.linear": "multi-GPU DP over torch.distributed",
-    "models.resnet": "the rest: model state",
-    "models.unet": "the rest: model state",
-}
-
 #: per-process predictor cache keyed by (export dir, builder digest,
 #: preprocess key, overrides)
 _PREDICTOR_CACHE = {}
@@ -346,7 +337,8 @@ def resolve_ref(ref):
     """Resolve a ``"pkg.module:attr"`` reference to the object.  A module
     of the reference package resolves to this package's module of the
     same name (the reference is never imported); one this package does
-    not have yet raises ``NotImplementedError`` naming its item."""
+    not have yet raises ``NotImplementedError`` (ROADMAP queue A: the
+    rest)."""
     module_name, _, attr = ref.partition(":")
     if not module_name or not attr:
         raise ValueError(
@@ -354,19 +346,20 @@ def resolve_ref(ref):
         )
     top, _, rest = module_name.partition(".")
     if top == _REFERENCE:
-        item = _UNPORTED_MODULES.get(rest, "the rest")
         module_name = _PACKAGE + ("." + rest if rest else "")
         try:
             obj = importlib.import_module(module_name)
         except ModuleNotFoundError as e:
             if e.name is None or not module_name.startswith(e.name):
                 raise
-            raise _not_ported("model_ref {0!r}".format(ref), item) from None
+            raise _not_ported("model_ref {0!r}".format(ref),
+                              "the rest") from None
         try:
             for part in attr.split("."):
                 obj = getattr(obj, part)
         except AttributeError:
-            raise _not_ported("model_ref {0!r}".format(ref), item) from None
+            raise _not_ported("model_ref {0!r}".format(ref),
+                              "the rest") from None
         return obj
     obj = importlib.import_module(module_name)
     for part in attr.split("."):

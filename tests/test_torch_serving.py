@@ -227,8 +227,8 @@ def test_import_loads_no_jax():
         "import tensorflowonspark_tpu_torch\n"
         "from tensorflowonspark_tpu_torch import checkpoint, compat, "
         "convert, optim, prefix_cache, quantize, serving, serving_engine\n"
-        "from tensorflowonspark_tpu_torch.models import base, moe, "
-        "transformer\n"
+        "from tensorflowonspark_tpu_torch.models import base, layers, "
+        "linear, mlp, moe, resnet, transformer, unet\n"
         "from tensorflowonspark_tpu_torch.ops import _build, attention, "
         "flash_attention, gmm, moe, paged_attention, ring_attention, "
         "ulysses\n"

@@ -251,11 +251,46 @@ def test_bf16_model_keeps_f32_masters():
 @pytest.mark.parametrize("kw,item", [
     ({"rules": object()}, "multi-GPU DP"),
     ({"annotations": {}}, "multi-GPU DP"),
-    ({"has_model_state": True}, "model state"),
+    ({"has_model_state": True}, None),
 ], ids=["rules", "annotations", "model_state"])
 def test_unported_trainer_knobs_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        dp.SyncTrainer(lambda p, b, r: 0.0, optim.sgd(0.1), **kw)
+    """``rules`` and ``annotations`` raise naming their item;
+    ``has_model_state`` (once refused) trains: one step of a BatchNorm
+    ResNet with its model state equals the reference trainer's, loss rtol
+    1e-5 and the new ``batch_stats`` to 1e-5 of their largest value (the
+    three-step comparison is in ``test_torch_vision.py``)."""
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            dp.SyncTrainer(lambda p, b, r: 0.0, optim.sgd(0.1), **kw)
+        return
+    from tensorflowonspark_tpu.models import resnet as jresnet
+    from tensorflowonspark_tpu_torch.models import resnet
+
+    rng = np.random.default_rng(0)
+    batch = (rng.standard_normal((4, 16, 16, 3)).astype(np.float32),
+             rng.integers(0, 10, (4,)).astype(np.int32))
+    jm = jresnet.ResNetCIFAR(depth=8, dtype="float32")
+    v = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0), batch[0]))
+    jtrainer = jdp.SyncTrainer(jresnet.loss_fn(jm), optax.sgd(0.1),
+                               mesh=build_mesh(devices=jax.devices()[:1]),
+                               **kw)
+    jstate, jm_ = jtrainer.step(jtrainer.create_state(
+        v["params"], {"batch_stats": v["batch_stats"]}), batch)
+    pm = resnet.params_from_flax(v, resnet.ResNetCIFAR(
+        depth=8, dtype="float32", device="cpu"))
+    trainer = dp.SyncTrainer(resnet.loss_fn(pm), optim.sgd(0.1), **kw)
+    state, metrics = trainer.step(trainer.create_state(
+        dict(pm.named_parameters()),
+        {"batch_stats": dict(pm.named_buffers())}), batch)
+    np.testing.assert_allclose(metrics["loss"].item(), float(jm_["loss"]),
+                               rtol=1e-5)
+    want = convert._flatten(jax.tree.map(
+        np.asarray, jstate.model_state["batch_stats"]))
+    for path, ref in want.items():
+        got = state.model_state["batch_stats"][path.replace("/", ".")]
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                                   atol=1e-5 * np.abs(ref).max(),
+                                   err_msg=path)
 
 
 def test_trainer_takes_a_mesh():
@@ -388,5 +423,15 @@ def test_sequence_parallel_model_over_one_rank_is_the_flash_model(impl):
 
 
 def test_optimizer_rejects_schedules():
+    """A schedule (once refused) is a learning rate now: three AdamW steps
+    with ``lambda count: 1e-3 / (1 + count)`` train as optax's with the
+    same schedule (losses rtol 1e-4, as the AdamW trajectory test); what
+    is neither a number nor a callable is still refused."""
+    tokens = _batches()
+    want, _ = _jax_run(TINY, optax.adamw(lambda count: 1e-3 / (1 + count)),
+                       tokens)
+    got, _, _ = _port_run(TINY, optim.adamw(lambda count: 1e-3 / (1 + count)),
+                          tokens)
+    np.testing.assert_allclose(got, want, rtol=1e-4)
     with pytest.raises(TypeError, match="learning_rate"):
-        optim.adamw(lambda step: 1e-3)
+        optim.adamw("1e-3")

@@ -464,3 +464,95 @@ def pipeline_export_fn(args, ctx):
     with open(os.path.join(args.out, "export-{0}-{1}".format(
             ctx.job_name, ctx.task_index)), "w") as f:
         f.write(str(ctx.executor_id))
+
+
+# -- model state -------------------------------------------------------------
+
+
+def bn_train(spec, rank=0, world=1):
+    """ResNetCIFAR (depth 8, f32) from the pickled Flax variables at
+    ``spec["variables"]``, trained by ``SyncTrainer(has_model_state=True)``
+    with ``sgd(spec["lr"], momentum=0.9)`` on this rank's share of each
+    global batch of ``spec["images"]`` / ``spec["labels"]`` (``[steps, B,
+    ...]``), over ``build_mesh(spec["mesh"])`` when a mesh is given.
+    Returns the losses and the final Flax variables, flattened
+    (``params/...``, ``batch_stats/...``)."""
+    from tensorflowonspark_tpu_torch import optim
+    from tensorflowonspark_tpu_torch.models import layers, resnet
+    from tensorflowonspark_tpu_torch.parallel import dp
+
+    with open(spec["variables"], "rb") as f:
+        variables = pickle.load(f)
+    model = resnet.ResNetCIFAR(depth=8, dtype="float32", device="cpu")
+    resnet.params_from_flax(variables, model)
+    mesh = None
+    if spec.get("mesh") is not None and world > 1:
+        from tensorflowonspark_tpu_torch.parallel.mesh import build_mesh
+
+        mesh = build_mesh(spec["mesh"])
+    trainer = dp.SyncTrainer(resnet.loss_fn(model),
+                             optim.sgd(spec["lr"], momentum=0.9),
+                             mesh=mesh, data_axes=("data",),
+                             has_model_state=True)
+    state = trainer.create_state(dict(model.named_parameters()),
+                                 {"batch_stats": dict(model.named_buffers())})
+    rows = spec["images"].shape[1] // world
+    part = slice(rank * rows, (rank + 1) * rows)
+    losses = []
+    for x, y in zip(spec["images"], spec["labels"]):
+        state, metrics = trainer.step(state, (x[part], y[part]))
+        losses.append(metrics["loss"].item())
+    out = {"losses": np.asarray(losses)}
+    for coll, tree in resnet.tree_from_model(model).items():
+        for path, leaf in layers._flatten(tree).items():
+            out[coll + "/" + path] = leaf
+    return out
+
+
+def bn_train_worker(rank, world, out_dir, spec):
+    """:func:`bn_train` on this rank's rows; writes ``bn.<rank>.npz``."""
+    np.savez(os.path.join(out_dir, "bn.{0}.npz".format(rank)),
+             **bn_train(spec, rank, world))
+
+
+# -- MNIST -------------------------------------------------------------------
+
+MNIST_REF = "tensorflowonspark_tpu.models.mlp:serving_builder"
+
+
+def mnist_spark_fn(args, ctx):
+    """``examples/mnist/mnist_spark.py``'s ``main_fun`` on the port, on
+    the CPU: ``MNISTNet`` under ``adam(1e-3)`` through ``train_on_feed(
+    columnar=True)`` with dropout from a seeded generator, then
+    ``save_for_serving``; writes the per-step losses to ``args["out"]``."""
+    import json
+
+    from tensorflowonspark_tpu_torch import optim
+    from tensorflowonspark_tpu_torch.checkpoint import save_for_serving
+    from tensorflowonspark_tpu_torch.models import mlp
+    from tensorflowonspark_tpu_torch.parallel import dp
+
+    torch.manual_seed(0)
+    model = mlp.MNISTNet(device="cpu")
+    trainer = dp.SyncTrainer(mlp.loss_fn(model), optim.adam(1e-3),
+                             has_aux=True)
+    state = trainer.create_state(dict(model.named_parameters()))
+
+    def preprocess(cols):
+        images, labels = cols
+        return {"image": np.asarray(images, np.float32),
+                "label": np.asarray(labels, np.int64).reshape(-1)}
+
+    losses = []
+    state = trainer.train_on_feed(
+        state, ctx.get_data_feed(train_mode=True),
+        batch_size=args["batch_size"], preprocess=preprocess,
+        max_steps=args["steps"], columnar=True,
+        rng=torch.Generator().manual_seed(0),
+        metrics_callback=lambda step, m: losses.append(m["loss"].item()))
+    save_for_serving(args["export_dir"],
+                     mlp.tree_from_model(model)["params"],
+                     extra_metadata={"model_ref": MNIST_REF,
+                                     "model_config": {"input_name": "image"}})
+    with open(args["out"], "w") as f:
+        json.dump({"losses": losses, "steps": int(state.step)}, f)
