@@ -30,7 +30,10 @@ the skip of the all-pad row tiles that K5 and K6 share in both types.
 ``paged_split_short``, ``paged_combine_last_split`` and
 ``paged_mask_last_key`` break the paged-decode kernels (K1): each split
 stops one page short, the combine drops the last split, the key at
-position ``len - 1`` is masked.  ``sp_grads_seq_mean`` (four cards,
+position ``len - 1`` is masked; ``paged_int8_v_scale`` has K1 read V's
+int8 codes with K's scales, which the int8-pool case
+``flagship_bf16_int8_pools`` of ``kernel_case`` must catch (the check
+names that case).  ``sp_grads_seq_mean`` (four cards,
 run only when named) breaks no kernel: the sequence-parallel trainer
 averages its gradients over ``seq`` where it must sum them, which
 ``sp_train_flagship`` must catch although AdamW's steps, and so the
@@ -180,6 +183,12 @@ MUTANTS = {
           "keep[i] = r < T && pos < len - 1 &&")],
         "kernel_case",
     ),
+    "paged_int8_v_scale": (
+        "K1 (paged_decode_split) scales V's int8 codes by K's scales",
+        [("        const float vsc = scales ? vscale[r] : 1.f;",
+          "        const float vsc = scales ? kscale[r] : 1.f;")],
+        "kernel_case:flagship_bf16_int8_pools",
+    ),
     "sp_grads_seq_mean": (
         "SyncTrainer(mesh=) averages the gradients over every rank of the "
         "mesh, seq included, where they must be summed over seq (the "
@@ -200,7 +209,7 @@ SOURCES = dict(
         "rows_wgmma_dxt_last_stage", "skip_last_live_tile")},
     **{name: PAGED_SOURCE for name in (
         "paged_split_short", "paged_combine_last_split",
-        "paged_mask_last_key")},
+        "paged_mask_last_key", "paged_int8_v_scale")},
     sp_grads_seq_mean="tensorflowonspark_tpu_torch/parallel/dp.py")
 
 
@@ -272,6 +281,20 @@ def check_paged_cases():
     return caught_any
 
 
+def check_int8_pool_case():
+    """``kernel_case``'s comparison over every case; True when the
+    int8-pool case ``flagship_bf16_int8_pools`` fails."""
+    import chip_smoke as c
+
+    caught = {}
+    for name, dtype, (err, checked, tol) in c.paged_case_results():
+        caught[name] = not checked <= tol
+        print(json.dumps(dict(case=name, caught=caught[name],
+                              max_abs_err=err, checked_err=checked,
+                              tol=tol)), flush=True)
+    return caught.get("flagship_bf16_int8_pools", False)
+
+
 def check_train_kernel_vs_dot():
     """True when ``train_kernel_vs_dot`` fails."""
     import chip_smoke as c
@@ -340,6 +363,7 @@ def check_sp_train_flagship():
 CHECKS = {"flash_case": check_flash_cases,
           "flash_offset_case": check_flash_offset_cases,
           "kernel_case": check_paged_cases,
+          "kernel_case:flagship_bf16_int8_pools": check_int8_pool_case,
           "train_kernel_vs_dot": check_train_kernel_vs_dot,
           "gmm_case": check_gmm_cases,
           "gmm_case+moe_train_dropless_vs_gather": check_gmm_and_moe_training,

@@ -266,6 +266,41 @@ caught):
     timed steps through the example's loop.  Checks: the mean loss of
     the last 3 steps below the first 3's, and the served ``mask`` equal
     to the in-memory argmax off near ties.  Prints images/s.
+27. ``prefix_serve_flagship``: the radix prefix cache on the paged
+    flagship (:data:`SERVING`, ``prefix_cache`` with the page as block):
+    32 requests in 2 families, each a 256-token header and a tail of
+    16-160 tokens (:func:`family_requests`).  In f32, TF32 off, the
+    first 16 requests' tokens with the cache equal those without it on
+    both layouts, near ties apart.  In bf16 a cold job, then a warm one through the same
+    memoized predictor: K1 launches = layers x decode steps, every warm
+    request hits at least the header, ``prefix_tokens_saved`` = the sum
+    of the admits' matched blocks, and after ``reset()`` the pool's
+    refcount census is the radix's pages at 1.  Prints tokens/s, TTFT
+    p50/p99, prefill wall, cold beside warm, and the pool's shared pages.
+28. ``serve_recovery_flagship``: the paged f32 engine with a 3 s
+    ``watchdog_timeout`` and a chaos plan's ``wedge_dispatch`` on chunk
+    2 (6 s): tokens equal an unwedged run's (near ties apart),
+    ``watchdog_fires`` 1, ``recovered`` = the requests in flight at the
+    fire, and every K1 launch belongs to a resolved chunk (the abandoned
+    one launched none, counted after its worker woke).  Prints the
+    seconds from the fire to the next resolved chunk.
+29. ``hot_swap_flagship``: steps 1 and 2 (seeds 0 and 1, bf16) published
+    with ``publish_for_serving``, and a step 3 with a NaN final norm.
+    The f32 paged engine serves 16 requests: with step 3 published its
+    canary fails and rolls back (step 1's tokens exactly, the step
+    quarantined ``canary_failed``); then step 2 is published at the chunk
+    a chaos plan names (``swap_chunk_from_plan``) and ingested onto the
+    card by the watcher's thread: requests done before the swap carry
+    step 1's tokens, requeued ones step 1's committed prefix, and the
+    rest a fresh engine's on step 2 (near ties apart).  Prints the ingest
+    s, the swap ms and the requests requeued.
+30. ``fused_qkv_flagship``: the flagship with ``fused_qkv``, its weights
+    stacked from the seed tree: f32 logits within
+    :data:`FUSED_F32_ROW_REL` row-relative of the unfused model's (TF32
+    off), three bf16 flash training steps with 16 launches of each of
+    K2-K4 a step and finite losses, and the fused export served through
+    the paged prefix-cache engine with the unfused f32 model's tokens
+    (near ties apart).
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit
 line, and as the last line ``{"ok": true, "device": {...}}``.  Without a
@@ -4964,7 +4999,8 @@ def near_tie_check(model, rows, got, want, tie=NEAR_TIE):
         seq = np.concatenate([np.asarray(r["tokens"], np.int64),
                               np.asarray(g[:j], np.int64)])
         with torch.no_grad():
-            logits = model(torch.from_numpy(seq[None]).cuda())[0, -1].float()
+            logits = model(torch.from_numpy(seq[None]).to(
+                model.device))[0, -1].float()
         top = torch.topk(logits, 2).values
         gap = float(top[0] - top[1])
         spread = float(top[0] - logits.median())
@@ -5076,12 +5112,13 @@ def continuous_run(tree, config, rows):
     return predict, rec, tokens_of(out)
 
 
-def phase_static_serve_flagship(tree, slice_tokens):
+def phase_static_serve_flagship(tree, slice_tokens, slice_step_ms=None):
     """Static generate, logits serving, quantized weights and the int8
     KV cache, MoE static serving, and the pipeline at its default
     schedule: see the module docstring, ``static_serve_flagship``.  ``tree`` is the
     flagship's seed-0 tree, ``slice_tokens`` ``slice_flagship``'s tokens
-    (the paged continuous schedule on the same requests)."""
+    (the paged continuous schedule on the same requests), and
+    ``slice_step_ms`` its decode step ms (run again here when None)."""
     import importlib
     import tempfile
 
@@ -5208,7 +5245,9 @@ def phase_static_serve_flagship(tree, slice_tokens):
     # 3. quantized weights and the int8 KV cache, static and paged
     # continuous, against bf16
     line["quantized"] = {}
-    _, paged_bf16, _ = continuous_run(tree, dict(FLAGSHIP, **SERVING), rows)
+    if slice_step_ms is None:
+        slice_step_ms = continuous_run(tree, dict(FLAGSHIP, **SERVING),
+                                       rows)[1]["decode_step_ms"]
     for name, knobs in QUANT_VARIANTS.items():
         paged_attention.launches = 0
         predict, rec, toks = static_run(tree, dict(static_cfg, **knobs), rows)
@@ -5227,7 +5266,7 @@ def phase_static_serve_flagship(tree, slice_tokens):
         share_c, _ = agreement(ctoks, slice_tokens)
         steps = cont["decode_steps"]
         cont.update(agree_with_bf16=share_c,
-                    decode_step_ms_bf16=paged_bf16["decode_step_ms"],
+                    decode_step_ms_bf16=slice_step_ms,
                     **decode_bytes(predict.make_slot_decoder(SLOTS).model,
                                    SLOTS, paged_live_tokens(
                                        rows, SERVING["max_new_tokens"],
@@ -5394,6 +5433,642 @@ def phase_static_serve_flagship(tree, slice_tokens):
     emit("static_serve_flagship", **line)
     if problems:
         raise AssertionError("static_serve_flagship: " + "; ".join(problems))
+    return line
+
+
+# ----------------------------------------------------------------------
+# the LM server's reuse and robustness (phases 27-30)
+# ----------------------------------------------------------------------
+
+#: the prefix phase's traffic: requests in families that share a header
+#: of this many tokens, each followed by a tail of its own
+PREFIX_REQUESTS, PREFIX_FAMILIES, PREFIX_HEADER = 32, 2, 256
+#: the first of them, both families, held in f32 with and without a cache
+PREFIX_F32_REQUESTS = 16
+PREFIX_TAIL = (16, 160)
+#: the serving knobs of a radix prefix cache whose block is the page
+PREFIX = dict(prefix_cache=True, prefix_block=SERVING["kv_page_tokens"])
+#: the recovery phase's watchdog and its planted wedge (chaos plan)
+WATCHDOG_SEC, WEDGE_AT_CHUNK, WEDGE_SEC = 3.0, 2, 6.0
+#: the chunk at which the hot-swap phase publishes step 2, and the token
+#: budgets of its requests (the first four finish before it)
+SWAP_AT_CHUNK = 2
+SWAP_BUDGETS = [16] * 4 + [64] * 12
+#: f32 logits of the fused-QKV flagship against the unfused model's on
+#: the same weights (one product over the stacked kernel against three)
+FUSED_F32_ROW_REL = 1e-5
+FUSED_TRAIN_STEPS = 3
+
+
+def family_requests(seed, n, vocab, families=PREFIX_FAMILIES,
+                    header=PREFIX_HEADER, tail=PREFIX_TAIL):
+    """``n`` requests, request ``i`` in family ``i % families``: the
+    family's header followed by a tail of its own."""
+    rng = np.random.default_rng(seed)
+    heads = [rng.integers(0, vocab, header) for _ in range(families)]
+    return [{"tokens": np.concatenate([
+        heads[i % families],
+        rng.integers(0, vocab, int(rng.integers(tail[0], tail[1] + 1))),
+    ]).astype(np.int32)} for i in range(n)]
+
+
+def tie_gate(model_fn, rows, got, want, tie=NEAR_TIE):
+    """:func:`near_tie_check`, building its model (``model_fn()``) only
+    when some request's tokens differ."""
+    if all(first_difference(g, w) is None for g, w in zip(got, want)):
+        return True, []
+    return near_tie_check(model_fn(), rows, got, want, tie)
+
+
+def serve_job(predict, rows, device, mapping=SERVE_MAPPING, **engine_kw):
+    """``(outputs, stats, wall seconds, K1 launches, engine)`` of one
+    :class:`ServingEngine` job over ``rows`` on :data:`SLOTS` slots."""
+    from tensorflowonspark_tpu_torch.ops.paged_attention import (
+        paged_attention,
+    )
+    from tensorflowonspark_tpu_torch.serving_engine import ServingEngine
+
+    stats = {}
+    eng = ServingEngine(predict, mapping, num_slots=SLOTS, stats=stats,
+                        **engine_kw)
+    paged_attention.launches = 0
+    sync(device)
+    t0 = time.perf_counter()
+    out = list(eng.serve([dict(r) for r in rows]))
+    sync(device)
+    return (out, stats, time.perf_counter() - t0, paged_attention.launches,
+            eng)
+
+
+class AdmitLog(object):
+    """Records, on one decoder, each admit's cached prompt tokens and the
+    pool's shared pages after it (the harness's view; the engine's stats
+    carry only sums)."""
+
+    def __init__(self, dec):
+        self.dec, self.cached, self.shared = dec, [], []
+
+        def admit(slot, prompt, _orig=dec.admit):
+            first = _orig(slot, prompt)
+            self.cached.append(int(dec.last_admit_cached_tokens))
+            if dec.page_pool is not None:
+                self.shared.append(
+                    dec.page_pool.stats()["pool_pages_shared"])
+            return first
+
+        dec.admit = admit
+
+    def clear(self):
+        self.cached, self.shared = [], []
+
+    def detach(self):
+        del self.dec.admit
+
+
+def job_record(stats, wall, k1, chunk):
+    steps = stats["chunks"] * chunk
+    return dict(
+        wall_sec=wall, tokens_out=stats["tokens_out"],
+        tokens_per_sec=stats["tokens_out"] / wall,
+        ttft_p50_ms=1e3 * pct(stats["ttft_sec"].values(), 50),
+        ttft_p99_ms=1e3 * pct(stats["ttft_sec"].values(), 99),
+        latency_p50_ms=1e3 * pct(stats["latency_sec"].values(), 50),
+        latency_p99_ms=1e3 * pct(stats["latency_sec"].values(), 99),
+        prefill_wall_sec=stats["prefill_wall_sec"],
+        decode_wall_sec=stats["decode_wall_sec"], decode_steps=steps,
+        decode_step_ms=1e3 * stats["decode_wall_sec"] / max(steps, 1),
+        paged_attention_launches=k1)
+
+
+def phase_prefix_serve_flagship(tree, config=FLAGSHIP, device=None,
+                                requests=PREFIX_REQUESTS):
+    """The radix prefix cache at the flagship's width: see the module
+    docstring, phase 27.  Returns the record, with the rows and the f32
+    paged tokens without a cache for :func:`phase_fused_qkv_flagship`."""
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        serving_builder,
+    )
+
+    dev = torch.device(device or "cuda")
+    over = {} if device is None else {"device": device}
+    layers = config["num_layers"]
+    chunk = SERVING["chunk_size"]
+    rows = family_requests(31, requests, config["vocab_size"])
+    line = dict(requests=requests, families=PREFIX_FAMILIES,
+                header_tokens=PREFIX_HEADER,
+                prompt_lens=[len(r["tokens"]) for r in rows])
+    problems = []
+    t_phase = time.perf_counter()
+
+    # 1. f32, TF32 off: the cache's tokens equal the cold path's, in both
+    # layouts (near ties apart)
+    line["f32"] = {}
+    f32_rows = rows[:PREFIX_F32_REQUESTS]
+    for layout in ("paged", "contiguous"):
+        base = dict(config, **dict(SERVING, kv_layout=layout),
+                    dtype="float32", **over)
+        toks = {}
+        for cached in (False, True):
+            predict = serving_builder(tree, dict(base, **(PREFIX if cached
+                                                          else {})))
+            out, stats, wall, _, _ = serve_job(predict, f32_rows, dev)
+            toks[cached] = tokens_of(out)
+            if cached:
+                hits = stats["prefix_hits"]
+            else:
+                model = predict.make_slot_decoder(SLOTS).model
+                if layout == "paged":
+                    line["f32_paged_tokens"] = toks[False]
+            del predict
+        ok, ties = near_tie_check(model, f32_rows, toks[True], toks[False])
+        share, firsts = agreement(toks[True], toks[False])
+        line["f32"][layout] = dict(requests=len(f32_rows), equal_share=share,
+                                   first_differing_steps=firsts,
+                                   near_ties=ties, prefix_hits=hits)
+        if not ok or not hits:
+            problems.append("f32 {0}: prefix-cache tokens differ beyond a "
+                            "near tie ({1}) or no hit ({2})".format(
+                                layout, ties, hits))
+        del model
+        gc_collect()
+
+    # 2. bf16 paged: a cold job, then a warm one through the memoized
+    # predictor
+    predict = serving_builder(tree, dict(config, **SERVING, **PREFIX,
+                                         **over))
+    dec = predict.make_slot_decoder(SLOTS)
+    log = AdmitLog(dec)
+    jobs = {}
+    try:
+        for name in ("cold", "warm"):
+            log.clear()
+            out, stats, wall, k1, _ = serve_job(predict, rows, dev)
+            rec = job_record(stats, wall, k1, chunk)
+            rec.update(
+                prefix_hits=stats["prefix_hits"],
+                prefix_hit_admits=stats["prefix_hit_admits"],
+                prefix_tokens_saved=stats["prefix_tokens_saved"],
+                evictions=stats["evictions"],
+                cached_tokens=list(log.cached),
+                pool_pages=stats.get("pool_pages"),
+                pool_pages_used_after=stats.get("pool_pages_used"),
+                pool_pages_shared_max=max(log.shared or [0]),
+                radix_blocks=len(dec.prefix_cache),
+                tokens=tokens_of(out))
+            jobs[name] = rec
+            if k1 != layers * rec["decode_steps"] or not k1:
+                problems.append("{0}: K1 launches {1} != {2} x {3}".format(
+                    name, k1, layers, rec["decode_steps"]))
+            if sum(log.cached) != stats["prefix_tokens_saved"]:
+                problems.append("{0}: prefix_tokens_saved {1} != the "
+                                "matched blocks' {2}".format(
+                                    name, stats["prefix_tokens_saved"],
+                                    sum(log.cached)))
+            if len(out) != requests or any("error" in r for r in out):
+                problems.append(name + ": a request failed")
+        warm = jobs["warm"]["cached_tokens"]
+        if len(warm) != requests or min(warm) < PREFIX_HEADER:
+            problems.append("warm job: hits below the {0}-token header: "
+                            "{1}".format(PREFIX_HEADER, warm))
+        dec.reset()
+        census = dec.page_pool.refcount_census()
+        radix = dec.prefix_cache.page_census()
+        line["census_after_reset"] = dict(pool_pages=len(census),
+                                          radix_pages=len(radix))
+        if census != {p: 1 for p in radix}:
+            problems.append("after reset the pool's refcounts are not the "
+                            "radix's pages at 1")
+    finally:
+        log.detach()
+    share, _ = agreement(jobs["warm"]["tokens"], jobs["cold"]["tokens"])
+    for rec in jobs.values():
+        del rec["tokens"]
+    line.update(bf16_paged=jobs, warm_equal_cold_share=share,
+                launches=jobs["cold"]["paged_attention_launches"]
+                + jobs["warm"]["paged_attention_launches"],
+                phase_sec=time.perf_counter() - t_phase,
+                device=device_name(dev), nvidia_smi=nvidia_smi_or_cpu(dev),
+                ok=not problems, problems=problems)
+    del predict, dec
+    gc_collect()
+    emit("prefix_serve_flagship",
+         **{k: v for k, v in line.items() if k != "f32_paged_tokens"})
+    if problems:
+        raise AssertionError("prefix_serve_flagship: " + "; ".join(problems))
+    line["rows"] = f32_rows
+    return line
+
+
+def nvidia_smi_or_cpu(device):
+    return nvidia_smi() if torch.device(device).type == "cuda" else "cpu"
+
+
+def phase_serve_recovery_flagship(tree, config=FLAGSHIP, device=None,
+                                  requests=REQUESTS, timeout=WATCHDOG_SEC,
+                                  hang=WEDGE_SEC):
+    """The decode watchdog at the flagship's width: see the module
+    docstring, phase 28."""
+    import tempfile
+
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        serving_builder,
+    )
+    from tensorflowonspark_tpu_torch.ops.paged_attention import (
+        paged_attention,
+    )
+    from tensorflowonspark_tpu_torch.testing import chaos
+
+    dev = torch.device(device or "cuda")
+    over = {} if device is None else {"device": device}
+    layers, chunk = config["num_layers"], SERVING["chunk_size"]
+    rows = make_requests(np.random.default_rng(2), requests,
+                         config["vocab_size"], 16, SERVING["max_prompt_len"])
+    predict = serving_builder(tree, dict(config, **SERVING, dtype="float32",
+                                         **over))
+    t_phase = time.perf_counter()
+    ref, ref_stats, ref_wall, ref_k1, _ = serve_job(predict, rows, dev)
+    fired, resolved = [], []
+    dec = predict.make_slot_decoder(SLOTS)
+
+    def resolve(pending, _orig=dec.resolve_chunk):
+        out = _orig(pending)
+        resolved.append(time.perf_counter())
+        return out
+
+    tmp = tempfile.mkdtemp(prefix="recovery_")
+    plan = chaos.ChaosPlan().wedge_dispatch(WEDGE_AT_CHUNK, hang_sec=hang)
+    os.environ[chaos.TFOS_CHAOS_PLAN] = plan.save(
+        os.path.join(tmp, "plan.json"))
+    dec.resolve_chunk = resolve
+    try:
+        from tensorflowonspark_tpu_torch.serving_engine import ServingEngine
+
+        stats = {}
+        eng = ServingEngine(predict, SERVE_MAPPING, num_slots=SLOTS,
+                            stats=stats, watchdog_timeout=timeout)
+
+        def recover(_orig=eng._recover):
+            fired.append((time.perf_counter(), len(eng._slot_req),
+                          paged_attention.launches))
+            _orig()
+
+        eng._recover = recover
+        paged_attention.launches = 0
+        sync(dev)
+        t0 = time.perf_counter()
+        out = list(eng.serve([dict(r) for r in rows]))
+        sync(dev)
+        wall = time.perf_counter() - t0
+        # the abandoned worker wakes at fire + (hang - timeout) and must
+        # return without touching the decoder
+        if fired:
+            time.sleep(max(0.0, fired[0][0] + hang - timeout
+                           - time.perf_counter()) + 1.0)
+        sync(dev)
+        k1 = paged_attention.launches
+    finally:
+        del os.environ[chaos.TFOS_CHAOS_PLAN]
+        del dec.resolve_chunk
+        shutil.rmtree(tmp, ignore_errors=True)
+    problems = []
+    ok, ties = near_tie_check(dec.model, rows, tokens_of(out),
+                              tokens_of(ref))
+    share, firsts = agreement(tokens_of(out), tokens_of(ref))
+    if not ok or len(out) != requests or any("error" in r for r in out):
+        problems.append("recovered f32 tokens differ from the unwedged "
+                        "run's beyond a near tie: {0}".format(ties))
+    if stats["watchdog_fires"] != 1 or not fired \
+            or stats["recovered"] != fired[0][1]:
+        problems.append("watchdog_fires {0}, recovered {1}, in flight at "
+                        "the fire {2}".format(stats["watchdog_fires"],
+                                              stats["recovered"],
+                                              fired[0][1] if fired else None))
+    if k1 != layers * chunk * stats["chunks"]:
+        problems.append("K1 launches {0} != {1} x the {2} resolved chunks' "
+                        "steps: the abandoned chunk launched".format(
+                            k1, layers, stats["chunks"]))
+    after = [t for t in resolved if fired and t > fired[0][0]]
+    line = dict(
+        requests=requests, slots=SLOTS, watchdog_timeout_sec=timeout,
+        wedge_at_chunk=WEDGE_AT_CHUNK, wedge_sec=hang,
+        watchdog_fires=stats["watchdog_fires"],
+        recovered=stats["recovered"],
+        in_flight_at_fire=fired[0][1] if fired else None,
+        fire_to_next_resolved_sec=(after[0] - fired[0][0]) if after
+        else None,
+        launches=k1, resolved_chunks=stats["chunks"],
+        unwedged_chunks=ref_stats["chunks"], wall_sec=wall,
+        unwedged_wall_sec=ref_wall, equal_share=share,
+        first_differing_steps=firsts, near_ties=ties,
+        phase_sec=time.perf_counter() - t_phase, device=device_name(dev),
+        nvidia_smi=nvidia_smi_or_cpu(dev), ok=not problems,
+        problems=problems)
+    del predict, dec, eng
+    gc_collect()
+    emit("serve_recovery_flagship", **line)
+    if problems:
+        raise AssertionError("serve_recovery_flagship: "
+                             + "; ".join(problems))
+    return line
+
+
+def _bf16_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _bf16_tree(v) for k, v in tree.items()}
+    return torch.from_numpy(np.asarray(tree)).to(torch.bfloat16)
+
+
+def phase_hot_swap_flagship(tree, config=FLAGSHIP, device=None,
+                            requests=REQUESTS):
+    """Live weight hot swap at the flagship's width: see the module
+    docstring, phase 29."""
+    import tempfile
+
+    from tensorflowonspark_tpu_torch import checkpoint, convert, hot_swap
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        TransformerConfig,
+        serving_builder,
+    )
+    from tensorflowonspark_tpu_torch.testing import chaos
+
+    dev = torch.device(device or "cuda")
+    over = {} if device is None else {"device": device}
+    layers, chunk = config["num_layers"], SERVING["chunk_size"]
+    base = dict(config, **SERVING, dtype="float32", **over)
+    rows = make_requests(np.random.default_rng(41), requests,
+                         config["vocab_size"], 16, SERVING["max_prompt_len"])
+    for r, b in zip(rows, SWAP_BUDGETS):
+        r["max_new"] = b
+    mapping = dict(SERVE_MAPPING, max_new="max_new")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="hot_swap_")
+    root, side = os.path.join(tmp, "steps"), os.path.join(tmp, "side")
+    problems, line, launches = [], dict(requests=requests), []
+    try:
+        # the trainer's side: steps 1 and 2 (seeds 0 and 1) in bf16, and a
+        # step 3 whose final norm is NaN (its canary fails)
+        step1 = _bf16_tree(tree)
+        t0 = time.perf_counter()
+        step2 = _bf16_tree(convert.init_params_tree(
+            TransformerConfig(**config), seed=1))
+        line["seed1_tree_sec"] = time.perf_counter() - t0
+        step3 = dict(step1, ln_f={"scale": torch.full_like(
+            step1["ln_f"]["scale"], float("nan"))})
+        t0 = time.perf_counter()
+        checkpoint.publish_for_serving(root, 1, step1)
+        line["publish_sec"] = time.perf_counter() - t0
+        checkpoint.publish_for_serving(side, 2, step2)
+        checkpoint.publish_for_serving(side, 3, step3)
+        del step2, step3
+        predict = serving_builder(step1, base)
+        dec = predict.make_slot_decoder(SLOTS)
+        ref1, _, _, k1, _ = serve_job(predict, rows, dev, mapping)
+        launches.append(k1)
+
+        # (a) step 3 is there before the job: installed, its canary fails,
+        # rolled back; the job serves step 1's tokens exactly
+        os.replace(os.path.join(side, "3"), os.path.join(root, "3"))
+        watcher = hot_swap.CheckpointWatcher(
+            root, poll_interval=0.0, background=False, start_step=1,
+            device=dev)
+        out_a, stats_a, _, k1, _ = serve_job(predict, rows, dev, mapping,
+                                             watcher=watcher)
+        launches.append(k1)
+        line["canary"] = dict(
+            rollbacks=stats_a["rollbacks"], swaps=stats_a["swaps"],
+            weight_generation=stats_a["weight_generation"],
+            quarantined=[q["kind"] for q in watcher.quarantined],
+            step1_tokens_exact=tokens_of(out_a) == tokens_of(ref1))
+        if not (stats_a["rollbacks"] == 1 and stats_a["swaps"] == 0
+                and stats_a["weight_generation"] == 0
+                and line["canary"]["quarantined"] == ["canary_failed"]
+                and line["canary"]["step1_tokens_exact"]):
+            problems.append("canary rollback: {0}".format(line["canary"]))
+
+        # (b) step 2 published mid-decode, at the chunk the chaos plan
+        # names; ingested on the watcher's thread onto the card
+        path = os.path.join(tmp, "plan.json")
+        chaos.ChaosPlan([{"kind": "swap_at_chunk",
+                          "at_chunk": SWAP_AT_CHUNK}]).save(path)
+        os.environ[chaos.TFOS_CHAOS_PLAN] = path
+        try:
+            at = chaos.swap_chunk_from_plan()
+        finally:
+            del os.environ[chaos.TFOS_CHAOS_PLAN]
+        watcher = hot_swap.CheckpointWatcher(
+            root, poll_interval=0.02, start_step=1, device=dev)
+        marks = {}
+
+        def publish_at(chunk_index):
+            if chunk_index == at and "publish" not in marks:
+                marks["publish"] = time.monotonic()
+                os.replace(os.path.join(side, "2"), os.path.join(root, "2"))
+                # hold the loop until the background ingest lands, so
+                # that the swap falls on the next pass, mid-decode
+                while watcher.stats["ingested"] < 1 \
+                        and time.monotonic() - marks["publish"] < 120:
+                    time.sleep(0.01)
+
+        def swap_weights(*a, _orig=dec.swap_weights, **kw):
+            marks["swap"] = time.monotonic()
+            return _orig(*a, **kw)
+
+        dec.swap_weights = swap_weights
+        try:
+            out_b, stats_b, wall_b, k1, eng = serve_job(
+                predict, rows, dev, mapping, watcher=watcher,
+                wedge_fn=publish_at)
+        finally:
+            del dec.swap_weights
+            watcher.close()
+        launches.append(k1)
+        fresh = serving_builder(checkpoint.load_for_serving(
+            os.path.join(root, "2"))[0], base)
+        ref2, _, _, k1, _ = serve_job(fresh, rows, dev, mapping)
+        launches.append(k1)
+        got, r1, r2 = tokens_of(out_b), tokens_of(ref1), tokens_of(ref2)
+        ev = stats_b["swap_events"][0] if stats_b["swap_events"] else {}
+        requeued = ev.get("requeued", {})
+        t_swap = marks.get("swap", float("inf")) - eng._t0
+        before = [i for i, t in stats_b["done_at"].items() if t < t_swap]
+        after = [i for i in range(requests)
+                 if i not in before and i not in requeued]
+        ok1, ties1 = tie_gate(lambda: fresh.make_slot_decoder(SLOTS).model,
+                              [rows[i] for i in after],
+                              [got[i] for i in after],
+                              [r2[i] for i in after])
+        del fresh
+        gc_collect()
+        # completed before the swap: step 1's tokens; requeued: step 1's
+        # committed prefix
+        kept = before + sorted(requeued)
+        ok0, ties0 = tie_gate(
+            lambda: convert.params_from_flax(step1, TransformerConfig(
+                **dict(config, dtype="float32")), device=dev),
+            [rows[i] for i in kept],
+            [got[i][:requeued.get(i, len(got[i]))] for i in kept],
+            [r1[i][:requeued.get(i, len(r1[i]))] for i in kept])
+        gc_collect()
+        line["swap"] = dict(
+            swap_at_chunk=at, swaps=stats_b["swaps"],
+            swap_requeued=stats_b["swap_requeued"],
+            requeued=requeued, completed_before=sorted(before),
+            admitted_after=after, rollbacks=stats_b["rollbacks"],
+            weight_generation=stats_b["weight_generation"],
+            ingest_sec=watcher.stats["ingest_sec"],
+            swap_latency_ms=[1e3 * x for x in stats_b["swap_latency_sec"]],
+            publish_to_swap_sec=marks.get("swap", 0) - marks.get(
+                "publish", 0),
+            wall_sec=wall_b, near_ties_step1=ties0, near_ties_step2=ties1,
+            errors=sum("error" in r for r in out_b))
+        if not (stats_b["swaps"] == 1 and requeued and after and before
+                and ok0 and ok1 and stats_b["rollbacks"] == 0
+                and line["swap"]["errors"] == 0):
+            problems.append("swap mid-decode: {0}".format(line["swap"]))
+        if not all(k and k % (layers * chunk) == 0 for k in launches):
+            problems.append("K1 launches {0}".format(launches))
+        del predict, dec, eng
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc_collect()
+    line.update(launches=sum(launches), phase_sec=time.perf_counter()
+                - t_phase, device=device_name(dev),
+                nvidia_smi=nvidia_smi_or_cpu(dev), ok=not problems,
+                problems=problems)
+    emit("hot_swap_flagship", **line)
+    if problems:
+        raise AssertionError("hot_swap_flagship: " + "; ".join(problems))
+    return line
+
+
+def fuse_qkv_tree(tree):
+    """``tree`` with each block's q, k, v kernels stacked into the fused
+    ``attn/qkv/kernel [E, 3, H, D]`` leaf."""
+    out = dict(tree)
+    for name, blk in tree.items():
+        if name.startswith("block_"):
+            attn = {k: v for k, v in blk["attn"].items()
+                    if k not in ("q", "k", "v")}
+            attn["qkv"] = {"kernel": np.stack(
+                [blk["attn"][n]["kernel"] for n in ("q", "k", "v")], axis=1)}
+            out[name] = dict(blk, attn=attn)
+    return out
+
+
+def phase_fused_qkv_flagship(tree, prefix, config=FLAGSHIP, device=None,
+                             serve_requests=REQUESTS, batch=TRAIN_B,
+                             seq=TRAIN_S):
+    """``fused_qkv`` at the flagship's width: see the module docstring,
+    phase 30.  ``prefix`` is :func:`phase_prefix_serve_flagship`'s
+    record (its rows and f32 paged tokens without a cache)."""
+    import dataclasses
+    import tempfile
+
+    from tensorflowonspark_tpu_torch import checkpoint, convert, optim
+    from tensorflowonspark_tpu_torch import serving
+    from tensorflowonspark_tpu_torch.models import transformer
+    from tensorflowonspark_tpu_torch.parallel import dp
+
+    dev = torch.device(device or "cuda")
+    over = {} if device is None else {"device": device}
+    t_phase = time.perf_counter()
+    fused = fuse_qkv_tree(tree)
+    problems, line = [], {}
+    # 1. f32 logits, TF32 off, against the unfused model on the same
+    # weights (flash attention: K2's f32 path in both)
+    cfg32 = transformer.TransformerConfig(**dict(
+        config, dtype="float32", attention_impl="flash"))
+    tokens = torch.from_numpy(np.random.default_rng(51).integers(
+        0, config["vocab_size"], (2, 1024))).to(dev)
+    with torch.no_grad():
+        model = convert.params_from_flax(tree, cfg32, device=dev)
+        ref = model(tokens)
+        del model
+        model = convert.params_from_flax(
+            fused, dataclasses.replace(cfg32, fused_qkv=True), device=dev)
+        got = model(tokens)
+        del model
+    err = row_relative_error(got, ref)
+    line["f32_logits"] = dict(rows=2, seq=1024, row_relative_error=err,
+                              tol=FUSED_F32_ROW_REL,
+                              max_abs_err=(got - ref).abs().max().item())
+    if not err <= FUSED_F32_ROW_REL:
+        problems.append("fused f32 logits {0} row-relative from the "
+                        "unfused model's".format(err))
+    del got, ref, tokens
+    gc_collect()
+
+    # 2. bf16 flash training steps over f32 masters: K2-K4 each layer
+    cfg = transformer.TransformerConfig(**dict(
+        config, attention_impl="flash", fused_qkv=True))
+    model = convert.params_from_flax(fused, cfg, device=dev,
+                                     param_dtype=torch.float32)
+    trainer = dp.SyncTrainer(transformer.loss_fn(model), optim.adamw(1e-4))
+    state = trainer.create_state(dict(model.named_parameters()))
+    rng = np.random.default_rng(52)
+    losses = []
+    reset_launches()
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(FUSED_TRAIN_STEPS):
+        state, metrics = trainer.step(state, {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (batch, seq)).astype(
+                np.int32)).to(dev)})
+        losses.append(metrics["loss"].item())
+    sync(dev)
+    train_sec = time.perf_counter() - t0
+    launches = {k: v for k, v in read_launches().items()
+                if k in ("fwd", "dq", "dkv")}
+    want = cfg.num_layers * FUSED_TRAIN_STEPS
+    line["train"] = dict(steps=FUSED_TRAIN_STEPS, batch=[batch, seq],
+                         losses=losses, wall_sec=train_sec,
+                         launches=launches, launches_expected=want)
+    if launches != {"fwd": want, "dq": want, "dkv": want} \
+            or not all(np.isfinite(losses)):
+        problems.append("fused training: launches {0} (want {1} each), "
+                        "losses {2}".format(launches, want, losses))
+    del model, trainer, state, metrics
+    gc_collect()
+
+    # 3. the fused export served through the paged prefix-cache engine:
+    # the unfused f32 model's greedy tokens (near ties apart)
+    rows = prefix["rows"][:serve_requests]
+    want_tokens = prefix["f32_paged_tokens"][:serve_requests]
+    tmp = tempfile.mkdtemp(prefix="fused_export_")
+    try:
+        export = os.path.join(tmp, "export")
+        t0 = time.perf_counter()
+        checkpoint.save_for_serving(export, fused, extra_metadata={
+            "model_ref": PIPELINE_MODEL_REF,
+            "model_config": dict(config, **SERVING, **PREFIX,
+                                 dtype="float32", fused_qkv=True)})
+        export_sec = time.perf_counter() - t0
+        predict = serving.load_predictor(export, use_cache=False,
+                                         config_overrides=over or None)
+        out, stats, wall, k1, _ = serve_job(predict, rows, dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ok, ties = tie_gate(lambda: convert.params_from_flax(
+        tree, transformer.TransformerConfig(**dict(config, dtype="float32")),
+        device=dev), rows, tokens_of(out), want_tokens)
+    share, firsts = agreement(tokens_of(out), want_tokens)
+    steps = stats["chunks"] * SERVING["chunk_size"]
+    line["export_serve"] = dict(
+        requests=len(rows), export_sec=export_sec, wall_sec=wall,
+        prefix_hits=stats["prefix_hits"], equal_share=share,
+        first_differing_steps=firsts, near_ties=ties,
+        paged_attention_launches=k1, decode_steps=steps)
+    if not ok or k1 != config["num_layers"] * steps:
+        problems.append("fused export serving: tokens {0} / ties {1}, K1 "
+                        "{2}".format(share, ties, k1))
+    del predict
+    gc_collect()
+    line.update(phase_sec=time.perf_counter() - t_phase,
+                device=device_name(dev), nvidia_smi=nvidia_smi_or_cpu(dev),
+                ok=not problems, problems=problems)
+    emit("fused_qkv_flagship", **line)
+    if problems:
+        raise AssertionError("fused_qkv_flagship: " + "; ".join(problems))
     return line
 
 
@@ -5845,42 +6520,75 @@ def main():
         return 2
     import tensorflowonspark_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    t_start = time.perf_counter()
+    laps = {}
+
+    def lap(name, _t=[t_start]):
+        now = time.perf_counter()
+        laps[name] = now - _t[0]
+        _t[0] = now
+
     phase_env()
     phase_build()
+    lap("build")
     phase_kernel_cases()
     phase_paged_repeat()
     timing = phase_kernel_timing()
+    lap("paged_kernel")
     tree, init_s = flagship_tree()
     flagship = phase_slice_flagship(tree, init_s)
     phase_kernel_vs_gather()
-    static = phase_static_serve_flagship(tree, flagship["tokens"])
+    lap("slice_flagship")
+    static = phase_static_serve_flagship(tree, flagship["tokens"],
+                                         flagship["decode_step_ms"])
+    lap("static_serve_flagship")
+    prefix = phase_prefix_serve_flagship(tree)
+    lap("prefix_serve_flagship")
+    recovery = phase_serve_recovery_flagship(tree)
+    lap("serve_recovery_flagship")
+    swap = phase_hot_swap_flagship(tree)
+    lap("hot_swap_flagship")
+    fused = phase_fused_qkv_flagship(tree, prefix)
+    del prefix["rows"], prefix["f32_paged_tokens"]
+    lap("fused_qkv_flagship")
     phase_flash_cases()
     phase_flash_repeat()
     flash = phase_flash_timing()
     phase_flash_offset_cases()
     offset = phase_flash_offset_timing()
     ring_hops = phase_ring_flagship()[RING_FLAGSHIP["window"]]
+    lap("flash")
     train, model = phase_train_flagship(tree, flash)
     del tree
     phase_train_kernel_vs_dot()
     phase_train_to_serve(model)
     phase_optimizer_timing(model)
     del model
+    lap("train_flagship")
     phase_gmm_cases()
     gmm_timing = phase_gmm_timing()
     moe, moe_model = phase_moe_train_flagship(gmm_timing, flash)
     phase_moe_dropless_vs_gather()
     phase_moe_train_to_serve(moe_model)
     del moe_model
+    lap("moe")
     fed = phase_feed_train_flagship(train)
+    lap("feed_train_flagship")
     ring = phase_feed_ring_train_flagship(train)
+    lap("feed_ring_train_flagship")
     inference = phase_feed_inference_flagship()
+    lap("feed_inference_flagship")
     resumed = phase_checkpoint_resume_serve(train)
+    lap("checkpoint_resume_serve")
     elastic = phase_elastic_flagship()
+    lap("elastic_flagship")
     pipeline = phase_pipeline_flagship(fed)
+    lap("pipeline_flagship")
     phase_mnist_spark_flagship()
     phase_resnet_train_flagship()
     phase_segmentation_flagship()
+    lap("vision")
+    emit("phase_times", total_sec=time.perf_counter() - t_start, **laps)
     jax_flash = "tensorflowonspark_tpu/ops/flash_attention.py:"
     jax_gmm = "tensorflowonspark_tpu/ops/gmm.py:"
     print(json.dumps({"kernels": [dict(
@@ -5897,6 +6605,11 @@ def main():
         export_serve_launches=resumed["export_serve_launches"],
         pipeline_launches=pipeline["transform_launches"],
         int8_pool_launches=static["int8_pool_launches"],
+        prefix_serve_launches=prefix["launches"],
+        recovery_launches=recovery["launches"],
+        hot_swap_launches=swap["launches"],
+        fused_export_launches=fused["export_serve"][
+            "paged_attention_launches"],
     )] + [
         kernel_entry("flash_" + name, kernel, jax_flash + line,
                      train["launches"][name], flash[name],
@@ -5907,6 +6620,7 @@ def main():
                      elastic_launches=[g[name] for g in elastic["launches"]],
                      ring_attention_launches=ring_hops["launches"][name],
                      pipeline_launches=pipeline["fit_launches"][name],
+                     fused_qkv_launches=fused["train"]["launches"][name],
                      **{"offset_" + k: offset[name][k] for k in (
                          "ms", "plain_ms", "bound_ms", "bound_by",
                          "library_ms", "max_abs_err")})

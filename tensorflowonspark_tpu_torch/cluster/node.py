@@ -942,7 +942,15 @@ def _check_error_queue(mgr, err_queue=None, executor_id=None):
     see it too."""
     q = err_queue if err_queue is not None else mgr.get_queue("error")
     try:
-        error = q.get(block=False)
+        try:
+            error = q.get(block=False)
+        except (OSError, TypeError):
+            # the GC closing the shared proxy connection mid-send, as in
+            # _queue_put_retry: the request never reached the server
+            logger.warning("error-queue poll hit a closed manager "
+                           "connection; retrying once on a fresh "
+                           "connection", exc_info=True)
+            error = q.get(block=False)
     except _queue_mod.Empty:
         return
     q.task_done()

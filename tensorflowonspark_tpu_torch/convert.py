@@ -11,6 +11,7 @@ Flax leaf                      shape         port
 =============================  ============  =============================
 ``embedding``                  ``[V, E]``    as is
 ``block_i/attn/{q,k,v}/kernel`` ``[E, H, D]`` ``[E, H*D]``, transposed
+``block_i/attn/qkv/kernel``    ``[E,3,H,D]`` ``[E, 3*H*D]``, transposed
 ``block_i/attn/out/kernel``    ``[H, D, E]`` ``[H*D, E]``, transposed
 ``block_i/mlp/{wi,wg}/kernel`` ``[E, F]``    transposed
 ``block_i/mlp/wo/kernel``      ``[F, E]``    transposed
@@ -22,11 +23,13 @@ Flax leaf                      shape         port
 =============================  ============  =============================
 
 (``H`` is ``num_kv_heads`` for ``k``/``v``; ``X`` is ``num_experts``,
-and a MoE block has ``moe/`` leaves in place of ``mlp/``.)  Transposes
+and a MoE block has ``moe/`` leaves in place of ``mlp/``; a
+``fused_qkv`` block has the one ``qkv`` leaf in place of ``q``/``k``/
+``v``, whose port output splits as ``[.., 3, H, D]``.)  Transposes
 land in ``nn.Linear``'s ``[out, in]`` layout; the expert stacks keep
 the layout the grouped-matmul kernels read.  Any missing, extra or
-misshapen leaf raises ``ValueError``; fused-QKV leaves raise
-``NotImplementedError``.  :func:`tree_from_model` is the inverse: a
+misshapen leaf raises ``ValueError``.  :func:`tree_from_model` is the
+inverse: a
 model's weights as a tree of f32 numpy arrays in the Flax layout.
 
 A tree from :func:`..quantize.quantize_tree` or ``quantize_tree_int4``
@@ -44,17 +47,10 @@ import numpy as np
 import torch
 
 from tensorflowonspark_tpu_torch import quantize as qz
-from tensorflowonspark_tpu_torch.utils import not_ported as _not_ported
-
-
-def _check_ported(cfg):
-    if cfg.fused_qkv:
-        raise _not_ported("fused_qkv projections", "fused_qkv")
 
 
 def tree_shapes(cfg):
     """``{tree path: shape}`` of every leaf the model has."""
-    _check_ported(cfg)
     e, f, v = cfg.embed_dim, cfg.mlp_dim, cfg.vocab_size
     h, d = cfg.num_heads, cfg.head_dim
     hkv = cfg.num_kv_heads or h
@@ -62,14 +58,18 @@ def tree_shapes(cfg):
     out = {"embedding": (v, e), "ln_f/scale": (e,), "lm_head/kernel": (e, v)}
     for i in range(cfg.num_layers):
         blk = "block_%d/" % i
-        out.update({
-            blk + "ln1/scale": (e,),
-            blk + "ln2/scale": (e,),
-            blk + "attn/q/kernel": (e, h, d),
-            blk + "attn/k/kernel": (e, hkv, d),
-            blk + "attn/v/kernel": (e, hkv, d),
-            blk + "attn/out/kernel": (h, d, e),
-        })
+        # this order is init_params_tree's draw order: seeded weights
+        # depend on it
+        out.update({blk + "ln1/scale": (e,), blk + "ln2/scale": (e,)})
+        if cfg.fused_qkv:
+            out[blk + "attn/qkv/kernel"] = (e, 3, h, d)
+        else:
+            out.update({
+                blk + "attn/q/kernel": (e, h, d),
+                blk + "attn/k/kernel": (e, hkv, d),
+                blk + "attn/v/kernel": (e, hkv, d),
+            })
+        out[blk + "attn/out/kernel"] = (h, d, e)
         if x > 0:
             out.update({
                 blk + "moe/router": (e, x),
@@ -179,13 +179,7 @@ def params_from_flax(tree, cfg, device=None, param_dtype=None):
         Transformer, model_device,
     )
 
-    _check_ported(cfg)
     leaves = _flatten(tree)
-    for path in leaves:
-        if "/attn/qkv/" in path:
-            raise _not_ported(
-                "fused_qkv leaf {0!r}".format(path), "fused_qkv"
-            )
     want = tree_shapes(cfg)
     missing = sorted(set(want) - set(leaves))
     extra = sorted(set(leaves) - set(want))

@@ -6,11 +6,13 @@ Ported: the forward (``TransformerConfig``, ``rope``, ``RMSNorm``,
 paths and both decode layouts, ``MLP``, MoE blocks
 (:class:`..models.moe.MoEMLP`), ``Block``, ``Transformer`` with remat),
 ``loss_fn``, ``init_cache``, ``sample_logits``, ``generate`` (the static
-schedule), the ``SlotDecoder`` in both KV layouts and
+schedule), the ``SlotDecoder`` in both KV layouts with the radix prefix
+cache and live weight swaps, fused QKV projections (``fused_qkv``: one
+``[3*H*D, E]`` projection whose output splits as ``[.., 3, H, D]``) and
 ``serving_builder`` (logits serving, static generate, the continuous
-schedule's slot decoders, int8/int4 weights and the int8 KV cache).
-Speculative decoding, fused QKV, the prefix cache, TP meshes and
-disaggregation raise ``NotImplementedError`` naming their ROADMAP item.
+schedule's slot decoders, int8/int4 weights, the int8 KV cache and the
+prefix cache).  Speculative decoding, TP meshes and disaggregation raise
+``NotImplementedError`` naming their ROADMAP item.
 
 Sequence parallelism (``attention_impl="ring"`` or ``"ulysses"`` with
 ``cfg.mesh``, a :class:`..parallel.mesh.Mesh`): each rank runs its
@@ -86,7 +88,7 @@ from tensorflowonspark_tpu_torch.ops.paged_attention import (
     paged_gather_attention,
 )
 from tensorflowonspark_tpu_torch.planner import knobs as knob_registry
-from tensorflowonspark_tpu_torch.prefix_cache import PagePool
+from tensorflowonspark_tpu_torch.prefix_cache import PagePool, PrefixCache
 from tensorflowonspark_tpu_torch.utils import not_ported as _not_ported
 
 _DTYPES = {
@@ -199,13 +201,20 @@ class Attention(nn.Module):
                     hkv, h
                 )
             )
-        if cfg.fused_qkv:
-            raise _not_ported("fused_qkv", "fused_qkv")
         self.cfg = cfg
         dense = dict(cfg=cfg, device=device, param_dtype=param_dtype)
-        self.q = _Linear(cfg.embed_dim, h * d, **dense)
-        self.k = _Linear(cfg.embed_dim, hkv * d, **dense)
-        self.v = _Linear(cfg.embed_dim, hkv * d, **dense)
+        if cfg.fused_qkv:
+            if hkv != h:
+                raise ValueError(
+                    "fused_qkv requires equal q/kv head counts; use "
+                    "separate projections with num_kv_heads"
+                )
+            # the Flax leaf [E, 3, H, D] as one [3*H*D, E] projection
+            self.qkv = _Linear(cfg.embed_dim, 3 * h * d, **dense)
+        else:
+            self.q = _Linear(cfg.embed_dim, h * d, **dense)
+            self.k = _Linear(cfg.embed_dim, hkv * d, **dense)
+            self.v = _Linear(cfg.embed_dim, hkv * d, **dense)
         self.out = _Linear(h * d, cfg.embed_dim, **dense)
 
     def forward(self, x, positions, decode=False, block_tables=None,
@@ -214,9 +223,13 @@ class Attention(nn.Module):
         b, s = x.shape[0], x.shape[1]
         h, d = cfg.num_heads, cfg.head_dim
         hkv = cfg.num_kv_heads or h
-        q = rope(self.q(x).view(b, s, h, d), positions)
-        k = rope(self.k(x).view(b, s, hkv, d), positions)
-        v = self.v(x).view(b, s, hkv, d)
+        if cfg.fused_qkv:
+            q, k, v = self.qkv(x).view(b, s, 3, h, d).unbind(2)
+        else:
+            q = self.q(x).view(b, s, h, d)
+            k = self.k(x).view(b, s, hkv, d)
+            v = self.v(x).view(b, s, hkv, d)
+        q, k = rope(q, positions), rope(k, positions)
         if decode and cfg.kv_layout == "paged":
             out = self._paged_decode(q, k, v, positions, block_tables, cache)
         elif decode:
@@ -846,6 +859,19 @@ def generate(model, params, prompt, max_new_tokens, temperature=0.0,
     return out
 
 
+class _BlockRef(object):
+    """A contiguous-layout prefix-cache payload: block ``index`` of a
+    donor ``segment``, the tuple of per-bank copies one commit extracted
+    (:meth:`SlotDecoder._extract_segment`).  Payloads are only ever read:
+    an install copies them into a lane."""
+
+    __slots__ = ("segment", "index")
+
+    def __init__(self, segment, index):
+        self.segment = segment
+        self.index = index
+
+
 class SlotDecoder:
     """Slot-level KV-cache engine for continuous in-flight batching, in
     the contiguous or the paged layout (port of the reference's
@@ -867,6 +893,23 @@ class SlotDecoder:
       steps over every slot as an eager loop (per-row writes and masks);
       :meth:`resolve_chunk` pulls the token block to the host — the one
       host sync per chunk.
+
+    With a ``prefix_cache`` (a :class:`..prefix_cache.PrefixCache`)
+    admits are canonical on both layouts: the longest cached whole-block
+    prefix of the prompt (at most ``n - 1`` tokens) is reused and only
+    the suffix prefills, at positions ``kpref..``; the prompt's new full
+    blocks are then committed to the cache.  Contiguous: the cached
+    blocks are copied into the lane (their payloads are copies the
+    commit extracted, never views of a lane, which the lane's next admit
+    would overwrite).  Paged: the cached pages go into the slot's table
+    row, retained by the slot, with no copy; the suffix writes only the
+    slot's private pages, and the commit hands the radix one reference
+    to each new full page.  Outputs are token-identical to a cold admit.
+
+    Weight swaps (:meth:`swap_weights`, :meth:`snapshot_weights`,
+    :meth:`restore_weights`, :meth:`canary_check`) install a new model
+    built from the ingested tree; the previous one stays resident,
+    untouched, for a rollback.
 
     Per-slot state (``positions``, ``pad_start``, ``last_tok``,
     ``done``) lives on the device; the host keeps the ``active`` mask
@@ -896,9 +939,6 @@ class SlotDecoder:
                 "model is configured kv_layout='paged' but the decoder "
                 "was asked for 'contiguous'; pass kv_layout='paged'"
             )
-        if prefix_cache is not None:
-            raise _not_ported("the prefix cache", "prefix cache and "
-                              "PrefixCache")
         if draft_model is not None or draft_params is not None:
             raise _not_ported("draft-model speculation", "speculation")
         if mesh is not None:
@@ -932,6 +972,8 @@ class SlotDecoder:
                     self.cache_len, self.max_new_tokens
                 )
             )
+        self.prefix_cache = prefix_cache
+        self._use_prefix = prefix_cache is not None
         if self._paged:
             self.paged_impl = str(paged_impl)
             self._setup_paged(model, kv_pages, page_tokens)
@@ -940,10 +982,15 @@ class SlotDecoder:
             self.page_pool = None
             self.tables = None
         #: the weight scheme ("int8" | "int4" | None) and the codes the
-        #: decode steps dequantize (None for float weights)
+        #: decode steps dequantize (None for float weights); a swap
+        #: re-quantizes with the same scheme
         self._qparams = self.model.qweights
         self._quantized = self._qparams is not None
         self._wq = self._qparams.scheme if self._quantized else None
+        #: bumped by every installed weight generation
+        self.weight_generation = 0
+        self.last_admit_cached_tokens = 0
+        self.last_admit_dispatches = 0
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
         self.cache = init_cache(self.model, self.num_slots,
@@ -953,15 +1000,44 @@ class SlotDecoder:
 
     def _setup_paged(self, model, kv_pages, page_tokens):
         """Pick the page geometry, size the :class:`PagePool` (every slot
-        holds its full table span, plus the reserved trash page 0), and
-        rebuild the model with the pool geometry in its config (same
+        holds its full table span, plus the reserved trash page 0, plus
+        the radix cache's headroom), bind the radix cache to the pool,
+        and rebuild the model with the pool geometry in its config (same
         parameter tensors)."""
         cfg = model.cfg
-        t = int(page_tokens) if page_tokens else 16
+        pc = self.prefix_cache
+        t = int(page_tokens) if page_tokens else (
+            pc.block_tokens if pc is not None else 16)
+        if pc is not None and pc.block_tokens != t:
+            raise ValueError(
+                "paged layout needs page_tokens == the prefix cache's "
+                "block_tokens; got {0} vs {1}".format(t, pc.block_tokens)
+            )
+        self._page_tokens = t
         span = -(-self.cache_len // t)  # blocks per slot table
         self._blocks_per_slot = span
+        hkv = cfg.num_kv_heads or cfg.num_heads
+        int8_cache = cfg.cache_dtype == "int8"
+        itemsize = 1 if int8_cache else torch.empty(
+            (), dtype=cfg.torch_dtype).element_size()
+        per_layer = 2 * t * hkv * cfg.head_dim * itemsize
+        if int8_cache:
+            per_layer += 2 * t * hkv * 4  # the f32 scale pages
+        #: device bytes of one page across every layer's pools: what the
+        #: radix cache's byte budget counts per block
+        self._page_nbytes = max(1, cfg.num_layers * per_layer)
+        if kv_pages:
+            num_pages = int(kv_pages)
+        else:
+            # shared (radix-committed) pages ride in headroom capped by
+            # the cache's byte budget
+            extra = 0
+            if pc is not None:
+                budget_pages = pc.mem_budget_bytes // self._page_nbytes
+                extra = int(min(budget_pages,
+                                max(2 * self.num_slots * span, 64)))
+            num_pages = self.num_slots * span + extra + 1
         min_pages = self.num_slots * span + 1
-        num_pages = int(kv_pages) if kv_pages else min_pages
         if num_pages < min_pages:
             raise ValueError(
                 "kv_pages={0} cannot hold {1} slots x {2} blocks (+1 "
@@ -970,6 +1046,26 @@ class SlotDecoder:
                 )
             )
         self.page_pool = PagePool(num_pages, reserved=1)
+        if pc is not None:
+            # page-index payloads mean something only against the pool
+            # that allocated them: one pool per radix cache
+            owner = getattr(pc, "_paged_pool", None)
+            if owner is not None and owner is not self.page_pool:
+                raise ValueError(
+                    "this PrefixCache is already bound to another "
+                    "decoder's page pool; paged decoders need their "
+                    "own radix cache (serving_builder builds one per "
+                    "slot geometry)"
+                )
+            if len(pc):
+                raise ValueError(
+                    "paged layout needs an EMPTY PrefixCache at attach "
+                    "(its payloads become page indices); got {0} "
+                    "node(s)".format(len(pc))
+                )
+            pc._paged_pool = self.page_pool
+            pool = self.page_pool
+            pc._release_fn = lambda page: pool.release([page])
         # per-slot block tables (host mirror, shipped with each dispatch)
         # and the pages each slot holds; all rows start at the trash page
         self.tables = np.zeros((self.num_slots, span), np.int32)
@@ -1026,27 +1122,35 @@ class SlotDecoder:
     def free_slots(self):
         return [i for i in range(self.num_slots) if not self.active[i]]
 
-    def admit(self, slot, prompt):
+    def admit(self, slot, prompt, new_tokens=None):
         """Prefill ``prompt`` (1-D int tokens) into lane ``slot`` and
         activate it.  Returns the first generated token as a device
-        scalar, unsynchronised.  Raises when the prompt cannot fit
-        ``cache_len - max_new_tokens``."""
+        scalar, unsynchronised.  Raises when the prompt and the tokens
+        still to generate (``new_tokens``, default ``max_new_tokens``)
+        cannot fit ``cache_len``: a request re-admitted with its
+        committed tokens appended needs room only for the rest of its
+        budget.  With a prefix cache the admit is canonical (see the
+        class docstring); :attr:`last_admit_cached_tokens` is the prompt
+        tokens it served from the cache."""
         prompt = np.asarray(prompt, np.int32).ravel()
         n = prompt.shape[0]
         if n == 0:
             raise ValueError("cannot admit an empty prompt")
-        if n + self.max_new_tokens > self.cache_len:
+        need = self.max_new_tokens if new_tokens is None else int(new_tokens)
+        if n + need > self.cache_len:
             raise ValueError(
                 "prompt ({0}) + max_new_tokens ({1}) exceeds the "
-                "engine cache_len={2}".format(
-                    n, self.max_new_tokens, self.cache_len
-                )
+                "engine cache_len={2}".format(n, need, self.cache_len)
             )
         if self.active[slot]:
             raise ValueError("slot {0} is still active".format(slot))
         if self._paged:
             first = self._admit_paged(slot, prompt, n)
+        elif self._use_prefix:
+            first = self._admit_canonical(slot, prompt, n)
         else:
+            self.last_admit_cached_tokens = 0
+            self.last_admit_dispatches = 1
             b = self.bucket_len(n)
             padded = np.zeros((1, b), np.int64)
             padded[0, b - n:] = prompt
@@ -1078,34 +1182,148 @@ class SlotDecoder:
         else:
             self.state["done"][slot] = False
 
-    def _admit_paged(self, slot, prompt, n):
-        """Allocate the slot's pages, point its table row at them, and
-        prefill the prompt through that row (the prefill writes straight
-        into the pool).  One dispatch sequence per admit."""
-        kpref = 0
-        row = self.page_pool.alloc(self._blocks_per_slot)
-        self.tables[slot] = np.asarray(row, np.int32)
-        self._slot_pages[slot] = row
+    def _suffix(self, prompt, n, kpref):
         sb = self._suffix_bucket(n - kpref, kpref)
         suffix = np.zeros((1, sb), np.int64)
         suffix[0, :n - kpref] = prompt[kpref:]
-        return self._prefill_paged(slot, suffix, n, kpref)
+        return suffix
+
+    def _alloc_pages(self, need):
+        """``need`` free pages, evicting the radix cache's cold leaf
+        blocks under pool pressure (an eviction releases the block's pool
+        reference; the page frees once no slot's table holds it)."""
+        pool, pc = self.page_pool, self.prefix_cache
+        while pool.available() < need:
+            if pc is None or not pc.evict_blocks(1):
+                raise RuntimeError(
+                    "page pool exhausted: need {0} pages, {1} free and "
+                    "nothing left to evict (pool {2})".format(
+                        need, pool.available(), pool.stats()
+                    )
+                )
+        return pool.alloc(need)
+
+    def _admit_paged(self, slot, prompt, n):
+        """The paged admit: the cached prefix goes into the slot's table
+        row as page indices (no KV copy), the slot retains each shared
+        page before the lease is released, and the suffix prefill writes
+        through the row into the slot's private pages, which commits the
+        prompt's new full blocks in place.  One prefill per admit."""
+        pc, pool = self.prefix_cache, self.page_pool
+        blk = self._page_tokens
+        if pc is not None:
+            # at least one real token must prefill (first-token logits)
+            lease = pc.acquire(prompt, limit_tokens=n - 1)
+            kpref = lease.n_tokens
+            cached_pages = [int(p) for p in lease.payloads()]
+        else:
+            lease, kpref, cached_pages = None, 0, []
+        self.last_admit_cached_tokens = int(kpref)
+        self.last_admit_dispatches = 1
+        # the slot's own reference to every shared page: the radix may
+        # evict the block while this slot still decodes on it
+        pool.retain(cached_pages)
+        if lease is not None:
+            pc.release(lease)
+        private = self._alloc_pages(self._blocks_per_slot
+                                    - len(cached_pages))
+        row = cached_pages + private
+        self.tables[slot] = np.asarray(row, np.int32)
+        self._slot_pages[slot] = row
+        first = self._prefill_canonical(slot, self._suffix(prompt, n, kpref),
+                                        n, kpref)
+        # commit the prompt's new full blocks: their pages hold the KV
+        # already, and the radix takes one pool reference per block it
+        # accepts (a budget drop keeps the page slot-private)
+        if pc is not None:
+            total_blocks = n // blk
+            first_new = len(cached_pages)
+            if total_blocks > first_new:
+                committed = []
+                pc.insert(prompt, row[first_new:total_blocks], first_new,
+                          self._page_nbytes, on_insert=committed.append)
+                pool.retain(committed)
+        return first
 
     @torch.no_grad()
-    def _prefill_paged(self, slot, suffix, n, kpref):
-        """Canonical-position prefill of ``suffix`` through slot
-        ``slot``'s table row; samples the first token from the last real
-        row ``n - kpref - 1`` and scatters the slot's state entries."""
+    def _prefill_canonical(self, slot, suffix, n, kpref):
+        """Canonical-position prefill of ``suffix`` from position
+        ``kpref``: through the slot's table row (paged), or into views of
+        its lane with nothing masked below ``kpref`` (contiguous).
+        Samples the first token from the last real row ``n - kpref - 1``
+        and scatters the slot's state entries."""
         dev = self.device
-        logits = self.model(
-            self._to_device(suffix), decode=True,
-            slot_positions=torch.full((1,), kpref, dtype=torch.int64,
-                                      device=dev),
-            block_tables=self._to_device(self.tables[slot:slot + 1]),
-            cache=self.cache,
-        )
+        start = torch.full((1,), kpref, dtype=torch.int64, device=dev)
+        if self._paged:
+            kw = dict(block_tables=self._to_device(self.tables[slot:slot + 1]),
+                      cache=self.cache)
+        else:
+            kw = dict(cache=self.cache.lane(slot),
+                      pad_start=torch.zeros((1,), dtype=torch.int64,
+                                            device=dev))
+        logits = self.model(self._to_device(suffix), decode=True,
+                            slot_positions=start, **kw)
         first = self._sample(logits[:, n - kpref - 1])[0]
         self._set_slot(slot, n, 0, first)
+        return first
+
+    def _banks(self):
+        """Every contiguous bank in a fixed order (layer, then name)."""
+        return [layer[name] for layer in self.cache for name in sorted(layer)]
+
+    def _extract_segment(self, slot, start, length):
+        """Copies of ``[start, start + length)`` of lane ``slot`` of every
+        bank: the KV a prefill commits to the prefix cache.  Copies,
+        because the lane is overwritten by the slot's next admit."""
+        return tuple(bank[slot, start:start + length].clone()
+                     for bank in self._banks())
+
+    def _install_segment(self, slot, payloads, blk):
+        """Copy the cached blocks ``payloads`` into lane ``slot`` at
+        positions ``[0, len * blk)``, one copy per run of consecutive
+        blocks of one donor; the payloads are only read."""
+        runs = []
+        for p in payloads:
+            if (runs and p.segment is runs[-1][-1].segment
+                    and p.index == runs[-1][-1].index + 1):
+                runs[-1].append(p)
+            else:
+                runs.append([p])
+        banks = self._banks()
+        at = 0
+        for run in runs:
+            lo, hi = run[0].index * blk, (run[-1].index + 1) * blk
+            for bank, leaf in zip(banks, run[0].segment):
+                bank[slot, at:at + hi - lo].copy_(leaf[lo:hi])
+            at += hi - lo
+
+    def _admit_canonical(self, slot, prompt, n):
+        """The contiguous layout's cached-prefix admit: install the
+        cached blocks into the lane, prefill the suffix at ``kpref``,
+        commit the prompt's new full blocks (one extract of copies)."""
+        pc = self.prefix_cache
+        blk = pc.block_tokens
+        # at least one real token must prefill (first-token logits)
+        lease = pc.acquire(prompt, limit_tokens=n - 1)
+        kpref = lease.n_tokens
+        self.last_admit_cached_tokens = int(kpref)
+        self.last_admit_dispatches = 1
+        if kpref:
+            self._install_segment(slot, lease.payloads(), blk)
+            self.last_admit_dispatches += 1
+        pc.release(lease)
+        first = self._prefill_canonical(slot, self._suffix(prompt, n, kpref),
+                                        n, kpref)
+        total_blocks = n // blk
+        first_new = kpref // blk
+        if total_blocks > first_new:
+            n_new = total_blocks - first_new
+            seg = self._extract_segment(slot, first_new * blk, n_new * blk)
+            self.last_admit_dispatches += 1
+            nbytes = sum(leaf.numel() * leaf.element_size()
+                         for leaf in seg) // n_new
+            pc.insert(prompt, [_BlockRef(seg, i) for i in range(n_new)],
+                      first_new, nbytes)
         return first
 
     @torch.no_grad()
@@ -1145,7 +1363,8 @@ class SlotDecoder:
     def resolve_chunk(self, pending):
         """Pull a :meth:`dispatch_chunk` block to host int32 as
         ``(tokens [B, T], valid [B])`` — the one synchronising call per
-        chunk.  Idle lanes hold garbage."""
+        chunk, and so the call a wedged dispatch hangs.  Idle lanes hold
+        garbage."""
         toks = pending.cpu().numpy().astype(np.int32)
         return toks, np.full((toks.shape[0],), toks.shape[1], np.int32)
 
@@ -1156,9 +1375,9 @@ class SlotDecoder:
         """Free lane ``slot`` between chunks — host bookkeeping only.  A
         contiguous lane's stale KV needs no scrubbing (a later request's
         masks only reach positions its own prefill and decode wrote);
-        a paged slot's pages return to the pool and its table row parks
-        on the trash page so the lane's dead decode writes never land in
-        a live page."""
+        a paged slot's page references release (shared pages the radix
+        still holds stay) and its table row parks on the trash page so
+        the lane's dead decode writes never land in a live page."""
         self.active[slot] = False
         if self._paged and self._slot_pages[slot]:
             self.page_pool.release(self._slot_pages[slot])
@@ -1166,12 +1385,15 @@ class SlotDecoder:
             self.tables[slot, :] = 0
 
     def cancel(self, slot):
-        """Cancel an in-flight lane between chunks (same as :meth:`evict`)."""
+        """Cancel an in-flight lane between chunks (deadline expiry, a
+        drain): the same as :meth:`evict`; its neighbours are
+        untouched."""
         self.evict(slot)
 
     def reset(self):
         """Return every slot to idle (between serving jobs); the banks and
-        pools stay allocated, their stale KV is unreachable."""
+        pools stay allocated, their stale KV is unreachable, and the
+        radix cache's committed pages stay."""
         if self._paged:
             for slot in range(self.num_slots):
                 if self._slot_pages[slot]:
@@ -1181,17 +1403,137 @@ class SlotDecoder:
         self.state = self._idle_state()
         self.active[:] = False
 
+    # -- live weight swap (hot_swap.py) --------------------------------
+
+    def param_spec(self):
+        """Per-leaf ``{path: {"shape", "dtype"}}`` census (the
+        reference's key strings) of what a checkpoint must hold to swap
+        into this decoder: the Flax layout at the model's float shapes
+        and storage types (a quantized decoder censuses its dequantized
+        weights).  Validation compares dtype kinds only."""
+        from tensorflowonspark_tpu_torch import checkpoint, convert
+
+        state = self.model.state_dict()
+        tree = {}
+        for path, shape in convert.tree_shapes(self.model.cfg).items():
+            node = tree
+            *parents, name = path.split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[name] = torch.empty(
+                shape, dtype=state[convert._port_name(path)].dtype,
+                device="meta")
+        return checkpoint.param_manifest(tree)
+
+    def _check_swap_tree(self, raw_params):
+        """Raise ``ValueError`` naming the first structural or shape
+        difference of ``raw_params`` from the live weights."""
+        from tensorflowonspark_tpu_torch.checkpoint import param_manifest
+
+        live = self.param_spec()
+        new = param_manifest(raw_params)
+        missing = sorted(set(live) - set(new))
+        extra = sorted(set(new) - set(live))
+        if missing or extra:
+            raise ValueError(
+                "swap params tree mismatch: missing leaves {0}, "
+                "unexpected leaves {1}".format(missing[:4], extra[:4])
+            )
+        for path in sorted(live):
+            if new[path]["shape"] != live[path]["shape"]:
+                raise ValueError(
+                    "swap params shape mismatch at {0}: live {1} vs "
+                    "ingested {2}".format(
+                        path, live[path]["shape"], new[path]["shape"]
+                    )
+                )
+
+    def _ingest_params(self, raw_params):
+        """A new model over the live config holding ``raw_params`` (a raw
+        float tree): cast to the live types, or re-quantized with the
+        live scheme for a quantized decoder (int4 at the default groups,
+        as the reference).  New tensors: the live model is never
+        written."""
+        from tensorflowonspark_tpu_torch import convert
+
+        tree = raw_params
+        if self._quantized:
+            tree = _tree_to(raw_params, self.device)
+            tree = (qz.quantize_tree_int4(tree) if self._wq == "int4"
+                    else qz.quantize_tree(tree))
+        model = convert.params_from_flax(tree, self.model.cfg,
+                                         device=self.device)
+        model.requires_grad_(False)
+        return model
+
+    def snapshot_weights(self):
+        """Opaque handle to the current weight generation: the live
+        model object, whose tensors a swap never writes.  Hand it back
+        to :meth:`restore_weights` to roll back without re-ingesting."""
+        return (self.model, self.weight_generation)
+
+    def swap_weights(self, raw_params, draft_params=None, ready=None):
+        """Install a new weight generation between decode chunks.
+
+        ``raw_params`` is a raw float tree matching :meth:`param_spec`
+        (numpy arrays or tensors on any device); ``ready``, when given,
+        is waited on before it is read (the CUDA event a background
+        ingest recorded after its copy onto the card).  The slot table
+        is not touched: the engine quiesces in-flight requests first.
+        The prefix cache is flushed (its KV came from the old
+        weights)."""
+        if draft_params is not None:
+            raise _not_ported("draft weights in a swap", "speculation")
+        self._check_swap_tree(raw_params)
+        if ready is not None:
+            ready.wait()
+        self._install(self._ingest_params(raw_params))
+        self.weight_generation += 1
+        return self.weight_generation
+
+    def _install(self, model):
+        self.model = model
+        self._qparams = model.qweights
+        if self._use_prefix:
+            self.prefix_cache.clear()
+
+    def restore_weights(self, snapshot):
+        """Roll back to a :meth:`snapshot_weights` generation (no
+        re-ingest); flushes the prefix cache like a forward swap."""
+        model, gen = snapshot
+        self._install(model)
+        self.weight_generation = int(gen)
+        return self.weight_generation
+
+    @torch.no_grad()
+    def canary_check(self, raw_params=None):
+        """One forward of a fixed 8-token prompt through the live model,
+        or through ``raw_params`` ingested as a swap would ingest them;
+        True when every logit is finite."""
+        model = self.model
+        if raw_params is not None:
+            self._check_swap_tree(raw_params)
+            model = self._ingest_params(raw_params)
+        tokens = (torch.arange(8, device=self.device)[None]
+                  % model.cfg.vocab_size)
+        return bool(torch.isfinite(model(tokens)).all())
+
     def reuse_stats(self):
-        """Page-pool occupancy gauges (paged layout; none for contiguous)."""
-        return self.page_pool.stats() if self._paged else {}
+        """Cross-request reuse counters: the prefix cache's cumulative
+        stats (when attached) and the page pool's occupancy gauges
+        (paged layout).  The engine reports per-job deltas."""
+        out = {}
+        if self._use_prefix:
+            out.update(self.prefix_cache.stats())
+        if self._paged:
+            out.update(self.page_pool.stats())
+        return out
 
 
 #: serving_builder keys that select a plane this package has not ported
 #: yet, with the ROADMAP item that brings it; a truthy value raises
 _UNPORTED_KNOBS = {
     "auto": "the cost-model planner (engine planes)",
-    "prefix_cache": "prefix cache and PrefixCache",
-    "prefix_mem_mb": "prefix cache and PrefixCache",
     "speculative": "speculation",
     "ngram": "speculation",
     "draft_config": "speculation",
@@ -1278,6 +1620,13 @@ def serving_builder(params, config):
       quantize the tree on the device (:mod:`..quantize`); decode steps
       dequantize the codes at each step.  ``cache_dtype="int8"`` stores
       the KV cache as int8 with scales, in either layout.
+    - ``prefix_cache=True`` gives the slot decoders a radix prefix cache
+      (:class:`..prefix_cache.PrefixCache`, ``prefix_block`` tokens a
+      block, ``prefix_mem_mb`` its budget, which on the paged layout
+      also sizes the pool's headroom): one cache shared by every
+      contiguous decoder of the predictor, one per slot geometry on the
+      paged layout (page indices mean something only in their pool).
+      The memoized decoders keep it warm across jobs.
     """
     cfg_fields = {f.name for f in dataclasses.fields(TransformerConfig)}
     knob_registry.validate_keys(config, cfg_fields | {"device"})
@@ -1361,6 +1710,19 @@ def serving_builder(params, config):
     # bucketing must never push a fitting prompt past the cache
     predict.pad_cap = max(1, cfg.max_seq_len - max_new)
     slot_decoders = {}
+    prefix_caches = {}
+
+    def _prefix_cache(key):
+        if not config.get("prefix_cache", False):
+            return None
+        key = key if kv_layout == "paged" else None
+        if key not in prefix_caches:
+            prefix_caches[key] = PrefixCache(
+                block_tokens=int(config.get("prefix_block", 16)),
+                mem_budget_bytes=int(float(config.get("prefix_mem_mb",
+                                                      256.0)) * (1 << 20)),
+            )
+        return prefix_caches[key]
 
     def make_slot_decoder(num_slots, chunk=None):
         # memoized per (slots, chunk); a reused decoder only resets its
@@ -1380,9 +1742,9 @@ def serving_builder(params, config):
             model, None, key[0], max_new, cache_len=cache_len,
             chunk_size=key[1], pad_multiple=predict.pad_multiple,
             temperature=temperature, top_k=top_k, top_p=top_p,
-            eos_id=eos_id, seed=seed, kv_layout=kv_layout,
-            kv_pages=config.get("kv_pages"), page_tokens=page_tokens,
-            paged_impl=paged_impl,
+            eos_id=eos_id, seed=seed, prefix_cache=_prefix_cache(key),
+            kv_layout=kv_layout, kv_pages=config.get("kv_pages"),
+            page_tokens=page_tokens, paged_impl=paged_impl,
         )
         slot_decoders[key] = dec
         return dec

@@ -19,9 +19,11 @@ Everything shipped to an executor is a module-level function or a
 ``functools.partial`` of one (the engine pickles by reference), so a
 user ``train_fn``, ``export_fn`` or ``predictor_builder`` must be
 module-level too.  The reference's telemetry accessors
-(``telemetrySnapshot``, ``traceEvents``), ``setTenantCol`` and
-``setCheckpointDir`` raise ``NotImplementedError`` naming their ROADMAP
-item.
+(``telemetrySnapshot``, ``traceEvents``) and ``setTenantCol``
+raise ``NotImplementedError`` naming their ROADMAP item.
+``setCheckpointDir`` has each executor's continuous engine watch a
+``publish_for_serving`` root and hot-swap validated new weights
+mid-transform (:mod:`.hot_swap`).
 """
 
 import copy
@@ -36,7 +38,6 @@ logger = logging.getLogger(__name__)
 
 #: ROADMAP items of the planes the pipeline's refused knobs need
 _TELEMETRY = "the engine's telemetry plane"
-_HOT_SWAP = "the engine's robustness planes"
 
 
 class Namespace(object):
@@ -142,7 +143,7 @@ HasCheckpointDir = _mixin(
     "checkpoint_dir",
     "step-numbered serving-export root to watch for validated live "
     "weight hot-swaps during continuous-schedule transforms",
-    cap="CheckpointDir", unported=_HOT_SWAP,
+    cap="CheckpointDir",
 )
 #: deployment-time model_config overrides laid over the export metadata
 #: before the predictor builds (serving.load_predictor config_overrides),

@@ -5,9 +5,10 @@
 schedule: ``"static"`` (the default: fixed-size batches, ragged prompts
 left-padded, each batch one ``predict`` call) or ``"continuous"``
 (in-flight batching through the port's
-:class:`~tensorflowonspark_tpu_torch.serving_engine.ServingEngine`).
-Fleet replicas, the lifecycle knobs and the telemetry histogram and
-usage ledger raise ``NotImplementedError``.
+:class:`~tensorflowonspark_tpu_torch.serving_engine.ServingEngine`, with
+its shedding, deadlines, watchdog and live weight hot swap).  Fleet
+replicas and the telemetry histogram and usage ledger raise
+``NotImplementedError``.
 
 :func:`main` is the batch-inference command line (``python -m
 tensorflowonspark_tpu_torch.serving``): an export over TFRecords,
@@ -34,6 +35,7 @@ import numpy as np
 from tensorflowonspark_tpu_torch import serving_engine
 from tensorflowonspark_tpu_torch.serving_engine import (  # noqa: F401
     BUDGET_INPUT,
+    DEADLINE_INPUT,
     RequestError,
     RequestValidationError,
     ServingEngine,
@@ -257,9 +259,13 @@ def predict_rows(
     ``make_slot_decoder``, else static.  ``stats`` (optional dict) is
     filled with ``latency_sec`` (per request, input index keys) and, on
     the continuous schedule, ``ttft_sec`` / ``admitted`` / ``chunks`` /
-    ``completed`` / ``tokens_out`` and the page-pool gauges.
-    ``on_error="record"`` turns a bad row into a typed error record at
-    its position.
+    ``completed`` / ``tokens_out``, the robustness, reuse and swap
+    counters and the page-pool gauges.  ``on_error="record"`` turns a bad
+    row into a typed error record at its position.  ``queue_depth`` /
+    ``policy`` / ``watchdog_timeout`` / ``default_deadline`` and
+    ``checkpoint_dir`` / ``watcher`` / ``rollback_window`` (live weight
+    hot swap, see :mod:`.hot_swap`) are continuous-schedule knobs of the
+    :class:`ServingEngine`.
     """
     if batch_size == "auto":
         raise _not_ported("batch_size='auto'", "the engine planes")
@@ -293,16 +299,13 @@ def predict_rows(
             predict, rows, input_mapping, output_mapping, int(batch_size),
             pad_to_batch, stats, on_error)
         return
-    if checkpoint_dir is not None or watcher is not None \
-            or rollback_window != 8:
-        raise _not_ported("live weight hot swap",
-                          "the engine's robustness planes")
     engine = ServingEngine(
         predict, input_mapping, output_mapping, batch_size,
         queue_depth=queue_depth, policy=policy,
         default_deadline=default_deadline,
         watchdog_timeout=watchdog_timeout, on_error=on_error,
-        stats=stats,
+        stats=stats, checkpoint_dir=checkpoint_dir, watcher=watcher,
+        rollback_window=rollback_window,
     )
     yield from engine.serve(rows)
 
@@ -577,9 +580,6 @@ def main(argv=None):
         raise _not_ported("--tp", "TP")
     if args.disaggregate:
         raise _not_ported("--disaggregate", "disaggregation")
-    if args.checkpoint_dir:
-        raise _not_ported("--checkpoint_dir (live weight hot swap)",
-                          "the engine's robustness planes")
 
     from tensorflowonspark_tpu_torch.data import interchange
     from tensorflowonspark_tpu_torch.utils import fs as fs_utils
@@ -604,16 +604,35 @@ def main(argv=None):
             default_deadline=args.deadline,
             rollback_window=args.rollback_window,
         )
-    with fs_utils.open_file(out_path, "w") as f:
-        for out_row in predict_rows(
-            predict, rows, input_mapping, output_mapping, args.batch_size,
-            schedule=args.schedule, stats=stats, on_error=args.on_error,
-            **kwargs
-        ):
-            f.write(json.dumps(out_row, default=_json_default) + "\n")
-            count += 1
-    if stats.get("errors"):
-        logger.warning("%d error record(s)", stats["errors"])
+        if args.checkpoint_dir:
+            from tensorflowonspark_tpu_torch import hot_swap
+
+            kwargs["watcher"] = hot_swap.CheckpointWatcher(
+                args.checkpoint_dir, poll_interval=args.checkpoint_poll)
+    try:
+        with fs_utils.open_file(out_path, "w") as f:
+            for out_row in predict_rows(
+                predict, rows, input_mapping, output_mapping,
+                args.batch_size, schedule=args.schedule, stats=stats,
+                on_error=args.on_error, **kwargs
+            ):
+                f.write(json.dumps(out_row, default=_json_default) + "\n")
+                count += 1
+    finally:
+        if "watcher" in kwargs:
+            kwargs["watcher"].close()
+    shed = stats.get("shed", 0) + stats.get("expired", 0)
+    if shed or stats.get("errors"):
+        logger.warning("robustness: %d shed/expired, %d error record(s), "
+                       "%d watchdog fire(s)", shed, stats.get("errors", 0),
+                       stats.get("watchdog_fires", 0))
+    if stats.get("swaps") or stats.get("rollbacks"):
+        logger.info("lifecycle: %d weight swap(s) (%d committed, %d rolled "
+                    "back), %d in-flight request(s) requeued across swaps, "
+                    "serving generation %d", stats.get("swaps", 0),
+                    stats.get("swap_commits", 0), stats.get("rollbacks", 0),
+                    stats.get("swap_requeued", 0),
+                    stats.get("weight_generation", 0))
     latency = sorted((stats.get("latency_sec") or {}).values())
     if latency:
         logger.info(

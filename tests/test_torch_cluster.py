@@ -281,3 +281,42 @@ def test_executor_exit_awaits_the_compute_process(engine, tmp_path):
     c.shutdown(timeout=60)
     engine.stop()
     assert (tmp_path / "exited").exists()
+
+
+class _ClosingQueue(object):
+    """An error-queue proxy whose first call fails the way a proxy
+    connection closed by the GC mid-send fails; later calls see
+    ``items``."""
+
+    def __init__(self, items):
+        self.items, self.calls, self.put_back = list(items), 0, []
+
+    def get(self, block=True):
+        self.calls += 1
+        if self.calls == 1:
+            raise TypeError("'NoneType' object cannot be interpreted as an "
+                            "integer")
+        if not self.items:
+            raise queue.Empty
+        return self.items.pop(0)
+
+    def task_done(self):
+        pass
+
+    def put(self, item):
+        self.put_back.append(item)
+
+
+def test_error_queue_poll_survives_a_closed_connection():
+    """The feeder's error-queue poll retries once on a fresh connection,
+    as its queue puts do: an empty queue stays quiet, a posted error is
+    raised naming the executor and put back."""
+    from tensorflowonspark_tpu_torch.cluster import node
+
+    empty = _ClosingQueue([])
+    node._check_error_queue(None, empty, 0)
+    assert empty.calls == 2
+    posted = _ClosingQueue(["boom"])
+    with pytest.raises(RuntimeError, match="executor 3 failed:\nboom"):
+        node._check_error_queue(None, posted, 3)
+    assert posted.put_back == ["boom"]

@@ -102,8 +102,10 @@ def test_misshapen_leaf_raises():
 
 
 @pytest.mark.parametrize("block,exc,item", [
+    # fused QKV leaves are ported: in an unfused config's tree they are
+    # extra
     ({"qkv": {"kernel": np.zeros((32, 3, 4, 8), np.float32)}},
-     NotImplementedError, "queue A: fused_qkv"),
+     ValueError, r"extra \['block_0/attn/qkv/kernel'\]"),
     # MoE leaves are ported: in a dense config's tree they are extra
     ({"moe": {"router": np.zeros((32, 4), np.float32)}}, ValueError,
      r"extra \['block_0/moe/router'\]"),
@@ -120,7 +122,9 @@ def test_unported_leaves_raise(block, exc, item):
 
 
 @pytest.mark.parametrize("field,exc,item", [
-    ({"fused_qkv": True}, NotImplementedError, "queue A: fused_qkv"),
+    # a fused config is ported: an unfused tree misses its qkv leaves
+    ({"fused_qkv": True}, ValueError,
+     r"missing \['block_0/attn/qkv/kernel'"),
     # a MoE config is ported: a dense tree misses its expert leaves
     ({"num_experts": 4}, ValueError, r"missing \['block_0/moe/router'"),
 ], ids=["fused_qkv", "moe"])

@@ -39,6 +39,7 @@ jax = pytest.importorskip("jax")
 from tensorflowonspark_tpu import pipeline as jpl  # noqa: E402
 from tensorflowonspark_tpu import serving as jserving  # noqa: E402
 from tensorflowonspark_tpu.models import transformer as jtr  # noqa: E402
+from tensorflowonspark_tpu_torch import checkpoint as ckpt  # noqa: E402
 from tensorflowonspark_tpu_torch import convert, serving  # noqa: E402
 from tensorflowonspark_tpu_torch import pipeline as tpl  # noqa: E402
 from tensorflowonspark_tpu_torch.data import interchange  # noqa: E402
@@ -183,8 +184,8 @@ def test_output_types_and_values_match_jax(i):
     (lambda: tpl.TFModel().telemetrySnapshot(),
      "the engine's telemetry plane"),
     (lambda: tpl.TFModel().traceEvents(), "the engine's telemetry plane"),
-    (lambda: tpl.TFModel().setCheckpointDir("/ckpt"),
-     "the engine's robustness planes"),
+    (lambda: tpl.TFEstimator(_fn, {"num_ps": 1}).fit([]),
+     "the rest: parameter-server nodes"),
     (lambda: tpl.TFEstimator(_fn).setNumPS(1).fit([]),
      "the rest: parameter-server nodes"),
     (lambda: tpl.TFEstimator(_fn).setTensorboard(True).fit([]),
@@ -194,7 +195,7 @@ def test_output_types_and_values_match_jax(i):
     (lambda: tpl._run_model([], tpl.Namespace(tenant_col="t")),
      "the engine's telemetry plane"),
 ], ids=["setTenantCol", "telemetrySnapshot", "traceEvents",
-        "setCheckpointDir", "num_ps", "tensorboard", "model_dir",
+        "num_ps_arg", "num_ps", "tensorboard", "model_dir",
         "tenant_col_arg"])
 def test_pipeline_refuses_what_is_not_ported(call, item):
     # raised before any process starts
@@ -380,11 +381,24 @@ def test_serving_cli_in_process_and_refusals(fitted, transformed, tmp_path):
             _tokens(transformed)
     for extra, item in ((["--replicas", "2"], "fleet"),
                         (["--tp", "2"], "TP"),
-                        (["--disaggregate"], "disaggregation"),
-                        (["--checkpoint_dir", out],
-                         "the engine's robustness planes")):
+                        (["--disaggregate"], "disaggregation")):
         with pytest.raises(NotImplementedError, match=item):
             serving.main(argv + extra + ["--schedule", "continuous"])
+    # --checkpoint_dir (once refused) watches a root of published steps;
+    # the export's own weights published there serve the same tokens
+    # whether or not the swap lands during the job
+    root = str(tmp_path / "steps")
+    ckpt.publish_for_serving(root, 1, ckpt.load_for_serving(
+        fitted["export"])[0])
+    out3 = str(tmp_path / "out-swap")
+    argv3 = argv[:argv.index("--output")] + ["--output", out3] + \
+        argv[argv.index("--output") + 2:]
+    assert serving.main(argv3 + ["--schedule", "continuous",
+                                 "--checkpoint_dir", root,
+                                 "--checkpoint_poll", "0.01"]) == 7
+    with open(os.path.join(out3, "part-00000.jsonl")) as f:
+        assert [json.loads(line)["generated"] for line in f] == \
+            _tokens(transformed)
     assert serving._parse_mapping("a=b, c = d") == \
         jserving._parse_mapping("a=b, c = d") == {"a": "b", "c": "d"}
     with pytest.raises(ValueError, match="key=value"):

@@ -126,7 +126,7 @@ def test_output_mapping_and_missing_column(tree):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("prefix_cache", True),
+    ("ngram", 3),
     ("speculative", True), ("draft_config", {"num_layers": 1}),
     ("tp", 2), ("mesh_shape", {"model": 2}), ("disaggregate", True),
     ("auto", True), ("profile_dir", "/nonexistent"),
@@ -140,12 +140,16 @@ def test_unported_builder_knobs_raise(tree, knob, value):
 @pytest.mark.parametrize("knob,value", [
     ("weights", "int8"), ("quantize", "int4"),
     ("kv_layout", "contiguous"), ("mode", "logits"),
+    ("prefix_cache", True), ("prefix_mem_mb", 1.0),
 ])
 def test_ported_builder_knobs_serve_like_jax(tree, knob, value):
-    """Once refused: int8/int4 weights, the contiguous layout and logits
-    serving (``mode`` other than ``"generate"``) now build, and serve
-    what the JAX package serves."""
+    """Once refused: int8/int4 weights, the contiguous layout, logits
+    serving (``mode`` other than ``"generate"``) and the prefix cache
+    now build, and serve what the JAX package serves."""
     cfg = dict(TINY, **dict(GEN, **{knob: value}))
+    if knob.startswith("prefix"):
+        # the radix block is the page (GEN's kv_page_tokens)
+        cfg.update(prefix_cache=True, prefix_block=GEN["kv_page_tokens"])
     jax_cfg = dict(cfg, paged_impl="gather")
     port = ttr.serving_builder(tree, dict(cfg, device="cpu"))
     ref = jtr.serving_builder(tree, jax_cfg)
@@ -169,15 +173,25 @@ def test_unknown_key_raises_like_the_registry(tree):
 
 
 @pytest.mark.parametrize("kw", [
-    {"replicas": 2}, {"policy": "reject"},
-    {"queue_depth": 4}, {"watchdog_timeout": 1.0},
-    {"default_deadline": 1.0}, {"checkpoint_dir": "/nonexistent"},
+    {"replicas": 2}, {"replica_policy": "prefix_affinity"},
+    {"fleet_queue_depth": 4},
+    {"input_mapping": {"prompt": "tokens", "t": "tenant"}},
+    {"input_mapping": {"prompt": "tokens", "t": "trace_id"}},
+    {"disaggregate": True},
 ])
 def test_unported_predict_rows_knobs_raise(tree, kw):
+    """Fleet replicas, the telemetry plane's reserved inputs and a
+    disaggregated predictor (the robustness knobs are ported: see
+    test_torch_serving_robustness.py)."""
     kw = dict({"schedule": "continuous"}, **kw)
+    mapping = kw.pop("input_mapping", {"prompt": "tokens"})
+    predict = _port(tree)
+    if kw.pop("disaggregate", False):
+        predict.disaggregate = True
+    rows = [dict(r, t="x") for r in _rows(1)]
     with pytest.raises(NotImplementedError):
-        list(serving.predict_rows(_port(tree), _rows(1),
-                                  {"prompt": "tokens"}, batch_size=2, **kw))
+        list(serving.predict_rows(predict, rows, mapping, batch_size=2,
+                                  **kw))
 
 
 def test_static_schedule_serves_like_jax(tree):
@@ -226,7 +240,9 @@ def test_import_loads_no_jax():
         "import sys\n"
         "import tensorflowonspark_tpu_torch\n"
         "from tensorflowonspark_tpu_torch import checkpoint, compat, "
-        "convert, optim, prefix_cache, quantize, serving, serving_engine\n"
+        "convert, hot_swap, optim, prefix_cache, quantize, serving, "
+        "serving_engine\n"
+        "from tensorflowonspark_tpu_torch.testing import chaos\n"
         "from tensorflowonspark_tpu_torch.models import base, layers, "
         "linear, mlp, moe, resnet, transformer, unet\n"
         "from tensorflowonspark_tpu_torch.ops import _build, attention, "
