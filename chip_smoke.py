@@ -301,6 +301,29 @@ caught):
     K2-K4 a step and finite losses, and the fused export served through
     the paged prefix-cache engine with the unfused f32 model's tokens
     (near ties apart).
+31. ``telemetry_serve_flagship``: the serving telemetry plane on the
+    paged bf16 flagship with the radix cache: 16 greedy requests of three
+    tenants, each with a ``trace_id``, sharing a 256-token system prompt
+    (:data:`TELEMETRY_TENANTS`).  After one warm-up job with the plane on
+    and one with it off, :data:`TELEMETRY_PAIRS` pairs of jobs run, on
+    then off, off then on: tokens equal token for token across all but the
+    cold warm-up; in the first measured job with
+    the plane on, the ledger's per-request ``chip_sec`` sums to the
+    engine's ``decode_wall_sec`` (1e-9 relative), the per-tenant tokens
+    in and out to the engine's totals, every request holds page-seconds,
+    ``prefix_tokens_saved`` equals the ``prefix_cache.tokens_saved``
+    delta, ``serving.completed`` moved by 16, the latency and TTFT
+    histograms by 16 each, the Chrome trace parses and each request's
+    trace holds ``admission``, ``prefill`` and a ``decode_chunk``, and K1
+    ran layers x decode steps.  A job with ``profile_dir`` and
+    ``profile_steps=3`` writes a ``torch.profiler`` trace that names K1's
+    ``paged_decode_split``.  Prints decode tokens/s with the plane on and
+    off (and each pair's ratio, and each job's garbage collections) beside
+    the card's name and power limit, and latency and TTFT p50/p99 from the
+    histograms.  ``serve_recovery_flagship`` also holds
+    the flight recorder: its watchdog fire leaves exactly one bundle,
+    whose events hold the ``watchdog_fire`` and whose spans the recent
+    ``decode_chunk``s.
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit
 line, and as the last line ``{"ok": true, "device": {...}}``.  Without a
@@ -370,6 +393,14 @@ def nvidia_smi():
 def phase_env():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if not os.environ.get("TFOS_BLACKBOX_DIR"):
+        # the flight recorder's bundles go to a directory of this run
+        import atexit
+        import tempfile
+
+        d = tempfile.mkdtemp(prefix="chip_smoke_blackbox_")
+        os.environ["TFOS_BLACKBOX_DIR"] = d
+        atexit.register(shutil.rmtree, d, ignore_errors=True)
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0),
          capability=list(torch.cuda.get_device_capability(0)),
@@ -5676,6 +5707,8 @@ def phase_serve_recovery_flagship(tree, config=FLAGSHIP, device=None,
     from tensorflowonspark_tpu_torch.ops.paged_attention import (
         paged_attention,
     )
+    from tensorflowonspark_tpu_torch import telemetry
+    from tensorflowonspark_tpu_torch.telemetry import blackbox
     from tensorflowonspark_tpu_torch.testing import chaos
 
     dev = torch.device(device or "cuda")
@@ -5700,6 +5733,14 @@ def phase_serve_recovery_flagship(tree, config=FLAGSHIP, device=None,
     os.environ[chaos.TFOS_CHAOS_PLAN] = plan.save(
         os.path.join(tmp, "plan.json"))
     dec.resolve_chunk = resolve
+    # the process's flight recorder dumps into this phase's directory
+    recorder = blackbox.install()
+    if recorder is None:
+        raise AssertionError("serve_recovery_flagship: no flight recorder "
+                             "(telemetry off?)")
+    dump_dir, recorder.dump_dir = recorder.dump_dir, os.path.join(
+        tmp, "blackbox")
+    bundle = None
     try:
         from tensorflowonspark_tpu_torch.serving_engine import ServingEngine
 
@@ -5715,6 +5756,9 @@ def phase_serve_recovery_flagship(tree, config=FLAGSHIP, device=None,
         eng._recover = recover
         paged_attention.launches = 0
         sync(dev)
+        # the job's start on the tracer's clock (span t0s count from its
+        # epoch)
+        t_job = time.perf_counter() - telemetry.get_tracer().epoch
         t0 = time.perf_counter()
         out = list(eng.serve([dict(r) for r in rows]))
         sync(dev)
@@ -5726,11 +5770,30 @@ def phase_serve_recovery_flagship(tree, config=FLAGSHIP, device=None,
                            - time.perf_counter()) + 1.0)
         sync(dev)
         k1 = paged_attention.launches
+        dumps = sorted(os.listdir(recorder.dump_dir)) if os.path.isdir(
+            recorder.dump_dir) else []
+        if len(dumps) == 1:
+            bundle = blackbox.load_dump(os.path.join(recorder.dump_dir,
+                                                     dumps[0]))
     finally:
+        recorder.dump_dir = dump_dir
         del os.environ[chaos.TFOS_CHAOS_PLAN]
         del dec.resolve_chunk
         shutil.rmtree(tmp, ignore_errors=True)
     problems = []
+    if bundle is None:
+        problems.append("flight recorder: {0} bundles after the fire, "
+                        "not 1".format(len(dumps)))
+    else:
+        bundle_chunks = [s for s in bundle["spans"]
+                         if s["name"] == "decode_chunk"
+                         and s["t0"] >= t_job]
+        if (bundle["reason"] != "watchdog_fire"
+                or not any(e["kind"] == "watchdog_fire"
+                           for e in bundle["events"])
+                or not bundle_chunks):
+            problems.append("flight recorder: the bundle lacks the "
+                            "watchdog_fire event or decode_chunk spans")
     ok, ties = near_tie_check(dec.model, rows, tokens_of(out),
                               tokens_of(ref))
     share, firsts = agreement(tokens_of(out), tokens_of(ref))
@@ -5757,6 +5820,10 @@ def phase_serve_recovery_flagship(tree, config=FLAGSHIP, device=None,
         fire_to_next_resolved_sec=(after[0] - fired[0][0]) if after
         else None,
         launches=k1, resolved_chunks=stats["chunks"],
+        flight_recorder=None if bundle is None else dict(
+            bundles=len(dumps), reason=bundle["reason"],
+            events=len(bundle["events"]), spans=len(bundle["spans"]),
+            decode_chunk_spans=len(bundle_chunks)),
         unwedged_chunks=ref_stats["chunks"], wall_sec=wall,
         unwedged_wall_sec=ref_wall, equal_share=share,
         first_differing_steps=firsts, near_ties=ties,
@@ -5768,6 +5835,239 @@ def phase_serve_recovery_flagship(tree, config=FLAGSHIP, device=None,
     emit("serve_recovery_flagship", **line)
     if problems:
         raise AssertionError("serve_recovery_flagship: "
+                             + "; ".join(problems))
+    return line
+
+
+#: the telemetry phase's tenants (request i belongs to tenant i % 3), its
+#: profiler steps, its on/off pairs, and the radix budget that keeps every
+#: job's blocks cached (no eviction, so that every job after the first
+#: admits alike)
+TELEMETRY_TENANTS = ("acme", "globex", "initech")
+TELEMETRY_PROFILE_STEPS = 3
+TELEMETRY_PAIRS = 2
+TELEMETRY_PREFIX_MB = 512
+TELEMETRY_MAPPING = {"tokens": "tokens", "tenant": "tenant",
+                     "trace_id": "trace_id"}
+
+
+def telemetry_requests(vocab, n=REQUESTS):
+    """``n`` requests sharing one 256-token system prompt, of the three
+    :data:`TELEMETRY_TENANTS`, each with its trace id."""
+    rows = family_requests(37, n, vocab, families=1, header=PREFIX_HEADER,
+                           tail=PREFIX_TAIL)
+    for i, r in enumerate(rows):
+        r["tenant"] = TELEMETRY_TENANTS[i % len(TELEMETRY_TENANTS)]
+        r["trace_id"] = "tel-%02d" % i
+    return rows
+
+
+def phase_telemetry_serve_flagship(tree, config=FLAGSHIP, device=None,
+                                   requests=REQUESTS, pairs=TELEMETRY_PAIRS):
+    """The serving telemetry plane at the flagship's width: see the module
+    docstring, phase 31.  ``pairs`` on/off pairs follow the warm-up, the
+    side that goes first alternating (:func:`main` runs 2; the plane's cost
+    is read from 10 in a call of their own)."""
+    import gc
+    import glob
+    import tempfile
+
+    from tensorflowonspark_tpu_torch import telemetry
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        serving_builder,
+    )
+    from tensorflowonspark_tpu_torch.serving_engine import (
+        LATENCY_METRIC,
+        TTFT_METRIC,
+    )
+
+    dev = torch.device(device or "cuda")
+    over = {} if device is None else {"device": device}
+    layers, chunk = config["num_layers"], SERVING["chunk_size"]
+    rows = telemetry_requests(config["vocab_size"], requests)
+    rids = [r["trace_id"] for r in rows]
+    base_cfg = dict(config, **SERVING, **PREFIX,
+                    prefix_mem_mb=TELEMETRY_PREFIX_MB, **over)
+    t_phase = time.perf_counter()
+    predict = serving_builder(tree, base_cfg)
+    tracer = telemetry.get_tracer()
+    reg, led = telemetry.get_registry(), telemetry.get_ledger()
+    problems = []
+
+    def job(on):
+        telemetry.set_enabled(on)
+        try:
+            base_reg, base_led = reg.snapshot(), led.snapshot()
+            t_rel = time.perf_counter() - tracer.epoch
+            gc0 = [g["collections"] for g in gc.get_stats()]
+            out, stats, wall, k1, _ = serve_job(predict, rows, dev,
+                                                mapping=TELEMETRY_MAPPING)
+            gcs = [g["collections"] - c
+                   for g, c in zip(gc.get_stats(), gc0)]
+        finally:
+            telemetry.set_enabled(True)
+        rec = dict(plane="on" if on else "off", wall_sec=wall,
+                   gc_collections=gcs,
+                   tokens_out=stats["tokens_out"],
+                   tokens_per_sec=stats["tokens_out"] / wall,
+                   decode_wall_sec=stats["decode_wall_sec"],
+                   decode_tokens_per_sec=stats["tokens_out"]
+                   / stats["decode_wall_sec"],
+                   chunks=stats["chunks"], paged_attention_launches=k1)
+        if k1 != layers * chunk * stats["chunks"] or not k1:
+            problems.append("{0} job: K1 launches {1} != {2} x {3} decode "
+                            "steps".format(rec["plane"], k1, layers,
+                                           chunk * stats["chunks"]))
+        if len(out) != requests or any("error" in r for r in out):
+            problems.append(rec["plane"] + " job: a request failed")
+        # the rows are keyed by trace id: the next job's replace them
+        deltas = dict(stats=stats, t_rel=t_rel,
+                      rows=[led.row(rid) for rid in rids],
+                      reg=telemetry.snapshot_delta(reg.snapshot(), base_reg),
+                      ledger=telemetry.ledger.snapshot_delta(led.snapshot(),
+                                                             base_led))
+        return tokens_of(out), rec, deltas
+
+    # the same warm-up for each setting, then the settings in turns
+    order = [True, False]
+    for i in range(pairs):
+        order += [True, False] if i % 2 == 0 else [False, True]
+    runs = [job(on) for on in order]
+    toks = [t for t, _, _ in runs]
+    for i, t in enumerate(toks[1:], 1):
+        if t != toks[1]:
+            problems.append("job {0} ({1}): tokens differ from the warm "
+                            "plane-off job's".format(
+                                i, runs[i][1]["plane"]))
+    warm_equal_cold_share, _ = agreement(toks[1], toks[0])
+    _, on_rec, d = runs[2]
+    stats = d["stats"]
+    counters, hists = d["reg"]["counters"], d["reg"]["histograms"]
+
+    # the ledger against the engine
+    ledger_rows = d["rows"]
+    chip = sum(r["chip_sec"] for r in ledger_rows)
+    tenants = d["ledger"]["tenants"]
+    tokens_in = sum(len(r["tokens"]) for r in rows)
+    saved = sum(t["prefix_tokens_saved"] for t in tenants.values())
+    ledger = dict(
+        chip_sec=chip, decode_wall_sec=stats["decode_wall_sec"],
+        chip_rel_err=abs(chip - stats["decode_wall_sec"])
+        / stats["decode_wall_sec"],
+        tenants={t: {f: v[f] for f in ("requests", "tokens_in",
+                                        "tokens_out", "chip_sec",
+                                        "page_sec", "prefix_tokens_saved")}
+                 for t, v in sorted(tenants.items())},
+        page_sec_min=min(r["page_sec"] for r in ledger_rows),
+        prefix_tokens_saved=saved,
+        prefix_cache_tokens_saved=counters.get("prefix_cache.tokens_saved"))
+    if ledger["chip_rel_err"] > 1e-9:
+        problems.append("ledger chip_sec {0} != decode_wall_sec {1}".format(
+            chip, stats["decode_wall_sec"]))
+    if (sum(t["tokens_in"] for t in tenants.values()) != tokens_in
+            or sum(t["tokens_out"] for t in tenants.values())
+            != stats["tokens_out"]
+            or sorted(tenants) != sorted(TELEMETRY_TENANTS)):
+        problems.append("ledger tenant tokens do not sum to the engine's")
+    if ledger["page_sec_min"] <= 0:
+        problems.append("a request holds no page-seconds")
+    if saved != ledger["prefix_cache_tokens_saved"] or not saved:
+        problems.append("ledger prefix_tokens_saved {0} != prefix_cache."
+                        "tokens_saved {1}".format(
+                            saved, ledger["prefix_cache_tokens_saved"]))
+
+    # the registry
+    lat = hists.get(LATENCY_METRIC, {})
+    ttft = hists.get(TTFT_METRIC, {})
+    registry = dict(
+        completed=counters.get("serving.completed"),
+        latency_count=lat.get("count"), ttft_count=ttft.get("count"),
+        latency_p50_ms=1e3 * telemetry.histogram_percentile(lat, 50),
+        latency_p99_ms=1e3 * telemetry.histogram_percentile(lat, 99),
+        ttft_p50_ms=1e3 * telemetry.histogram_percentile(ttft, 50),
+        ttft_p99_ms=1e3 * telemetry.histogram_percentile(ttft, 99),
+        chunks=counters.get("serving.chunks"))
+    if (registry["completed"] != requests
+            or registry["latency_count"] != requests
+            or registry["ttft_count"] != requests):
+        problems.append("registry: completed {0}, latency {1}, ttft {2} "
+                        "!= {3}".format(registry["completed"],
+                                        registry["latency_count"],
+                                        registry["ttft_count"], requests))
+
+    # the trace
+    chrome = json.loads(json.dumps(tracer.export_chrome()))
+    missing = []
+    for rid in rids:
+        names = {sp["name"] for sp in tracer.spans(trace=rid)
+                 if sp["t0"] >= d["t_rel"]}
+        if not {"admission", "prefill", "decode_chunk"} <= names:
+            missing.append(rid)
+    if missing:
+        problems.append("traces without admission, prefill and a "
+                        "decode_chunk: {0}".format(missing))
+
+    # the profiler
+    tmp = tempfile.mkdtemp(prefix="telemetry_profile_")
+    try:
+        predict_p = serving_builder(tree, dict(
+            base_cfg, profile_dir=tmp,
+            profile_steps=TELEMETRY_PROFILE_STEPS))
+        t0 = time.perf_counter()
+        _, pstats, _, _, peng = serve_job(predict_p, rows[:SLOTS], dev,
+                                          mapping=TELEMETRY_MAPPING)
+        files = glob.glob(os.path.join(tmp, "*.pt.trace.json"))
+        text = open(files[0]).read() if len(files) == 1 else ""
+        events = json.loads(text)["traceEvents"] if text else []
+        split = [e for e in events if "paged_decode_split" in str(
+            e.get("name", ""))]
+        profile = dict(
+            trace_files=len(files), trace_bytes=len(text),
+            steps=TELEMETRY_PROFILE_STEPS, chunks=pstats["chunks"],
+            session_steps_left=None if peng._profile is None
+            else peng._profile.remaining,
+            paged_decode_split_events=len(split),
+            paged_decode_split_kernel_events=sum(
+                1 for e in split if e.get("cat") == "kernel"),
+            job_sec=time.perf_counter() - t0)
+        del predict_p, peng
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if len(files) != 1 or not split:
+        problems.append("profiler: {0} trace file(s), {1} "
+                        "paged_decode_split event(s)".format(
+                            len(files), len(split)))
+
+    on = [r for _, r, _ in runs[2:] if r["plane"] == "on"]
+    off = [r for _, r, _ in runs[2:] if r["plane"] == "off"]
+    # on / off decode tokens/s of each pair
+    ratios = [a["decode_tokens_per_sec"] / b["decode_tokens_per_sec"]
+              for a, b in zip(on, off)]
+    line = dict(
+        requests=requests, slots=SLOTS, tenants=list(TELEMETRY_TENANTS),
+        prompt_lens=[len(r["tokens"]) for r in rows],
+        warm_up=[r for _, r, _ in runs[:2]], measured=[r for _, r, _ in
+                                                      runs[2:]],
+        decode_tokens_per_sec_on=[r["decode_tokens_per_sec"] for r in on],
+        decode_tokens_per_sec_off=[r["decode_tokens_per_sec"] for r in off],
+        tokens_per_sec_on=[r["tokens_per_sec"] for r in on],
+        tokens_per_sec_off=[r["tokens_per_sec"] for r in off],
+        decode_on_over_off=ratios,
+        decode_on_over_off_median=float(np.median(ratios)),
+        pairs_on_slower=sum(1 for r in ratios if r < 1.0),
+        warm_equal_cold_share=warm_equal_cold_share,
+        ledger=ledger, registry=registry,
+        trace=dict(events=len(chrome["traceEvents"]),
+                   spans_dropped=tracer.dropped_spans),
+        profile=profile, launches=on_rec["paged_attention_launches"],
+        phase_sec=time.perf_counter() - t_phase, device=device_name(dev),
+        nvidia_smi=nvidia_smi_or_cpu(dev), ok=not problems,
+        problems=problems)
+    del predict
+    gc_collect()
+    emit("telemetry_serve_flagship", **line)
+    if problems:
+        raise AssertionError("telemetry_serve_flagship: "
                              + "; ".join(problems))
     return line
 
@@ -6551,6 +6851,8 @@ def main():
     fused = phase_fused_qkv_flagship(tree, prefix)
     del prefix["rows"], prefix["f32_paged_tokens"]
     lap("fused_qkv_flagship")
+    tele = phase_telemetry_serve_flagship(tree)
+    lap("telemetry_serve_flagship")
     phase_flash_cases()
     phase_flash_repeat()
     flash = phase_flash_timing()
@@ -6610,6 +6912,7 @@ def main():
         hot_swap_launches=swap["launches"],
         fused_export_launches=fused["export_serve"][
             "paged_attention_launches"],
+        telemetry_launches=tele["launches"],
     )] + [
         kernel_entry("flash_" + name, kernel, jax_flash + line,
                      train["launches"][name], flash[name],

@@ -33,8 +33,11 @@ JAX package's ``hot_swap.py``).
   commit the swap; a canary failure or an error in that window rolls
   back and quarantines the step.
 
-Not ported (ROADMAP queue A, telemetry): the swap's spans, marks and
-counters; the engine's ``stats`` carry the swap lifecycle.
+Every transition is telemetry: the spans ``swap_ingest`` (here) and
+``swap`` (the engine), the marks ``checkpoint_quarantined`` (here),
+``swap_apply``, ``swap_commit`` and ``swap_rollback`` (the engine), and
+the counters ``serving.checkpoints_quarantined``, ``serving.swaps``,
+``serving.swap_commits`` and ``serving.swap_rollbacks``.
 """
 
 import json
@@ -42,6 +45,8 @@ import logging
 import os
 import threading
 import time
+
+from tensorflowonspark_tpu_torch import telemetry
 
 logger = logging.getLogger(__name__)
 
@@ -309,6 +314,9 @@ class CheckpointWatcher(object):
         self.quarantined = []   # ordered records for callers/tests
         self.stats = {"scans": 0, "ingested": 0, "quarantined": 0,
                       "offered": 0, "ingest_sec": []}
+        self._tracer = telemetry.get_tracer()
+        self._m_quar = telemetry.get_registry().counter(
+            "serving.checkpoints_quarantined")
         self._stop = threading.Event()
         self._thread = None
         if background:
@@ -343,15 +351,16 @@ class CheckpointWatcher(object):
     def _ingest(self, step):
         step_dir = os.path.join(self.root, str(step))
         t0 = time.perf_counter()
-        if self._ingest_delay:
-            time.sleep(float(self._ingest_delay))
-        try:
-            w = validate_checkpoint(step_dir, step, expect=self.expect,
-                                    canary_fn=self.canary_fn,
-                                    device=self.device)
-        except CheckpointRejected as e:
-            self._record_quarantine(step, step_dir, e.kind, e)
-            return None
+        with self._tracer.span("swap_ingest", trace="swap", step=step):
+            if self._ingest_delay:
+                time.sleep(float(self._ingest_delay))
+            try:
+                w = validate_checkpoint(step_dir, step, expect=self.expect,
+                                        canary_fn=self.canary_fn,
+                                        device=self.device)
+            except CheckpointRejected as e:
+                self._record_quarantine(step, step_dir, e.kind, e)
+                return None
         self.stats["ingested"] += 1
         self.stats["ingest_sec"].append(time.perf_counter() - t0)
         return w
@@ -362,6 +371,11 @@ class CheckpointWatcher(object):
         self._quarantined[step] = rec
         self.quarantined.append(rec)
         self.stats["quarantined"] += 1
+        self._m_quar.inc()
+        self._tracer.mark(
+            "checkpoint_quarantined", trace="swap", severity="warn",
+            step=step, kind=kind,
+        )
         logger.warning("hot-swap: quarantined checkpoint step %s (%s): %s",
                        step, kind, message)
 
@@ -431,6 +445,11 @@ def flag_probation_fault(engine, reason="slo_burn", count=1):
     if getattr(engine, "_prev_weights", None) is None:
         return False
     engine._probation_errors += max(1, int(count))
+    telemetry.get_tracer().mark(
+        "probation_slo_fault", trace="serve", severity="warn",
+        reason=str(reason),
+        weight_generation=engine.stats.get("weight_generation"),
+    )
     logger.warning("probation fault (%s) counted against weight "
                    "generation %s", reason,
                    engine.stats.get("weight_generation"))

@@ -1542,8 +1542,6 @@ _UNPORTED_KNOBS = {
     "tp": "TP",
     "mesh_shape": "TP",
     "disaggregate": "disaggregation",
-    "profile_dir": "the engine's telemetry plane",
-    "profile_steps": "the engine's telemetry plane",
 }
 
 
@@ -1627,6 +1625,9 @@ def serving_builder(params, config):
       contiguous decoder of the predictor, one per slot geometry on the
       paged layout (page indices mean something only in their pool).
       The memoized decoders keep it warm across jobs.
+    - ``profile_dir`` (with ``profile_steps``) has the continuous
+      engine trace its first decode chunks with ``torch.profiler``
+      (:func:`..tensorboard.start_profile`) into that directory.
     """
     cfg_fields = {f.name for f in dataclasses.fields(TransformerConfig)}
     knob_registry.validate_keys(config, cfg_fields | {"device"})
@@ -1752,6 +1753,13 @@ def serving_builder(params, config):
     predict.make_slot_decoder = make_slot_decoder
     predict.max_new_tokens = max_new
     predict.eos_id = eos_id
+    if config.get("profile_dir"):
+        # the serving engine starts the trace and counts decode chunks
+        # as its steps
+        predict.profile = {
+            "dir": str(config["profile_dir"]),
+            "steps": int(config.get("profile_steps", 0)) or None,
+        }
     return predict
 
 

@@ -18,12 +18,12 @@ serving export names its predictor's builder in its metadata
 Everything shipped to an executor is a module-level function or a
 ``functools.partial`` of one (the engine pickles by reference), so a
 user ``train_fn``, ``export_fn`` or ``predictor_builder`` must be
-module-level too.  The reference's telemetry accessors
-(``telemetrySnapshot``, ``traceEvents``) and ``setTenantCol``
-raise ``NotImplementedError`` naming their ROADMAP item.
-``setCheckpointDir`` has each executor's continuous engine watch a
-``publish_for_serving`` root and hot-swap validated new weights
-mid-transform (:mod:`.hot_swap`).
+module-level too.  ``setTenantCol`` maps a column onto the reserved
+``tenant`` serving input (the usage ledger charges each row to it);
+``TFModel.telemetrySnapshot`` and ``traceEvents`` read this process's
+registry and tracer.  ``setCheckpointDir`` has each executor's
+continuous engine watch a ``publish_for_serving`` root and hot-swap
+validated new weights mid-transform (:mod:`.hot_swap`).
 """
 
 import copy
@@ -32,12 +32,7 @@ import json
 import logging
 import os
 
-from .utils import not_ported as _not_ported
-
 logger = logging.getLogger(__name__)
-
-#: ROADMAP items of the planes the pipeline's refused knobs need
-_TELEMETRY = "the engine's telemetry plane"
 
 
 class Namespace(object):
@@ -82,16 +77,12 @@ class Param(object):
         self.default = default
 
 
-def _mixin(param_name, doc, default=None, cap=None, unported=None):
-    """A ``Has<Cap>`` mixin class with ``get<Cap>``/``set<Cap>``.  With
-    ``unported`` (a ROADMAP item) the setter raises
-    ``NotImplementedError`` naming it."""
+def _mixin(param_name, doc, default=None, cap=None):
+    """A ``Has<Cap>`` mixin class with ``get<Cap>``/``set<Cap>``."""
     cap = cap or "".join(w.capitalize() for w in param_name.split("_"))
     param = Param(param_name, doc, default)
 
     def setter(self, value):
-        if unported is not None:
-            raise _not_ported("set" + cap, unported)
         self._paramMap[param_name] = value
         return self
 
@@ -157,7 +148,7 @@ HasTenantCol = _mixin(
     "tenant_col",
     "input column carrying the per-request tenant key for the usage "
     "ledger (mapped to the reserved 'tenant' serving input)",
-    cap="TenantCol", unported=_TELEMETRY,
+    cap="TenantCol",
 )
 #: a data.preprocess.make_preprocess kwargs dict: on TFModel it is fused
 #: in front of the predictor on the device (serving.with_preprocess); on
@@ -442,8 +433,6 @@ def _run_model_iter(rows, args, predictor_builder=None):
     yields output dict rows as they are produced."""
     from . import serving
 
-    if getattr(args, "tenant_col", None):
-        raise _not_ported("tenant_col", _TELEMETRY)
     preprocess = getattr(args, "preprocess", None)
     model_config = getattr(args, "model_config", None)
     key = (
@@ -465,13 +454,25 @@ def _run_model_iter(rows, args, predictor_builder=None):
     return serving.predict_rows(
         _TRANSFORM_STATE["predict"],
         rows,
-        input_mapping=dict(args.input_mapping or {}),
+        input_mapping=_model_inputs(args),
         output_mapping=args.output_mapping,
         batch_size=args.batch_size,
         schedule=getattr(args, "schedule", None) or "static",
         on_error=getattr(args, "on_error", None) or "raise",
         checkpoint_dir=getattr(args, "checkpoint_dir", None) or None,
     )
+
+
+def _model_inputs(args):
+    """The transform's input mapping, with ``setTenantCol``'s column
+    mapped onto the reserved ``tenant`` serving input."""
+    from .serving_engine import TENANT_INPUT
+
+    mapping = dict(args.input_mapping or {})
+    tenant_col = getattr(args, "tenant_col", None)
+    if tenant_col:
+        mapping[tenant_col] = TENANT_INPUT
+    return mapping
 
 
 def _run_model(rows, args, predictor_builder=None):
@@ -551,10 +552,17 @@ class TFModel(TFParams, *_MODEL_MIXINS):
         return self._transform(dataset, num_partitions)
 
     def telemetrySnapshot(self):
-        raise _not_ported("TFModel.telemetrySnapshot", _TELEMETRY)
+        """This process's metrics registry as a plain-dict snapshot
+        (the driver's view when the model serves in-process)."""
+        from . import telemetry
+
+        return telemetry.get_registry().snapshot()
 
     def traceEvents(self):
-        raise _not_ported("TFModel.traceEvents", _TELEMETRY)
+        """This process's recorded spans as Chrome-trace JSON."""
+        from . import telemetry
+
+        return telemetry.get_tracer().export_chrome()
 
     def _transform(self, dataset, num_partitions=None):
         from .engine import Engine, LocalEngine, SparkEngine
@@ -602,8 +610,9 @@ class TFModel(TFParams, *_MODEL_MIXINS):
         from .data import spark_io
 
         if _is_spark_dataframe(dataset):
-            # ship only the predictor's input columns to the map
-            dataset = dataset.select(*sorted(args.input_mapping))
+            # ship only the predictor's input columns (and the tenant
+            # column, which the reference drops here) to the map
+            dataset = dataset.select(*sorted(_model_inputs(args)))
         out_rdd = engine.map_partitions_native(
             functools.partial(_transform_native_partition, args,
                               self.predictor_builder), dataset)

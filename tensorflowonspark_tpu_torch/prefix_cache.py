@@ -24,10 +24,11 @@ page indices of a :class:`PagePool` on the paged layout, where
 ``release_fn``/``on_insert`` keep the pool's refcounts in step with the
 nodes' lives.  All bookkeeping is on the host.
 
+The cache's counters have registry twins (``prefix_cache.hits``,
+``misses``, ``tokens_saved``, ``evictions``, the ``bytes_used`` gauge).
+
 Not ported (ROADMAP queue A, disaggregation): the pool's handoff leases
-(``begin_handoff``, ``end_handoff``, ``reap_orphans``, ``clock=``).  The
-telemetry twins of the counters come with the telemetry plane; the plain
-counters are here.
+(``begin_handoff``, ``end_handoff``, ``reap_orphans``, ``clock=``).
 """
 
 import hashlib
@@ -216,6 +217,15 @@ class PrefixCache(object):
         self.tokens_saved = 0  # prompt tokens not prefilled again
         self.evictions = 0     # blocks evicted (budget or pressure)
         self.insert_drops = 0  # inserts dropped: the budget is all pinned
+        # registry twins of the counters (null metrics when disabled)
+        from tensorflowonspark_tpu_torch import telemetry
+
+        reg = telemetry.get_registry()
+        self._m_hits = reg.counter("prefix_cache.hits")
+        self._m_misses = reg.counter("prefix_cache.misses")
+        self._m_tokens_saved = reg.counter("prefix_cache.tokens_saved")
+        self._m_evictions = reg.counter("prefix_cache.evictions")
+        self._m_bytes = reg.gauge("prefix_cache.bytes_used")
 
     # -- lookup / pin ---------------------------------------------------
 
@@ -250,8 +260,11 @@ class PrefixCache(object):
         if nodes:
             self.hits += 1
             self.tokens_saved += matched
+            self._m_hits.inc()
+            self._m_tokens_saved.inc(matched)
         else:
             self.misses += 1
+            self._m_misses.inc()
         return Lease(nodes, matched)
 
     def release(self, lease):
@@ -303,6 +316,7 @@ class PrefixCache(object):
                 self.bytes_used += child.nbytes
                 self.n_nodes += 1
                 inserted += 1
+                self._m_bytes.set(self.bytes_used)
                 if on_insert is not None:
                     on_insert(payload)
             cur = child
@@ -342,6 +356,8 @@ class PrefixCache(object):
         self.bytes_used -= victim.nbytes
         self.n_nodes -= 1
         self.evictions += 1
+        self._m_evictions.inc()
+        self._m_bytes.set(self.bytes_used)
         return True
 
     def evict_blocks(self, n=1):

@@ -6,9 +6,11 @@ schedule: ``"static"`` (the default: fixed-size batches, ragged prompts
 left-padded, each batch one ``predict`` call) or ``"continuous"``
 (in-flight batching through the port's
 :class:`~tensorflowonspark_tpu_torch.serving_engine.ServingEngine`, with
-its shedding, deadlines, watchdog and live weight hot swap).  Fleet
-replicas and the telemetry histogram and usage ledger raise
-``NotImplementedError``.
+its shedding, deadlines, watchdog, live weight hot swap and telemetry).
+Both schedules observe each request's latency into one histogram
+(:func:`~.serving_engine.latency_summary`) and write one usage-ledger
+row per request under its :data:`TENANT_INPUT` tenant.  Fleet replicas
+raise ``NotImplementedError``.
 
 :func:`main` is the batch-inference command line (``python -m
 tensorflowonspark_tpu_torch.serving``): an export over TFRecords,
@@ -24,6 +26,7 @@ either package.
 
 import hashlib
 import importlib
+import itertools
 import json
 import logging
 import os
@@ -32,16 +35,20 @@ import time
 
 import numpy as np
 
-from tensorflowonspark_tpu_torch import serving_engine
+from tensorflowonspark_tpu_torch import serving_engine, telemetry
 from tensorflowonspark_tpu_torch.serving_engine import (  # noqa: F401
     BUDGET_INPUT,
     DEADLINE_INPUT,
+    TENANT_INPUT,
+    TRACE_INPUT,
     RequestError,
     RequestValidationError,
     ServingEngine,
     ServingError,
     apply_output_mapping,
     error_record,
+    latency_histogram,
+    latency_summary,
 )
 from tensorflowonspark_tpu_torch.utils import not_ported as _not_ported
 
@@ -98,10 +105,15 @@ def _stack_ragged_left(values, pad_value, multiple=1, cap=None):
     return out, pads
 
 
-def _validate_static_row(row, idx, input_mapping):
+#: per-process static-job sequence (the ledger rows' namespace)
+_STATIC_JOB_SEQ = itertools.count(1)
+
+
+def _validate_static_row(row, idx, input_mapping, tenant_col=None):
     """Static-schedule admission: every mapped input column must be
     present (a typed ``missing_input`` error naming the request and the
-    column)."""
+    column), and a mapped tenant column passes
+    :func:`~.serving_engine.validate_tenant`; returns the tenant."""
     for col in sorted(input_mapping):
         if col not in row:
             raise serving_engine.RequestValidationError(
@@ -112,6 +124,9 @@ def _validate_static_row(row, idx, input_mapping):
                 ),
                 kind="missing_input", request_index=idx,
             )
+    if tenant_col is not None:
+        return serving_engine.validate_tenant(row, idx, tenant_col)
+    return None
 
 
 def _predict_rows_static(predict, rows, input_mapping, output_mapping,
@@ -122,14 +137,22 @@ def _predict_rows_static(predict, rows, input_mapping, output_mapping,
     ``batch_size`` when ``pad_to_batch`` (outputs cut back).  With
     ``on_error="record"`` a failed batch is re-run row by row at the same
     padded shape and only the rows that fail alone become error records.
-    ``stats["latency_sec"]`` gets each request's seconds from its pull
-    off ``rows`` to its emission."""
-    serving_engine.refuse_reserved_inputs(input_mapping)
+    A request's seconds from its pull off ``rows`` to its emission go
+    into the shared latency histogram and ``stats["latency_sec"]``, and
+    its tokens and tenant into a usage-ledger row (``sj<job>-req<i>``)."""
     cols = sorted(input_mapping)
     column_padding = getattr(predict, "column_padding", None) or {}
     submit_t = {}
     if stats is not None:
         stats.setdefault("latency_sec", {})
+    lat_hist = latency_histogram()
+    ledger = telemetry.get_ledger()
+    job = "sj%d-" % next(_STATIC_JOB_SEQ)
+    tenant_col = next((c for c in input_mapping
+                       if input_mapping[c] == TENANT_INPUT), None)
+    prompt_cols = [c for c in input_mapping
+                   if input_mapping[c] in column_padding]
+    tenants, tokens_in = {}, {}
 
     def _assemble(chunk_rows, n_pad):
         batch = {}
@@ -202,17 +225,42 @@ def _predict_rows_static(predict, rows, input_mapping, output_mapping,
 
     def _emit(flushed):
         for idx, r in flushed:
+            rid = job + "req%d" % idx
             t_sub = submit_t.pop(idx, None)
-            if t_sub is not None and stats is not None:
-                stats["latency_sec"][idx] = time.monotonic() - t_sub
+            lat = None
+            if t_sub is not None:
+                lat = time.monotonic() - t_sub
+                lat_hist.observe(lat, exemplar=rid)
+                if stats is not None:
+                    stats["latency_sec"][idx] = lat
+            if ledger.enabled:
+                toks_out = 0
+                if isinstance(r, dict) and "error" not in r:
+                    if "generated_len" in r:
+                        toks_out = int(np.asarray(r["generated_len"]))
+                    elif "generated" in r:
+                        toks_out = int(np.asarray(r["generated"]).size)
+                ledger.record(rid, tenant=tenants.pop(idx, None),
+                              tokens_in=tokens_in.pop(idx, 0),
+                              tokens_out=toks_out, latency_sec=lat)
             yield r
 
     buf = []  # ("ok", row, idx) | ("rec", error_record, idx), input order
     for idx, row in enumerate(rows):
         submit_t[idx] = time.monotonic()
         try:
-            _validate_static_row(row, idx, input_mapping)
+            tenant = _validate_static_row(row, idx, input_mapping,
+                                          tenant_col)
             buf.append(("ok", row, idx))
+            if ledger.enabled and isinstance(row, dict):
+                if tenant is not None:
+                    tenants[idx] = tenant
+                if prompt_cols:
+                    try:
+                        tokens_in[idx] = int(
+                            np.asarray(row[prompt_cols[0]]).size)
+                    except (TypeError, ValueError):
+                        pass  # a poison cell fails in predict, not here
         except serving_engine.RequestValidationError as e:
             if on_error == "raise":
                 raise
@@ -596,6 +644,7 @@ def main(argv=None):
     out_path = fs_utils.join(args.output, "part-00000.jsonl")
     count = 0
     stats = {}
+    lat_base = latency_histogram().snapshot()
     kwargs = {}
     if args.schedule == "continuous":
         kwargs = dict(
@@ -633,14 +682,15 @@ def main(argv=None):
                     stats.get("swap_commits", 0), stats.get("rollbacks", 0),
                     stats.get("swap_requeued", 0),
                     stats.get("weight_generation", 0))
-    latency = sorted((stats.get("latency_sec") or {}).values())
-    if latency:
+    # the percentiles of the shared histogram, scoped to this run: the
+    # same rule on both schedules
+    summ = latency_summary(since=lat_base)
+    if summ["count"]:
         logger.info(
             "%s schedule: %d request(s)%s, per-request latency "
-            "p50=%.1fms p99=%.1fms", args.schedule, len(latency),
+            "p50=%.1fms p99=%.1fms", args.schedule, summ["count"],
             " over %d chunks" % stats["chunks"] if stats.get("chunks")
-            else "", 1e3 * float(np.percentile(latency, 50)),
-            1e3 * float(np.percentile(latency, 99)))
+            else "", summ["p50_ms"], summ["p99_ms"])
     logger.info("wrote %d predictions to %s", count, out_path)
     return count
 

@@ -33,12 +33,23 @@ input order, a failed request as a typed record at its position.
   back.  :meth:`ServingEngine.drain` stops admissions for a graceful
   shutdown; :meth:`ServingEngine.request_retune` changes
   :attr:`ServingEngine.RETUNABLE` knobs between chunks.
+- **Telemetry** (:mod:`.telemetry`): the ``serving.*`` counters, the
+  latency, TTFT and queue-wait histograms (shared with the static
+  schedule: :func:`latency_summary`), a span trace per request
+  (``admission``, ``queue_wait``, ``prefill``, one ``decode_chunk`` per
+  chunk on every in-flight request's trace, then the ``emit`` mark),
+  journal marks of every shed, expiry, watchdog fire and swap, the usage
+  ledger's row per request (decode chip-seconds and KV page-seconds
+  accrued per chunk on the request's record and settled once at its end,
+  under the tenant of the :data:`TENANT_INPUT` column), the flight
+  recorder, the ``"serving"`` status provider and, with the builder's
+  ``profile_dir``, a ``torch.profiler`` trace of the first decode
+  chunks.  None of it synchronises with the device: chunk times are host
+  intervals that end where the chunk's tokens reach the host anyway.
 
-Not ported yet (ROADMAP queue A): telemetry, the usage ledger, the
-journal, tracing and the flight recorder (the ``tenant`` and
-``trace_id`` reserved inputs raise ``NotImplementedError``), and
-prefill/decode disaggregation.  Faults for tests come from
-:mod:`.testing.chaos` (``wedge_dispatch`` through ``TFOS_CHAOS_PLAN``).
+Not ported yet (ROADMAP queue A): prefill/decode disaggregation.  Faults
+for tests come from :mod:`.testing.chaos` (``wedge_dispatch`` through
+``TFOS_CHAOS_PLAN``).
 """
 
 import contextlib
@@ -46,23 +57,87 @@ import logging
 import queue as queue_mod
 import threading
 import time
+import weakref
 
 import numpy as np
 
+from tensorflowonspark_tpu_torch import telemetry
+from tensorflowonspark_tpu_torch.prefix_cache import pages_for_tokens
+from tensorflowonspark_tpu_torch.telemetry import catalog as _catalog
 from tensorflowonspark_tpu_torch.utils import not_ported as _not_ported
 
 logger = logging.getLogger(__name__)
 
+#: the request-latency histogram both schedules observe (submit to emit)
+LATENCY_METRIC = "serving.request_latency_sec"
+#: the time-to-first-token histogram: submit to the first token's
+#: arrival on the host
+TTFT_METRIC = "serving.ttft_sec"
+
+
+def latency_histogram():
+    """The process-wide request-latency histogram (:data:`LATENCY_METRIC`)."""
+    return telemetry.get_registry().histogram(LATENCY_METRIC)
+
+
+def ttft_histogram():
+    """The process-wide time-to-first-token histogram
+    (:data:`TTFT_METRIC`)."""
+    return telemetry.get_registry().histogram(TTFT_METRIC)
+
+
+def _summary(hist, name, since):
+    snap = hist.snapshot()
+    if since:
+        snap = telemetry.snapshot_delta(
+            {"histograms": {name: snap}}, {"histograms": {name: since}},
+        )["histograms"][name]
+    return {
+        "count": int(snap.get("count", 0)),
+        "p50_ms": round(1e3 * telemetry.histogram_percentile(snap, 50), 3),
+        "p99_ms": round(1e3 * telemetry.histogram_percentile(snap, 99), 3),
+    }
+
+
+def latency_summary(since=None):
+    """``{"count", "p50_ms", "p99_ms"}`` of the shared latency histogram;
+    ``since`` (an earlier ``latency_histogram().snapshot()``) scopes it
+    to one job.  Zeros when telemetry is off.  The histogram interpolates
+    inside its 1.25-ratio buckets, so it agrees with a nearest-rank
+    percentile of ``stats["latency_sec"]`` to the bucket width."""
+    return _summary(latency_histogram(), LATENCY_METRIC, since)
+
+
+def ttft_summary(since=None):
+    """:func:`latency_summary` of the TTFT histogram."""
+    return _summary(ttft_histogram(), TTFT_METRIC, since)
+
+
 #: reserved input name: a row column mapped to it carries that request's
 #: token budget (evicted after ``min(max_new, budget)`` tokens)
-BUDGET_INPUT = "max_new"
+BUDGET_INPUT = _catalog.BUDGET_COLUMN
 #: reserved input name: a row column mapped to it carries that request's
 #: deadline in seconds from submission
-DEADLINE_INPUT = "deadline_sec"
-#: reserved input names of the telemetry plane, not ported yet; mapping
-#: a column to one raises NotImplementedError
-TENANT_INPUT = "tenant"
-TRACE_INPUT = "trace_id"
+DEADLINE_INPUT = _catalog.DEADLINE_COLUMN
+#: reserved input name: a row column mapped to it carries that request's
+#: tenant key, under which the usage ledger charges it (a non-empty
+#: string, checked at admission on both schedules; rows without one
+#: land on ``telemetry.ledger.DEFAULT_TENANT``)
+TENANT_INPUT = _catalog.TENANT_COLUMN
+#: reserved input name: a row column mapped to it carries the request's
+#: trace id (a non-empty string); unmapped requests trace as ``req<N>``
+TRACE_INPUT = _catalog.TRACE_COLUMN
+
+#: every column name the serving surface reserves
+RESERVED_INPUTS = (
+    BUDGET_INPUT, DEADLINE_INPUT, TENANT_INPUT, TRACE_INPUT,
+)
+
+if RESERVED_INPUTS != _catalog.RESERVED_INPUT_COLUMNS:
+    raise ImportError(
+        "serving_engine.RESERVED_INPUTS drifted from "
+        "telemetry.catalog.RESERVED_INPUT_COLUMNS: %r != %r"
+        % (RESERVED_INPUTS, _catalog.RESERVED_INPUT_COLUMNS))
 
 POLICIES = ("block", "reject", "degrade")
 ON_ERROR = ("raise", "record")
@@ -91,26 +166,14 @@ class WatchdogTimeout(ServingError):
     """The decode watchdog gave up on a wedged chunk."""
 
 
-def refuse_reserved_inputs(input_mapping):
-    """Raise ``NotImplementedError`` when a row column is mapped to a
-    reserved input of the telemetry plane (the usage ledger's tenant,
-    the trace id); both schedules call it."""
-    for name, plane in ((TENANT_INPUT, "the usage ledger"),
-                        (TRACE_INPUT, "request tracing")):
-        if name in input_mapping.values():
-            raise _not_ported(
-                "the reserved input {0!r} ({1})".format(name, plane),
-                "the engine's robustness and telemetry planes",
-            )
-
-
 def error_record(kind, request_index, message, tokens_done=0,
                  partial=None):
     """The typed record a failed, shed or expired request yields at its
     input-order position: ``{"error": {"kind", "request_index",
     "message", "tokens_done"[, "partial"]}}``.  ``kind`` is one of
     ``missing_input`` / ``bad_dtype`` / ``bad_shape`` / ``empty_prompt``
-    / ``too_long`` / ``bad_budget`` / ``bad_deadline`` (validation),
+    / ``too_long`` / ``bad_budget`` / ``bad_deadline`` / ``bad_tenant`` /
+    ``bad_trace`` (validation),
     ``admit`` / ``predict`` (per-request capture), ``shed`` (admission
     control), ``deadline`` (expiry, with the committed ``partial``
     tokens) or ``drained`` (:meth:`ServingEngine.drain`)."""
@@ -123,6 +186,30 @@ def error_record(kind, request_index, message, tokens_done=0,
     if partial is not None:
         rec["partial"] = [int(t) for t in partial]
     return {"error": rec}
+
+
+def validate_tenant(row, idx, tenant_col):
+    """The tenant check of both schedules: the :data:`TENANT_INPUT`
+    column must hold a non-empty string (numpy strings and UTF-8 bytes
+    normalize); anything else is a :class:`RequestValidationError` of
+    kind ``bad_tenant`` naming the request and the value."""
+    v = row[tenant_col]
+    if isinstance(v, np.str_):
+        v = str(v)
+    if isinstance(v, bytes):
+        try:
+            v = v.decode("utf-8")
+        except UnicodeDecodeError:
+            v = None
+    if not isinstance(v, str) or not v:
+        raise RequestValidationError(
+            "request {0}: tenant column {1!r} must hold a non-empty "
+            "string tenant key, got {2!r}".format(
+                idx, tenant_col, row[tenant_col]
+            ),
+            kind="bad_tenant", request_index=idx,
+        )
+    return v
 
 
 def apply_output_mapping(out, output_mapping):
@@ -214,7 +301,8 @@ class ServingEngine(object):
       predict: the generation predictor.
       input_mapping: ``{column: input_name}``; exactly one column maps
         to the ragged prompt input, optionally one each to
-        :data:`BUDGET_INPUT` and :data:`DEADLINE_INPUT`.
+        :data:`BUDGET_INPUT`, :data:`DEADLINE_INPUT`,
+        :data:`TENANT_INPUT` and :data:`TRACE_INPUT`.
       output_mapping: optional ``{output_name: column}`` rename.
       num_slots: in-flight KV-cache slots.
       chunk: decode steps per dispatch (None = predictor default).
@@ -261,7 +349,6 @@ class ServingEngine(object):
         if disaggregate or getattr(predict, "disaggregate", False):
             raise _not_ported("prefill/decode disaggregation",
                               "disaggregation")
-        refuse_reserved_inputs(input_mapping)
         factory = getattr(predict, "make_slot_decoder", None)
         if factory is None:
             raise ValueError(
@@ -289,6 +376,14 @@ class ServingEngine(object):
         self.deadline_col = next(
             (c for c in input_mapping
              if input_mapping[c] == DEADLINE_INPUT), None
+        )
+        self.tenant_col = next(
+            (c for c in input_mapping
+             if input_mapping[c] == TENANT_INPUT), None
+        )
+        self.trace_col = next(
+            (c for c in input_mapping
+             if input_mapping[c] == TRACE_INPUT), None
         )
         self.policy = policy
         self.on_error = on_error
@@ -384,12 +479,111 @@ class ServingEngine(object):
         self._reuse_base = dict(self._decoder_reuse_stats())
         self._pending = []      # validated, waiting for a slot
         self._slot_req = {}     # slot -> in-flight request record
+        self._rids = {}         # input idx -> trace id (the emit marks)
         self._finished = {}     # input idx -> output row / record
         self._emit_next = 0
         self._n_in = 0
         self._exhausted = False
         self._chunk_index = 0
         self._t0 = self._clock()
+        self._init_telemetry(predict)
+
+    def _init_telemetry(self, predict):
+        """Resolve the metrics once (null ones when telemetry is off),
+        install the flight recorder, start a profile the predictor asks
+        for, and register the ``"serving"`` status provider."""
+        reg = telemetry.get_registry()
+        self._tracer = telemetry.get_tracer()
+        self._ledger = telemetry.get_ledger()
+        # page-seconds are counted in pages of the paged layout, else of
+        # the radix block, else of the fingerprint block
+        from tensorflowonspark_tpu_torch import prefix_cache as _pc
+
+        pc = getattr(self.decoder, "prefix_cache", None)
+        self._page_tokens = int(
+            getattr(self.decoder, "_page_tokens", 0)
+            or (pc.block_tokens if pc is not None else 0)
+            or _pc.FINGERPRINT_TOKENS
+        )
+        from tensorflowonspark_tpu_torch.telemetry import blackbox
+
+        blackbox.install()
+        self._m_lat = reg.histogram(LATENCY_METRIC)
+        self._m_ttft = reg.histogram(TTFT_METRIC)
+        self._m_queue_wait = reg.histogram("serving.queue_wait_sec")
+        self._m = {
+            "admitted": reg.counter("serving.admitted"),
+            "completed": reg.counter("serving.completed"),
+            "errors": reg.counter("serving.errors"),
+            "shed": reg.counter("serving.shed"),
+            "expired": reg.counter("serving.expired"),
+            "degraded": reg.counter("serving.degraded"),
+            "chunks": reg.counter("serving.chunks"),
+            "watchdog_fires": reg.counter("serving.watchdog_fires"),
+            "recovered": reg.counter("serving.recovered"),
+            "prefix_hit_admits": reg.counter("serving.prefix_hit_admits"),
+            "swaps": reg.counter("serving.swaps"),
+            "swap_commits": reg.counter("serving.swap_commits"),
+            "swap_rollbacks": reg.counter("serving.swap_rollbacks"),
+            "drained": reg.counter("serving.drained"),
+        }
+        self._m_gen = reg.gauge("serving.weight_generation")
+        self._m_gen.set(self.stats["weight_generation"])
+        self._profile = None
+        prof = getattr(predict, "profile", None)
+        if prof and prof.get("dir"):
+            from tensorflowonspark_tpu_torch import tensorboard
+
+            self._profile = tensorboard.start_profile(prof["dir"],
+                                                      prof.get("steps"))
+        # the provider holds the engine through a weakref: a finished
+        # engine, its decoder and the weights on the card must not stay
+        # alive for the status registry's sake
+        ref = weakref.ref(self)
+
+        def _serving_status():
+            eng = ref()
+            return {"finished": True} if eng is None else eng.health_status()
+
+        from tensorflowonspark_tpu_torch.telemetry import health
+
+        health.register_status_provider("serving", _serving_status)
+
+    def health_status(self):
+        """The engine's compact ``/status`` summary: load, the shed,
+        deadline and watchdog counts, the swap lifecycle, and its cost
+        row."""
+        pc = getattr(self.decoder, "prefix_cache", None)
+        return {
+            "slots": getattr(self.decoder, "num_slots", None),
+            "free_slots": max(
+                0, int(getattr(self.decoder, "num_slots",
+                               self.num_slots)) - len(self._slot_req)
+            ),
+            "in_flight": len(self._slot_req),
+            "queued": len(self._pending),
+            "queue_depth": self.queue_depth,
+            "prefix_blocks": len(pc) if pc is not None else 0,
+            "policy": self.policy,
+            "draining": self._draining,
+            "admitted": self.stats["admitted"],
+            "completed": self.stats["completed"],
+            "shed": self.stats["shed"],
+            "expired": self.stats["expired"],
+            "errors": self.stats["errors"],
+            "watchdog_fires": self.stats["watchdog_fires"],
+            "weight_generation": self.stats["weight_generation"],
+            "swaps": self.stats["swaps"],
+            "rollbacks": self.stats["rollbacks"],
+            "usage": {
+                "chip_sec": round(self.stats["decode_wall_sec"], 6),
+                "prefill_chip_sec": round(
+                    self.stats["prefill_wall_sec"], 6
+                ),
+                "tokens_out": self.stats["tokens_out"],
+                "prefix_tokens_saved": self.stats["prefix_tokens_saved"],
+            },
+        }
 
     def _new_watchdog(self):
         if self.watchdog_timeout is None:
@@ -417,7 +611,17 @@ class ServingEngine(object):
 
     # -- admission ------------------------------------------------------
 
-    def _validate(self, row, idx):
+    def _rid_of(self, row, idx):
+        """The request's trace id: the :data:`TRACE_INPUT` column's
+        string when it holds one (:meth:`_validate` rejects anything
+        else), else ``req<idx>``."""
+        if self.trace_col is not None and isinstance(row, dict):
+            v = row.get(self.trace_col)
+            if isinstance(v, str) and v:
+                return v
+        return "req%d" % idx
+
+    def _validate(self, row, idx, rid):
         """Admission-time request validation; returns the request
         record or raises :class:`RequestValidationError` naming the
         request index and the offending column."""
@@ -491,9 +695,23 @@ class ServingEngine(object):
                     "number: {2}".format(idx, self.deadline_col, e),
                     kind="bad_deadline", request_index=idx,
                 )
+        tenant = (validate_tenant(row, idx, self.tenant_col)
+                  if self.tenant_col is not None else None)
+        if self.trace_col is not None:
+            tv = row[self.trace_col]
+            if not isinstance(tv, str) or not tv:
+                raise RequestValidationError(
+                    "request {0}: trace column {1!r} must hold a "
+                    "non-empty string trace id, got {2!r}".format(
+                        idx, self.trace_col, tv
+                    ),
+                    kind="bad_trace", request_index=idx,
+                )
         now = self._clock()
         return {
             "idx": idx,
+            "rid": rid,
+            TENANT_INPUT: tenant,
             "prompt": prompt.astype(np.int32, copy=False),
             "budget": budget,
             "eos_at": None,
@@ -505,6 +723,22 @@ class ServingEngine(object):
     def _record(self, idx, kind, message, tokens_done=0, partial=None):
         self._finished[idx] = error_record(
             kind, idx, message, tokens_done=tokens_done, partial=partial
+        )
+
+    def _ledger_close(self, req, tokens_out, latency_sec=None):
+        """The request's one ledger crossing, at its terminal point: the
+        admission fields and the decode cost accrued on its record
+        (:meth:`_admit_free`, :meth:`_run_chunk`) settle together."""
+        self._ledger.settle(
+            req["rid"], tenant=req.get(TENANT_INPUT),
+            tokens_in=len(req["prompt"]),
+            wire_bytes=req.pop("wire_bytes_acc", 0),
+            prefix_tokens_saved=req.pop("prefix_saved_acc", 0),
+            queue_wait_sec=req.pop("queue_wait_acc", 0.0),
+            chip_sec=req.pop("chip_sec", 0.0),
+            prefill_chip_sec=req.pop("prefill_chip_sec", 0.0),
+            page_sec=req.pop("page_sec", 0.0),
+            tokens_out=tokens_out, latency_sec=latency_sec,
         )
 
     def _pull_one(self, it):
@@ -519,12 +753,17 @@ class ServingEngine(object):
                 return None
             idx = self._n_in
             self._n_in += 1
+            rid = self._rid_of(row, idx)
+            self._rids[idx] = rid
             try:
-                return self._validate(row, idx)
+                with self._tracer.span("admission", trace=rid):
+                    return self._validate(row, idx, rid)
             except RequestValidationError as e:
                 if self.on_error == "raise":
                     raise
                 self.stats["errors"] += 1
+                self._m["errors"].inc()
+                self._ledger.settle(rid, tokens_out=0)
                 self._record(idx, e.kind, e)
         return None
 
@@ -545,6 +784,13 @@ class ServingEngine(object):
                 if req is None:
                     return
                 self.stats["shed"] += 1
+                self._m["shed"].inc()
+                self._tracer.mark(
+                    "shed", trace=req["rid"], severity="warn",
+                    request_index=req["idx"], trace_id=req["rid"],
+                    queue_depth=self.queue_depth,
+                )
+                self._ledger_close(req, tokens_out=0)
                 self._record(
                     req["idx"], "shed",
                     "request {0} shed: admission queue full "
@@ -566,9 +812,12 @@ class ServingEngine(object):
         for req in self._pending:
             if req["deadline_at"] is not None and now > req["deadline_at"]:
                 self.stats["expired"] += 1
+                self._m["expired"].inc()
                 # a requeued request may carry committed tokens already
                 committed = [t for t in (req["out"] or [])
                              if isinstance(t, int)]
+                self._ledger_close(req, tokens_out=len(committed),
+                                   latency_sec=now - req["submit"])
                 self._record(
                     req["idx"], "deadline",
                     "request {0} expired after {1:.3f}s waiting for a "
@@ -620,17 +869,31 @@ class ServingEngine(object):
                     if shrunk < req["budget"]:
                         req["budget"] = shrunk
                         self.stats["degraded"] += 1
+                        self._m["degraded"].inc()
             prompt = req.get("resume_prompt", req["prompt"])
             # a requeued request's committed tokens count against its
             # budget: it needs room only for the rest (the reference asks
             # for the whole budget again, and fails a long prompt)
             kw = {} if "resume_prompt" not in req else {
                 "new_tokens": req["budget"] - len(req["out"] or ())}
+            rid = req["rid"]
+            wait = self._clock() - req["submit"]
+            self._m_queue_wait.observe(wait)
+            if self._tracer.enabled:
+                # the wait ended when this admit pass reached the request
+                self._tracer.add("queue_wait", time.perf_counter() - wait,
+                                 wait, trace=rid)
             t_admit0 = time.perf_counter()
             try:
-                # the first token comes back as an unsynchronised device
-                # scalar, resolved at the next chunk boundary
-                first = self.decoder.admit(slot, prompt, **kw)
+                with self._tracer.span("prefill", trace=rid) as sp:
+                    # the first token comes back as an unsynchronised
+                    # device scalar, resolved at the next chunk boundary
+                    first = self.decoder.admit(slot, prompt, **kw)
+                    cached = int(getattr(self.decoder,
+                                         "last_admit_cached_tokens", 0))
+                    sp.set("prefix_hit", cached > 0)
+                    if cached:
+                        sp.set("prefix_tokens", cached)
             except Exception as e:  # noqa: BLE001 - per-request capture
                 if self.on_error == "raise":
                     raise RequestError(
@@ -640,17 +903,37 @@ class ServingEngine(object):
                         kind="admit", request_index=req["idx"],
                     ) from e
                 self.stats["errors"] += 1
+                self._m["errors"].inc()
                 if self._prev_weights is not None:
                     # a failure inside the rollback window counts
                     # against the new generation
                     self._probation_errors += 1
+                self._ledger_close(req, tokens_out=0)
                 self._record(req["idx"], "admit", e)
                 continue  # the slot stays free for the next request
-            self.stats["prefill_wall_sec"] += time.perf_counter() - t_admit0
-            if int(getattr(self.decoder, "last_admit_cached_tokens", 0)):
+            t_admit = time.perf_counter() - t_admit0
+            self.stats["prefill_wall_sec"] += t_admit
+            if cached:
                 self.stats["prefix_hit_admits"] += 1
+                self._m["prefix_hit_admits"].inc()
             req["out"] = list(req["out"] or []) + [first]
+            req["admit_len"] = int(len(prompt))
             self.stats["admitted"] += 1
+            self._m["admitted"].inc()
+            if self._ledger.enabled:
+                # settled at the request's end (_ledger_close); a
+                # requeued request's wait since its submit includes
+                # decode charged already, so only a first admit adds it
+                req["prefill_chip_sec"] = req.get("prefill_chip_sec",
+                                                  0.0) + t_admit
+                req["wire_bytes_acc"] = req.get("wire_bytes_acc", 0) + int(
+                    prompt.nbytes)
+                if cached:
+                    req["prefix_saved_acc"] = req.get("prefix_saved_acc",
+                                                      0) + cached
+                if "resume_prompt" not in req:
+                    req["queue_wait_acc"] = req.get("queue_wait_acc",
+                                                    0.0) + wait
             self._slot_req[slot] = req
         return progressed
 
@@ -690,16 +973,40 @@ class ServingEngine(object):
                 self._recover()
                 return None
         self.stats["chunks"] += 1
-        self.stats["decode_wall_sec"] += time.perf_counter() - t_chunk0
+        self._m["chunks"].inc()
+        if self._profile is not None:
+            self._profile.step()
+        # a host interval ending where the tokens reached the host
+        dur = time.perf_counter() - t_chunk0
+        self.stats["decode_wall_sec"] += dur
+        if self._tracer.enabled:
+            # one dispatch served every in-flight lane: the same interval
+            # goes on each request's trace
+            for req in self._slot_req.values():
+                self._tracer.add("decode_chunk", t_chunk0, dur,
+                                 trace=req["rid"], chunk=idx)
+        if self._slot_req and self._ledger.enabled:
+            # the chunk's wall split by live slot share (the rows sum back
+            # to decode_wall_sec), and the pages each lane holds times the
+            # chunk's duration; plain adds on the request's own record,
+            # settled once at its end
+            share = dur / len(self._slot_req)
+            for req in self._slot_req.values():
+                ctx = req.get("admit_len", len(req["prompt"])) + len(
+                    req["out"] or ())
+                req["chip_sec"] = req.get("chip_sec", 0.0) + share
+                req["page_sec"] = req.get("page_sec", 0.0) + (
+                    pages_for_tokens(ctx, self._page_tokens) * dur)
         self._update_reuse_stats()
         return block
 
-    def _teardown_and_requeue(self):
+    def _teardown_and_requeue(self, mark_event):
         """Shared by the watchdog and the swap path: every in-flight
         request's committed tokens are appended to its prompt, and the
         pair re-admits at the FRONT of the queue in input order (the
         lost chunk's tokens and any unresolved first token are dropped;
-        deadlines keep running)."""
+        deadlines keep running).  Each request gets a ``mark_event``
+        mark."""
         inflight = sorted(self._slot_req.values(), key=lambda r: r["idx"])
         self._slot_req.clear()
         self.decoder.reset()
@@ -712,6 +1019,13 @@ class ServingEngine(object):
                                 np.asarray(committed, np.int32)])
                 if committed else req["prompt"]
             )
+            self._tracer.mark(
+                mark_event, trace=req["rid"],
+                severity=("warn" if mark_event == "watchdog_recover"
+                          else "info"),
+                request_index=req["idx"], trace_id=req["rid"],
+                tokens_committed=len(committed),
+            )
         self._pending[:0] = inflight
         return inflight
 
@@ -720,10 +1034,16 @@ class ServingEngine(object):
         requests from their committed tokens, and start a fresh
         watchdog (the abandoned one may still post a stale result)."""
         self.stats["watchdog_fires"] += 1
+        self._m["watchdog_fires"].inc()
         if self._prev_weights is not None:
             self._probation_errors += 1
-        recovered = self._teardown_and_requeue()
+        self._tracer.mark(
+            "watchdog_fire", trace="serve", severity="page",
+            inflight=len(self._slot_req), chunk=self._chunk_index - 1,
+        )
+        recovered = self._teardown_and_requeue("watchdog_recover")
         self.stats["recovered"] += len(recovered)
+        self._m["recovered"].inc(len(recovered))
         self._watchdog = self._new_watchdog()
 
     # -- live weight swap / rollback -----------------------------------
@@ -748,6 +1068,7 @@ class ServingEngine(object):
     def _set_generation(self):
         gen = int(getattr(self.decoder, "weight_generation", 0))
         self.stats["weight_generation"] = gen
+        self._m_gen.set(gen)
         return gen
 
     #: the knobs :meth:`request_retune` may change: host-side scalars
@@ -770,7 +1091,9 @@ class ServingEngine(object):
         if not self._retune_request:
             return
         knobs, self._retune_request = self._retune_request, {}
+        applied = {}
         for name, value in knobs.items():
+            old = getattr(self, name)
             if name == "queue_depth":
                 value = max(1, int(value))
             elif value is not None:
@@ -780,6 +1103,9 @@ class ServingEngine(object):
                 if self._watchdog is not None:
                     self._watchdog.close()
                 self._watchdog = self._new_watchdog()
+            applied[name] = {"old": old, "new": value}
+        self._tracer.mark("engine_retune", trace="planner", severity="info",
+                          knobs=applied)
 
     def _quarantine(self, w, kind, message):
         if self.watcher is not None and w.path != "<request_swap>":
@@ -816,42 +1142,54 @@ class ServingEngine(object):
         and arm the rollback window (the previous weights stay
         resident)."""
         t0 = time.perf_counter()
-        requeued = self._teardown_and_requeue()
-        self._swap_event("swap", w, requeued)
-        snapshot = self.decoder.snapshot_weights()
-        try:
-            # a background ingest's copy onto the card lands first
-            kw = {} if w.ready is None else {"ready": w.ready}
-            self.decoder.swap_weights(w.params, w.draft_params, **kw)
-        except Exception as e:  # noqa: BLE001 - typed quarantine
-            # nothing was installed: serving goes on with the old weights
-            logger.warning("hot-swap: install of step %s refused: %s",
-                           w.step, e)
-            self._quarantine(w, "shape_mismatch", e)
-            return
-        ok = True
-        if self.swap_canary:
+        with self._tracer.span("swap", trace="swap", step=w.step):
+            requeued = self._teardown_and_requeue("swap_requeue")
+            self._swap_event("swap", w, requeued)
+            snapshot = self.decoder.snapshot_weights()
             try:
-                ok = self.decoder.canary_check() is not False
-            except Exception:  # noqa: BLE001 - the canary is a verdict
-                ok = False
-        if not ok:
-            self.decoder.restore_weights(snapshot)
-            self.stats["rollbacks"] += 1
-            self._quarantine(
-                w, "canary_failed",
-                "post-install canary failed for step {0}; rolled back to "
-                "the previous generation".format(w.step),
-            )
-            self._set_generation()
-            return
+                # a background ingest's copy onto the card lands first
+                kw = {} if w.ready is None else {"ready": w.ready}
+                self.decoder.swap_weights(w.params, w.draft_params, **kw)
+            except Exception as e:  # noqa: BLE001 - typed quarantine
+                # nothing was installed: serving goes on with the old
+                # weights
+                logger.warning("hot-swap: install of step %s refused: %s",
+                               w.step, e)
+                self._quarantine(w, "shape_mismatch", e)
+                return
+            ok = True
+            if self.swap_canary:
+                try:
+                    ok = self.decoder.canary_check() is not False
+                except Exception:  # noqa: BLE001 - the canary is a verdict
+                    ok = False
+            if not ok:
+                self.decoder.restore_weights(snapshot)
+                self.stats["rollbacks"] += 1
+                self._m["swap_rollbacks"].inc()
+                self._quarantine(
+                    w, "canary_failed",
+                    "post-install canary failed for step {0}; rolled back "
+                    "to the previous generation".format(w.step),
+                )
+                self._tracer.mark(
+                    "swap_rollback", trace="swap", severity="page",
+                    step=w.step, reason="canary_failed",
+                )
+                self._set_generation()
+                return
         self._prev_weights = (snapshot, w)
         self._probation_clean = 0
         self._probation_errors = 0
         self.stats["swaps"] += 1
+        self._m["swaps"].inc()
         dt = time.perf_counter() - t0
         self.stats["swap_latency_sec"].append(round(dt, 6))
         gen = self._set_generation()
+        self._tracer.mark(
+            "swap_apply", trace="swap", step=w.step, generation=gen,
+            requeued=len(requeued), latency_sec=round(dt, 6),
+        )
         logger.info("hot-swap: step %s serving as generation %d (%d "
                     "in-flight requeued, %.1fms)", w.step, gen,
                     len(requeued), 1e3 * dt)
@@ -863,8 +1201,14 @@ class ServingEngine(object):
             return
         self._probation_clean += 1
         if self._probation_clean >= self.rollback_window:
+            _snapshot, w = self._prev_weights
             self._prev_weights = None
             self.stats["swap_commits"] += 1
+            self._m["swap_commits"].inc()
+            self._tracer.mark(
+                "swap_commit", trace="swap", step=w.step,
+                clean_requests=self._probation_clean,
+            )
 
     def _rollback(self, why):
         """Automatic rollback: requeue in-flight requests (their
@@ -873,13 +1217,18 @@ class ServingEngine(object):
         snapshot, w = self._prev_weights
         self._prev_weights = None
         self._probation_errors = 0
-        requeued = self._teardown_and_requeue()
+        requeued = self._teardown_and_requeue("swap_requeue")
         self._swap_event("rollback", w, requeued)
         self.decoder.restore_weights(snapshot)
         self.stats["rollbacks"] += 1
+        self._m["swap_rollbacks"].inc()
         self._quarantine(w, "rollback",
                          "rolled back from step {0}: {1}".format(w.step, why))
         gen = self._set_generation()
+        self._tracer.mark(
+            "swap_rollback", trace="swap", severity="page",
+            step=w.step, generation=gen, reason=why,
+        )
         logger.warning("hot-swap: rolled back step %s -> generation %d "
                        "(%s)", w.step, gen, why)
 
@@ -903,6 +1252,8 @@ class ServingEngine(object):
                 keep.append(req)  # requeued in-flight work re-admits
                 continue
             self.stats["drained"] += 1
+            self._m["drained"].inc()
+            self._ledger_close(req, tokens_out=0)
             self._record(
                 req["idx"], "drained",
                 "request {0} drained: engine stopped admissions "
@@ -911,10 +1262,13 @@ class ServingEngine(object):
             )
         self._pending = keep
 
-    def _drain_cancel_slots(self):
+    def _drain_cancel_slots(self, now):
         for slot, req in list(self._slot_req.items()):
             committed = [t for t in req["out"] if isinstance(t, int)]
             self.stats["drained"] += 1
+            self._m["drained"].inc()
+            self._ledger_close(req, tokens_out=len(committed),
+                               latency_sec=now - req["submit"])
             self._record(
                 req["idx"], "drained",
                 "request {0} cancelled by drain deadline; {1} "
@@ -938,6 +1292,7 @@ class ServingEngine(object):
             if "ttft" not in req:
                 req["ttft"] = self._clock() - req["submit"]
                 self.stats["ttft_sec"][req["idx"]] = req["ttft"]
+                self._m_ttft.observe(req["ttft"], exemplar=req["rid"])
             if self.eos_id is not None and last == self.eos_id:
                 req["eos_at"] = len(out) - 1
         for t in chunk_row:
@@ -961,10 +1316,15 @@ class ServingEngine(object):
         self._finished[req["idx"]] = apply_output_mapping(
             out, self.output_mapping
         )
+        lat = t_done - req["submit"]
         self.stats["completed"] += 1
         self.stats["tokens_out"] += int(gen_len)
-        self.stats["latency_sec"][req["idx"]] = t_done - req["submit"]
+        self.stats["latency_sec"][req["idx"]] = lat
         self.stats["done_at"][req["idx"]] = t_done - self._t0
+        self._m["completed"].inc()
+        # the trace id as exemplar: a tail bucket names its request
+        self._m_lat.observe(lat, exemplar=req["rid"])
+        self._ledger_close(req, tokens_out=int(gen_len), latency_sec=lat)
         self._note_clean_completion()
 
     def _expire_slot(self, slot, req, now):
@@ -972,6 +1332,14 @@ class ServingEngine(object):
         neighbours keep decoding undisturbed."""
         committed = [t for t in req["out"] if isinstance(t, int)]
         self.stats["expired"] += 1
+        self._m["expired"].inc()
+        self._tracer.mark(
+            "deadline_cancel", trace=req["rid"], severity="warn",
+            request_index=req["idx"], trace_id=req["rid"],
+            tokens_done=len(committed),
+        )
+        self._ledger_close(req, tokens_out=len(committed),
+                           latency_sec=now - req["submit"])
         self._record(
             req["idx"], "deadline",
             "request {0} cancelled after {1:.3f}s (deadline "
@@ -988,6 +1356,8 @@ class ServingEngine(object):
         """Stream completed rows in input order as soon as the head of
         the reorder buffer is ready."""
         while self._emit_next in self._finished:
+            self._tracer.mark("emit", trace=self._rids.pop(
+                self._emit_next, "req%d" % self._emit_next))
             yield self._finished.pop(self._emit_next)
             self._emit_next += 1
 
@@ -1044,10 +1414,12 @@ class ServingEngine(object):
                 if (self._draining
                         and self._drain_deadline_at is not None
                         and t_chunk > self._drain_deadline_at):
-                    self._drain_cancel_slots()
+                    self._drain_cancel_slots(t_chunk)
                 yield from self._drain_ready()
         finally:
             self._update_reuse_stats()
+            if self._profile is not None:
+                self._profile.stop()
             if self._watchdog is not None:
                 self._watchdog.close()
             if self._own_watcher and self.watcher is not None:

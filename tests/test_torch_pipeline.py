@@ -15,8 +15,9 @@
   transform's tokens.
 - ``_transform_native`` on the reference's duck-typed lazy DataFrame:
   laziness, the order of schema sources and the one-row probe.
-- What the pipeline does not port raises ``NotImplementedError`` naming
-  its ROADMAP item.
+- ``setTenantCol``, ``telemetrySnapshot`` and ``traceEvents`` behave as
+  the reference's; what the pipeline does not port raises
+  ``NotImplementedError`` naming its ROADMAP item.
 
 Greedy tokens are compared exactly (both decodes in f32, the JAX package
 through its ``gather`` paged decode), as ``tests/test_torch_serving_export.py``
@@ -179,11 +180,6 @@ def test_output_types_and_values_match_jax(i):
 
 
 @pytest.mark.parametrize("call,item", [
-    (lambda: tpl.TFModel().setTenantCol("tenant"),
-     "the engine's telemetry plane"),
-    (lambda: tpl.TFModel().telemetrySnapshot(),
-     "the engine's telemetry plane"),
-    (lambda: tpl.TFModel().traceEvents(), "the engine's telemetry plane"),
     (lambda: tpl.TFEstimator(_fn, {"num_ps": 1}).fit([]),
      "the rest: parameter-server nodes"),
     (lambda: tpl.TFEstimator(_fn).setNumPS(1).fit([]),
@@ -192,15 +188,70 @@ def test_output_types_and_values_match_jax(i):
      "the rest: tensorboard"),
     (lambda: tpl.TFEstimator(_fn).setModelDir("/logs").fit([]),
      "the rest: tensorboard"),
-    (lambda: tpl._run_model([], tpl.Namespace(tenant_col="t")),
-     "the engine's telemetry plane"),
-], ids=["setTenantCol", "telemetrySnapshot", "traceEvents",
-        "num_ps_arg", "num_ps", "tensorboard", "model_dir",
-        "tenant_col_arg"])
+], ids=["num_ps_arg", "num_ps", "tensorboard", "model_dir"])
 def test_pipeline_refuses_what_is_not_ported(call, item):
     # raised before any process starts
     with pytest.raises(NotImplementedError, match=item):
         call()
+
+
+def _served_model_args(pkg, export, tenant_col):
+    return (pkg.TFModel().setExportDir(export).setInputMapping(MAPPING)
+            .setSchedule("continuous").setBatchSize(SLOTS)
+            .setOnError("record").setTenantCol(tenant_col)
+            .merge_args_params())
+
+
+@pytest.mark.parametrize("case", ["setTenantCol", "telemetrySnapshot",
+                                  "traceEvents", "tenant_col_arg"])
+def test_pipeline_telemetry_matches_jax(case, request):
+    """Once refused: ``setTenantCol``, ``TFModel.telemetrySnapshot`` and
+    ``traceEvents`` behave as the JAX package's.  ``tenant_col_arg``
+    serves an export with the tenant column through both packages'
+    executor-side ``_run_model``: the same tokens, the same
+    ``bad_tenant`` record, and the same per-tenant ledger tokens."""
+    from tensorflowonspark_tpu import telemetry as jtel
+    from tensorflowonspark_tpu_torch import telemetry as ttel
+
+    if case == "setTenantCol":
+        got, want = (pkg.TFModel().setTenantCol("who") for pkg in (tpl, jpl))
+        assert got.getTenantCol() == want.getTenantCol() == "who"
+        assert (got.merge_args_params().tenant_col
+                == want.merge_args_params().tenant_col)
+    elif case == "telemetrySnapshot":
+        got, want = (pkg.TFModel().telemetrySnapshot() for pkg in (tpl, jpl))
+        assert sorted(got) == sorted(want) == ["counters", "gauges",
+                                               "histograms"]
+        json.dumps(got)
+    elif case == "traceEvents":
+        got, want = (pkg.TFModel().traceEvents() for pkg in (tpl, jpl))
+        assert sorted(got) == sorted(want)
+        assert isinstance(got["traceEvents"], list)
+        json.dumps(got)
+    else:
+        fitted = request.getfixturevalue("fitted")
+        rows = [dict(r, who="ab"[i % 2]) for i, r in enumerate(_prompts(6))]
+        rows[3]["who"] = ""
+        res = []
+        for pkg, tel, builder in ((tpl, ttel, None),
+                                  (jpl, jtel, _jax_builder)):
+            base = tel.get_ledger().snapshot()
+            out = pkg._run_model([dict(r) for r in rows],
+                                 _served_model_args(pkg, fitted["export"],
+                                                    "who"),
+                                 predictor_builder=builder)
+            delta = tel.ledger.snapshot_delta(tel.get_ledger().snapshot(),
+                                              base)["tenants"]
+            res.append((out, {t: (v["tokens_in"], v["tokens_out"])
+                              for t, v in delta.items()}))
+        (got, gl), (want, wl) = res
+        assert [r.get("error") for r in got] == [r.get("error")
+                                                 for r in want]
+        assert got[3]["error"]["kind"] == "bad_tenant"
+        ok = [i for i, r in enumerate(want) if "error" not in r]
+        assert _tokens([got[i] for i in ok]) == _tokens([want[i]
+                                                         for i in ok])
+        assert gl == wl and set(gl) >= {"a", "b"}
 
 
 def test_model_requires_export_dir_and_mapping():

@@ -129,7 +129,7 @@ def test_output_mapping_and_missing_column(tree):
     ("ngram", 3),
     ("speculative", True), ("draft_config", {"num_layers": 1}),
     ("tp", 2), ("mesh_shape", {"model": 2}), ("disaggregate", True),
-    ("auto", True), ("profile_dir", "/nonexistent"),
+    ("auto", True),
 ])
 def test_unported_builder_knobs_raise(tree, knob, value):
     with pytest.raises(NotImplementedError):
@@ -166,6 +166,17 @@ def test_ported_builder_knobs_serve_like_jax(tree, knob, value):
     _assert_same(got, want)
 
 
+@pytest.mark.parametrize("extra", [
+    {"profile_dir": "/profiles"},
+    {"profile_dir": "/profiles", "profile_steps": 3},
+])
+def test_profile_knobs_build_like_jax(tree, extra):
+    """``profile_dir`` (once refused) builds: the predictor carries the
+    same ``profile`` request as the JAX package's, which the engine turns
+    into a trace (tests/test_torch_serving_telemetry.py runs one)."""
+    assert _port(tree, **extra).profile == _jax(tree, **extra).profile
+
+
 def test_unknown_key_raises_like_the_registry(tree):
     with pytest.raises(knobs.UnknownKnobError, match="kv_page_tokens"):
         ttr.serving_builder(tree, dict(TINY, **GEN, device="cpu",
@@ -175,14 +186,12 @@ def test_unknown_key_raises_like_the_registry(tree):
 @pytest.mark.parametrize("kw", [
     {"replicas": 2}, {"replica_policy": "prefix_affinity"},
     {"fleet_queue_depth": 4},
-    {"input_mapping": {"prompt": "tokens", "t": "tenant"}},
-    {"input_mapping": {"prompt": "tokens", "t": "trace_id"}},
     {"disaggregate": True},
 ])
 def test_unported_predict_rows_knobs_raise(tree, kw):
-    """Fleet replicas, the telemetry plane's reserved inputs and a
-    disaggregated predictor (the robustness knobs are ported: see
-    test_torch_serving_robustness.py)."""
+    """Fleet replicas and a disaggregated predictor (the robustness knobs
+    are ported: see test_torch_serving_robustness.py; the reserved
+    ``tenant`` and ``trace_id`` inputs: the test below)."""
     kw = dict({"schedule": "continuous"}, **kw)
     mapping = kw.pop("input_mapping", {"prompt": "tokens"})
     predict = _port(tree)
@@ -192,6 +201,38 @@ def test_unported_predict_rows_knobs_raise(tree, kw):
     with pytest.raises(NotImplementedError):
         list(serving.predict_rows(predict, rows, mapping, batch_size=2,
                                   **kw))
+
+
+@pytest.mark.parametrize("schedule", ["continuous", "static"])
+@pytest.mark.parametrize("column", ["tenant", "trace_id"])
+def test_reserved_telemetry_inputs_serve_like_jax(tree, column, schedule):
+    """The reserved ``tenant`` and ``trace_id`` inputs (once refused)
+    serve as the JAX package serves them: the same tokens, and the same
+    typed record for a row whose value is not a non-empty string (the
+    static schedule checks only the tenant, as the reference does)."""
+    rows = [dict(r, t="x%d" % i) for i, r in enumerate(_rows(5))]
+    rows[2]["t"] = "" if column == "tenant" else 7
+    mapping = {"prompt": "tokens", "t": column}
+    # the JAX package's static schedule runs a contiguous build
+    ref = (_jax(tree) if schedule == "continuous" else jtr.serving_builder(
+        tree, dict(TINY, **dict(GEN, kv_layout="contiguous"))))
+    res = []
+    for mod, predict in ((serving, _port(tree)), (jserving, ref)):
+        res.append(list(mod.predict_rows(
+            predict, [dict(r) for r in rows], mapping, batch_size=3,
+            schedule=schedule, on_error="record")))
+    got, want = res
+    assert [sorted(r) for r in got] == [sorted(r) for r in want]
+    for g, w in zip(got, want):
+        if "error" in w:
+            assert g["error"] == w["error"]
+        else:
+            np.testing.assert_array_equal(g["generated"], w["generated"])
+    bad = [r["error"]["kind"] for r in got if "error" in r]
+    if column == "tenant":
+        assert bad == ["bad_tenant"]
+    else:
+        assert bad == ([] if schedule == "static" else ["bad_trace"])
 
 
 def test_static_schedule_serves_like_jax(tree):

@@ -161,9 +161,38 @@ def test_continuous_only_knobs_refused_like_jax(tree, kw):
 
 
 def test_reserved_inputs_refused_on_the_static_schedule(tree):
-    with pytest.raises(NotImplementedError, match="usage ledger"):
-        list(serving.predict_rows(_port(tree), _rows(1),
-                                  dict(MAPPING, t="tenant"), batch_size=2))
+    """A tenant column (once refused outright) serves on the static
+    schedule as on the JAX package's: a row whose tenant is not a
+    non-empty string is refused with the same typed ``bad_tenant`` record
+    (raised under ``on_error="raise"``), the other rows' tokens are
+    equal, and each row lands in the usage ledger under its tenant."""
+    from tensorflowonspark_tpu_torch import telemetry
+
+    rows = [dict(r, t=("a", "b", "")[i % 3]) for i, r in enumerate(
+        _rows(5))]
+    mapping = dict(MAPPING, t="tenant")
+    led = telemetry.get_ledger()
+    base = led.snapshot()
+    got = list(serving.predict_rows(_port(tree), [dict(r) for r in rows],
+                                    mapping, batch_size=2,
+                                    on_error="record"))
+    tenants = telemetry.ledger.snapshot_delta(led.snapshot(),
+                                              base)["tenants"]
+    want = list(jserving.predict_rows(_jax(tree), [dict(r) for r in rows],
+                                      mapping, batch_size=2,
+                                      on_error="record"))
+    _assert_same(got, want)
+    assert [r["error"] for r in got if "error" in r] == [
+        r["error"] for r in want if "error" in r]
+    assert [(i, r["error"]["kind"]) for i, r in enumerate(got)
+            if "error" in r] == [(2, "bad_tenant")]
+    assert tenants["a"]["requests"] == tenants["b"]["requests"] == 2
+    assert tenants["a"]["tokens_out"] == sum(
+        int(r["generated_len"]) if "generated_len" in r
+        else r["generated"].size for r in got[0::3])
+    with pytest.raises(serving.RequestValidationError, match="request 2"):
+        list(serving.predict_rows(_port(tree), [dict(r) for r in rows],
+                                  mapping, batch_size=2))
 
 
 def test_auto_schedule_and_stacking(tree):
