@@ -52,14 +52,16 @@ caught):
    tokens/s, decode step ms beside bf16's, the bytes of weights,
    dequantized copies and KV a decode step reads, agreement with bf16;
    K1 16 launches per decode step in every paged run (on int8 pools in
-   the int8 KV one).  In f32 each variant's static tokens must equal its
-   contiguous continuous schedule's, and int4's paged tokens its
-   contiguous ones, near ties apart (the int8 KV cache's on rows of one
-   bucket, to :data:`NEAR_TIE_INT8_KV`).  (4) The MoE flagship
-   (``MOE_FLAGSHIP``) through static generate and logits serving, K5
-   counted exactly (3 per layer per forward).  (5) ``TFModel.transform``
-   at its default schedule and the CLI with ``--schedule static`` on an
-   export of the same weights: tokens equal to (1)'s.
+   the int8 KV one), on the first :data:`QUANT_REQUESTS` requests.  In
+   f32 each variant's static tokens must equal its contiguous continuous
+   schedule's, and int4's paged tokens its contiguous ones, near ties
+   apart (the int8 KV cache's on rows of one bucket, to
+   :data:`NEAR_TIE_INT8_KV`).  Prints each part's seconds.  (4) The MoE
+   flagship (``MOE_FLAGSHIP``) through static generate and logits
+   serving, K5 counted exactly (3 per layer per forward).  (5)
+   ``TFModel.transform`` at its default schedule and the CLI with
+   ``--schedule static`` on an export of the same weights: tokens equal
+   to (1)'s.
 7. ``flash_case``: the flash kernels (forward, dQ, dK/dV) against their
    plain versions on the card (bf16 flagship geometry, bf16 D=64 GQA, and
    in both types a window across tiles, non-causal, a ragged S=1000 with
@@ -139,7 +141,17 @@ caught):
     relative, K2-K4 must launch 16 x 12 times there, its card's UUID
     must be the one ``gpu_info`` chose, and a second tiny cluster whose
     fn raises at once must fail the driver with an error naming the
-    executor.
+    executor.  The fleet observability plane is on (:class:`FleetPlane`):
+    ``cluster.run(profile_dir=, profile_steps=4)`` has the compute process
+    capture the warm-up call with ``torch.profiler``, whose trace must
+    name K2-K4 in 64 kernel events each; ``start_health_plane(port=0)``
+    with :data:`FLEET_SLO` runs through ``train``, after which
+    ``/metrics`` (strict-parsed) and ``cluster.metrics()`` must count the
+    phase's 12 steps, 96 rows and 3 records, ``step-fast`` alone must
+    have fired, ``/healthz`` be 200 with the ``ledger`` provider in
+    ``/status``, and executor 0 have a fresh snapshot and a clock sample
+    (:func:`check_fleet_plane`).  The timed steps' ``train.step_sec``
+    (host dispatch) is printed beside their wall.
 19. ``feed_ring_train_flagship``: the same training fed through the
     node's shared-memory ring (``TFOS_SHM_FEED=1`` in the executor's
     env): the rows narrowed on the driver to ``uint16`` by
@@ -197,11 +209,17 @@ caught):
     to the bit, those of a ``SyncTrainer`` in this process that restores
     the same checkpoint and takes the same logged batches in order; both
     incarnations run on the card ``gpu_info`` chose; K2-K4 launch 16
-    times per step each incarnation took.  Prints the recovery's parts
-    in seconds (kill, the monitor's sight of the death, REBIRTH, the
-    re-registration after the queue resets, the barrier and spawn, the
-    process start, model and restore, the first reborn step) and the
-    saves' seconds.
+    times per step each incarnation took.  From the fleet telemetry
+    (:func:`elastic_incident`, :func:`check_incident`):
+    ``cluster.metrics()["restart_events"]`` is 1, the generation 1, and
+    ``cluster.journal()`` holds the incident in order on the driver's
+    clock (the killed incarnation's event, the node's ``restart``, the
+    driver's ``executor_restart``, the reborn incarnation's with a new
+    pid, a driver's ``executor_dead`` after the kill), nothing twice.
+    Prints the recovery's parts in seconds (kill, the monitor's sight of
+    the death, REBIRTH, the re-registration after the queue resets, the
+    barrier and spawn, the process start, model and restore, the first
+    reborn step), the incident's timeline and the saves' seconds.
 
 23. ``pipeline_flagship``: the ML Pipeline API.  ``feed_train_flagship``'s
     96 rows (its three epochs) written as four Example shards by
@@ -2911,9 +2929,17 @@ def train_from_feed(args, ctx, feed):
     the trained model.
 
     Neither callback synchronises: a host timestamp in each measures
-    the feed wait between groups."""
+    the feed wait between groups.  When the cluster asked for a profile
+    capture (``cluster.run(profile_dir=)``), its session is live from
+    before the model is built; the result says where its trace went and
+    how long the stop took.  ``timed_step_sec_sum`` is the process
+    registry's ``train.step_sec`` sum over the timed call (host
+    dispatch: no step synchronises)."""
     t_start = time.perf_counter()
     from tensorflowonspark_tpu_torch import compat, convert, optim
+    from tensorflowonspark_tpu_torch import telemetry, tensorboard
+
+    session = tensorboard.active_session()
     from tensorflowonspark_tpu_torch.models import transformer
     from tensorflowonspark_tpu_torch.ops import _build
     from tensorflowonspark_tpu_torch.ops.flash_attention import (
@@ -2955,11 +2981,14 @@ def train_from_feed(args, ctx, feed):
     torch.cuda.synchronize()
     first_step = marks[0][1]
     del marks[:]
+    before = telemetry.get_registry().snapshot()
     t0 = time.perf_counter()
     state = trainer.train_on_feed(state, feed, max_steps=2 * k,
                                   terminate_on_max_steps=False, **calls)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    timed = telemetry.snapshot_delta(telemetry.get_registry().snapshot(),
+                                     before)["histograms"]["train.step_sec"]
     # the feed's source and ring before terminate() drains and closes it
     hot_source = feed._hot_source
     ring = None if feed._ring is None else feed._ring.name
@@ -2984,6 +3013,10 @@ def train_from_feed(args, ctx, feed):
         device=torch.cuda.get_device_name(device), uuid=card_uuid(device),
         pid=os.getpid(), wire=feed.wire_stats(), hot_source=hot_source,
         ring=ring, peak_memory_bytes=torch.cuda.max_memory_allocated(device),
+        timed_step_sec_sum=timed["sum"], timed_step_sec_count=timed["count"],
+        profile=None if session is None else dict(
+            log_dir=session.log_dir, trace_path=session.trace_path,
+            stop_sec=session.stop_sec, steps_left=session.remaining),
     )
     return result, model
 
@@ -2994,13 +3027,15 @@ def feed_fail_fn(args, ctx):
     raise RuntimeError("injected failure in the user fn")
 
 
-def feed_cluster(fn, args, rows, epochs, env=None):
+def feed_cluster(fn, args, rows, epochs, env=None, plane=None, **run_kw):
     """``cluster.run`` over a one-executor ``LocalEngine`` (with ``env``
     set in the executor) with one GPU, ``train`` of ``rows`` as one
     partition, ``shutdown``; the engine is stopped whatever happens.
-    Returns ``(startup_sec, train_sec, error)``, where ``error`` is the
-    ``RuntimeError`` that ``train`` or ``shutdown`` raised (``None`` when
-    neither did)."""
+    With ``plane`` (a :class:`FleetPlane`) the health plane starts before
+    ``train`` and is read after it, before ``shutdown``; ``run_kw`` goes
+    to ``cluster.run``.  Returns ``(startup_sec, train_sec, error)``,
+    where ``error`` is the ``RuntimeError`` that ``train`` or
+    ``shutdown`` raised (``None`` when neither did)."""
     from tensorflowonspark_tpu_torch.cluster import cluster
     from tensorflowonspark_tpu_torch.engine import LocalEngine
 
@@ -3010,8 +3045,10 @@ def feed_cluster(fn, args, rows, epochs, env=None):
         c = cluster.run(engine, fn, args, num_executors=1,
                         num_chips_per_node=1,
                         input_mode=cluster.InputMode.SPARK,
-                        reservation_timeout=120)
+                        reservation_timeout=120, **run_kw)
         t1 = time.perf_counter()
+        if plane is not None:
+            plane.start(c)
         error = None
         try:
             c.train([rows], num_epochs=epochs, feed_timeout=600)
@@ -3019,12 +3056,131 @@ def feed_cluster(fn, args, rows, epochs, env=None):
             error = e
         t2 = time.perf_counter()
         try:
-            c.shutdown(timeout=600)
-        except RuntimeError as e:
-            error = error or e
+            if plane is not None and error is None:
+                plane.read(c)
+        finally:
+            try:
+                c.shutdown(timeout=600)
+            except RuntimeError as e:
+                error = error or e
         return t1 - t0, t2 - t1, error
     finally:
         engine.stop()
+
+
+#: The health plane's rules in ``feed_train_flagship``: the same p99 of
+#: the fed step (host dispatch time) held to 50 ms, which the flagship's
+#: ~160 ms step breaks, and to 5 s, which it keeps.
+FLEET_SLO = [
+    {"name": "step-fast", "metric": "train.step_sec", "stat": "p99",
+     "op": "<", "threshold": 0.05, "window": 60, "severity": "warn"},
+    {"name": "step-bounded", "metric": "train.step_sec", "stat": "p99",
+     "op": "<", "threshold": 5.0, "window": 60, "severity": "warn"},
+]
+FLEET_SCRAPE_SEC = 0.5
+FLEET_COUNTERS = ("train.steps", "feed.wire_rows", "feed.wire_records")
+
+
+def _http_get(url):
+    """``(status, body)`` of a GET; an error status is a result, a
+    failed connection raises."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read().decode("utf-8")
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode("utf-8")
+
+
+class FleetPlane(object):
+    """The fleet observability plane of one ``feed_cluster`` run:
+    ``start`` starts the cluster's health plane with :data:`FLEET_SLO`
+    and its HTTP surface; ``read`` (after ``train``, before
+    ``shutdown``) waits until the fleet view holds ``want_steps`` steps,
+    then reads ``cluster.metrics()``, ``cluster.journal()``, the alert
+    history and the five routes into ``self.result``.  Nothing is
+    caught: a failed scrape or RPC fails the phase."""
+
+    def __init__(self, want_steps, timeout=30.0):
+        self.want_steps = want_steps
+        self.timeout = timeout
+        self.result = {}
+        self.plane = None
+
+    def start(self, c):
+        t0 = time.perf_counter()
+        self.plane = c.start_health_plane(port=0, interval=FLEET_SCRAPE_SEC,
+                                          slo=FLEET_SLO)
+        self.result["start_sec"] = time.perf_counter() - t0
+
+    def read(self, c):
+        from tensorflowonspark_tpu_torch import telemetry
+
+        t0 = time.perf_counter()
+        deadline = t0 + self.timeout
+        url = self.plane.exposition.url
+        own = telemetry.get_registry()
+        while True:
+            view = c.metrics()
+            journal = c.journal()
+            history = view["fleet"].get("alert_history", [])
+            status, body = _http_get(url + "/metrics")
+            fams = telemetry.parse_openmetrics(body)
+            om = {n: fams[n.replace(".", "_")]["samples"][0][2]
+                  for n in FLEET_COUNTERS
+                  if n.replace(".", "_") in fams}
+            # /metrics merges the driver's own registry in
+            own_c = own.snapshot()["counters"]
+            om_fleet = {n: v - own_c.get(n, 0) for n, v in om.items()}
+            if (view["fleet"]["counters"].get("train.steps")
+                    == self.want_steps
+                    and om_fleet.get("train.steps") == self.want_steps
+                    and any(a["rule"] == "step-fast" for a in history)
+                    and "0" in journal["clocks"]):
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(
+                    "the fleet view did not settle within {0} s: fleet "
+                    "{1}, /metrics {2}, alerts {3}, clocks {4}".format(
+                        self.timeout, view["fleet"]["counters"], om_fleet,
+                        history, journal["clocks"]))
+            time.sleep(0.25)
+        hz_code, hz = _http_get(url + "/healthz")
+        st_code, st = _http_get(url + "/status")
+        us_code, _ = _http_get(url + "/usage")
+        jr_code, jr = _http_get(url + "/journal")
+        ex = view["executors"][0]
+        self.result.update(
+            read_sec=time.perf_counter() - t0, metrics_status=status,
+            fleet={n: view["fleet"]["counters"].get(n)
+                   for n in FLEET_COUNTERS},
+            openmetrics=om_fleet, openmetrics_families=len(fams),
+            healthz_status=hz_code, healthz=json.loads(hz),
+            status_status=st_code,
+            status_providers=sorted(json.loads(st)["providers"]),
+            usage_status=us_code, journal_status=jr_code,
+            journal_events=len(json.loads(jr)["events"]),
+            alert_history=[(a["rule"], a["state"], a["value"])
+                           for a in history],
+            metrics_age=ex.get("metrics_age"),
+            heartbeat_interval=c.server.liveness.interval,
+            clock=journal["clocks"].get("0"),
+            fleet_step_sec_sum=view["fleet"]["histograms"]
+            ["train.step_sec"]["sum"],
+            scrapes=self.plane.store.scrapes)
+
+
+def trace_kernel_counts(trace_path, names):
+    """``{name: kernel events whose name contains it}`` in a
+    ``torch.profiler`` Chrome trace, with the file's bytes."""
+    with open(trace_path) as f:
+        text = f.read()
+    events = json.loads(text)["traceEvents"]
+    kernels = [str(e.get("name", "")) for e in events
+               if e.get("cat") == "kernel"]
+    return {n: sum(1 for k in kernels if n in k) for n in names}, len(text)
 
 
 def phase_feed_train_flagship(train):
@@ -3048,16 +3204,38 @@ def phase_feed_train_flagship(train):
     tokens = rng.integers(0, FLAGSHIP["vocab_size"],
                           (TRAIN_K, TRAIN_B, TRAIN_S)).astype(np.int32)
     rows = [{"tokens": t} for t in tokens.reshape(-1, TRAIN_S)]
-    out = os.path.join(tempfile.mkdtemp(prefix="feed_train_"), "result.json")
-    startup, train_sec, error = feed_cluster(
-        smoke.feed_train_fn, {"out": out, "k": TRAIN_K, "batch": TRAIN_B},
-        rows, epochs=3)
-    if error is not None:
-        raise error
-    if not os.path.exists(out):
-        raise AssertionError("the compute process wrote no result")
-    with open(out) as f:
-        res = json.load(f)
+    tmp = tempfile.mkdtemp(prefix="feed_train_")
+    out = os.path.join(tmp, "result.json")
+    profile_dir = os.path.join(tmp, "profile")
+    plane = FleetPlane(want_steps=3 * TRAIN_K)
+    try:
+        startup, train_sec, error = feed_cluster(
+            smoke.feed_train_fn, {"out": out, "k": TRAIN_K,
+                                  "batch": TRAIN_B},
+            rows, epochs=3, plane=plane,
+            env={"TFOS_TELEMETRY_PUBLISH_INTERVAL": str(FLEET_SCRAPE_SEC)},
+            profile_dir=profile_dir, profile_steps=TRAIN_K)
+        if error is not None:
+            raise error
+        if not os.path.exists(out):
+            raise AssertionError("the compute process wrote no result")
+        with open(out) as f:
+            res = json.load(f)
+        # the capture the cluster asked for: its trace under <dir>/<pid>
+        t_trace = time.perf_counter()
+        pdir = os.path.join(profile_dir, str(res["pid"]))
+        traces = sorted(os.listdir(pdir)) if os.path.isdir(pdir) else []
+        if len(traces) != 1 or res["profile"] is None \
+                or res["profile"]["trace_path"] != os.path.join(pdir,
+                                                               traces[0]):
+            raise AssertionError("the capture the cluster asked for left "
+                                 "{0} in {1} (session {2})".format(
+                                     traces, pdir, res["profile"]))
+        trace_counts, trace_bytes = trace_kernel_counts(
+            os.path.join(pdir, traces[0]), WGMMA_KERNELS["flash_attention"])
+        trace_read_sec = time.perf_counter() - t_trace
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     # the failure path: a fn that raises at once fails the driver
     _, _, failure = feed_cluster(smoke.feed_fail_fn, None, rows[:TRAIN_B],
                                  epochs=1)
@@ -3087,6 +3265,20 @@ def phase_feed_train_flagship(train):
         compute_device=res["device"], compute_uuid=res["uuid"],
         peak_memory_bytes=res["peak_memory_bytes"], wire=res["wire"],
         free_bytes_before=free_bytes,
+        plane=plane.result,
+        profile=dict(res["profile"], kernel_events=trace_counts,
+                     trace_bytes=trace_bytes, read_sec=trace_read_sec),
+        # train.step_sec holds one value a group, the group's host time
+        # over its steps; every timed group holds TRAIN_K steps
+        timed_step_sec_total=res["timed_step_sec_sum"] * TRAIN_K,
+        timed_step_sec_groups=res["timed_step_sec_count"],
+        timed_wall_sec=res["wall_sec"],
+        timed_dispatch_share=res["timed_step_sec_sum"] * TRAIN_K
+        / res["wall_sec"],
+        new_work_sec=dict(plane_start=plane.result["start_sec"],
+                          plane_read=plane.result["read_sec"],
+                          trace_stop=res["profile"]["stop_sec"],
+                          trace_read=trace_read_sec),
         failure=None if failure is None else next(
             (ln for ln in str(failure).splitlines()
              if re.search(r"executor \d", ln)), str(failure).splitlines()[0]),
@@ -3112,7 +3304,55 @@ def phase_feed_train_flagship(train):
             or "injected failure" not in str(failure):
         raise AssertionError("a raising user fn did not fail the driver "
                              "naming the executor: {0!r}".format(failure))
+    check_fleet_plane(plane.result, res)
+    # the capture covered the warm-up call: K2-K4 once a layer a step
+    want_events = FLAGSHIP["num_layers"] * TRAIN_K
+    if trace_counts != {n: want_events for n in trace_counts} \
+            or res["profile"]["steps_left"] != 0:
+        raise AssertionError("the cluster's capture holds {0} kernel events "
+                             "({1} steps left), want {2} each".format(
+                                 trace_counts, res["profile"]["steps_left"],
+                                 want_events))
     return line
+
+
+def check_fleet_plane(got, res):
+    """The plane's readings of ``feed_train_flagship`` against the
+    phase's own: the fleet's and ``/metrics``' counters equal the
+    compute process's steps and wire readout, ``step-fast`` fired and
+    ``step-bounded`` did not, ``/healthz`` 200, the ``ledger`` provider
+    in ``/status``, a fresh snapshot and a clock sample of executor 0."""
+    problems = []
+    want = {"train.steps": len(res["losses"]),
+            "feed.wire_rows": res["wire"]["rows"],
+            "feed.wire_records": res["wire"]["records"]}
+    if got["fleet"] != want or got["openmetrics"] != want:
+        problems.append("counters: fleet {0}, /metrics {1}, the phase's "
+                        "{2}".format(got["fleet"], got["openmetrics"], want))
+    fired = {rule for rule, state, _ in got["alert_history"]
+             if state == "firing"}
+    if fired != {"step-fast"}:
+        problems.append("alerts fired: {0}".format(got["alert_history"]))
+    if got["healthz_status"] != 200 or not got["healthz"]["healthy"]:
+        problems.append("/healthz {0}: {1}".format(got["healthz_status"],
+                                                   got["healthz"]))
+    if got["status_status"] != 200 or "ledger" not in \
+            got["status_providers"]:
+        problems.append("/status {0}: providers {1}".format(
+            got["status_status"], got["status_providers"]))
+    if got["usage_status"] != 200 or got["journal_status"] != 200 \
+            or got["metrics_status"] != 200:
+        problems.append("/usage {0}, /journal {1}, /metrics {2}".format(
+            got["usage_status"], got["journal_status"],
+            got["metrics_status"]))
+    if not got["metrics_age"] < 3 * got["heartbeat_interval"]:
+        problems.append("executor 0's snapshot is {0} s old".format(
+            got["metrics_age"]))
+    if not (got["clock"] and got["clock"]["rtt"] > 0):
+        problems.append("no clock sample of executor 0: {0}".format(
+            got["clock"]))
+    if problems:
+        raise AssertionError("fleet plane: " + "; ".join(problems))
 
 
 def shm_segments():
@@ -3746,7 +3986,10 @@ def elastic_flagship_fn(args, ctx):
     log = StepLog(os.path.join(args["log"], "gen%d.jsonl" % ctx.generation))
     log("start", pid=os.getpid(),
         cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"))
-    from tensorflowonspark_tpu_torch import checkpoint, compat
+    from tensorflowonspark_tpu_torch import checkpoint, compat, telemetry
+
+    # each incarnation's first journal event (the fleet journal's check)
+    telemetry.get_tracer().mark("incarnation", generation=ctx.generation)
     from tensorflowonspark_tpu_torch.ops import _build
     from tensorflowonspark_tpu_torch.ops.flash_attention import (
         flash_attention,
@@ -3920,8 +4163,9 @@ def phase_elastic_flagship(config=FLAGSHIP, chips=1, device=None):
         args = {"log": log_dir, "keep": keep, "ckpt": os.path.join(tmp, "ckpt"),
                 "batch": TRAIN_B, "config": config, "device": device}
         plan = chaos.ChaosPlan().kill_worker(0, at_step=ELASTIC_KILL_STEP)
-        engine = LocalEngine(1, env=plan.env(plan.save(
-            os.path.join(tmp, "plan.json"))))
+        engine = LocalEngine(1, env=dict(plan.env(plan.save(
+            os.path.join(tmp, "plan.json"))),
+            TFOS_TELEMETRY_PUBLISH_INTERVAL="0.5"))
         driver_log.addHandler(requeues)
         try:
             t0 = time.perf_counter()
@@ -3931,6 +4175,9 @@ def phase_elastic_flagship(config=FLAGSHIP, chips=1, device=None):
                             heartbeat_interval=0.5, reservation_timeout=120)
             watch = RecoveryWatch(c).start()
             c.train(parts, num_epochs=ELASTIC_EPOCHS, feed_timeout=600)
+            t_incident = time.perf_counter()
+            incident = elastic_incident(c)
+            incident["read_sec"] = time.perf_counter() - t_incident
             c.shutdown(timeout=600)
             watch.stop()
             run_sec = time.perf_counter() - t0
@@ -3964,6 +4211,7 @@ def phase_elastic_flagship(config=FLAGSHIP, chips=1, device=None):
                              (gen1, "restored"))}
     kill = [r for r in gen0 if r["event"] == "group"][-1]
     first_step = steps[-1][0] if steps[-1] else None
+    incident_problems = check_incident(incident, kill["t"])
     marks = dict(watch.marks, kill=kill["t"], start=first["start"]["t"],
                  model=first["model"]["t"], restored=first["restored"]["t"],
                  first_step=first_step["t"])
@@ -4014,13 +4262,20 @@ def phase_elastic_flagship(config=FLAGSHIP, chips=1, device=None):
         compute_uuid=[next(r["uuid"] for r in g if r["event"] == "model")
                       for g in gens],
         chosen_gpus=chosen, chosen_uuid=chosen_uuid,
-        recovery_sec=recovery, recovery_at_sec=recovery_at, save_sec=[r["sec"] for r in saves],
+        recovery_sec=recovery, recovery_at_sec=recovery_at,
+        incident_timeline=incident["timeline"],
+        incident=dict((k, v) for k, v in incident.items()
+                      if k not in ("timeline", "events")),
+        save_sec=[r["sec"] for r in saves],
         saved_steps=[r["step"] for r in saves], run_sec=run_sec,
         replay_sec=replay_sec, free_bytes_before=free_before,
         phase_sec=time.perf_counter() - t_phase,
         nvidia_smi=nvidia_smi() if on_card else None,
     )
     emit("elastic_flagship", **line)
+    if incident_problems:
+        raise AssertionError("the incident in the fleet journal: " +
+                             "; ".join(incident_problems))
     if generation != 1 or restarts != 1 or not any(
             r["event"] == "end" for r in gen1):
         raise AssertionError("generation {0} after {1} restarts; the reborn "
@@ -4053,6 +4308,114 @@ def phase_elastic_flagship(config=FLAGSHIP, chips=1, device=None):
         raise AssertionError("flash launches {0}, want {1}".format(
             line["launches"], want_launches))
     return line
+
+
+#: The journal kinds of an elastic incident, as the driver reads them
+INCIDENT_KINDS = ("incarnation", "restart", "executor_dead",
+                  "executor_restart")
+
+
+def elastic_incident(c, timeout=30.0):
+    """The incident as the driver's fleet telemetry holds it after the
+    rebirth: ``cluster.metrics()``'s ``restart_events`` and generation,
+    and ``cluster.journal()``'s incident events (:data:`INCIDENT_KINDS`)
+    with each one's time on the driver's clock (its ``ts`` plus its
+    executor's ``ClockSync`` offset; the driver's own events, stored
+    under executor -1, need none).  Polls until both incarnations'
+    events arrived; a failed RPC raises."""
+    deadline = time.monotonic() + timeout
+    while True:
+        view = c.metrics(include_ledger=False)
+        journal = c.journal()
+        events = journal["events"]
+        kinds = [e["kind"] for e in events]
+        if kinds.count("incarnation") >= 2 and all(
+                k in kinds for k in INCIDENT_KINDS):
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError("the fleet journal holds {0} after the "
+                                 "rebirth".format(sorted(set(kinds))))
+        time.sleep(0.25)
+    offsets = {int(k): v["offset"] for k, v in journal["clocks"].items()}
+    timeline = []
+    for e in events:
+        if e["kind"] not in INCIDENT_KINDS:
+            continue
+        eid = e.get("executor")
+        timeline.append(dict(
+            kind=e["kind"], executor=eid, pid=e["pid"],
+            driver_ts=e["ts"] + offsets.get(eid, 0.0),
+            offset=offsets.get(eid, 0.0), attrs=e.get("attrs", {})))
+    timeline.sort(key=lambda r: r["driver_ts"])
+    keys = [(e.get("executor"), e["pid"], e["seq"]) for e in events]
+    return dict(restart_events=view["restart_events"],
+                generation=view["generation"],
+                server_generation=c.server.generation,
+                timeline=timeline, clocks=journal["clocks"],
+                events=len(events), unique_events=len(set(keys)),
+                driver_pid=os.getpid())
+
+
+def check_incident(got, kill_t):
+    """What the fleet journal must show of the elastic phase's kill, on
+    the driver's clock: the killed incarnation's event, then the node's
+    ``restart``, then the driver's ``executor_restart``, then the reborn
+    incarnation's, with a driver's ``executor_dead`` between the kill and
+    the reborn incarnation; one restart event and generation 1; a new pid
+    for the reborn process; nothing stored twice.  (Which of ``executor_dead``
+    and ``restart`` comes first is a race: the node's supervisor and the
+    driver's monitor see the death independently.)  Returns the
+    problems; rewrites each timeline entry's time as seconds after the
+    kill."""
+    problems = []
+    if not got["restart_events"] == 1 == got["generation"] \
+            == got["server_generation"]:
+        problems.append("restart_events {0}, generation {1}".format(
+            got["restart_events"], got["generation"]))
+    by = {}
+    for r in got["timeline"]:
+        by.setdefault(r["kind"], []).append(r)
+    inc = sorted(by.get("incarnation", []),
+                 key=lambda r: r["attrs"].get("generation"))
+    driver = got["driver_pid"]
+    one = {k: by.get(k, []) for k in ("restart", "executor_dead",
+                                       "executor_restart")}
+    if [r["attrs"].get("generation") for r in inc] != [0, 1] \
+            or inc[0]["pid"] == inc[1]["pid"]:
+        problems.append("incarnations {0}".format(
+            [(r["attrs"], r["pid"]) for r in inc]))
+    elif len(one["restart"]) != 1 or len(one["executor_restart"]) != 1 \
+            or not one["executor_dead"]:
+        # the monitor may see the death twice: the REBIRTH frame primes
+        # the registry as alive while the node still parks
+        problems.append("incident events {0}".format(
+            {k: len(v) for k, v in one.items()}))
+    else:
+        # a death sighting before the kill is a missed beat on a busy
+        # host (a window that closed again): the kill's is the first after
+        restart, reborn_seen = one["restart"][0], one["executor_restart"][0]
+        dead = next((r for r in one["executor_dead"]
+                     if r["driver_ts"] >= kill_t), one["executor_dead"][-1])
+        if restart["executor"] != 0 or restart["pid"] in (
+                driver, inc[0]["pid"], inc[1]["pid"]):
+            problems.append("restart from {0}".format(restart))
+        for r in (dead, reborn_seen):
+            if r["pid"] != driver or r["executor"] != -1 \
+                    or r["attrs"].get("executor_id") != 0:
+                problems.append("driver event {0}".format(r))
+        t = {k: r["driver_ts"] for k, r in (
+            ("born", inc[0]), ("restart", restart), ("dead", dead),
+            ("restart_seen", reborn_seen), ("reborn", inc[1]))}
+        if not (t["born"] < kill_t <= t["restart"] < t["restart_seen"]
+                < t["reborn"] and kill_t <= t["dead"] < t["reborn"]):
+            problems.append("out of order on the driver clock: {0} "
+                            "(kill {1})".format(t, kill_t))
+    if got["unique_events"] != got["events"]:
+        problems.append("{0} of {1} events stored twice".format(
+            got["events"] - got["unique_events"], got["events"]))
+    for r in got["timeline"]:
+        r["after_kill_sec"] = r.pop("driver_ts") - kill_t
+    return problems
 
 
 def elastic_dp_fn(args, ctx):
@@ -4960,6 +5323,10 @@ NEAR_TIE_INT8_KV = 1 / 127
 #: to ``FLASH_TOL["f32_out"]`` with its plain version, and each of the
 #: 16 layers can add that much through the residual stream
 LOGITS_F32_ROW_REL = 16 * FLASH_TOL["f32_out"]
+#: requests of the quantized variants' runs (bf16 and the f32 token
+#: checks): one static batch, the first 8 of the 16, to keep
+#: ``phase_times`` near its 1,000 s budget on the slower hosts
+QUANT_REQUESTS = SLOTS
 #: quantized variants of ``quantized_serving``: the knobs on top of the
 #: bf16 flagship's
 QUANT_VARIANTS = {
@@ -5170,6 +5537,13 @@ def phase_static_serve_flagship(tree, slice_tokens, slice_step_ms=None):
                 batch_size=SLOTS)
     problems = []
 
+    parts = {}
+
+    def part(name, _t=[time.perf_counter()]):
+        now = time.perf_counter()
+        parts[name] = now - _t[0]
+        _t[0] = now
+
     # 1. static generate, bf16, contiguous; against the paged continuous
     # schedule's tokens; in f32 against the contiguous continuous one
     paged_attention.launches = 0
@@ -5205,6 +5579,7 @@ def phase_static_serve_flagship(tree, slice_tokens, slice_step_ms=None):
                         "{0}".format(ties))
     del predict
     gc_collect()
+    part("static")
 
     # 2. logits serving: bf16 against the flagship model's own forward on
     # the same weights (the dot attention serving runs) and, for scale,
@@ -5272,6 +5647,7 @@ def phase_static_serve_flagship(tree, slice_tokens, slice_step_ms=None):
                                      got_f32["next_token"], f32_next))
     del got, got_f32, got_logits, f32_logits, refs, batch
     gc_collect()
+    part("logits")
 
     # 3. quantized weights and the int8 KV cache, static and paged
     # continuous, against bf16
@@ -5279,28 +5655,30 @@ def phase_static_serve_flagship(tree, slice_tokens, slice_step_ms=None):
     if slice_step_ms is None:
         slice_step_ms = continuous_run(tree, dict(FLAGSHIP, **SERVING),
                                        rows)[1]["decode_step_ms"]
+    qrows = rows[:QUANT_REQUESTS]
     for name, knobs in QUANT_VARIANTS.items():
         paged_attention.launches = 0
-        predict, rec, toks = static_run(tree, dict(static_cfg, **knobs), rows)
+        predict, rec, toks = static_run(tree, dict(static_cfg, **knobs),
+                                        qrows)
         if paged_attention.launches:
             problems.append(name + ": the static schedule launched K1")
-        share, _ = agreement(toks, static_tokens)
+        share, _ = agreement(toks, static_tokens[:QUANT_REQUESTS])
         rec.update(agree_with_bf16=share,
                    decode_step_ms_bf16=bf16["decode_step_ms"],
                    **decode_bytes(predict.make_slot_decoder(SLOTS).model,
-                                  SLOTS, static_bank_tokens(rows, SLOTS,
+                                  SLOTS, static_bank_tokens(qrows, SLOTS,
                                                             predict)))
         del predict
         gc_collect()
         predict, cont, ctoks = continuous_run(
-            tree, dict(FLAGSHIP, **SERVING, **knobs), rows)
-        share_c, _ = agreement(ctoks, slice_tokens)
+            tree, dict(FLAGSHIP, **SERVING, **knobs), qrows)
+        share_c, _ = agreement(ctoks, slice_tokens[:QUANT_REQUESTS])
         steps = cont["decode_steps"]
         cont.update(agree_with_bf16=share_c,
                     decode_step_ms_bf16=slice_step_ms,
                     **decode_bytes(predict.make_slot_decoder(SLOTS).model,
                                    SLOTS, paged_live_tokens(
-                                       rows, SERVING["max_new_tokens"],
+                                       qrows, SERVING["max_new_tokens"],
                                        SERVING["kv_page_tokens"], steps)))
         if cont["paged_attention_launches"] != layers * steps:
             problems.append("{0}: K1 launches {1} != {2} x {3}".format(
@@ -5313,6 +5691,7 @@ def phase_static_serve_flagship(tree, slice_tokens, slice_step_ms=None):
         del predict
         gc_collect()
         line["quantized"][name] = dict(static=rec, paged_continuous=cont)
+    part("quantized")
     # in f32, each variant's static tokens against its contiguous
     # continuous schedule's, and int4's paged tokens against its
     # contiguous ones.  The int8 KV cache quantizes post-rope keys per
@@ -5323,10 +5702,11 @@ def phase_static_serve_flagship(tree, slice_tokens, slice_step_ms=None):
     bucket_rows = make_requests(
         np.random.default_rng(22), REQUESTS, vocab,
         SERVING["max_prompt_len"] - SERVING["pad_multiple"] + 1,
-        SERVING["max_prompt_len"])
+        SERVING["max_prompt_len"])[:QUANT_REQUESTS]
     line["quantized_f32"] = {}
     for name, knobs in QUANT_VARIANTS.items():
-        vrows = bucket_rows if name == "int8_kv" else rows
+        vrows = (bucket_rows if name == "int8_kv"
+                 else qrows)
         tie = NEAR_TIE_INT8_KV if name == "int8_kv" else NEAR_TIE
         predict, _, q_static = static_run(tree, dict(f32_cfg, **knobs),
                                           vrows)
@@ -5357,6 +5737,8 @@ def phase_static_serve_flagship(tree, slice_tokens, slice_step_ms=None):
         line["quantized_f32"][name] = rec
         del predict
         gc_collect()
+
+    part("quantized_f32")
 
     # 4. MoE: static generate and logits serving, K5 counted
     from tensorflowonspark_tpu_torch.ops import gmm
@@ -5402,6 +5784,7 @@ def phase_static_serve_flagship(tree, slice_tokens, slice_step_ms=None):
         problems.append("MoE outputs malformed")
     del moe_logits
     gc_collect()
+    part("moe")
 
     # 5. the pipeline at its default schedule, and the CLI's static one
     from tensorflowonspark_tpu_torch.engine import LocalEngine
@@ -5457,7 +5840,9 @@ def phase_static_serve_flagship(tree, slice_tokens, slice_step_ms=None):
         problems.append("pipeline at its default schedule: {0}".format(
             line["pipeline"]))
 
-    line.update(static_serve_launches=static_k5["gmm"],
+    part("pipeline")
+    line.update(static_serve_launches=static_k5["gmm"], part_sec=parts,
+                quantized_requests=QUANT_REQUESTS,
                 phase_sec=time.perf_counter() - t_phase,
                 nvidia_smi=nvidia_smi(), ok=not problems,
                 problems=problems)
@@ -6917,6 +7302,8 @@ def main():
         kernel_entry("flash_" + name, kernel, jax_flash + line,
                      train["launches"][name], flash[name],
                      fed_launches=fed["launches"][name],
+                     fed_capture_kernel_events=fed["profile"][
+                         "kernel_events"][kernel],
                      ring_fed_launches=ring["launches"][name],
                      inference_launches=inference["launches"][name],
                      resume_launches=resumed["resume_launches"][name],

@@ -14,15 +14,25 @@ feed within seconds of a worker's death, naming the executor.  With
 supervisor respawns the compute process under a new generation, and
 ``train`` requeues every partition that no checkpoint committed.
 
+The fleet's observability rides the heartbeats: ``metrics()`` merges
+the executors' registry snapshots, ``journal()`` returns their typed
+events with the clock offsets that align them (the driver's own events
+included), ``collect_dumps()`` the flight recorders' dump indexes, and
+``start_health_plane()`` runs the windowed time series, SLO rules and
+straggler diagnosis over them, with its HTTP surface.
+``run(profile_dir=, profile_steps=)`` captures a ``torch.profiler``
+trace in each compute process of that cluster.
+
 Not ported (ROADMAP queue A): remediation holds (``hold_executor``,
 ``release_executor``), parameter-server and evaluator nodes (``num_ps``,
-``driver_ps_nodes``, ``eval_node``), the planner (``plan``), profiling
-and tensorboard, and the health, remediation and journal planes.
+``driver_ps_nodes``, ``eval_node``), the planner (``plan``) and
+tensorboard.
 """
 
 import functools
 import itertools
 import logging
+import os
 import pickle
 import queue as _queue_mod
 import threading
@@ -61,6 +71,12 @@ class ClusterMonitor(object):
       ``restart_events``, the feed loop's cue to requeue uncommitted
       partitions); an executor still dead past the window is a
       permanent failure.
+
+    Journal marks: ``executor_restart`` for each generation step (with
+    the ``cluster.restart_events`` counter), ``executor_dead`` (page) for
+    a permanent failure, and, under ``elastic``, ``executor_dead`` (warn,
+    ``recoverable``) when a recovery window opens: the driver's sight of
+    the death.
     """
 
     def __init__(self, server, cluster_info, elastic=False,
@@ -73,6 +89,8 @@ class ClusterMonitor(object):
         self.dead_executor_id = None
         #: per-executor generation steps observed so far (monotonic)
         self.restart_events = 0
+        #: the health plane's straggler hints, newest per executor
+        self.health_hints = {}
         self._by_id = {n["executor_id"]: n for n in cluster_info}
         self._first_dead = {}
         self._known_gen = {}
@@ -100,6 +118,8 @@ class ClusterMonitor(object):
                 return
 
     def _poll(self):
+        from .. import telemetry
+
         for eid_s, rec in self.server.liveness.snapshot().items():
             eid = int(eid_s)
             known = self._known_gen.get(eid, 0)
@@ -108,6 +128,12 @@ class ClusterMonitor(object):
                 self._known_gen[eid] = rec["generation"]
                 logger.info("monitor: executor %d reborn at generation %d",
                             eid, rec["generation"])
+                telemetry.get_registry().counter(
+                    "cluster.restart_events").inc(rec["generation"] - known)
+                telemetry.get_tracer().mark(
+                    "executor_restart", trace="executor%d" % eid,
+                    severity="warn", executor_id=eid,
+                    generation=rec["generation"])
         dead = self.server.liveness.dead()
         now = time.monotonic()
         for eid in list(self._first_dead):
@@ -118,6 +144,13 @@ class ClusterMonitor(object):
             if not self.elastic:
                 self._fail(eid, diag)
                 return
+            if eid not in self._first_dead:
+                # the recovery window opens: the driver's sight of it
+                telemetry.get_tracer().mark(
+                    "executor_dead", trace="executor%d" % eid,
+                    severity="warn", executor_id=eid,
+                    reason=diag["reason"], host=diag.get("host") or "?",
+                    recoverable=True, window=self.recovery_timeout)
             first = self._first_dead.setdefault(eid, now)
             if now - first > self.recovery_timeout:
                 self._fail(eid, dict(
@@ -143,6 +176,12 @@ class ClusterMonitor(object):
             if err:
                 msg += "\nlast error from executor {0}:\n{1}".format(eid, err)
         logger.error("cluster monitor: %s", msg)
+        from .. import telemetry
+
+        telemetry.get_tracer().mark(
+            "executor_dead", trace="executor%d" % eid, severity="page",
+            executor_id=eid, reason=diag["reason"],
+            host=diag.get("host") or node_meta.get("host", "?"))
         self.error = msg
         self.dead_executor_id = eid
 
@@ -151,6 +190,52 @@ class ClusterMonitor(object):
         detected; feed loops call it every poll."""
         if self.error is not None:
             raise DeadExecutorError(self.error, self.dead_executor_id)
+
+    def note_straggler(self, hint):
+        """Record a health-plane straggler hint (advisory: nothing is
+        killed while the flagged node is profiled)."""
+        self.health_hints[hint["executor"]] = dict(hint)
+        logger.warning(
+            "monitor: health plane flagged executor %s as a straggler "
+            "(dominant phase %r, +%.3fs/step vs the fleet)",
+            hint.get("executor"), hint.get("phase"),
+            hint.get("excess_sec", 0.0))
+
+    def clear_straggler(self, executor_id):
+        """Drop a recovered executor's straggler hint."""
+        if self.health_hints.pop(int(executor_id), None) is not None:
+            logger.info("monitor: health plane cleared the straggler flag "
+                        "on executor %s", executor_id)
+
+    def metrics(self):
+        """Each executor's newest telemetry snapshot with its liveness
+        and clock: ``{executor_id: {"metrics", "metrics_age",
+        "heartbeat_age", "generation", "compute_alive", "host",
+        "clock_offset", "clock_rtt"}}`` (the fields known so far)."""
+        store = self.server.metrics.snapshot()
+        liveness = self.server.liveness.snapshot()
+        clocks = self.server.clocks.snapshot()
+        per = {}
+        for eid_s in set(store) | set(liveness):
+            rec = {}
+            s = store.get(eid_s)
+            if s is not None:
+                rec["metrics"] = s["metrics"]
+                rec["metrics_age"] = s["age"]
+            lv = liveness.get(eid_s)
+            if lv is not None:
+                rec["heartbeat_age"] = lv["age"]
+                rec["generation"] = lv["generation"]
+                rec["compute_alive"] = lv["compute_alive"]
+                rec["host"] = lv["host"]
+            clk = clocks.get(eid_s)
+            if clk is not None:
+                # seconds to add to this executor's wall timestamps to
+                # put them on the driver's clock
+                rec["clock_offset"] = clk["offset"]
+                rec["clock_rtt"] = clk["rtt"]
+            per[int(eid_s)] = rec
+        return per
 
     def stop(self):
         self._stop.set()
@@ -200,6 +285,9 @@ class TPUCluster(object):
         #: elastic feeding: partitions fed (this epoch or an earlier one)
         #: that no checkpoint has committed yet, id -> partition
         self._uncommitted = {}
+        #: the health plane (:meth:`start_health_plane`)
+        self.health = None
+        self._profile_seq = itertools.count(1)
 
     # -- data plane ----------------------------------------------------
 
@@ -472,6 +560,12 @@ class TPUCluster(object):
           timeout: overall watchdog, seconds.
         """
         deadline = time.monotonic() + timeout
+        if self.health is not None:
+            from ..telemetry import health as _health
+
+            self.health.stop()
+            _health.unregister_status_provider("ledger")
+            self.health = None
         if self.monitor is not None:
             self.monitor.stop()
         workers = [n for n in self.cluster_info
@@ -537,6 +631,199 @@ class TPUCluster(object):
                     "executor {0}: {1}".format(eid, err)
                     for eid, err in errors))
         logger.info("cluster shutdown complete")
+
+    # -- observability ---------------------------------------------------
+
+    def metrics(self, include_ledger=True):
+        """The fleet's telemetry: every executor's newest registry
+        snapshot (shipped on its heartbeats) with its liveness and clock
+        fields and, with ``include_ledger``, each worker's committed and
+        pending partition counts, folded into one fleet snapshot.
+
+        Returns ``{"executors": {executor_id: {...}}, "fleet": merged
+        snapshot, "restart_events": int, "generation": int}``; the
+        health plane's alert history rides ``fleet["alert_history"]``
+        while a plane runs.  A remote observer gets the same snapshots
+        through ``reservation.Client(addr).get_metrics()``.
+        """
+        from ..telemetry import aggregate
+
+        monitor = self.monitor or ClusterMonitor(self.server,
+                                                 self.cluster_info)
+        per = monitor.metrics()
+        if include_ledger:
+            for eid, counts in self._ledger_counts().items():
+                per.setdefault(eid, {})["ledger"] = counts
+        view = aggregate.fleet_view(per)
+        view["restart_events"] = (
+            self.monitor.restart_events if self.monitor is not None else 0)
+        view["generation"] = self.server.generation
+        if self.health is not None and self.health.slo is not None:
+            view["fleet"]["alert_history"] = self.health.slo.alert_history()
+        return view
+
+    def _ledger_counts(self):
+        """``{executor_id: {"committed": n, "pending": n}}`` of the
+        workers reachable now (a node mid-restart is left out)."""
+        out = {}
+        for n in self.cluster_info:
+            if n["job_name"] not in node.COMPUTE_JOBS:
+                continue
+            try:
+                m = self._connect(n)
+                out[n["executor_id"]] = {
+                    "committed": len(m.ledger("committed")._getvalue()),
+                    "pending": len(m.ledger("pending")._getvalue()),
+                }
+            except Exception:  # noqa: BLE001 - node mid-restart or gone
+                continue
+        return out
+
+    def journal(self, limit=None):
+        """The fleet's typed-event record: every executor's journal
+        events (shipped on the heartbeats) and the driver's own, time
+        ordered, with the per-executor clock offsets that put them on the
+        driver's clock: ``{"events": [event dicts], "clocks": {executor:
+        {"offset", "rtt"}}}``."""
+        return {
+            "events": self.server.events.snapshot(limit=limit),
+            "clocks": self.server.clocks.snapshot(),
+        }
+
+    def collect_dumps(self, dest=None):
+        """Every node's flight-recorder dump index (its ``blackbox_dumps``
+        kv): ``{executor_id: [dump records]}``.  With ``dest``, the bundle
+        files reachable from this host are copied there too."""
+        out = {}
+        for n in self.cluster_info:
+            try:
+                recs = self._connect(n).get("blackbox_dumps")._getvalue()
+            except Exception:  # noqa: BLE001 - node mid-restart or gone
+                continue
+            if isinstance(recs, list) and recs:
+                out[n["executor_id"]] = recs
+        if dest is not None:
+            import shutil
+
+            os.makedirs(dest, exist_ok=True)
+            for recs in out.values():
+                for rec in recs:
+                    path = rec.get("path")
+                    if path and os.path.exists(path):
+                        try:
+                            shutil.copy2(path, dest)
+                        except OSError:
+                            logger.warning("unable to copy dump %s", path,
+                                           exc_info=True)
+        return out
+
+    def start_health_plane(self, port=None, slo=None, interval=None,
+                           window=None, straggler=True,
+                           straggler_opts=None, profile_steps=20,
+                           profile_dir=None):
+        """Start the standing health plane over this cluster.
+
+        It scrapes the monitor's per-executor telemetry every
+        ``interval`` seconds into windowed time series, evaluates the
+        ``slo`` rules (anything ``telemetry.health.load_rules`` takes),
+        diagnoses stragglers, and asks a flagged node (that one alone)
+        for a ``profile_steps``-step capture into ``profile_dir`` (default
+        ``<tmp>/tfos_health_profiles/<cluster id>``).  ``port`` (0: any
+        free port) also starts the HTTP surface (``/metrics``,
+        ``/healthz``, ``/status``, ``/usage``, ``/journal``).  Returns the
+        :class:`~..telemetry.health.HealthPlane`; :meth:`shutdown` stops
+        it.
+        """
+        from ..telemetry import health as _health
+
+        if self.health is not None:
+            return self.health
+        monitor = self.monitor or ClusterMonitor(self.server,
+                                                 self.cluster_info)
+        if profile_dir is None:
+            import tempfile
+
+            profile_dir = os.path.join(tempfile.gettempdir(),
+                                       "tfos_health_profiles",
+                                       self.cluster_id)
+
+        def on_straggler(hint):
+            monitor.note_straggler(hint)
+            self._request_profile(hint["executor"], steps=profile_steps,
+                                  log_dir=profile_dir, hint=hint)
+
+        def on_straggler_cleared(eid):
+            monitor.clear_straggler(eid)
+            self._clear_health_hint(eid)
+
+        plane = _health.HealthPlane(
+            monitor.metrics, interval=interval, window=window, slo=slo,
+            straggler=straggler, straggler_opts=straggler_opts,
+            on_straggler=on_straggler,
+            on_straggler_cleared=on_straggler_cleared,
+            liveness_fn=self.server.liveness.health,
+            journal_fn=self.journal,
+        )
+        _health.register_status_provider("ledger", self._ledger_status)
+        plane.start()
+        if port is not None:
+            plane.serve(port=port)
+        self.health = plane
+        return plane
+
+    def _ledger_status(self):
+        """Per-worker committed/pending partition counts for ``/status``
+        (an unreachable worker reads ``{"unreachable": True}``)."""
+        counts = self._ledger_counts()
+        return {str(n["executor_id"]): counts.get(n["executor_id"],
+                                                  {"unreachable": True})
+                for n in self.cluster_info
+                if n["job_name"] in node.COMPUTE_JOBS}
+
+    def _node_meta(self, executor_id):
+        return next((n for n in self.cluster_info
+                     if n["executor_id"] == int(executor_id)), None)
+
+    def _request_profile(self, executor_id, steps=20, log_dir=None,
+                         hint=None):
+        """Ask one node for a capture: a sequenced ``profile_request`` in
+        its kv, which its compute process's ``NodePublisher`` serves and
+        acknowledges in ``profile_state``; a straggler ``hint`` is written
+        beside it (``health_hint``), which its beats then flag.  Returns
+        the request, or None when it could not be delivered."""
+        node_meta = self._node_meta(executor_id)
+        if node_meta is None:
+            logger.warning("profile request for unknown executor %s",
+                           executor_id)
+            return None
+        req = {"seq": next(self._profile_seq), "log_dir": log_dir,
+               "steps": int(steps) if steps else None}
+        try:
+            m = self._connect(node_meta)
+            m.set("profile_request", req)
+            if hint is not None:
+                m.set("health_hint", dict(hint))
+        except Exception:  # noqa: BLE001 - node mid-restart: the hint
+            logger.warning(  # stands, the capture is lost
+                "unable to deliver profile request to executor %s",
+                executor_id, exc_info=True)
+            return None
+        logger.info("profile request %d delivered to executor %s (%s, %s "
+                    "steps)", req["seq"], executor_id, log_dir, steps)
+        return req
+
+    def _clear_health_hint(self, executor_id):
+        """Erase a recovered node's ``health_hint`` kv, so its beats stop
+        flagging ``health.straggler``."""
+        node_meta = self._node_meta(executor_id)
+        if node_meta is None:
+            return
+        try:
+            self._connect(node_meta).set("health_hint", None)
+        except Exception:  # noqa: BLE001 - node mid-restart: the flag
+            logger.warning(  # clears at its next rebirth
+                "unable to clear health hint on executor %s", executor_id,
+                exc_info=True)
 
     def _await_compute_done(self, workers, deadline):
         pending = {w["executor_id"]: w for w in workers}
@@ -619,8 +906,6 @@ _UNPORTED_RUN_ARGS = {
     "eval_node": (False, "the rest: evaluator nodes"),
     "tensorboard": (False, "the rest: tensorboard"),
     "log_dir": (None, "the rest: tensorboard"),
-    "profile_dir": (None, "the rest: profiling"),
-    "profile_steps": (None, "the rest: profiling"),
     "plan": (None, "the rest: the planner"),
     "plan_hint": (None, "the rest: the planner"),
 }
@@ -630,7 +915,8 @@ def run(engine, map_fun, args=None, num_executors=None,
         input_mode=InputMode.SPARK, master_node=None,
         reservation_timeout=600, queues=("input", "output", "error"),
         num_chips_per_node=None, name="tpucluster", heartbeat_interval=None,
-        elastic=False, max_restarts=3, recovery_timeout=120.0, **unported):
+        elastic=False, max_restarts=3, recovery_timeout=120.0,
+        profile_dir=None, profile_steps=None, **unported):
     """Start a cluster over an executor fleet.
 
     Args:
@@ -660,11 +946,20 @@ def run(engine, map_fun, args=None, num_executors=None,
       max_restarts: per-node restart budget under ``elastic``.
       recovery_timeout: under ``elastic``, seconds a dead node may take
         to come back before the failure is permanent.
+      profile_dir: capture a ``torch.profiler`` trace (CUDA kernels
+        included) in every compute process of this cluster into
+        ``profile_dir/<pid>``.  The compute processes get
+        ``TFOS_PROFILE_DIR``/``TFOS_PROFILE_STEPS`` in their own
+        environment; the driver's and the executors' stay untouched, so
+        a later cluster profiles nothing unless it asks too.  A capture
+        that cannot start fails the compute process.
+      profile_steps: stop each capture after this many train steps
+        (None: when the compute process ends).
 
     The reference's other arguments (``num_ps``, ``driver_ps_nodes``,
-    ``eval_node``, ``tensorboard``, ``log_dir``, ``profile_dir``,
-    ``profile_steps``, ``plan``, ``plan_hint``) are accepted at their
-    defaults and raise ``NotImplementedError`` otherwise.
+    ``eval_node``, ``tensorboard``, ``log_dir``, ``plan``,
+    ``plan_hint``) are accepted at their defaults and raise
+    ``NotImplementedError`` otherwise.
     """
     from ..engine import Engine, LocalEngine, SparkEngine
 
@@ -712,6 +1007,9 @@ def run(engine, map_fun, args=None, num_executors=None,
     server = reservation.Server(num_executors,
                                 heartbeat_interval=heartbeat_interval)
     server_addr = server.start()
+    # the driver's own fault events ride no heartbeat: its journal feeds
+    # the fleet's EventStore directly (executor -1)
+    server.attach_local_journal()
     cluster_meta = {
         "id": "{0}-{1}".format(name, uuid.uuid4().hex[:8]),
         "cluster_template": template,
@@ -724,6 +1022,9 @@ def run(engine, map_fun, args=None, num_executors=None,
         "elastic": bool(elastic),
         "max_restarts": int(max_restarts),
         "heartbeat_interval": heartbeat_interval,
+        "profile": ({"dir": os.path.abspath(str(profile_dir)),
+                     "steps": int(profile_steps) if profile_steps else None}
+                    if profile_dir else None),
     }
     mapfn = node.run(map_fun, args, cluster_meta, input_mode)
     handle = engine.run_job_async(mapfn, [[i] for i in range(num_executors)])

@@ -39,9 +39,17 @@ module level and nothing on the executor side initialises CUDA (the
 executor forks its queue manager, and a CUDA context does not survive a
 fork); only the spawned compute process touches the GPU.
 
+The compute process publishes its telemetry into the node's kv
+(``telemetry.aggregate.NodePublisher``), stamps its journal with the
+executor id, arms the flight recorder with its dump index in the kv, and
+starts the profile capture ``cluster.run(profile_dir=)`` asked for: the
+cluster's ``profile_dir``/``profile_steps`` reach only that cluster's
+compute processes, as ``TFOS_PROFILE_DIR``/``TFOS_PROFILE_STEPS`` set in
+their own environment.
+
 Not ported (ROADMAP queue A): ps/evaluator service nodes, tensorboard,
-the telemetry publishers, the flight recorder, the heartbeat chaos hook
-and the feeders' routing around a remediation hold.
+the heartbeat chaos hook and the feeders' routing around a remediation
+hold.
 """
 
 import collections
@@ -335,12 +343,18 @@ def _local_executor_id():
     return read_executor_id(_local_executor_workdir())
 
 
-def _compute_process_main(fn_bytes, args, ctx):
+def _compute_process_main(fn_bytes, args, ctx, profile=None):
     """Entry point of the spawned compute process: rebind the manager
-    proxy, run the user fn, ship any traceback home via the node's error
-    queue, and mark ``compute_state`` 'finished' or 'failed'."""
+    proxy, start the telemetry publisher, the flight recorder and the
+    profile capture ``profile`` (``{"dir", "steps"}``, the cluster's
+    ``profile_dir``) asks for, run the user fn, ship any traceback home
+    via the node's error queue, and mark ``compute_state`` 'finished' or
+    'failed'."""
     import traceback
 
+    from .. import telemetry
+    from .. import tensorboard as _tb
+    from ..telemetry import blackbox as _blackbox
     from ..utils.retry import retry_call
 
     authkey = bytes.fromhex(ctx.manager_authkey)
@@ -350,7 +364,19 @@ def _compute_process_main(fn_bytes, args, ctx):
         "connect to node manager at {0}".format(tuple(ctx.manager_addr)),
         exceptions=(OSError, EOFError), deadline=30.0, base=0.1,
     )
+    publisher = telemetry.start_node_publisher(ctx.mgr)
+    telemetry.get_journal().set_identity(ctx.executor_id)
+    recorder = _blackbox.install()
+    if recorder is not None:
+        recorder.attach_kv(ctx.mgr)
+    session = None
     try:
+        if profile:
+            # this process's own environment: nothing else inherits it
+            os.environ[_tb.PROFILE_DIR_ENV] = str(profile["dir"])
+            if profile.get("steps"):
+                os.environ[_tb.PROFILE_STEPS_ENV] = str(int(profile["steps"]))
+        session = _tb.maybe_start_profile_from_env()
         fn = pickle.loads(fn_bytes)
         fn(args, ctx)
     except Exception:  # noqa: BLE001 - process boundary, traceback shipped
@@ -362,6 +388,11 @@ def _compute_process_main(fn_bytes, args, ctx):
         except Exception:  # noqa: BLE001 - best effort error reporting
             logger.exception("unable to report error to manager")
         raise
+    finally:
+        if session is not None:
+            session.stop()
+        if publisher is not None:
+            publisher.stop()
     # outside the user-fn try: a failure to *signal* is not a compute
     # failure; shutdown() polls this instead of sleeping blindly
     try:
@@ -504,9 +535,28 @@ def start_node(fn_bytes, args, cluster_meta, input_mode, iterator):
         # process, pinning the executor; a heartbeater keeps the driver's
         # monitor informed
         ctx.mgr = mgr
+        from .. import telemetry
+
+        events_fn = metrics_fn = None
+        if telemetry.enabled():
+            # the fn runs in this process: its registry and journal ship
+            # on this heartbeater's beats directly
+            from ..telemetry import blackbox
+
+            telemetry.get_journal().set_identity(executor_id)
+            recorder = blackbox.install()
+            if recorder is not None:
+                recorder.attach_kv(mgr)
+            metrics_fn = telemetry.get_registry().snapshot
+
+            def events_fn():
+                return [e.to_dict()
+                        for e in telemetry.get_journal().drain_unshipped(64)]
+
         hb = reservation.Heartbeater(
             cluster_meta["server_addr"], executor_id,
             interval=cluster_meta.get("heartbeat_interval"), host=host,
+            metrics_fn=metrics_fn, events_fn=events_fn,
         ).start()
         try:
             pickle.loads(fn_bytes)(args, ctx)

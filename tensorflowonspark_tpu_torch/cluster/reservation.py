@@ -17,12 +17,17 @@ claims the next cluster generation (:meth:`Server.next_generation`),
 re-registers under it, and every heartbeat reply carries the cluster
 generation, so the surviving nodes learn of the rebirth.
 
-Not ported: the telemetry plane's ``MetricsStore``, ``EventStore`` and
-``ClockSync`` (their METRICS / JOURNAL frames and the beats' metric,
-event and clock payloads; ROADMAP queue A, item 12).
+The beats also carry the fleet's telemetry, so a node never opens a
+second connection for it: a registry snapshot (:class:`MetricsStore`,
+read back by METRICS), journal events (:class:`EventStore`, read back by
+JOURNAL) and an NTP-style clock sample (:class:`ClockSync`: the reply
+carries ``server_time``, the node ships its offset estimate on the next
+beat).
 """
 
+import collections
 import json
+import math
 import logging
 import os
 import select
@@ -137,6 +142,12 @@ class Liveness(object):
         with self._lock:
             return len(self._beats)
 
+    def last_seen(self, executor_id):
+        """Seconds since the executor's last beat; None if never seen."""
+        with self._lock:
+            rec = self._beats.get(int(executor_id))
+        return None if rec is None else time.monotonic() - rec["t"]
+
     def generation(self, executor_id):
         """The executor's last reported generation (0 if never seen)."""
         with self._lock:
@@ -167,6 +178,21 @@ class Liveness(object):
                             "generation": rec["generation"]}
         return out
 
+    def health(self):
+        """The ``/healthz`` summary of this registry: healthy when no
+        tracked executor is dead, with the dead executors' reasons and
+        the oldest heartbeat age."""
+        dead = self.dead()
+        snap = self.snapshot()
+        ages = [rec["age"] for rec in snap.values()]
+        return {
+            "healthy": not dead,
+            "executors": len(snap),
+            "dead": {str(eid): d["reason"] for eid, d in dead.items()},
+            "max_heartbeat_age": round(max(ages), 3) if ages else None,
+            "deadline": self.deadline,
+        }
+
     def snapshot(self):
         """Age, generation, ``compute_alive`` and host of every tracked
         executor, keyed by the id as a string (the LIVENESS payload)."""
@@ -181,6 +207,175 @@ class Liveness(object):
                 }
                 for eid, rec in self._beats.items()
             }
+
+
+class MetricsStore(object):
+    """The newest telemetry snapshot of each executor, as the beats
+    brought it; each record keeps its arrival time, so the driver can
+    judge staleness."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._snaps = {}  # executor_id -> {"metrics": dict, "t": monotonic}
+
+    def update(self, executor_id, snapshot):
+        if not isinstance(snapshot, dict):
+            return
+        with self._lock:
+            self._snaps[int(executor_id)] = {
+                "metrics": snapshot,
+                "t": time.monotonic(),
+            }
+
+    def forget(self, executor_id):
+        with self._lock:
+            self._snaps.pop(int(executor_id), None)
+
+    def snapshot(self):
+        """``{executor_id(str): {"metrics": dict, "age": seconds}}``."""
+        now = time.monotonic()
+        with self._lock:
+            return {
+                str(eid): {
+                    "metrics": rec["metrics"],
+                    "age": now - rec["t"],
+                }
+                for eid, rec in self._snaps.items()
+            }
+
+
+class ClockSync(object):
+    """Each executor's clock offset, estimated from heartbeat round trips.
+
+    NTP's client sample: the heartbeater notes ``t0`` (its wall clock)
+    before a frame, the reply carries ``server_time``, and ``t1`` is its
+    clock on receipt; on a symmetric path ``offset = server_time - (t0 +
+    t1) / 2``, uncertain by at most ``rtt = t1 - t0``.  The node reports
+    each sample on its next beat, and this registry keeps, per executor,
+    the sample of the smallest rtt among the last :data:`CLOCK_WINDOW`
+    (one cleanly timed exchange beats an average of queued ones).
+
+    ``offset(eid)`` is what to add to that executor's wall-clock
+    timestamps to put them on the server's (the driver's) clock.
+    """
+
+    #: Samples kept per executor for the min-rtt pick.
+    CLOCK_WINDOW = 8
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._samples = {}  # eid -> deque[(rtt, offset)]
+
+    def update(self, executor_id, offset, rtt):
+        try:
+            offset, rtt = float(offset), float(rtt)
+        except (TypeError, ValueError):
+            return
+        if rtt < 0:
+            return
+        with self._lock:
+            dq = self._samples.setdefault(
+                int(executor_id),
+                collections.deque(maxlen=self.CLOCK_WINDOW),
+            )
+            dq.append((rtt, offset))
+
+    def offset(self, executor_id):
+        """The min-rtt offset estimate in seconds; None when the executor
+        never reported a sample."""
+        with self._lock:
+            dq = self._samples.get(int(executor_id))
+            if not dq:
+                return None
+            return min(dq, key=lambda s: s[0])[1]
+
+    def snapshot(self):
+        """``{executor_id(str): {"offset": seconds, "rtt": seconds}}``."""
+        with self._lock:
+            out = {}
+            for eid, dq in self._samples.items():
+                if not dq:
+                    continue
+                rtt, off = min(dq, key=lambda s: s[0])
+                out[str(eid)] = {"offset": off, "rtt": rtt}
+            return out
+
+
+def estimate_offset(t0, server_time, t1):
+    """One NTP-style sample, ``(offset, rtt)``: a request sent at ``t0``
+    (client clock), answered with ``server_time`` (server clock), received
+    at ``t1`` (client clock)."""
+    return float(server_time) - (float(t0) + float(t1)) / 2.0, (
+        float(t1) - float(t0)
+    )
+
+
+class EventStore(object):
+    """The fleet journal: the executors' typed events as the beats
+    brought them, in one bounded ring (``TFOS_FLEET_JOURNAL_MAX``).
+
+    A high-water seq per (executor, pid) drops repeats: seqs rise within
+    a process, so an event at or below the mark was stored already, and
+    a restarted compute process (a new pid) starts a mark of its own.
+    """
+
+    MAX_EVENTS = int(os.environ.get("TFOS_FLEET_JOURNAL_MAX", "8192"))
+
+    def __init__(self, max_events=None):
+        self._lock = threading.Lock()
+        self._events = collections.deque(
+            maxlen=self.MAX_EVENTS if max_events is None else int(max_events)
+        )
+        self._seen = {}  # (eid, pid) -> max seq stored
+
+    def extend(self, executor_id, events):
+        if not events:
+            return 0
+        eid = int(executor_id)
+        stored = 0
+        with self._lock:
+            for ev in events:
+                if not isinstance(ev, dict):
+                    continue
+                key = (eid, ev.get("pid", 0))
+                seq = ev.get("seq", 0)
+                if seq and seq <= self._seen.get(key, 0):
+                    continue
+                self._seen[key] = max(self._seen.get(key, 0), seq)
+                rec = dict(ev)
+                rec.setdefault("executor", eid)
+                self._events.append(rec)
+                stored += 1
+        return stored
+
+    def snapshot(self, limit=None):
+        """The stored event dicts in time order (newest last)."""
+        with self._lock:
+            out = list(self._events)
+        out.sort(key=lambda e: e.get("ts", 0.0))
+        if limit is not None:
+            out = out[-int(limit):]
+        return out
+
+
+def _jsonable(obj):
+    """``obj`` with what JSON cannot carry replaced: numpy scalars become
+    Python numbers, a float that is not finite becomes None, tuples
+    become lists, anything else unknown its ``str``."""
+    if isinstance(obj, dict):
+        return {str(k): _jsonable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_jsonable(v) for v in obj]
+    if obj is None or isinstance(obj, (bool, int, str)):
+        return obj
+    if hasattr(obj, "item") and not isinstance(obj, float):
+        try:
+            return _jsonable(obj.item())
+        except (TypeError, ValueError):
+            return str(obj)
+    if isinstance(obj, float):
+        return obj if math.isfinite(obj) else None
+    return str(obj)
 
 
 class MessageSocket(object):
@@ -223,9 +418,13 @@ class Server(MessageSocket):
         assert count > 0
         self.reservations = Reservations(count)
         self.liveness = Liveness(heartbeat_interval, miss_threshold)
+        self.metrics = MetricsStore()
+        self.events = EventStore()
+        self.clocks = ClockSync()
         self.done = threading.Event()
         self._stop_requested = threading.Event()
         self._listener = None
+        self._journal_listener = None
         #: elastic re-rendezvous generation, raised by REBIRTH frames
         self._generation = 0
         self._gen_lock = threading.Lock()
@@ -326,16 +525,26 @@ class Server(MessageSocket):
                                    host=data.get("host", ""))
             self.send(sock, {"type": "OK"})
         elif mtype == "HEARTBEAT":
+            eid = msg.get("executor_id", -1)
             self.liveness.beat(
-                msg.get("executor_id", -1),
+                eid,
                 generation=msg.get("generation", 0),
                 compute_alive=msg.get("compute_alive", True),
                 host=msg.get("host", ""),
             )
+            if msg.get("metrics") is not None:
+                self.metrics.update(eid, msg["metrics"])
+            if msg.get("events"):
+                self.events.extend(eid, msg["events"])
+            clk = msg.get("clock")
+            if isinstance(clk, dict):
+                self.clocks.update(eid, clk.get("offset"), clk.get("rtt"))
             # the stop flag and the cluster generation ride the reply, so
-            # heartbeaters double as the survivors' rebirth signal
+            # heartbeaters double as the survivors' rebirth signal;
+            # server_time is the clock sample the next beat reports back
             self.send(sock, {"type": "OK", "stop": self.stop_requested,
-                             "generation": self.generation})
+                             "generation": self.generation,
+                             "server_time": time.time()})
         elif mtype == "FAREWELL":
             # orderly departure: a node whose work completed is never
             # misread as dead-by-silence
@@ -345,6 +554,21 @@ class Server(MessageSocket):
             gen = self.next_generation(msg.get("executor_id", -1),
                                        msg.get("generation", 0))
             self.send(sock, {"type": "REBIRTH_RESP", "generation": gen})
+        elif mtype == "METRICS":
+            self.send(sock, {
+                "type": "METRICS_RESP",
+                "executors": self.metrics.snapshot(),
+                "liveness": self.liveness.snapshot(),
+                "clocks": self.clocks.snapshot(),
+                "generation": self.generation,
+            })
+        elif mtype == "JOURNAL":
+            self.send(sock, {
+                "type": "JOURNAL_RESP",
+                "events": self.events.snapshot(limit=msg.get("limit")),
+                "clocks": self.clocks.snapshot(),
+                "generation": self.generation,
+            })
         elif mtype == "LIVENESS":
             self.send(sock, {
                 "type": "LIVENESS_RESP",
@@ -387,8 +611,32 @@ class Server(MessageSocket):
         logger.info("all reservations completed")
         return self.reservations.get()
 
+    def attach_local_journal(self, executor_id=-1):
+        """Feed this process's journal into the fleet :class:`EventStore`:
+        the driver's own fault events (the monitor's ``executor_dead`` and
+        ``executor_restart``) ride no heartbeat.  Events without an
+        executor are stored under ``executor_id`` (-1, the driver).
+        Idempotent; :meth:`stop` detaches it."""
+        if self._journal_listener is not None:
+            return self
+        from ..telemetry import journal as _journal
+
+        store, eid = self.events, int(executor_id)
+
+        def _listener(ev):
+            store.extend(eid, [_jsonable(ev.to_dict())])
+
+        _journal.get_journal().add_listener(_listener)
+        self._journal_listener = _listener
+        return self
+
     def stop(self):
         self.done.set()
+        if self._journal_listener is not None:
+            from ..telemetry import journal as _journal
+
+            _journal.get_journal().remove_listener(self._journal_listener)
+            self._journal_listener = None
         if self._listener is not None:
             try:
                 self._listener.close()
@@ -485,16 +733,42 @@ class Client(MessageSocket):
         return self._request({"type": "STOP"})
 
     def heartbeat(self, executor_id, generation=0, compute_alive=True,
-                  host=""):
+                  host="", metrics=None, events=None, clock=None):
         """Send one HEARTBEAT frame; the reply carries the cluster-wide
-        ``stop`` flag and the cluster generation."""
-        return self._request({
+        ``stop`` flag, the cluster generation and ``server_time``.
+        ``metrics`` (a registry snapshot), ``events`` (journal event
+        dicts) and ``clock`` (the latest ``{"offset", "rtt"}`` sample) ride
+        the frame when given."""
+        frame = {
             "type": "HEARTBEAT",
             "executor_id": int(executor_id),
             "generation": int(generation),
             "compute_alive": bool(compute_alive),
             "host": host,
-        })
+        }
+        if metrics is not None:
+            frame["metrics"] = metrics
+        if events:
+            frame["events"] = list(events)
+        if clock is not None:
+            frame["clock"] = clock
+        return self._request(frame)
+
+    def get_metrics(self):
+        """The server's per-executor telemetry snapshots and liveness:
+        ``(executors, liveness)``, keyed by the executor id as a string;
+        fold them with ``telemetry.aggregate.merge_snapshots``."""
+        resp = self._request({"type": "METRICS"})
+        return resp["executors"], resp.get("liveness", {})
+
+    def get_journal(self, limit=None):
+        """The fleet journal: ``(events, clocks)``, the time-ordered event
+        dicts and the per-executor clock offsets that align them."""
+        frame = {"type": "JOURNAL"}
+        if limit is not None:
+            frame["limit"] = int(limit)
+        resp = self._request(frame)
+        return resp["events"], resp.get("clocks", {})
 
     def get_liveness(self):
         """The server's liveness snapshot: ``(executors, dead)`` dicts
@@ -536,14 +810,31 @@ class Heartbeater(object):
         is reported immediately instead of after the miss threshold.
       generation_fn: zero-arg callable returning the node's rendezvous
         generation (elastic restarts raise it).
+      metrics_fn: zero-arg callable returning a registry snapshot to ship
+        on the beat.  A None return, or a fn that raises, ships a bare
+        beat: liveness never depends on observability.
+      events_fn: zero-arg callable returning journal event dicts to ship.
+        Events whose beat failed are kept (the newest
+        :data:`MAX_EVENT_BACKLOG`) and sent again with the next beat; the
+        server's ``EventStore`` drops what it already holds.
 
     A beat that cannot reach the server is logged and dropped: missing
     frames is the very signal the server's registry measures, so the
     heartbeater never blocks or dies trying to be reliable.
+
+    Every beat takes one NTP-style clock sample (``t0`` before the frame,
+    the reply's ``server_time``, ``t1`` on receipt; :func:`estimate_offset`)
+    and ships it on the next beat.  What rides a frame is made JSON-safe
+    first (:func:`..telemetry.aggregate.wire_snapshot`, numpy scalars and
+    non-finite floats in events).
     """
 
+    #: Cap on the events kept while beats fail (the newest survive).
+    MAX_EVENT_BACKLOG = 512
+
     def __init__(self, server_addr, executor_id, interval=None,
-                 alive_fn=None, generation_fn=None, host=""):
+                 alive_fn=None, generation_fn=None, host="",
+                 metrics_fn=None, events_fn=None):
         self.server_addr = tuple(server_addr)
         self.executor_id = int(executor_id)
         self.interval = (
@@ -552,9 +843,15 @@ class Heartbeater(object):
         self.alive_fn = alive_fn
         self.generation_fn = generation_fn
         self.host = host
+        self.metrics_fn = metrics_fn
+        self.events_fn = events_fn
         #: the newest cluster generation seen in a reply: supervisors
         #: poll it to learn that a peer was reborn
         self.cluster_generation = 0
+        #: the latest ``{"offset", "rtt"}`` sample of this node against
+        #: the server, shipped on the next beat
+        self.clock = None
+        self._event_backlog = []
         self._stop = threading.Event()
         self._client = None
         self._thread = None
@@ -570,13 +867,41 @@ class Heartbeater(object):
     def beat_once(self):
         """Send a single beat synchronously (primes the registry so
         death-by-silence is measured from now)."""
+        from ..telemetry.aggregate import wire_snapshot
+
         alive = True if self.alive_fn is None else bool(self.alive_fn())
         gen = 0 if self.generation_fn is None else int(self.generation_fn())
-        if self._client is None:
-            self._client = Client(self.server_addr,
-                                  retry_deadline=max(1.0, self.interval))
-        resp = self._client.heartbeat(self.executor_id, generation=gen,
-                                      compute_alive=alive, host=self.host)
+        metrics = None
+        if self.metrics_fn is not None:
+            try:
+                metrics = wire_snapshot(self.metrics_fn())
+            except Exception:  # noqa: BLE001 - see metrics_fn above
+                metrics = None
+        events = list(self._event_backlog)
+        if self.events_fn is not None:
+            try:
+                events.extend(_jsonable(list(self.events_fn() or ())))
+            except Exception:  # noqa: BLE001 - the journal is best effort
+                pass
+        events = events[-self.MAX_EVENT_BACKLOG:]
+        t0 = time.time()
+        try:
+            if self._client is None:
+                self._client = Client(self.server_addr,
+                                      retry_deadline=max(1.0, self.interval))
+            resp = self._client.heartbeat(
+                self.executor_id, generation=gen, compute_alive=alive,
+                host=self.host, metrics=metrics, events=events or None,
+                clock=self.clock)
+        except Exception:
+            # the beat is dropped, the events it carried are not
+            self._event_backlog = events
+            raise
+        t1 = time.time()
+        self._event_backlog = []
+        if resp.get("server_time") is not None:
+            offset, rtt = estimate_offset(t0, resp["server_time"], t1)
+            self.clock = {"offset": round(offset, 6), "rtt": round(rtt, 6)}
         self.cluster_generation = max(self.cluster_generation,
                                       int(resp.get("generation", 0)))
 

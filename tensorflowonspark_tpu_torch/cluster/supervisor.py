@@ -39,9 +39,14 @@ State machine::
 A respawn keeps the executor's ``CUDA_VISIBLE_DEVICES``: the card is
 never looked up again (the dead process's memory may not be freed yet).
 
+The heartbeats carry the node's telemetry: the compute process's
+registry snapshot and journal events (which its ``NodePublisher`` writes
+into the node's kv) with the supervisor's restart count, generation and
+straggler flag folded in, and this process's own journal events (the
+``restart`` and ``restart_budget_exhausted`` marks).
+
 Not ported (ROADMAP queue A, item 14): remediation holds and the
-pod-leader election of the hierarchical parameter server; the restart
-telemetry marks (item 12).
+pod-leader election of the hierarchical parameter server.
 """
 
 import logging
@@ -141,17 +146,31 @@ class Supervisor(object):
         self.proc = None
         self.heartbeater = None
         self._thread = None
+        self._hint_logged = False
+        #: (pid, seq) of the newest compute-process event shipped
+        self._journal_cursor = (0, 0)
+        #: what the next beat carries, refreshed by the collector thread
+        self._beat_lock = threading.Lock()
+        self._beat_snapshot = None
+        self._beat_events = []
+        self._collector_stop = threading.Event()
 
     # -- lifecycle -----------------------------------------------------
 
     def start(self):
         """Spawn the compute process, prime the liveness registry, and
         start the watch thread.  Returns self."""
+        from .. import telemetry
+        from ..telemetry import blackbox
+
+        telemetry.get_journal().set_identity(self.ctx.executor_id)
+        blackbox.install()
         self._spawn()
         self.heartbeater = reservation.Heartbeater(
             self.server_addr, self.ctx.executor_id, interval=self.interval,
             alive_fn=self._proc_alive, generation_fn=lambda: self.generation,
             host=self.node_meta.get("host", ""),
+            metrics_fn=self._beat_metrics, events_fn=self._beat_event_batch,
         )
         try:
             self.heartbeater.beat_once()
@@ -159,11 +178,107 @@ class Supervisor(object):
             logger.warning("priming heartbeat for executor %d failed: %s",
                            self.ctx.executor_id, e)
         self.heartbeater.start()
+        threading.Thread(target=self._collect_telemetry, daemon=True,
+                         name="telemetry-%d" % self.ctx.executor_id).start()
         self._thread = threading.Thread(
             target=self._watch, daemon=True,
             name="supervisor-%d" % self.ctx.executor_id)
         self._thread.start()
         return self
+
+    def _collect_telemetry(self):
+        """Refresh what the beats carry once an interval, off the
+        heartbeat thread: reading the node's kv takes manager round
+        trips, which must never delay a beat."""
+        while True:
+            snap, events = self._node_metrics(), self._node_events()
+            with self._beat_lock:
+                self._beat_snapshot = snap
+                self._beat_events.extend(events or ())
+            if self._collector_stop.wait(self.interval):
+                return
+
+    def _beat_metrics(self):
+        with self._beat_lock:
+            return self._beat_snapshot
+
+    def _beat_event_batch(self):
+        with self._beat_lock:
+            out, self._beat_events = self._beat_events, []
+        return out
+
+    def _kv(self, key):
+        """The node kv's ``key`` (None when the manager cannot answer)."""
+        try:
+            val = self.mgr.get(key)
+            return val._getvalue() if hasattr(val, "_getvalue") else val
+        except Exception:  # noqa: BLE001 - the kv is best effort
+            return None
+
+    def _node_metrics(self):
+        """The snapshot this node's beats carry: the compute process's
+        (from the kv) with the supervisor's restart count, generation
+        and straggler flag folded in, so the fleet view carries restarts
+        even for a compute process too dead to publish."""
+        from ..telemetry.aggregate import NodePublisher
+        from ..telemetry.registry import MetricsRegistry
+
+        snap = self._kv(NodePublisher.KV_KEY)
+        if not isinstance(snap, dict):
+            snap = {"counters": {}, "gauges": {}, "histograms": {}}
+        own = MetricsRegistry(enabled=True)
+        own.counter("cluster.restarts").inc(self.restarts)
+        own.gauge("cluster.generation").set(self.generation)
+        # the health plane's straggler verdict comes back on the beat:
+        # the driver wrote it into this node's kv (health_hint)
+        hint = self._kv("health_hint")
+        if isinstance(hint, dict):
+            if not self._hint_logged:
+                self._hint_logged = True
+                logger.warning(
+                    "executor %d flagged as a straggler by the fleet "
+                    "health plane (dominant phase %r)",
+                    self.ctx.executor_id, hint.get("phase"))
+            own.gauge("health.straggler").set(1.0)
+        elif self._hint_logged:
+            # cleared: the gauge drops for one beat, and the log re-arms
+            self._hint_logged = False
+            own.gauge("health.straggler").set(0.0)
+            logger.info("executor %d straggler flag cleared by the fleet "
+                        "health plane", self.ctx.executor_id)
+        folded = own.snapshot()
+        out = dict(snap)
+        out["counters"] = dict(snap.get("counters") or {},
+                               **folded["counters"])
+        out["gauges"] = dict(snap.get("gauges") or {}, **folded["gauges"])
+        out.setdefault("histograms", {})
+        return out
+
+    def _node_events(self):
+        """The journal events this beat ships: this process's own (the
+        restart marks, drained by cursor) and the compute process's,
+        mirrored into the kv by its ``NodePublisher`` and shipped past a
+        (pid, seq) cursor, so nothing ships twice and a respawned process
+        (a new pid) starts a cursor of its own."""
+        from .. import telemetry
+        from ..telemetry.aggregate import NodePublisher
+
+        eid = self.ctx.executor_id
+        out = [dict(e.to_dict(), executor=eid)
+               for e in telemetry.get_journal().drain_unshipped(64)]
+        rec = self._kv(NodePublisher.KV_JOURNAL_KEY)
+        if isinstance(rec, dict) and rec.get("events"):
+            pid = rec.get("pid", 0)
+            cur_pid, cur_seq = self._journal_cursor
+            if pid != cur_pid:
+                cur_seq = 0
+            fresh = [e for e in rec["events"]
+                     if isinstance(e, dict) and e.get("seq", 0) > cur_seq]
+            if fresh:
+                self._journal_cursor = (pid, max(e.get("seq", 0)
+                                                 for e in fresh))
+                out.extend(dict(e, executor=eid) for e in fresh)
+        return out or None
 
     def _proc_alive(self):
         """What the heartbeat's ``compute_alive`` flag reports.  A process
@@ -183,7 +298,8 @@ class Supervisor(object):
         self.ctx.generation = self.generation
         proc = multiprocessing.get_context("spawn").Process(
             target=_compute_process_main,
-            args=(self.fn_bytes, self.args, self.ctx),
+            args=(self.fn_bytes, self.args, self.ctx,
+                  self.cluster_meta.get("profile")),
             daemon=True,
             name="compute-%s-%d-gen%d" % (self.ctx.job_name,
                                           self.ctx.task_index,
@@ -260,6 +376,13 @@ class Supervisor(object):
                    self.ctx.executor_id, self.restarts + 1,
                    self.max_restarts, self.proc.exitcode))
         logger.error(msg)
+        from .. import telemetry
+
+        telemetry.get_tracer().mark(
+            "restart_budget_exhausted",
+            trace="executor%d" % self.ctx.executor_id, severity="page",
+            executor_id=self.ctx.executor_id, restarts=self.restarts,
+            exitcode=self.proc.exitcode)
         try:
             self.mgr.get_queue("error").put(msg)
             self.mgr.set("compute_state", "failed")
@@ -273,10 +396,17 @@ class Supervisor(object):
     def _rebirth(self):
         """Own compute process died: claim the next generation and
         restart."""
+        exitcode = self.proc.exitcode
         self.restarts += 1
         logger.warning("compute process of executor %d died (exitcode %s); "
-                       "rebirth %d/%d", self.ctx.executor_id,
-                       self.proc.exitcode, self.restarts, self.max_restarts)
+                       "rebirth %d/%d", self.ctx.executor_id, exitcode,
+                       self.restarts, self.max_restarts)
+        from .. import telemetry
+
+        telemetry.get_tracer().mark(
+            "restart", trace="executor%d" % self.ctx.executor_id,
+            severity="warn", executor_id=self.ctx.executor_id,
+            exitcode=exitcode, restart=self.restarts)
         try:
             client = reservation.Client(self.server_addr)
             new_gen = client.rebirth(self.ctx.executor_id, self.generation)
@@ -389,4 +519,5 @@ class Supervisor(object):
         while self._node_state() not in ("stopped", "terminating",
                                          "unknown"):
             time.sleep(self.interval)
+        self._collector_stop.set()
         self.heartbeater.stop()

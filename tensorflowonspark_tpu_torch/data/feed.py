@@ -21,8 +21,10 @@ tensorflowonspark/TFNode.py:221-329).
   narrow wire dtypes there (:mod:`.preprocess`); :func:`place_tree` is
   the copy it shares with ``SyncTrainer``.
 
-Not ported (ROADMAP queue A): the telemetry counters mirroring
-:meth:`DataFeed.wire_stats`.  Nothing here imports ``torch`` at module
+:meth:`DataFeed.wire_stats` has telemetry twins, the
+``feed.wire_bytes``, ``feed.wire_records`` and ``feed.wire_rows``
+counters of the process registry, which the node's heartbeats carry to
+the driver's fleet view.  Nothing here imports ``torch`` at module
 level: the driver and executor sides import this module.
 """
 
@@ -87,11 +89,21 @@ class DataFeed(object):
         self.wire_bytes = 0
         self.wire_records = 0
         self.wire_rows = 0
+        # their registry twins (null metrics when TFOS_TELEMETRY=0)
+        from ..telemetry import registry as _registry
+
+        reg = _registry.get_registry()
+        self._m_bytes = reg.counter("feed.wire_bytes")
+        self._m_records = reg.counter("feed.wire_records")
+        self._m_rows = reg.counter("feed.wire_rows")
 
     def _account(self, nbytes, nrows):
         self.wire_bytes += int(nbytes)
         self.wire_records += 1
         self.wire_rows += int(nrows)
+        self._m_bytes.inc(int(nbytes))
+        self._m_records.inc()
+        self._m_rows.inc(int(nrows))
 
     def _account_item(self, item):
         if isinstance(item, ColumnarBlock):

@@ -15,8 +15,9 @@ producer pid at offset 32, the format tag) is the reference's, so a
 segment written by one package reads in the other.
 
 No pure-Python fallback: callers check :func:`available` and stay on
-the queue path when the native library is missing.  The reference's
-ring telemetry counters are not ported (ROADMAP queue A).
+the queue path when the native library is missing.  Pushes and pops
+count records and bytes in the process registry (``ring.push_records``,
+``ring.push_bytes``, ``ring.pop_records``, ``ring.pop_bytes``).
 """
 
 import atexit
@@ -159,6 +160,14 @@ class ShmRing(object):
                 raise ValueError("segment too small: {0}".format(capacity))
         _INSTANCES.add(self)
         self._next_liveness = 0.0  # next producer probe (monotonic)
+        # per record, and a record is a whole block: no per-row cost
+        from ..telemetry import registry as _registry
+
+        reg = _registry.get_registry()
+        self._m_push = reg.counter("ring.push_records")
+        self._m_push_bytes = reg.counter("ring.push_bytes")
+        self._m_pop = reg.counter("ring.pop_records")
+        self._m_pop_bytes = reg.counter("ring.pop_bytes")
 
     def _base(self):
         return self._cbase
@@ -236,6 +245,8 @@ class ShmRing(object):
         while True:
             rc = self._lib.shmring_push(base, record, len(record))
             if rc == 0:
+                self._m_push.inc()
+                self._m_push_bytes.inc(len(record))
                 return
             if rc == -2:
                 raise ValueError(
@@ -284,6 +295,8 @@ class ShmRing(object):
                     n,
                 )
                 if rc == 0:
+                    self._m_push.inc()
+                    self._m_push_bytes.inc(total)
                     return
                 if rc == -2:
                     raise ValueError(
@@ -325,6 +338,7 @@ class ShmRing(object):
                 ctypes.byref(need),
             )
             if n == 0:
+                self._m_pop.inc()
                 return b""  # zero-length record
             if n == -2:
                 buf = bytearray(int(need.value))
@@ -340,6 +354,8 @@ class ShmRing(object):
                     raise RuntimeError(
                         "ring record vanished between probe and pop"
                     )
+                self._m_pop.inc()
+                self._m_pop_bytes.inc(len(buf))
                 return buf
             if n == -3:
                 raise RuntimeError("corrupt ring segment")

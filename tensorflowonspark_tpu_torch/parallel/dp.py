@@ -52,6 +52,7 @@ item: sharded parameters (``rules``, ``annotations``).
 """
 
 import logging
+import time
 from collections.abc import Mapping
 
 import numpy as np
@@ -359,6 +360,19 @@ class SyncTrainer(object):
             state = checkpointer.restore(state)
             steps = int(state.step)  # one host read, before the loop
             logger.info("resumed from checkpoint at step %d", steps)
+        # the step's trace (feed_wait, h2d, dispatch) and the histograms
+        # the health plane's straggler diagnosis reads (null metrics when
+        # TFOS_TELEMETRY=0); the step time is host time: no sync
+        from .. import tensorboard as _tb
+        from .. import telemetry
+
+        tracer = telemetry.get_tracer()
+        reg = telemetry.get_registry()
+        m_steps = reg.counter("train.steps")
+        m_step_hist = reg.histogram("train.step_sec")
+        m_feed_hist = reg.histogram("train.feed_wait_sec")
+        m_h2d_hist = reg.histogram("train.h2d_sec")
+        m_disp_hist = reg.histogram("train.dispatch_sec")
         stop = False
         while not stop:
             if max_steps is not None and steps >= max_steps:
@@ -366,6 +380,7 @@ class SyncTrainer(object):
             limit = steps_per_execution
             if max_steps is not None:
                 limit = min(limit, max_steps - steps)
+            t_feed0 = time.perf_counter()
             group, stop = collect_ready_group(
                 feed, batch_size, limit, columnar=bool(columnar),
                 preprocess=preprocess)
@@ -373,16 +388,33 @@ class SyncTrainer(object):
                 logger.info("global stop after %d steps", steps)
             if not group:
                 break
+            feed_wait = time.perf_counter() - t_feed0
+            m_feed_hist.observe(feed_wait)
+            trace_id = "step%d" % steps
+            tracer.add("feed_wait", t_feed0, feed_wait, trace=trace_id,
+                       batches=len(group))
             if step_callback is not None:
                 step_callback(steps)
-            if len(group) == 1:
-                state, metrics = self.step_on_device(
-                    state, self._place(group[0]), rng)
-            else:
-                stacked = _tree_map(lambda *xs: np.stack(xs), *group)
-                state, metrics = self.multi_step_on_device(
-                    state, self._place(stacked), [rng] * len(group))
-                metrics = {name: m[-1] for name, m in metrics.items()}
+            t_step0 = time.perf_counter()
+            batch = group[0] if len(group) == 1 else _tree_map(
+                lambda *xs: np.stack(xs), *group)
+            t_h2d = time.perf_counter()
+            with tracer.span("h2d", trace=trace_id):
+                batch = self._place(batch)
+            t_disp = time.perf_counter()
+            m_h2d_hist.observe(t_disp - t_h2d)
+            with tracer.span("dispatch", trace=trace_id):
+                if len(group) == 1:
+                    state, metrics = self.step_on_device(state, batch, rng)
+                else:
+                    state, metrics = self.multi_step_on_device(
+                        state, batch, [rng] * len(group))
+                    metrics = {name: m[-1] for name, m in metrics.items()}
+            t_end = time.perf_counter()
+            m_disp_hist.observe(t_end - t_disp)
+            m_step_hist.observe((t_end - t_step0) / len(group))
+            m_steps.inc(len(group))
+            _tb.profile_step(len(group))
             steps += len(group)
             if metrics_callback is not None:
                 metrics_callback(steps, metrics)

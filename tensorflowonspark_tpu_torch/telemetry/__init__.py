@@ -1,5 +1,4 @@
-"""The serving telemetry plane (port of the JAX package's ``telemetry/``,
-cut to what the LM server uses):
+"""The telemetry plane (port of the JAX package's ``telemetry/``):
 
 - :mod:`.registry`: counters, gauges and fixed-bucket histograms with
   interpolated p50/p99, exported as plain dicts (``snapshot`` /
@@ -12,14 +11,18 @@ cut to what the LM server uses):
   dump bundle on a fault event;
 - :mod:`.ledger`: the per-request and per-tenant usage ledger (decode
   chip-seconds, KV page-seconds, tokens, prefix tokens saved);
-- :mod:`.aggregate`: merging snapshots into a fleet view;
-- :mod:`.health`: the ``/status`` provider registry;
+- :mod:`.aggregate`: the compute process's publisher into the node's kv
+  (shipped on the heartbeats) and merging snapshots into a fleet view;
+- :mod:`.health`: the fleet health plane (windowed time series, SLO
+  rules, straggler diagnosis) and the ``/status`` provider registry;
+- :mod:`.exposition`: its HTTP surface (OpenMetrics ``/metrics``,
+  ``/healthz``, ``/status``, ``/usage``, ``/journal``) and the strict
+  OpenMetrics parser;
 - :mod:`.catalog`: the table of metric names.
 
 ``TFOS_TELEMETRY=0`` (or ``set_enabled(False)``) makes the registry hand
 out shared null metrics and the tracer a shared null span: nothing
-allocates or locks on the hot path.  The cluster side (publishing
-snapshots and journals over heartbeats) is not ported yet.
+allocates or locks on the hot path.
 """
 
 from tensorflowonspark_tpu_torch.telemetry.registry import (  # noqa: F401
@@ -54,8 +57,10 @@ from tensorflowonspark_tpu_torch.telemetry.blackbox import (  # noqa: F401
     load_dump,
 )
 from tensorflowonspark_tpu_torch.telemetry.aggregate import (  # noqa: F401
+    NodePublisher,
     fleet_view,
     merge_snapshots,
+    start_node_publisher,
 )
 from tensorflowonspark_tpu_torch.telemetry.ledger import (  # noqa: F401
     DEFAULT_TENANT,
@@ -67,7 +72,19 @@ from tensorflowonspark_tpu_torch.telemetry.ledger import (  # noqa: F401
     usage_openmetrics,
 )
 from tensorflowonspark_tpu_torch.telemetry.health import (  # noqa: F401
+    Alert,
+    HealthPlane,
+    SloEngine,
+    SloRule,
+    StragglerDetector,
+    TimeSeriesStore,
+    load_rules,
     provider_statuses,
     register_status_provider,
     unregister_status_provider,
+)
+from tensorflowonspark_tpu_torch.telemetry.exposition import (  # noqa: F401
+    ExpositionServer,
+    parse_openmetrics,
+    to_openmetrics,
 )

@@ -17,9 +17,14 @@ the registry's snapshot and its delta since the recorder started, and
 the process's identity.  Dumps are rate-limited per trigger kind
 (:data:`MIN_INTERVAL`) and capped per process (:data:`MAX_DUMPS`).
 
-:func:`install` is the idempotent one-call setup (the serving engine
-calls it); ``TFOS_BLACKBOX=0`` turns the recorder off.  Collecting dumps
-from executors is the cluster side of the plane, not ported yet.
+A recorder attached to a node's kv (:meth:`FlightRecorder.attach_kv`)
+publishes its dump index there as ``blackbox_dumps`` after every dump;
+``TPUCluster.collect_dumps()`` reads every node's index through the
+driver's manager connections.
+
+:func:`install` is the idempotent one-call setup (the serving engine,
+the compute process, the node supervisor and the health plane call it);
+``TFOS_BLACKBOX=0`` turns the recorder off.
 """
 
 import json
@@ -107,6 +112,7 @@ class FlightRecorder(object):
         self._seq = 0
         self._started = False
         self._baseline = None
+        self._mgr = None
         self._m_dumps = self.registry.counter("blackbox.dumps")
         self._m_suppressed = self.registry.counter(
             "blackbox.dumps_suppressed"
@@ -129,6 +135,26 @@ class FlightRecorder(object):
         with self._lock:
             self._started = False
         self.journal.remove_listener(self._on_event)
+
+    def attach_kv(self, mgr):
+        """Publish this recorder's dump index into a node manager's kv
+        (``blackbox_dumps``) now and after every dump."""
+        self._mgr = mgr
+        self._publish_index()
+        return self
+
+    def _publish_index(self):
+        if self._mgr is None:
+            return
+        try:
+            with self._lock:
+                index = list(self.dumps)
+            self._mgr.set("blackbox_dumps", index)
+        except Exception:  # noqa: BLE001 - the kv is best effort
+            logger.warning(
+                "flight recorder could not publish its dump index",
+                exc_info=True,
+            )
 
     def _on_event(self, ev):
         if ev.kind not in self.triggers and ev.severity != "page":
@@ -174,6 +200,7 @@ class FlightRecorder(object):
         with self._lock:
             self.dumps.append(rec)
         self._m_dumps.inc()
+        self._publish_index()
         logger.warning(
             "flight recorder: dumped %r bundle to %s", reason, path
         )

@@ -76,6 +76,41 @@ METRICS = tuple(
          ("prefix_cache.evictions", "cold leaves evicted under the HBM budget"))
     + _m(_G, "radix prefix cache",
          ("prefix_cache.bytes_used", "device bytes held by committed blocks"))
+    # --- training loop (parallel/dp.py) ---
+    + _m(_C, "SyncTrainer.train_on_feed",
+         ("train.steps", "optimizer steps taken"))
+    + _m(_H, "SyncTrainer.train_on_feed",
+         ("train.step_sec", "per-step wall time"),
+         ("train.feed_wait_sec", "feed-starvation wait per step"),
+         ("train.h2d_sec", "host→device transfer (straggler phase series)"),
+         ("train.dispatch_sec", "step dispatch (straggler phase series)"))
+    # --- data plane (data/feed.py, data/shm_ring.py) ---
+    + _m(_C, "DataFeed",
+         ("feed.wire_bytes", "feed payload bytes (twin of wire_stats())"),
+         ("feed.wire_records", "wire records decoded"),
+         ("feed.wire_rows", "rows decoded"))
+    + _m(_C, "ShmRing",
+         ("ring.push_records", "records pushed into the shm ring"),
+         ("ring.push_bytes", "bytes pushed into the shm ring"),
+         ("ring.pop_records", "records popped off the shm ring"),
+         ("ring.pop_bytes", "bytes popped off the shm ring"))
+    # --- cluster lifecycle (cluster/supervisor.py, cluster/cluster.py) ---
+    + _m(_C, "supervisor + driver monitor",
+         ("cluster.restarts", "compute-process restarts (supervisor-side)"),
+         ("cluster.restart_events", "restarts observed by the driver monitor"))
+    + _m(_G, "supervisor heartbeat",
+         ("cluster.generation", "rendezvous generation on the beat"))
+    # --- health plane (telemetry/health.py) ---
+    + _m(_C, "HealthPlane / SloEngine / StragglerDetector",
+         ("health.scrapes", "scrape→store→evaluate rounds"),
+         ("health.alerts_fired", "SLO alert fire transitions"),
+         ("health.alerts_resolved", "SLO alert resolve transitions"),
+         ("health.stragglers_flagged", "executors flagged as stragglers"),
+         ("health.stragglers_cleared", "straggler hints expired clean"),
+         ("health.profile_captures", "auto-triggered profile captures"))
+    + _m(_G, "HealthPlane / supervisor beat",
+         ("health.alerts_active", "currently-firing alerts"),
+         ("health.straggler", "per-node straggler hint flag (beat-side)"))
     # --- telemetry substrate itself ---
     + _m(_C, "Tracer bounded store",
          ("tracing.dropped_spans", "spans evicted by the bounded ring"))

@@ -16,10 +16,13 @@ package's ``telemetry/journal.py``).
   and lifecycle marks become journal events.
 - ``add_listener(fn)`` is the event bus the :mod:`.blackbox` flight
   recorder subscribes its dump triggers to.
+- The shipping cursor, ``drain_unshipped()`` / ``events_since(seq)``,
+  feeds the heartbeats: each node's supervisor ships new events to the
+  reservation server's fleet-wide ``EventStore``
+  (:mod:`..cluster.reservation`), which ``TPUCluster.journal()`` reads.
 
 Disabled (``TFOS_TELEMETRY=0``): ``emit`` returns None and stores
-nothing.  Shipping events to the driver over heartbeats is the cluster
-side of the plane, not ported yet.
+nothing.
 """
 
 import collections
@@ -131,6 +134,7 @@ class EventJournal(object):
         self._seq = itertools.count(1)
         self._lock = threading.Lock()
         self._listeners = []
+        self._ship_cursor = 0
         #: events evicted from either ring
         self.dropped_events = 0
 
@@ -140,6 +144,11 @@ class EventJournal(object):
 
     def set_enabled(self, flag):
         self._enabled = bool(flag)
+
+    def set_identity(self, executor):
+        """Stamp later events with this executor id (a compute process
+        learns its id after the journal exists)."""
+        self.executor = executor
 
     def add_listener(self, fn):
         """Call ``fn(event)`` after every append.  A listener that raises
@@ -253,10 +262,37 @@ class EventJournal(object):
             out = out[-int(limit):]
         return out
 
+    def tail(self, n):
+        return self.events(limit=n)
+
+    def count(self, kind, severity=None):
+        return len(self.events(kind=kind, severity=severity))
+
+    def events_since(self, seq, limit=None):
+        """Events whose ``seq`` is above the cursor ``seq`` (seqs rise
+        within a process), oldest first, at most ``limit``."""
+        out = [e for e in self.events() if e.seq > int(seq)]
+        if limit is not None:
+            out = out[: int(limit)]
+        return out
+
+    def drain_unshipped(self, limit=128):
+        """Events no earlier drain returned (one consumer: the node's
+        heartbeat).  The cursor moves only over what is returned, so a
+        bounded drain never skips an event."""
+        with self._lock:
+            cursor = self._ship_cursor
+        out = self.events_since(cursor, limit=limit)
+        if out:
+            with self._lock:
+                self._ship_cursor = max(self._ship_cursor, out[-1].seq)
+        return out
+
     def clear(self):
         with self._lock:
             self._info.clear()
             self._fault.clear()
+            self._ship_cursor = 0
 
     def save(self, path):
         """Write every retained event as JSONL; returns ``path``."""

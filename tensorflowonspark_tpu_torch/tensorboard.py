@@ -1,34 +1,103 @@
 """On-demand device profiling with ``torch.profiler`` (port of the
-profiling hook of the JAX package's ``tensorboard.py``; managed
+profiling hooks of the JAX package's ``tensorboard.py``; managed
 TensorBoard processes are not ported yet).
 
 :func:`start_profile` starts a trace of the CPU and, where a card is
-present, of CUDA; its :class:`ProfileSession` counts work units
-(the serving engine's decode chunks) as profiler steps and stops itself
-after ``num_steps`` of them, writing a Chrome trace
-(``<host>_<pid>.<ms>.pt.trace.json``, the name TensorBoard's profiler
-plugin reads) into the log directory.  The serving builder's
-``profile_dir``/``profile_steps`` reach it through the engine.
+present, of CUDA; its :class:`ProfileSession` counts work units (the
+serving engine's decode chunks, ``train_on_feed``'s steps) as profiler
+steps and stops itself after ``num_steps`` of them, writing a Chrome
+trace (``<host>_<pid>.<ms>.pt.trace.json``, the name TensorBoard's
+profiler plugin reads) into the log directory.
+
+Three ways in: ``serving_builder``'s ``profile_dir``/``profile_steps``
+(through the engine); ``cluster.run(profile_dir=, profile_steps=)``,
+which hands :data:`PROFILE_DIR_ENV`/:data:`PROFILE_STEPS_ENV` to that
+cluster's compute processes only, each starting its capture with
+:func:`maybe_start_profile_from_env` into ``<dir>/<pid>``; and the health
+plane's ``profile_request`` (``telemetry.aggregate.NodePublisher``),
+which :func:`request_profile` hands to the training thread.
+
+A ``torch.profiler`` session records the thread that starts it and must
+be stepped and stopped there, so a capture asked for from another thread
+starts at that thread's next :func:`profile_step`.  A process holds at
+most one live session: a second start returns None.
 """
 
 import logging
 import os
 import socket
+import threading
 import time
 
 logger = logging.getLogger(__name__)
+
+#: The environment of a compute process that should capture a trace
+#: into ``$TFOS_PROFILE_DIR/<pid>`` (for ``$TFOS_PROFILE_STEPS`` steps).
+PROFILE_DIR_ENV = "TFOS_PROFILE_DIR"
+PROFILE_STEPS_ENV = "TFOS_PROFILE_STEPS"
+
+#: The process's live session (``torch.profiler`` traces one at a time);
+#: :func:`profile_step` feeds it from the training loop.
+_ACTIVE_SESSION = None
+
+#: A capture another thread asked for: ``(log_dir, num_steps, on_start)``
+_PENDING = [None]
+_PENDING_LOCK = threading.Lock()
+
+
+def request_profile(log_dir, num_steps=None, on_start=None):
+    """Ask the thread that calls :func:`profile_step` to start a capture
+    into ``log_dir`` at its next step boundary; ``on_start(session or
+    None)`` is called there once it was tried.  Returns False (and
+    starts nothing) while a session is live or another request waits."""
+    with _PENDING_LOCK:
+        if _ACTIVE_SESSION is not None or _PENDING[0] is not None:
+            return False
+        _PENDING[0] = (log_dir, num_steps, on_start)
+    return True
+
+
+def cancel_request():
+    """Withdraw a request no step boundary served; returns it, or None."""
+    with _PENDING_LOCK:
+        req, _PENDING[0] = _PENDING[0], None
+    return req
+
+
+def active_session():
+    """The process's live :class:`ProfileSession`, or None."""
+    return _ACTIVE_SESSION
+
+
+def profile_step(n=1):
+    """Count ``n`` work units against the live session, if any; with no
+    session, start the capture :func:`request_profile` asked for."""
+    sess = _ACTIVE_SESSION
+    if sess is not None:
+        sess.step(n)
+    elif _PENDING[0] is not None:
+        req = cancel_request()
+        if req is not None:
+            log_dir, num_steps, on_start = req
+            sess = start_profile(log_dir, num_steps)
+            if on_start is not None:
+                on_start(sess)
 
 
 class ProfileSession(object):
     """One live ``torch.profiler`` trace.  ``step(n)`` counts ``n`` work
     units; once ``num_steps`` have passed the trace stops and is written.
-    ``stop()`` is idempotent; ``trace_path`` names the written file."""
+    ``stop()`` is idempotent; ``trace_path`` names the written file and
+    ``stop_sec`` the seconds the stop took (the wait for queued kernels,
+    the profiler's stop and the export)."""
 
-    def __init__(self, prof, log_dir, num_steps=None):
+    def __init__(self, prof, log_dir, num_steps=None, cuda=False):
         self._prof = prof
+        self._cuda = cuda
         self.log_dir = log_dir
         self.remaining = None if num_steps is None else int(num_steps)
         self.trace_path = None
+        self.stop_sec = None
         self._active = True
 
     def step(self, n=1):
@@ -45,10 +114,20 @@ class ProfileSession(object):
         return self._active
 
     def stop(self):
+        global _ACTIVE_SESSION
         if not self._active:
             return
         self._active = False
+        if _ACTIVE_SESSION is self:
+            _ACTIVE_SESSION = None
+        t0 = time.perf_counter()
         try:
+            if self._cuda:
+                # the kernels of the counted steps may still be queued:
+                # the trace holds them only once they ran
+                import torch
+
+                torch.cuda.synchronize()
             self._prof.stop()
             os.makedirs(self.log_dir, exist_ok=True)
             name = "{0}_{1}.{2}.pt.trace.json".format(
@@ -56,7 +135,9 @@ class ProfileSession(object):
             path = os.path.join(self.log_dir, name)
             self._prof.export_chrome_trace(path)
             self.trace_path = path
-            logger.info("torch.profiler trace written to %s", path)
+            self.stop_sec = time.perf_counter() - t0
+            logger.info("torch.profiler trace written to %s in %.2f s", path,
+                        self.stop_sec)
         except Exception as e:  # noqa: BLE001 - profiling is best effort
             logger.warning("writing the torch.profiler trace failed: %s", e)
 
@@ -64,8 +145,15 @@ class ProfileSession(object):
 def start_profile(log_dir, num_steps=None):
     """Start a ``torch.profiler`` trace that will be written into
     ``log_dir``; returns a :class:`ProfileSession`, or None when the
-    profiler cannot start (the run goes on unprofiled).  CUDA activity is
-    recorded whenever a card is present."""
+    profiler cannot start or a session is already live in this process
+    (the run goes on unprofiled).  CUDA activity is recorded whenever a
+    card is present."""
+    global _ACTIVE_SESSION
+    if _ACTIVE_SESSION is not None:
+        logger.warning("a torch.profiler trace into %s is already live; "
+                       "not starting another into %s",
+                       _ACTIVE_SESSION.log_dir, log_dir)
+        return None
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -81,4 +169,22 @@ def start_profile(log_dir, num_steps=None):
         return None
     logger.info("torch.profiler trace started into %s%s", log_dir,
                 "" if num_steps is None else " (%d steps)" % num_steps)
-    return ProfileSession(prof, log_dir, num_steps)
+    _ACTIVE_SESSION = ProfileSession(prof, log_dir, num_steps,
+                                     cuda=len(activities) > 1)
+    return _ACTIVE_SESSION
+
+
+def maybe_start_profile_from_env():
+    """Start the capture :data:`PROFILE_DIR_ENV` asks for, into
+    ``<dir>/<pid>``; None when it is unset.  A capture that was asked for
+    and cannot start raises (the reference degrades to no capture)."""
+    log_dir = os.environ.get(PROFILE_DIR_ENV)
+    if not log_dir:
+        return None
+    steps = os.environ.get(PROFILE_STEPS_ENV)
+    sub = os.path.join(log_dir, str(os.getpid()))
+    sess = start_profile(sub, int(steps) if steps else None)
+    if sess is None:
+        raise RuntimeError("the profile capture into {0} that {1} asks for "
+                           "did not start".format(sub, PROFILE_DIR_ENV))
+    return sess

@@ -1,6 +1,6 @@
 """Deterministic chaos injection for fault-tolerance tests (port of the
-JAX package's ``testing/chaos.py``, cut to the kill-worker fault and the
-serving faults).
+JAX package's ``testing/chaos.py``, cut to the kill-worker and
+slow-executor faults and the serving faults).
 
 A :class:`ChaosPlan` is written to a JSON file and advertised through
 the ``TFOS_CHAOS_PLAN`` env var.  Training: the user fn under test
@@ -8,7 +8,10 @@ builds :func:`step_fault_fn` and calls the returned hook once per
 training step (``SyncTrainer.train_on_feed(step_callback=...)``); the
 kill is a SIGKILL to the compute process's own pid: no exit handlers,
 no error-queue post, which is what a preemption or an OOM kill looks
-like to the rest of the system.  Serving: the engine reads the plan's
+like to the rest of the system.  A ``slow_executor`` fault stalls one
+executor's feed pulls (:func:`slow_feed_fn` wrapped around its feed by
+:class:`SlowFeed`): the straggler the health plane is to name.
+Serving: the engine reads the plan's
 ``wedge_dispatch`` faults (:func:`serving_wedge_fn`), the checkpoint
 watcher its ``slow_ingest`` (:func:`ingest_delay`), and a harness its
 ``swap_during_wedge`` chunk (:func:`swap_chunk_from_plan`);
@@ -22,8 +25,8 @@ runs unless a test opts in: with ``TFOS_CHAOS_PLAN`` unset every hook is
 a no-op.
 
 Not ported (ROADMAP queue A, item 14): the other faults of the
-reference's plan (heartbeat drops, slow executors, leader kills, replica
-and prefill faults) and ``TcpGremlin``.
+reference's plan (heartbeat drops, leader kills, replica and prefill
+faults) and ``TcpGremlin``.
 """
 
 import json
@@ -57,6 +60,19 @@ class ChaosPlan(object):
         (see :func:`step_fault_fn`)."""
         self.faults.append({"kind": "kill", "executor_id": int(executor_id),
                             "at_step": int(at_step)})
+        return self
+
+    def slow_executor(self, executor_id, per_batch_sec, batches=0):
+        """Make executor ``executor_id`` a straggler: stall each of its
+        feed pulls by ``per_batch_sec`` (a slow data pipeline, so the
+        stall lands in the ``feed`` phase of the health plane's
+        per-executor series).  ``batches=0`` stalls every pull, else only
+        the first ``batches``.  Applied by :func:`slow_feed_fn` with
+        :class:`SlowFeed` in the user fn under test."""
+        self.faults.append(
+            {"kind": "slow_executor", "executor_id": int(executor_id),
+             "per_batch_sec": float(per_batch_sec),
+             "batches": int(batches)})
         return self
 
     def slow_ingest(self, sec):
@@ -140,6 +156,53 @@ def step_fault_fn(ctx):
                 os.kill(os.getpid(), signal.SIGKILL)
 
     return fault
+
+
+def slow_feed_fn(ctx):
+    """This executor's feed-stall hook from the plan, or None when no
+    ``slow_executor`` fault names it.  Returns ``delay()``, to call once
+    per feed pull: it sleeps ``per_batch_sec`` while the fault's batch
+    budget lasts."""
+    plan = load_plan()
+    if plan is None:
+        return None
+    faults = [f for f in plan.faults
+              if f["kind"] == "slow_executor"
+              and f["executor_id"] == int(ctx.executor_id)]
+    if not faults:
+        return None
+    state = {"pulled": 0}
+    per_sec = max(f["per_batch_sec"] for f in faults)
+    budget = max(f["batches"] for f in faults)
+
+    def delay():
+        state["pulled"] += 1
+        if budget and state["pulled"] > budget:
+            return
+        time.sleep(per_sec)
+
+    return delay
+
+
+class SlowFeed(object):
+    """A :class:`~..data.feed.DataFeed` whose every pull first stalls
+    through ``delay_fn`` (the stall lands in the consumer's
+    ``feed_wait``); everything else goes to the wrapped feed."""
+
+    def __init__(self, feed, delay_fn):
+        self._feed = feed
+        self._delay = delay_fn
+
+    def next_batch(self, *a, **kw):
+        self._delay()
+        return self._feed.next_batch(*a, **kw)
+
+    def next_arrays(self, *a, **kw):
+        self._delay()
+        return self._feed.next_arrays(*a, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self._feed, name)
 
 
 def serving_wedge_fn():

@@ -195,16 +195,82 @@ def test_failure_during_feed_names_the_executor(engine):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"profile_dir": "profiles"}, "the rest: profiling"),
     ({"num_ps": 1}, "the rest: parameter-server nodes"),
     ({"eval_node": True}, "the rest: evaluator nodes"),
     ({"tensorboard": True}, "the rest: tensorboard"),
     ({"plan": "auto"}, "the rest: the planner"),
-], ids=["profile_dir", "num_ps", "eval_node", "tensorboard", "plan"])
+], ids=["num_ps", "eval_node", "tensorboard", "plan"])
 def test_run_refuses_unported_args(kw, item):
     # raised before any process starts: no engine needed
     with pytest.raises(NotImplementedError, match=item):
         cluster.run(object(), _fail_fn, num_executors=1, **kw)
+
+
+def test_profile_dir_knob_matches_the_reference(monkeypatch, tmp_path):
+    """``run(profile_dir=, profile_steps=)`` reaches the compute process
+    as the reference's environment does: the same variables give both
+    packages' ``maybe_start_profile_from_env`` a capture into
+    ``<dir>/<pid>`` for the same steps.  The port's writes a
+    ``torch.profiler`` trace there once its steps ran out; a capture that
+    cannot start raises in the port (the reference goes on without)."""
+    import jax
+
+    from tensorflowonspark_tpu import tensorboard as jtb
+    from tensorflowonspark_tpu_torch import tensorboard as ttb
+
+    assert (ttb.PROFILE_DIR_ENV, ttb.PROFILE_STEPS_ENV) \
+        == (jtb.PROFILE_DIR_ENV, jtb.PROFILE_STEPS_ENV)
+    monkeypatch.setattr(jax.profiler, "start_trace", lambda d, **kw: None)
+    monkeypatch.setattr(jax.profiler, "stop_trace", lambda: None)
+    for mod in (ttb, jtb):
+        monkeypatch.delenv(mod.PROFILE_DIR_ENV, raising=False)
+        assert mod.maybe_start_profile_from_env() is None
+    monkeypatch.setenv(ttb.PROFILE_DIR_ENV, str(tmp_path))
+    monkeypatch.setenv(ttb.PROFILE_STEPS_ENV, "2")
+    want = jtb.maybe_start_profile_from_env()
+    got = ttb.maybe_start_profile_from_env()
+    assert got.log_dir == want.log_dir == os.path.join(str(tmp_path),
+                                                       str(os.getpid()))
+    assert got.remaining == want.remaining == 2
+    want.stop()
+    # one capture at a time: a second start while this one lives
+    with pytest.raises(RuntimeError, match="did not start"):
+        ttb.maybe_start_profile_from_env()
+    ttb.profile_step(1)
+    assert got.trace_path is None
+    ttb.profile_step(1)  # its steps ran out: the trace is written
+    assert os.path.dirname(got.trace_path) == got.log_dir
+    assert got.trace_path.endswith(".pt.trace.json")
+
+
+def test_profile_dir_stays_with_its_cluster(engine, tmp_path):
+    """C9: the reference's ``run`` writes ``TFOS_PROFILE_DIR`` into the
+    driver's environment for good (``cluster/cluster.py:1304-1311``), so
+    every later cluster profiles too.  The port hands it to that
+    cluster's compute processes only: a second cluster on the same
+    driver and engine, without ``profile_dir``, captures nothing."""
+    import fleet_workers
+
+    prof = tmp_path / "prof"
+    outs = [tmp_path / "run1", tmp_path / "run2"]
+    rows = [[float(i) for i in range(8)]] * 2
+    for out, kw in zip(outs, ({"profile_dir": str(prof),
+                               "profile_steps": 2}, {})):
+        out.mkdir()
+        c = cluster.run(engine, fleet_workers.port_straggler_fn,
+                        {"out": str(out)}, num_executors=1, **kw, **BOUNDS)
+        c.train(rows, feed_timeout=FEED_TIMEOUT)
+        c.shutdown(timeout=60)
+        assert "TFOS_PROFILE_DIR" not in os.environ
+    first, second = [json.load(open(out / "0.json")) for out in outs]
+    assert first["profile_env"] == str(prof)
+    assert second["profile_env"] is None
+    assert os.listdir(prof) == [str(first["pid"])]
+    (trace,) = os.listdir(prof / str(first["pid"]))
+    assert trace.endswith(".pt.trace.json")
+    with open(prof / str(first["pid"]) / trace) as f:
+        events = json.load(f)["traceEvents"]
+    assert events
 
 
 def test_run_refuses_a_closure():
