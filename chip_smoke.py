@@ -288,7 +288,7 @@ caught):
     flagship (:data:`SERVING`, ``prefix_cache`` with the page as block):
     32 requests in 2 families, each a 256-token header and a tail of
     16-160 tokens (:func:`family_requests`).  In f32, TF32 off, the
-    first 16 requests' tokens with the cache equal those without it on
+    first 8 requests' tokens with the cache equal those without it on
     both layouts, near ties apart.  In bf16 a cold job, then a warm one through the same
     memoized predictor: K1 launches = layers x decode steps, every warm
     request hits at least the header, ``prefix_tokens_saved`` = the sum
@@ -320,7 +320,7 @@ caught):
     the paged prefix-cache engine with the unfused f32 model's tokens
     (near ties apart).
 31. ``telemetry_serve_flagship``: the serving telemetry plane on the
-    paged bf16 flagship with the radix cache: 16 greedy requests of three
+    paged bf16 flagship with the radix cache: 8 greedy requests of three
     tenants, each with a ``trace_id``, sharing a 256-token system prompt
     (:data:`TELEMETRY_TENANTS`).  After one warm-up job with the plane on
     and one with it off, :data:`TELEMETRY_PAIRS` pairs of jobs run, on
@@ -330,8 +330,8 @@ caught):
     engine's ``decode_wall_sec`` (1e-9 relative), the per-tenant tokens
     in and out to the engine's totals, every request holds page-seconds,
     ``prefix_tokens_saved`` equals the ``prefix_cache.tokens_saved``
-    delta, ``serving.completed`` moved by 16, the latency and TTFT
-    histograms by 16 each, the Chrome trace parses and each request's
+    delta, ``serving.completed`` moved by 8, the latency and TTFT
+    histograms by 8 each, the Chrome trace parses and each request's
     trace holds ``admission``, ``prefill`` and a ``decode_chunk``, and K1
     ran layers x decode steps.  A job with ``profile_dir`` and
     ``profile_steps=3`` writes a ``torch.profiler`` trace that names K1's
@@ -342,6 +342,48 @@ caught):
     the flight recorder: its watchdog fire leaves exactly one bundle,
     whose events hold the ``watchdog_fire`` and whose spans the recent
     ``decode_chunk``s.
+32. ``disagg_serve_flagship``: prefill/decode disaggregation on the
+    paged bf16 flagship, ``slice_flagship``'s 16 requests on 8 slots (the
+    pool with one slot's span of spare pages).  One predictor serves them
+    unified, split (``ServingEngine(disaggregate=True)``: each admit a
+    ``PrefillWorker`` prefill into the shared pool under a handoff lease,
+    then ``SlotDecoder.adopt``), and split, on the first 8, under a chaos
+    plan that leaks a one-page lease (0.5 s deadline) and kills the
+    worker at the same prefill, with a 30 s prefill watchdog.  Gates:
+    the split's and the faulted job's tokens equal the unified one's
+    request by request; K1
+    = layers x decode steps in every job; one adopt per request, each
+    leaving every pool's ``data_ptr`` and version alone; one more adopt
+    alone dispatches exactly the state writes the decoder counts
+    (``last_adopt_dispatches``), and the device ops ``torch.profiler``
+    saw are printed beside them (not gated: this late in the process the
+    profiler records no memory copies, and the writes are copies);
+    no page, handoff or lease left after a job; one worker death and both
+    leases reaped; ``forensics.explain`` over the job's journal export and
+    the flight recorder's bundles (and the module's CLI) name
+    ``kill_prefill``, triggered by ``prefill_worker_dead``.  Prints TTFT
+    p50/p99 and decode tokens/s of each job.  ``wedge_prefill`` is held
+    on the CPU only (its hang is its cost).
+33. ``spec_serve_flagship``: speculative decoding.  The first 8 of the 16
+    requests, 32 new tokens, paged, continuous (chunks of 8 steps or
+    rounds): without a draft and with
+    a 2-layer draft cut from the flagship's seed tree (its embedding,
+    first two blocks, final norm and head; ``draft_len`` 4), in f32 (the
+    speculative tokens must equal the plain ones, near ties apart) and in
+    bf16 (reported): accepted/proposed, rounds, tokens/s and TTFT beside
+    the plain run's.  In f32 also with the whole model as its own draft,
+    which must accept drafts (the accepted path on the card).  In bf16
+    the plain job runs once more through the gather path
+    (``paged_impl="gather"``, the verify's path): the speculative tokens'
+    agreement with it, and the top-2 gap over the spread at each first
+    difference from the plain (K1) run, say whether the two paths'
+    rounding is what parts them.  K1 runs layers x decode steps in the
+    plain job and never in the others (the verify blocks take the
+    gather path).  Then static ``generate_speculative`` on 8 rows of a
+    32-token seeded motif repeated 8 times, 32 new tokens, in f32 against
+    static greedy ``generate`` (near ties apart), by prompt lookup
+    (``speculative=True``, ``ngram`` 2) and with the model as its own
+    draft, which must accept drafts: rounds and tokens per round.
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit
 line, and as the last line ``{"ok": true, "device": {...}}``.  Without a
@@ -5860,7 +5902,9 @@ def phase_static_serve_flagship(tree, slice_tokens, slice_step_ms=None):
 #: of this many tokens, each followed by a tail of its own
 PREFIX_REQUESTS, PREFIX_FAMILIES, PREFIX_HEADER = 32, 2, 256
 #: the first of them, both families, held in f32 with and without a cache
-PREFIX_F32_REQUESTS = 16
+#: (8, one wave of the slots: cut from 16 to keep ``phase_times`` near its
+#: 1,000 s budget on the slower hosts)
+PREFIX_F32_REQUESTS = SLOTS
 PREFIX_TAIL = (16, 160)
 #: the serving knobs of a radix prefix cache whose block is the page
 PREFIX = dict(prefix_cache=True, prefix_block=SERVING["kv_page_tokens"])
@@ -6231,6 +6275,9 @@ def phase_serve_recovery_flagship(tree, config=FLAGSHIP, device=None,
 TELEMETRY_TENANTS = ("acme", "globex", "initech")
 TELEMETRY_PROFILE_STEPS = 3
 TELEMETRY_PAIRS = 2
+#: requests of each telemetry job (8, one wave of the slots: cut from 16
+#: for the same budget)
+TELEMETRY_REQUESTS = SLOTS
 TELEMETRY_PREFIX_MB = 512
 TELEMETRY_MAPPING = {"tokens": "tokens", "tenant": "tenant",
                      "trace_id": "trace_id"}
@@ -6248,7 +6295,8 @@ def telemetry_requests(vocab, n=REQUESTS):
 
 
 def phase_telemetry_serve_flagship(tree, config=FLAGSHIP, device=None,
-                                   requests=REQUESTS, pairs=TELEMETRY_PAIRS):
+                                   requests=TELEMETRY_REQUESTS,
+                                   pairs=TELEMETRY_PAIRS):
     """The serving telemetry plane at the flagship's width: see the module
     docstring, phase 31.  ``pairs`` on/off pairs follow the warm-up, the
     side that goes first alternating (:func:`main` runs 2; the plane's cost
@@ -7183,6 +7231,452 @@ def phase_segmentation_flagship(device=None):
     return line
 
 
+# ----------------------------------------------------------------------
+# prefill/decode disaggregation and speculation (phases 32 and 33)
+# ----------------------------------------------------------------------
+
+#: the split phase's fault job: the chaos plan leaks a one-page handoff
+#: lease of this deadline and kills the prefill worker at the same
+#: prefill, under a prefill watchdog no prefill comes near; it serves
+#: the first slots' worth of the requests (one wave, to keep
+#: ``phase_times`` in its budget)
+DISAGG_LEAK_DEADLINE, DISAGG_WATCHDOG_SEC = 0.5, 30.0
+DISAGG_FAULT_REQUESTS = SLOTS
+#: the speculation phase: requests (the first of the 16) and their new
+#: tokens, the draft's layers (the flagship's first) and its drafts per
+#: round; the static rows, their motif, its repeats and the new tokens
+#: (32, cut from 64 to keep ``phase_times`` in its budget)
+SPEC_REQUESTS, SPEC_NEW, SPEC_DRAFT_LAYERS, SPEC_DRAFT_LEN = 8, 32, 2, 4
+#: its continuous chunks: 8 steps, or 8 speculative rounds (a chunk runs
+#: all its rounds, done slots included)
+SPEC_CHUNK = 8
+SPEC_STATIC_ROWS, SPEC_MOTIF, SPEC_REPEATS, SPEC_STATIC_NEW = 8, 32, 8, 32
+
+
+class AdoptLog(object):
+    """Counts a decoder's adopts, and records each one that touched a
+    pool (storage or version)."""
+
+    def __init__(self, dec):
+        self.dec, self.adopts, self.moved = dec, 0, []
+        pools = [t for layer in dec.cache for t in layer.values()]
+
+        def adopt(slot, handoff, _orig=dec.adopt):
+            before = [(t.data_ptr(), t._version) for t in pools]
+            first = _orig(slot, handoff)
+            self.adopts += 1
+            if before != [(t.data_ptr(), t._version) for t in pools]:
+                self.moved.append(self.adopts)
+            return first
+
+        dec.adopt = adopt
+
+    def detach(self):
+        del self.dec.adopt
+
+
+def adopt_launches(dec, prompt):
+    """One adopt of ``prompt``'s handoff into slot 0 of an idle decoder,
+    on its own: the ops it dispatched to the device's backend (those
+    that are not views), the device ops ``torch.profiler`` saw on a card
+    (kernels, copies and fills, by name), the decoder's own count
+    (``last_adopt_dispatches``), and whether a pool's storage or version
+    moved.  The slot is evicted again after."""
+    import contextlib
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from tensorflowonspark_tpu_torch.serving_disagg import PrefillWorker
+
+    class Dispatched(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    pools = [t for layer in dec.cache for t in layer.values()]
+    handoff = PrefillWorker(dec).prefill(prompt)
+    sync(dec.device)
+    before = [(t.data_ptr(), t._version) for t in pools]
+    prof = contextlib.nullcontext()
+    if dec.device.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        prof = profile(activities=[ProfilerActivity.CUDA])
+    with prof as p, Dispatched() as seen:
+        dec.adopt(0, handoff)
+        sync(dec.device)
+    device_ops = None
+    if p is not None:
+        device_ops = {}
+        for e in p.key_averages():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)):
+                device_ops[e.key[:80]] = (device_ops.get(e.key[:80], 0)
+                                          + e.count)
+    moved = before != [(t.data_ptr(), t._version) for t in pools]
+    dec.evict(0)
+    return dict(
+        dispatched=seen.ops, counted=dec.last_adopt_dispatches,
+        device_ops=device_ops,
+        launches=None if device_ops is None else sum(device_ops.values()),
+        pool_moved=moved)
+
+
+def pool_left(dec):
+    """What a quiesced decoder without a radix cache must not hold: live
+    pages, pages in flight, leases."""
+    st = dec.page_pool.stats()
+    return dict(census_pages=len(dec.page_pool.refcount_census()),
+                pool_pages_handoff=st["pool_pages_handoff"],
+                pool_leases=st["pool_leases"])
+
+
+def phase_disagg_serve_flagship(tree, config=FLAGSHIP, device=None,
+                                requests=REQUESTS,
+                                leak_deadline=DISAGG_LEAK_DEADLINE):
+    """Prefill/decode disaggregation at the flagship's width: see the
+    module docstring, phase 32.  ``leak_deadline`` is the leaked lease's
+    (a rehearsal's job may end before the card's does)."""
+    import tempfile
+
+    from tensorflowonspark_tpu_torch import forensics
+    from tensorflowonspark_tpu_torch import telemetry
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        serving_builder,
+    )
+    from tensorflowonspark_tpu_torch.telemetry import blackbox
+    from tensorflowonspark_tpu_torch.testing import chaos
+
+    dev = torch.device(device or "cuda")
+    over = {} if device is None else {"device": device}
+    layers, chunk = config["num_layers"], SERVING["chunk_size"]
+    rows = make_requests(np.random.default_rng(2), requests,
+                         config["vocab_size"], 16, SERVING["max_prompt_len"])
+    t_phase = time.perf_counter()
+    # one slot's span of spare pages: without them the leaked page would
+    # fail the eighth admit of the first pass, before any reaping
+    m = SERVING["pad_multiple"]
+    span = -(-min(config["max_seq_len"], -(-SERVING["max_prompt_len"] // m)
+                  * m + SERVING["max_new_tokens"])
+             // SERVING["kv_page_tokens"])
+    predict = serving_builder(tree, dict(config, **SERVING, **over,
+                                         kv_pages=(SLOTS + 1) * span + 1))
+    dec = predict.make_slot_decoder(SLOTS)
+    if dec.page_pool.num_pages != (SLOTS + 1) * dec._blocks_per_slot + 1:
+        raise AssertionError("disagg_serve_flagship: pool of {0} pages for "
+                             "{1} blocks a slot".format(
+                                 dec.page_pool.num_pages,
+                                 dec._blocks_per_slot))
+    log = AdoptLog(dec)
+    problems, jobs = [], {}
+    tmp = tempfile.mkdtemp(prefix="disagg_")
+    journal = telemetry.get_journal()
+    recorder = None
+    try:
+        for name, kw in (("unified", {}), ("split", {"disaggregate": True}),
+                         ("faults", {"disaggregate": True,
+                                     "watchdog_timeout":
+                                     DISAGG_WATCHDOG_SEC})):
+            if name == "faults":
+                # this job's events alone, in the export and the bundles
+                journal.clear()
+                recorder = blackbox.FlightRecorder(
+                    journal=journal, tracer=telemetry.get_tracer(),
+                    dump_dir=os.path.join(tmp, "blackbox"),
+                    min_interval=0.0).start()
+                plan = chaos.ChaosPlan().leak_lease(
+                    1, deadline_sec=leak_deadline).kill_prefill(1)
+                os.environ[chaos.TFOS_CHAOS_PLAN] = plan.save(
+                    os.path.join(tmp, "plan.json"))
+            adopts0 = log.adopts
+            jrows = (rows[:DISAGG_FAULT_REQUESTS] if name == "faults"
+                     else rows)
+            out, stats, wall, k1, _ = serve_job(predict, jrows, dev, **kw)
+            rec = job_record(stats, wall, k1, chunk)
+            rec.update(adopts=log.adopts - adopts0,
+                       decode_tokens_per_sec=stats["tokens_out"]
+                       / stats["decode_wall_sec"],
+                       leases_reaped=stats["leases_reaped"],
+                       prefill_worker_deaths=stats["prefill_worker_deaths"],
+                       prefill_restarts=stats["prefill_restarts"],
+                       left=pool_left(dec), tokens=tokens_of(out))
+            jobs[name] = rec
+            if k1 != layers * rec["decode_steps"] or not k1:
+                problems.append("{0}: K1 launches {1} != {2} x {3}".format(
+                    name, k1, layers, rec["decode_steps"]))
+            if len(out) != len(jrows) or any("error" in r for r in out):
+                problems.append(name + ": a request failed")
+            if any(rec["left"].values()):
+                problems.append("{0}: the pool holds {1} after the "
+                                "job".format(name, rec["left"]))
+        if jobs["split"]["adopts"] != requests or log.moved:
+            problems.append("adopts {0} of {1} requests; adopts that "
+                            "moved a pool: {2}".format(
+                                jobs["split"]["adopts"], requests,
+                                log.moved))
+        for name in ("split", "faults"):
+            want = jobs["unified"]["tokens"][:len(jobs[name]["tokens"])]
+            share, firsts = agreement(jobs[name]["tokens"], want)
+            jobs[name]["equal_unified_share"] = share
+            if share != 1.0:
+                problems.append("{0}: tokens differ from the unified "
+                                "engine's at steps {1}".format(name, firsts))
+        fj = jobs["faults"]
+        if fj["prefill_worker_deaths"] != 1 or fj["leases_reaped"] < 2:
+            problems.append("faults: {0} worker deaths, {1} leases "
+                            "reaped".format(fj["prefill_worker_deaths"],
+                                            fj["leases_reaped"]))
+        # forensics over the journal's export and the recorder's bundles
+        export = os.path.join(tmp, "journal_export.json")
+        with open(export, "w") as f:
+            json.dump({"events": [e.to_dict() for e in journal.events()]},
+                      f)
+        bundles = os.path.join(tmp, "blackbox")
+        report = forensics.explain([export, bundles])
+        cli = subprocess.run(
+            [sys.executable, "-m", "tensorflowonspark_tpu_torch.forensics",
+             "explain", export, bundles], capture_output=True, text=True,
+            timeout=120)
+        incident = report["incident"] or {}
+        forensic = dict(
+            fault_kind=incident.get("fault_kind"),
+            trigger=incident.get("trigger"),
+            events_by_kind=report["events_by_kind"],
+            bundles=len(recorder.dumps), cli_rc=cli.returncode,
+            cli_names_kill_prefill="kill_prefill" in cli.stdout)
+        if (forensic["fault_kind"] != "kill_prefill"
+                or forensic["trigger"] != "prefill_worker_dead"
+                or not forensic["cli_names_kill_prefill"]
+                or not recorder.dumps
+                or "lease_reaped" not in report["events_by_kind"]):
+            problems.append("forensics: {0}".format(forensic))
+    finally:
+        log.detach()
+        os.environ.pop(chaos.TFOS_CHAOS_PLAN, None)
+        if recorder is not None:
+            recorder.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the adopt's device work: the state writes the decoder counts and
+    # nothing on a pool
+    adopt = adopt_launches(dec, rows[0]["tokens"])
+    if (len(adopt["dispatched"]) != adopt["counted"]
+            or adopt["pool_moved"] or any(pool_left(dec).values())):
+        problems.append("adopt: {0}, the pool holds {1}".format(
+            adopt, pool_left(dec)))
+    for rec in jobs.values():
+        del rec["tokens"]
+    line = dict(
+        requests=requests, slots=SLOTS, jobs=jobs, forensics=forensic,
+        adopt=adopt,
+        launches=jobs["split"]["paged_attention_launches"],
+        phase_sec=time.perf_counter() - t_phase, device=device_name(dev),
+        nvidia_smi=nvidia_smi_or_cpu(dev), ok=not problems,
+        problems=problems)
+    del predict, dec
+    gc_collect()
+    emit("disagg_serve_flagship", **line)
+    if problems:
+        raise AssertionError("disagg_serve_flagship: "
+                             + "; ".join(problems))
+    return line
+
+
+def draft_tree(tree, layers):
+    """The flagship's embedding, first ``layers`` blocks, final norm and
+    head: a draft cut from the model it drafts for."""
+    out = {k: tree[k] for k in ("embedding", "ln_f", "lm_head")}
+    out.update({"block_%d" % i: tree["block_%d" % i] for i in range(layers)})
+    return out
+
+
+def spec_jobs(tree, base, rows, dev, drafts, plains=None):
+    """The continuous schedule over ``rows`` without speculation
+    (``"plain"``, and each of ``plains``, ``{name: knobs}``) and with
+    each of ``drafts``, ``{name: (draft config, draft tree)}``: each
+    job's record and tokens, and the plain predictor."""
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        serving_builder,
+    )
+
+    out = {}
+    plain = None
+    variants = [("plain", {})] + list((plains or {}).items()) + [
+        (name, dict(draft_config=cfg, draft_params=dtree,
+                    draft_len=SPEC_DRAFT_LEN))
+        for name, (cfg, dtree) in drafts.items()]
+    for name, extra in variants:
+        predict = serving_builder(tree, dict(base, **extra))
+        got, stats, wall, k1, _ = serve_job(predict, rows, dev)
+        rec = job_record(stats, wall, k1, base["chunk_size"])
+        rec.update(tokens=tokens_of(got),
+                   errors=sum("error" in r for r in got))
+        if name in drafts:
+            rec.update(spec_accepted=stats["spec_accepted"],
+                       spec_proposed=stats["spec_proposed"],
+                       spec_accept_rate=stats["spec_accept_rate"],
+                       rounds=stats["chunks"] * base["chunk_size"])
+        if name == "plain":
+            plain = predict
+        else:
+            del predict
+        out[name] = rec
+    return out, plain
+
+
+def phase_spec_serve_flagship(tree, config=FLAGSHIP, device=None,
+                              requests=SPEC_REQUESTS):
+    """Speculative decoding at the flagship's width: see the module
+    docstring, phase 33."""
+    from tensorflowonspark_tpu_torch import serving
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        serving_builder,
+    )
+
+    dev = torch.device(device or "cuda")
+    over = {} if device is None else {"device": device}
+    vocab = config["vocab_size"]
+    rows = make_requests(np.random.default_rng(2), REQUESTS, vocab, 16,
+                         SERVING["max_prompt_len"])[:requests]
+    dtree = draft_tree(tree, SPEC_DRAFT_LAYERS)
+    problems, line = [], dict(requests=requests, new_tokens=SPEC_NEW,
+                              draft_layers=SPEC_DRAFT_LAYERS,
+                              draft_len=SPEC_DRAFT_LEN)
+    t_phase = time.perf_counter()
+    f32_model = None
+    layers = config["num_layers"]
+    for dtype in ("float32", "bfloat16"):
+        base = dict(config, **dict(SERVING, max_new_tokens=SPEC_NEW,
+                                   chunk_size=SPEC_CHUNK),
+                    dtype=dtype, **over)
+        drafts = {"speculative": (dict(config, num_layers=SPEC_DRAFT_LAYERS,
+                                       dtype=dtype), dtree)}
+        if dtype == "float32":
+            # the model as its own draft: the accepted path, compaction
+            # and the lookahead pages run on the card
+            drafts["self_draft"] = (dict(config, dtype=dtype), tree)
+        # bf16: plain decode through the gather path as well, the path
+        # the verify blocks take, to tell the two paths' rounding apart
+        # from a fault of the speculative path
+        plains = ({} if dtype == "float32"
+                  else {"plain_gather": {"paged_impl": "gather"}})
+        jobs, plain = spec_jobs(tree, base, rows, dev, drafts, plains)
+        rec = dict(jobs)
+        want = jobs["plain"]["tokens"]
+        for name in list(drafts) + list(plains):
+            share, firsts = agreement(jobs[name]["tokens"], want)
+            rec[name].update(equal_share=share,
+                             first_differing_steps=firsts)
+        if plains:
+            for name in drafts:
+                share, firsts = agreement(
+                    jobs[name]["tokens"], jobs["plain_gather"]["tokens"])
+                rec[name].update(equal_gather_share=share,
+                                 first_differing_steps_gather=firsts)
+            # the top-2 gap at each first difference from the plain (K1)
+            # run, on the bf16 model's own forward
+            bf16_model = plain.make_slot_decoder(SLOTS).model
+            for name in list(drafts) + list(plains):
+                _, ties = near_tie_check(bf16_model, rows,
+                                         jobs[name]["tokens"], want)
+                rec[name]["gaps_at_first_differences"] = ties
+            del bf16_model
+        if dtype == "float32":
+            f32_model = plain.make_slot_decoder(SLOTS).model
+            for name in drafts:
+                ok, ties = tie_gate(lambda: f32_model, rows,
+                                    jobs[name]["tokens"], want)
+                rec[name]["near_ties"] = ties
+                if not ok:
+                    problems.append("f32 continuous {0}: speculative tokens "
+                                    "differ beyond a near tie: {1}".format(
+                                        name, ties))
+            if not jobs["self_draft"]["spec_accepted"]:
+                problems.append("f32 self-draft: nothing accepted")
+        del plain
+        for name in rec:
+            del rec[name]["tokens"]
+            if rec[name]["errors"]:
+                problems.append("{0} {1}: a request failed".format(dtype,
+                                                                   name))
+            # the plain decode steps run K1, the verify blocks (several
+            # tokens a slot) the gather path
+            k1 = rec[name]["paged_attention_launches"]
+            if name == "plain" and k1 != layers * rec[name]["decode_steps"] \
+                    or name != "plain" and k1:
+                problems.append("{0} {1}: K1 launches {2}".format(dtype,
+                                                                  name, k1))
+            if name in drafts and not rec[name]["spec_proposed"]:
+                problems.append("{0} {1}: no draft proposed".format(dtype,
+                                                                    name))
+        line["continuous_" + dtype] = rec
+        gc_collect()
+
+    # static generate_speculative by prompt lookup on repeated motifs
+    rng = np.random.default_rng(7)
+    motifs = rng.integers(0, vocab, (SPEC_STATIC_ROWS, SPEC_MOTIF))
+    srows = [{"tokens": np.tile(m, SPEC_REPEATS).astype(np.int32)}
+             for m in motifs]
+    base = dict(config, **dict(STATIC_SERVING,
+                               max_new_tokens=SPEC_STATIC_NEW),
+                dtype="float32", **over)
+    static = {}
+    for name, extra in (("plain", {}),
+                        ("speculative", dict(speculative=True, ngram=2,
+                                             draft_len=SPEC_DRAFT_LEN)),
+                        # the model as its own draft: the accepted path
+                        # (a rewind past one token, several tokens
+                        # emitted a round) on the card
+                        ("self_draft", dict(
+                            speculative=True, draft_len=SPEC_DRAFT_LEN,
+                            draft_config=dict(config, dtype="float32"),
+                            draft_params=tree))):
+        predict = serving_builder(tree, dict(base, **extra))
+        sync(dev)
+        t0 = time.perf_counter()
+        out = list(serving.predict_rows(predict, [dict(r) for r in srows],
+                                        SERVE_MAPPING,
+                                        batch_size=SPEC_STATIC_ROWS))
+        sync(dev)
+        static[name] = dict(wall_sec=time.perf_counter() - t0,
+                            tokens=tokens_of(out))
+        if extra:
+            st = predict.last_spec_stats
+            static[name].update(st, tokens_per_round=SPEC_STATIC_NEW
+                                / max(st["rounds"], 1))
+        del predict
+    want = static["plain"]["tokens"]
+    for name in ("speculative", "self_draft"):
+        ok, ties = tie_gate(lambda: f32_model, srows,
+                            static[name]["tokens"], want)
+        share, firsts = agreement(static[name]["tokens"], want)
+        static[name].update(equal_share=share, first_differing_steps=firsts,
+                            near_ties=ties)
+        if not ok:
+            problems.append("f32 static {0}: tokens differ beyond a near "
+                            "tie: {1}".format(name, ties))
+    if not static["self_draft"]["accepted"]:
+        problems.append("f32 static self-draft: nothing accepted")
+    for rec in static.values():
+        rec["tokens_per_sec"] = sum(len(t) for t in rec.pop("tokens")) \
+            / rec["wall_sec"]
+    line["static"] = dict(static, rows=SPEC_STATIC_ROWS,
+                          prompt_tokens=SPEC_MOTIF * SPEC_REPEATS)
+    del f32_model
+    gc_collect()
+    line.update(phase_sec=time.perf_counter() - t_phase,
+                device=device_name(dev), nvidia_smi=nvidia_smi_or_cpu(dev),
+                ok=not problems, problems=problems)
+    emit("spec_serve_flagship", **line)
+    if problems:
+        raise AssertionError("spec_serve_flagship: " + "; ".join(problems))
+    return line
+
+
 def kernel_entry(name, kernel, replaces, launches, timing,
                  source="tensorflowonspark_tpu_torch/csrc/flash_attention.cu",
                  **extra):
@@ -7238,6 +7732,10 @@ def main():
     lap("fused_qkv_flagship")
     tele = phase_telemetry_serve_flagship(tree)
     lap("telemetry_serve_flagship")
+    disagg = phase_disagg_serve_flagship(tree)
+    lap("disagg_serve_flagship")
+    phase_spec_serve_flagship(tree)
+    lap("spec_serve_flagship")
     phase_flash_cases()
     phase_flash_repeat()
     flash = phase_flash_timing()
@@ -7298,6 +7796,7 @@ def main():
         fused_export_launches=fused["export_serve"][
             "paged_attention_launches"],
         telemetry_launches=tele["launches"],
+        disagg_launches=disagg["launches"],
     )] + [
         kernel_entry("flash_" + name, kernel, jax_flash + line,
                      train["launches"][name], flash[name],

@@ -10,8 +10,11 @@ schedule), the ``SlotDecoder`` in both KV layouts with the radix prefix
 cache and live weight swaps, fused QKV projections (``fused_qkv``: one
 ``[3*H*D, E]`` projection whose output splits as ``[.., 3, H, D]``) and
 ``serving_builder`` (logits serving, static generate, the continuous
-schedule's slot decoders, int8/int4 weights, the int8 KV cache and the
-prefix cache).  Speculative decoding, TP meshes and disaggregation raise
+schedule's slot decoders, int8/int4 weights, the int8 KV cache, the
+prefix cache and prefill/decode disaggregation through
+:meth:`SlotDecoder.adopt`), and speculative decoding: the static
+:func:`generate_speculative` (prompt lookup or a draft model) and the
+``SlotDecoder``'s per-slot draft-model rounds.  TP meshes raise
 ``NotImplementedError`` naming their ROADMAP item.
 
 Sequence parallelism (``attention_impl="ring"`` or ``"ulysses"`` with
@@ -859,6 +862,179 @@ def generate(model, params, prompt, max_new_tokens, temperature=0.0,
     return out
 
 
+def _check_draft(model, draft_model, draft_params):
+    """The reference's draft checks: weights given, one vocabulary."""
+    if draft_params is None and getattr(draft_model, "device",
+                                        torch.device("meta")).type == "meta":
+        raise ValueError("draft_model needs draft_params")
+    if draft_model.cfg.vocab_size != model.cfg.vocab_size:
+        raise ValueError(
+            "draft and flagship models must share a vocabulary; "
+            "got draft vocab {0} vs flagship {1}".format(
+                draft_model.cfg.vocab_size, model.cfg.vocab_size
+            )
+        )
+
+
+def _load_draft(draft_model, draft_params, device):
+    """The draft model on ``device``: ``draft_model`` itself, or, with a
+    Flax-layout ``draft_params`` tree, a model over its config holding
+    that tree.  A quantized draft runs its weights dequantized once (it
+    is small; no per-step dequantization), so it is called directly."""
+    if draft_params is None:
+        return draft_model
+    from tensorflowonspark_tpu_torch import convert
+
+    model = convert.params_from_flax(draft_params, draft_model.cfg,
+                                     device=device)
+    model.requires_grad_(False)
+    return model
+
+
+def _find_drafts(hist, hist_n, last, k, ngram):
+    """Prompt-lookup drafts of every row (the reference's ``find_drafts``
+    over a batch): the ``k`` tokens that followed the latest earlier
+    match of the last ``ngram`` of the ``hist_n`` valid tokens of
+    ``hist [B, L]``.  A match must start strictly before that suffix,
+    the continuation's start is clipped at ``L - k``; a row with no
+    match repeats its ``last`` token, and so does each draft position
+    past the valid history."""
+    b, length = hist.shape
+    dev = hist.device
+    idx = torch.arange(length, device=dev)
+    # dynamic_slice's clamp of the suffix's start
+    s0 = min(max(hist_n - ngram, 0), length - ngram)
+    suffix = hist[:, s0:s0 + ngram]
+    win = torch.clamp(idx[:, None] + torch.arange(ngram, device=dev)[None],
+                      max=length - 1)
+    match = (hist[:, win] == suffix[:, None, :]).all(-1)
+    valid = idx < hist_n - ngram
+    j = torch.where(match & valid[None], idx[None],
+                    torch.full_like(idx[None], -1)).max(dim=1).values
+    start = torch.clamp(j + ngram, 0, length - k)
+    cols = start[:, None] + torch.arange(k, device=dev)[None]
+    cont = torch.gather(hist, 1, cols)
+    keep = (j >= 0)[:, None] & (cols < hist_n)
+    return torch.where(keep, cont, last[:, None].expand(b, k))
+
+
+@torch.no_grad()
+def generate_speculative(model, params, prompt, max_new_tokens,
+                         draft_len=4, ngram=2, return_stats=False,
+                         draft_model=None, draft_params=None, stats=None):
+    """Greedy generation with speculative decoding (the reference's
+    ``generate_speculative``).
+
+    Each round proposes ``draft_len`` tokens and the model verifies them
+    in one ``draft_len + 1``-token forward over its contiguous cache;
+    accepted tokens equal :func:`generate`'s greedy tokens, so the
+    drafts move only the rounds.  Drafts come from prompt lookup
+    (:func:`_find_drafts`, ``ngram`` tokens matched) or, with
+    ``draft_model``, from a smaller model with the same vocabulary that
+    runs ``draft_len + 1`` single-token steps a round through a cache of
+    its own (the last step banks the final proposal's K/V).  Rows accept
+    in lockstep, the least accepted count over the rows: the cache's
+    write pointer is shared, and both pointers are rewound to the newest
+    accepted token's position after each round (the rejected tail is
+    masked and overwritten).
+
+    ``model`` and ``params`` are :func:`generate`'s (a quantized model
+    dequantizes its codes at each verify); ``draft_params`` is None (the
+    draft model's own weights) or a Flax-layout tree, dequantized once
+    when quantized.  Rows of ``prompt [B, P]`` are of one length.  Each
+    round ends with one host sync, which reads the accepted count that
+    decides whether another round runs.
+
+    Returns ``[B, max_new_tokens]`` int32 tokens, or ``(tokens, rounds)``
+    with ``return_stats``; a ``stats`` dict gets ``rounds``,
+    ``proposed``, ``accepted`` and ``accept_rate``.
+    """
+    if params is not None:
+        from tensorflowonspark_tpu_torch import convert
+
+        model = convert.params_from_flax(params, model.cfg,
+                                         device=model.device)
+    cfg = model.cfg
+    if cfg.kv_layout == "paged":
+        raise ValueError(
+            "generate_speculative runs the contiguous KV cache; "
+            "kv_layout='paged' is the SlotDecoder's layout"
+        )
+    dev = model.device
+    prompt = torch.as_tensor(prompt).to(device=dev, dtype=torch.int64)
+    b, p = prompt.shape
+    k = int(draft_len)
+    total = p + max_new_tokens
+    if k < 1:
+        raise ValueError("draft_len must be >= 1")
+    if ngram < 1:
+        # ngram=0 would match every history position
+        raise ValueError("ngram must be >= 1")
+    if draft_model is not None:
+        _check_draft(model, draft_model, draft_params)
+    if max_new_tokens <= 0:
+        out = torch.zeros((b, 0), dtype=torch.int32, device=dev)
+        if stats is not None:
+            stats.update(rounds=0, proposed=0, accepted=0, accept_rate=0.0)
+        return (out, 0) if return_stats else out
+    if total > cfg.max_seq_len:
+        raise ValueError(
+            "prompt ({0}) + max_new_tokens ({1}) exceeds "
+            "max_seq_len={2}".format(p, max_new_tokens, cfg.max_seq_len)
+        )
+    draft = None
+    if draft_model is not None:
+        draft = _load_draft(draft_model, draft_params, dev)
+    # the cache holds the last verify block that crosses max_new
+    hist_len = total + k + 1
+    cache = init_cache(model, b, cache_len=hist_len)
+    logits = model(prompt, decode=True, cache=cache)
+    first = torch.argmax(logits[:, -1], dim=-1)
+    if draft is not None:
+        dcache = init_cache(draft, b, cache_len=hist_len)
+        draft(prompt, decode=True, cache=dcache)
+    history = torch.zeros((b, hist_len), dtype=torch.int64, device=dev)
+    history[:, :p] = prompt
+    history[:, p] = first
+    emitted = torch.zeros((b, max_new_tokens + k + 1), dtype=torch.int64,
+                          device=dev)
+    emitted[:, 0] = first
+    n, last, rounds, accepted = 1, first, 0, 0
+    while n < max_new_tokens:
+        if draft is not None:
+            tok, douts = last, []
+            for _ in range(k + 1):
+                tok = torch.argmax(draft(tok[:, None], decode=True,
+                                         cache=dcache)[:, 0], dim=-1)
+                douts.append(tok)
+            drafts = torch.stack(douts[:k], dim=1)
+        else:
+            drafts = _find_drafts(history, p + n, last, k, ngram)
+        block = torch.cat([last[:, None], drafts], dim=1)
+        logits = decode_call(model, block, decode=True, cache=cache)
+        targets = torch.argmax(logits, dim=-1)
+        ok = (drafts == targets[:, :k]).to(torch.int64)
+        m = int(torch.cumprod(ok, dim=1).sum(dim=1).min())  # the sync
+        emitted[:, n:n + k + 1] = targets
+        history[:, p + n:p + n + k + 1] = targets
+        gained = m + 1
+        # rewind to the newest accepted token's slot: its K/V is written
+        # by the next round's block
+        cache.position.fill_(p + n + gained - 1)
+        if draft is not None:
+            dcache.position.fill_(p + n + gained - 1)
+        last = targets[:, m]
+        n += gained
+        rounds += 1
+        accepted += m
+    tokens = emitted[:, :max_new_tokens].to(torch.int32)
+    if stats is not None:
+        stats.update(rounds=rounds, proposed=rounds * k, accepted=accepted,
+                     accept_rate=accepted / float(rounds * k) if rounds
+                     else 0.0)
+    return (tokens, rounds) if return_stats else tokens
+
+
 class _BlockRef(object):
     """A contiguous-layout prefix-cache payload: block ``index`` of a
     donor ``segment``, the tuple of per-bank copies one commit extracted
@@ -906,6 +1082,19 @@ class SlotDecoder:
     slot's private pages, and the commit hands the radix one reference
     to each new full page.  Outputs are token-identical to a cold admit.
 
+    With a ``draft_model`` (and ``draft_params``, or the draft's own
+    weights) chunks are per-slot speculative rounds
+    (:meth:`_chunk_spec`): the draft keeps contiguous banks of its own at
+    the same canonical positions in either layout, proposes
+    ``draft_len`` tokens per slot, the model verifies them in one
+    ``draft_len + 1``-token step, and each slot accepts on its own.
+    Greedy only; the banks and each slot's table keep ``draft_len + 1``
+    positions past ``cache_len`` for the verify block.  The accepted and
+    proposed counts reach :meth:`reuse_stats`.
+
+    Disaggregation: :meth:`adopt` installs a
+    :class:`..serving_disagg.PrefillWorker`'s handoff (paged layout).
+
     Weight swaps (:meth:`swap_weights`, :meth:`snapshot_weights`,
     :meth:`restore_weights`, :meth:`canary_check`) install a new model
     built from the ingested tree; the previous one stays resident,
@@ -939,8 +1128,6 @@ class SlotDecoder:
                 "model is configured kv_layout='paged' but the decoder "
                 "was asked for 'contiguous'; pass kv_layout='paged'"
             )
-        if draft_model is not None or draft_params is not None:
-            raise _not_ported("draft-model speculation", "speculation")
         if mesh is not None:
             raise _not_ported("TP meshes", "TP")
         self._paged = self.kv_layout == "paged"
@@ -974,6 +1161,21 @@ class SlotDecoder:
             )
         self.prefix_cache = prefix_cache
         self._use_prefix = prefix_cache is not None
+        self.draft_len = int(draft_len)
+        self._spec = draft_model is not None
+        if self._spec:
+            if self.temperature > 0:
+                raise ValueError(
+                    "draft-model speculative decoding is greedy-only "
+                    "(temperature must be 0)"
+                )
+            if self.draft_len < 1:
+                raise ValueError("draft_len must be >= 1")
+            _check_draft(model, draft_model, draft_params)
+        # bank slack past cache_len: a verify round writes the whole
+        # [last, drafts] block at the slot's pointer
+        self._bank_len = self.cache_len + (
+            self.draft_len + 1 if self._spec else 0)
         if self._paged:
             self.paged_impl = str(paged_impl)
             self._setup_paged(model, kv_pages, page_tokens)
@@ -991,10 +1193,20 @@ class SlotDecoder:
         self.weight_generation = 0
         self.last_admit_cached_tokens = 0
         self.last_admit_dispatches = 0
+        self.last_adopt_dispatches = 0
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(int(seed))
         self.cache = init_cache(self.model, self.num_slots,
-                                cache_len=self.cache_len)
+                                cache_len=self._bank_len)
+        # the draft's own slot banks, at the model's canonical positions
+        self.draft_model = (_load_draft(draft_model, draft_params,
+                                        self.device) if self._spec else None)
+        self.draft_cache = (init_cache(self.draft_model, self.num_slots,
+                                       cache_len=self._bank_len)
+                            if self._spec else None)
+        #: accepted and proposed drafts so far (resolved with each chunk)
+        self.spec_accepted = 0
+        self.spec_proposed = 0
         self.state = self._idle_state()
         self.active = np.zeros((self.num_slots,), bool)
 
@@ -1014,7 +1226,7 @@ class SlotDecoder:
                 "block_tokens; got {0} vs {1}".format(t, pc.block_tokens)
             )
         self._page_tokens = t
-        span = -(-self.cache_len // t)  # blocks per slot table
+        span = -(-self._bank_len // t)  # blocks per slot table
         self._blocks_per_slot = span
         hkv = cfg.num_kv_heads or cfg.num_heads
         int8_cache = cfg.cache_dtype == "int8"
@@ -1072,7 +1284,7 @@ class SlotDecoder:
         self._slot_pages = [[] for _ in range(self.num_slots)]
         self.model = model.with_config(dataclasses.replace(
             cfg, kv_layout="paged", kv_pages=num_pages, kv_page_tokens=t,
-            kv_slot_blocks=span, kv_span=self.cache_len,
+            kv_slot_blocks=span, kv_span=self._bank_len,
             paged_decode_impl=self.paged_impl,
         ))
 
@@ -1164,23 +1376,31 @@ class SlotDecoder:
         into lane ``slot`` (views of every bank, a counter at 0), with
         ``pad`` pad slots masked; scatters the slot's state entries."""
         dev = self.device
-        logits = self.model(
-            self._to_device(tokens), decode=True,
-            cache=self.cache.lane(slot),
-            pad_start=torch.full((1,), pad, dtype=torch.int64, device=dev),
-        )
+        tokens = self._to_device(tokens)
+        pad_start = torch.full((1,), pad, dtype=torch.int64, device=dev)
+        logits = self.model(tokens, decode=True, cache=self.cache.lane(slot),
+                            pad_start=pad_start)
+        if self._spec:
+            # the draft's lane takes the same padded prompt
+            self.draft_model(tokens, decode=True,
+                             cache=self.draft_cache.lane(slot),
+                             pad_start=pad_start)
         first = self._sample(logits[:, -1])[0]
         self._set_slot(slot, tokens.shape[1], pad, first)
         return first
 
     def _set_slot(self, slot, position, pad, first):
+        """Write lane ``slot``'s ``[num_slots]`` state entries.  Returns
+        the device launches this issues: one write per entry, and the
+        end-of-sequence compare when there is an ``eos_id``."""
         self.state["positions"][slot] = position
         self.state["pad_start"][slot] = pad
         self.state["last_tok"][slot] = first
         if self.eos_id is not None:
             self.state["done"][slot] = first == self.eos_id
-        else:
-            self.state["done"][slot] = False
+            return 5
+        self.state["done"][slot] = False
+        return 4
 
     def _suffix(self, prompt, n, kpref):
         sb = self._suffix_bucket(n - kpref, kpref)
@@ -1204,13 +1424,42 @@ class SlotDecoder:
         return pool.alloc(need)
 
     def _admit_paged(self, slot, prompt, n):
-        """The paged admit: the cached prefix goes into the slot's table
-        row as page indices (no KV copy), the slot retains each shared
-        page before the lease is released, and the suffix prefill writes
-        through the row into the slot's private pages, which commits the
-        prompt's new full blocks in place.  One prefill per admit."""
+        """The paged admit: :meth:`_prefill_row` through the slot's own
+        table row (the slot holds the row's page references from the
+        allocation on), then the draft's prefill and the slot's state
+        writes.  One prefill per admit."""
+
+        def install(row):
+            self.tables[slot] = np.asarray(row, np.int32)
+            self._slot_pages[slot] = row
+
+        _, kpref, first = self._prefill_row(prompt, n, on_row=install)
+        self.last_admit_cached_tokens = int(kpref)
+        self.last_admit_dispatches = 1
+        if self._spec:
+            self._prefill_draft(slot, prompt, n)
+        self._set_slot(slot, n, 0, first)
+        return first
+
+    @torch.no_grad()
+    def _prefill_row(self, prompt, n, on_row=None, on_forward=None):
+        """The paged prefill's pool and radix protocol, shared by the
+        unified admit and :class:`..serving_disagg.PrefillWorker`: the
+        cached prefix goes into a fresh page row as indices (no KV copy),
+        the row retains each shared page before the radix lease is
+        released (and releases them again when the private pages cannot
+        be allocated), the suffix prefill writes through the row into its
+        private pages, and the prompt's new full blocks commit in place:
+        their pages hold the KV already, and the radix takes one pool
+        reference per block it accepts (a budget drop keeps the page
+        private to the row).
+
+        ``on_row(row)`` runs once the row is allocated, before the
+        forward; ``on_forward()`` after the forward, before the commit.
+        Either may raise to stop the prefill.  Returns ``(row, kpref,
+        first)``: the page row, the cached prefix depth and the first
+        token (an unsynchronised device scalar)."""
         pc, pool = self.prefix_cache, self.page_pool
-        blk = self._page_tokens
         if pc is not None:
             # at least one real token must prefill (first-token logits)
             lease = pc.acquire(prompt, limit_tokens=n - 1)
@@ -1218,54 +1467,115 @@ class SlotDecoder:
             cached_pages = [int(p) for p in lease.payloads()]
         else:
             lease, kpref, cached_pages = None, 0, []
-        self.last_admit_cached_tokens = int(kpref)
-        self.last_admit_dispatches = 1
-        # the slot's own reference to every shared page: the radix may
-        # evict the block while this slot still decodes on it
+        # the row's own reference to every shared page: the radix may
+        # evict the block while the row still holds it
         pool.retain(cached_pages)
         if lease is not None:
             pc.release(lease)
-        private = self._alloc_pages(self._blocks_per_slot
-                                    - len(cached_pages))
+        try:
+            private = self._alloc_pages(self._blocks_per_slot
+                                        - len(cached_pages))
+        except Exception:
+            # an exhausted pool must not also leak the shared pages
+            pool.release(cached_pages)
+            raise
         row = cached_pages + private
-        self.tables[slot] = np.asarray(row, np.int32)
-        self._slot_pages[slot] = row
-        first = self._prefill_canonical(slot, self._suffix(prompt, n, kpref),
-                                        n, kpref)
-        # commit the prompt's new full blocks: their pages hold the KV
-        # already, and the radix takes one pool reference per block it
-        # accepts (a budget drop keeps the page slot-private)
+        if on_row is not None:
+            on_row(row)
+        first = self._suffix_first(
+            self._suffix(prompt, n, kpref), n, kpref, cache=self.cache,
+            block_tables=self._to_device(np.asarray([row], np.int32)))
+        if on_forward is not None:
+            on_forward()
         if pc is not None:
-            total_blocks = n // blk
+            total_blocks = n // self._page_tokens
             first_new = len(cached_pages)
             if total_blocks > first_new:
                 committed = []
                 pc.insert(prompt, row[first_new:total_blocks], first_new,
                           self._page_nbytes, on_insert=committed.append)
                 pool.retain(committed)
+        return row, kpref, first
+
+    def adopt(self, slot, handoff):
+        """Adopt a finished disaggregated prefill into lane ``slot`` (the
+        decode half of :class:`..serving_disagg.PrefillWorker`'s
+        handoff).
+
+        ``handoff`` carries the page row the prefill wrote the prompt's
+        KV through (``pages``), the prompt length (``n_tokens``), the
+        cached prefix depth (``cached_tokens``) and the first token
+        (``first``, an unsynchronised device scalar).  The row and its
+        page references move by host bookkeeping; the device work is the
+        writes of the slot's ``[num_slots]`` state entries, whose
+        launches ``last_adopt_dispatches`` counts (4, or 5 with an
+        ``eos_id``), and no pool is read or written.  The pool's handoff
+        lease on the row ends here.  Returns ``first``."""
+        if not self._paged:
+            raise ValueError(
+                "adopt() needs kv_layout='paged' (the handoff IS a "
+                "block-table exchange; contiguous banks would force "
+                "a physical KV copy between programs)"
+            )
+        if self.active[slot]:
+            raise ValueError("slot {0} is still active".format(slot))
+        row = [int(p) for p in handoff.pages]
+        if len(row) != self._blocks_per_slot:
+            raise ValueError(
+                "handoff row has {0} pages; this decoder's slots span "
+                "{1} blocks".format(len(row), self._blocks_per_slot)
+            )
+        self.tables[slot] = np.asarray(row, np.int32)
+        self._slot_pages[slot] = row
+        self.last_admit_cached_tokens = int(handoff.cached_tokens)
+        # the request's admit-side forward is the worker's; the adopt adds
+        # the state writes and no KV step
+        self.last_admit_dispatches = 1
+        with torch.no_grad():
+            self.last_adopt_dispatches = self._set_slot(
+                slot, int(handoff.n_tokens), 0, handoff.first)
+        self.page_pool.end_handoff(row)
+        self.active[slot] = True
+        return handoff.first
+
+    @torch.no_grad()
+    def _prefill_canonical(self, slot, suffix, n, kpref, prompt):
+        """The contiguous layout's canonical-position prefill of
+        ``suffix`` from position ``kpref`` into views of lane ``slot``,
+        nothing masked below ``kpref``; samples the first token from the
+        last real row ``n - kpref - 1``, prefills the draft and scatters
+        the slot's state entries."""
+        zero = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        first = self._suffix_first(suffix, n, kpref,
+                                   cache=self.cache.lane(slot),
+                                   pad_start=zero)
+        if self._spec:
+            self._prefill_draft(slot, prompt, n)
+        self._set_slot(slot, n, 0, first)
         return first
 
     @torch.no_grad()
-    def _prefill_canonical(self, slot, suffix, n, kpref):
-        """Canonical-position prefill of ``suffix`` from position
-        ``kpref``: through the slot's table row (paged), or into views of
-        its lane with nothing masked below ``kpref`` (contiguous).
-        Samples the first token from the last real row ``n - kpref - 1``
-        and scatters the slot's state entries."""
-        dev = self.device
-        start = torch.full((1,), kpref, dtype=torch.int64, device=dev)
-        if self._paged:
-            kw = dict(block_tables=self._to_device(self.tables[slot:slot + 1]),
-                      cache=self.cache)
-        else:
-            kw = dict(cache=self.cache.lane(slot),
-                      pad_start=torch.zeros((1,), dtype=torch.int64,
-                                            device=dev))
+    def _prefill_draft(self, slot, prompt, n):
+        """The draft's prefill of the whole ``prompt`` (its banks are not
+        prefix-cached), right-padded to its bucket, into its lane from
+        position 0."""
+        zero = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        full = np.zeros((1, self.bucket_len(n)), np.int64)
+        full[0, :n] = prompt
+        self.draft_model(self._to_device(full), decode=True,
+                         slot_positions=zero, pad_start=zero,
+                         cache=self.draft_cache.lane(slot))
+
+    @torch.no_grad()
+    def _suffix_first(self, suffix, n, kpref, **kw):
+        """The suffix prefill's forward from position ``kpref`` (``kw``:
+        the cache, and the block table row or the pad start) and the
+        first token, sampled from the last real row ``n - kpref - 1``."""
+        start = torch.full((1,), kpref, dtype=torch.int64,
+                           device=self.device)
         logits = self.model(self._to_device(suffix), decode=True,
                             slot_positions=start, **kw)
-        first = self._sample(logits[:, n - kpref - 1])[0]
-        self._set_slot(slot, n, 0, first)
-        return first
+        return self._sample(logits[:, n - kpref - 1])[0]
 
     def _banks(self):
         """Every contiguous bank in a fixed order (layer, then name)."""
@@ -1313,7 +1623,7 @@ class SlotDecoder:
             self.last_admit_dispatches += 1
         pc.release(lease)
         first = self._prefill_canonical(slot, self._suffix(prompt, n, kpref),
-                                        n, kpref)
+                                        n, kpref, prompt)
         total_blocks = n // blk
         first_new = kpref // blk
         if total_blocks > first_new:
@@ -1334,9 +1644,12 @@ class SlotDecoder:
         ``eos_id``; active rows advance their pointer (clamped so a
         completed-but-not-evicted row stays inside the cache), idle
         rows hold still.  Quantized weights are dequantized at every
-        step (:func:`decode_call`)."""
+        step (:func:`decode_call`).  With a draft model the chunk is
+        ``chunk_size`` speculative rounds (:meth:`_chunk_spec`)."""
         tables = self._to_device(self.tables) if self._paged else None
         active = self._to_device(self.active)
+        if self._spec:
+            return self._chunk_spec(tables, active)
         pos = self.state["positions"]
         pad = self.state["pad_start"]
         tok = self.state["last_tok"]
@@ -1360,12 +1673,93 @@ class SlotDecoder:
         self.state = dict(self.state, positions=pos, last_tok=tok, done=done)
         return toks
 
+    def _chunk_spec(self, tables, active):
+        """``chunk_size`` speculative rounds over every slot (the
+        reference's ``_chunk_spec_impl``): per round the draft runs
+        ``draft_len + 1`` single-token steps from each slot's last token
+        (the last banks the final proposal's K/V), the model verifies
+        ``[last, drafts]`` in one step at each slot's pointer, and each
+        slot accepts the drafts that match the model's argmax chain, on
+        its own.  Accepted tokens compact left into a ``[B, chunk_size *
+        (draft_len + 1)]`` buffer; the rejected tail's K/V past the new
+        pointer is masked and overwritten by later rounds.  Done rows
+        emit a full ``eos_id`` block.  Everything stays on the device:
+        returns one ``[B, cap + 3]`` tensor, the buffer followed by each
+        slot's valid count and its accepted and proposed drafts."""
+        kd, eos, b = self.draft_len, self.eos_id, self.num_slots
+        dev = self.device
+        pos = self.state["positions"]
+        pad = self.state["pad_start"]
+        tok = self.state["last_tok"]
+        done = self.state["done"]
+        cap = self.chunk_size * (kd + 1)
+        out = torch.zeros((b, cap + 3), dtype=torch.int64, device=dev)
+        buf = out[:, :cap]
+        off = torch.zeros((b,), dtype=torch.int64, device=dev)
+        acc = torch.zeros_like(off)
+        prop = torch.zeros_like(off)
+        cols = torch.arange(kd + 1, device=dev)[None]
+        for _ in range(self.chunk_size):
+            t, douts = tok, []
+            for i in range(kd + 1):
+                dlogits = self.draft_model(
+                    t[:, None], decode=True, slot_positions=pos + i,
+                    cache=self.draft_cache, pad_start=pad)
+                t = torch.argmax(dlogits[:, 0], dim=-1)
+                douts.append(t)
+            drafts = torch.stack(douts[:kd], dim=1)
+            block = torch.cat([tok[:, None], drafts], dim=1)
+            logits = decode_call(
+                self.model, block, decode=True, slot_positions=pos,
+                block_tables=tables, cache=self.cache, pad_start=pad)
+            targets = torch.argmax(logits, dim=-1)
+            ok = (drafts == targets[:, :kd]).to(torch.int64)
+            m = torch.cumprod(ok, dim=1).sum(dim=1)  # per-slot acceptance
+            gained = m + 1
+            block_out = targets
+            new_done = done
+            if eos is not None:
+                iseos = block_out == eos
+                first_eos = torch.where(iseos.any(dim=1),
+                                        iseos.to(torch.int64).argmax(dim=1),
+                                        torch.full_like(m, kd + 1))
+                new_done = done | (first_eos < gained)
+                gained = torch.minimum(gained, first_eos + 1)
+                # done rows emit a full eos block (nothing reads it)
+                block_out = torch.where(done[:, None], eos, block_out)
+            gained = torch.where(done, kd + 1, gained)
+            alive = active & ~done
+            acc = acc + torch.where(alive, m, 0)
+            prop = prop + torch.where(alive, kd, 0)
+            buf.scatter_(1, off[:, None] + cols, block_out)
+            off = off + gained
+            last = torch.gather(block_out, 1, (gained - 1)[:, None])[:, 0]
+            pos = torch.where(
+                active, torch.clamp(pos + gained, max=self.cache_len - 1),
+                pos)
+            tok, done = last, new_done
+        self.state = dict(self.state, positions=pos, last_tok=tok, done=done)
+        out[:, cap] = off
+        out[:, cap + 1] = acc
+        out[:, cap + 2] = prop
+        return out
+
     def resolve_chunk(self, pending):
         """Pull a :meth:`dispatch_chunk` block to host int32 as
         ``(tokens [B, T], valid [B])`` — the one synchronising call per
-        chunk, and so the call a wedged dispatch hangs.  Idle lanes hold
-        garbage."""
-        toks = pending.cpu().numpy().astype(np.int32)
+        chunk, and so the call a wedged dispatch hangs.  Row ``r``'s
+        tokens are ``tokens[r, :valid[r]]`` (idle lanes hold garbage).
+        Plain chunks fill every row; speculative chunks hold each slot's
+        accepted tokens, and their accepted and proposed draft counts
+        fold into :attr:`spec_accepted` / :attr:`spec_proposed`."""
+        toks = pending.cpu().numpy()
+        if self._spec:
+            cap = toks.shape[1] - 3
+            self.spec_accepted += int(toks[:, cap + 1].sum())
+            self.spec_proposed += int(toks[:, cap + 2].sum())
+            return (toks[:, :cap].astype(np.int32),
+                    toks[:, cap].astype(np.int32))
+        toks = toks.astype(np.int32)
         return toks, np.full((toks.shape[0],), toks.shape[1], np.int32)
 
     def step_chunk(self):
@@ -1468,9 +1862,10 @@ class SlotDecoder:
 
     def snapshot_weights(self):
         """Opaque handle to the current weight generation: the live
-        model object, whose tensors a swap never writes.  Hand it back
-        to :meth:`restore_weights` to roll back without re-ingesting."""
-        return (self.model, self.weight_generation)
+        model objects (the draft's too), whose tensors a swap never
+        writes.  Hand it back to :meth:`restore_weights` to roll back
+        without re-ingesting."""
+        return (self.model, self.draft_model, self.weight_generation)
 
     def swap_weights(self, raw_params, draft_params=None, ready=None):
         """Install a new weight generation between decode chunks.
@@ -1478,16 +1873,19 @@ class SlotDecoder:
         ``raw_params`` is a raw float tree matching :meth:`param_spec`
         (numpy arrays or tensors on any device); ``ready``, when given,
         is waited on before it is read (the CUDA event a background
-        ingest recorded after its copy onto the card).  The slot table
-        is not touched: the engine quiesces in-flight requests first.
-        The prefix cache is flushed (its KV came from the old
-        weights)."""
-        if draft_params is not None:
-            raise _not_ported("draft weights in a swap", "speculation")
+        ingest recorded after its copy onto the card).  A speculative
+        decoder also takes ``draft_params``, the draft's new tree (a
+        decoder without a draft ignores it, as the reference does).  The
+        slot table is not touched: the engine quiesces in-flight
+        requests first.  The prefix cache is flushed (its KV came from
+        the old weights)."""
         self._check_swap_tree(raw_params)
         if ready is not None:
             ready.wait()
         self._install(self._ingest_params(raw_params))
+        if self._spec and draft_params is not None:
+            self.draft_model = _load_draft(self.draft_model, draft_params,
+                                           self.device)
         self.weight_generation += 1
         return self.weight_generation
 
@@ -1500,7 +1898,7 @@ class SlotDecoder:
     def restore_weights(self, snapshot):
         """Roll back to a :meth:`snapshot_weights` generation (no
         re-ingest); flushes the prefix cache like a forward swap."""
-        model, gen = snapshot
+        model, self.draft_model, gen = snapshot
         self._install(model)
         self.weight_generation = int(gen)
         return self.weight_generation
@@ -1523,6 +1921,9 @@ class SlotDecoder:
         stats (when attached) and the page pool's occupancy gauges
         (paged layout).  The engine reports per-job deltas."""
         out = {}
+        if self._spec:
+            out.update(spec_accepted=self.spec_accepted,
+                       spec_proposed=self.spec_proposed)
         if self._use_prefix:
             out.update(self.prefix_cache.stats())
         if self._paged:
@@ -1534,14 +1935,8 @@ class SlotDecoder:
 #: yet, with the ROADMAP item that brings it; a truthy value raises
 _UNPORTED_KNOBS = {
     "auto": "the cost-model planner (engine planes)",
-    "speculative": "speculation",
-    "ngram": "speculation",
-    "draft_config": "speculation",
-    "draft_params": "speculation",
-    "draft_len": "speculation",
     "tp": "TP",
     "mesh_shape": "TP",
-    "disaggregate": "disaggregation",
 }
 
 
@@ -1555,15 +1950,16 @@ def _check_unported(config):
 
 
 def _unwrap_params(params):
-    """Unwrap a ``{"params": tree}`` variables dict; reject exports that
-    carry draft weights."""
-    if isinstance(params, Mapping) and "params" in params:
-        if "draft" in params:
-            raise _not_ported("draft weights in the export", "speculation")
-        params = params["params"]
+    """``(tree, draft)`` of an export's params: a ``{"params": tree}``
+    variables dict unwrapped, and the draft model's weights, the
+    ``"draft"`` sibling of ``"params"`` (None without one)."""
+    draft = None
     if isinstance(params, Mapping) and "draft" in params:
-        raise _not_ported("draft weights in the export", "speculation")
-    return params
+        params = dict(params)
+        draft = params.pop("draft")
+    if isinstance(params, Mapping) and "params" in params:
+        params = params["params"]
+    return params, draft
 
 
 def _tree_to(tree, device):
@@ -1628,6 +2024,18 @@ def serving_builder(params, config):
     - ``profile_dir`` (with ``profile_steps``) has the continuous
       engine trace its first decode chunks with ``torch.profiler``
       (:func:`..tensorboard.start_profile`) into that directory.
+    - Speculation (greedy only): ``draft_config`` (TransformerConfig
+      fields of the draft, the vocabulary the flagship's by default)
+      with the draft's weights (``draft_params``, or the ``"draft"``
+      sibling of ``"params"`` in an export) makes the continuous
+      schedule's chunks per-slot speculative rounds of ``draft_len``
+      drafts.  ``speculative=True`` turns the static ``predict`` into
+      :func:`generate_speculative` over uniform-length rows, by prompt
+      lookup (``ngram``) or by the draft model, with an
+      ``"accept_rate"`` column for the latter; it has no continuous
+      schedule (no ``make_slot_decoder``), as in the reference.
+    - ``disaggregate=True`` (paged layout only) has the continuous
+      engine admit through a :class:`..serving_disagg.PrefillWorker`.
     """
     cfg_fields = {f.name for f in dataclasses.fields(TransformerConfig)}
     knob_registry.validate_keys(config, cfg_fields | {"device"})
@@ -1639,7 +2047,33 @@ def serving_builder(params, config):
     )
     from tensorflowonspark_tpu_torch import convert
 
-    variables = base.as_variables(_unwrap_params(params))
+    params, popped = _unwrap_params(params)
+    variables = base.as_variables(params)
+    draft_params = config.get("draft_params")
+    if draft_params is None:
+        draft_params = popped
+    speculative = bool(config.get("speculative", False))
+    temperature = float(config.get("temperature", 0.0))
+    draft_model = None
+    if config.get("draft_config") is not None:
+        if config.get("mode") == "generate" and temperature > 0:
+            raise ValueError(
+                "speculative generation serving is greedy-only "
+                "(temperature must be 0)"
+            )
+        if draft_params is None:
+            raise ValueError(
+                "draft_config given but no draft weights: pass "
+                "config['draft_params'] or export "
+                "{'params': ..., 'draft': ...}"
+            )
+        dover = dict(config["draft_config"], attention_impl="dot",
+                     mesh=None)
+        dover.setdefault("vocab_size", cfg.vocab_size)
+        dcfg = TransformerConfig(
+            **{k: v for k, v in dover.items() if k in cfg_fields})
+        draft_model = _load_draft(Transformer(dcfg, device="meta"),
+                                  draft_params, device)
     tree = _quantized_tree(variables["params"], config, cfg, device)
     if config.get("mode") != "generate":
         # batch logits are compute-bound: dequantize once, up front
@@ -1650,10 +2084,16 @@ def serving_builder(params, config):
     model.requires_grad_(False)
 
     max_new = int(config["max_new_tokens"])
-    temperature = float(config.get("temperature", 0.0))
     top_k = int(config.get("top_k", 0))
     top_p = float(config.get("top_p", 0.0))
     seed = int(config.get("seed", 0))
+    if speculative and temperature > 0:
+        raise ValueError(
+            "speculative generation serving is greedy-only "
+            "(temperature must be 0)"
+        )
+    draft_len = int(config.get("draft_len", 4))
+    ngram = int(config.get("ngram", 2))
     pad_id = int(config.get("pad_id", 0))
     eos_id = config.get("eos_id")
     eos_id = None if eos_id is None else int(eos_id)
@@ -1678,6 +2118,9 @@ def serving_builder(params, config):
     # the static schedule runs the contiguous cache in every layout
     static_model = model if cfg.kv_layout != "paged" else model.with_config(
         dataclasses.replace(cfg, kv_layout="contiguous"))
+    if speculative:
+        return _speculative_predictor(static_model, input_name, max_new,
+                                      draft_len, ngram, draft_model)
 
     def predict(batch):
         tokens = np.asarray(batch[input_name])
@@ -1744,6 +2187,7 @@ def serving_builder(params, config):
             chunk_size=key[1], pad_multiple=predict.pad_multiple,
             temperature=temperature, top_k=top_k, top_p=top_p,
             eos_id=eos_id, seed=seed, prefix_cache=_prefix_cache(key),
+            draft_model=draft_model, draft_len=draft_len,
             kv_layout=kv_layout, kv_pages=config.get("kv_pages"),
             page_tokens=page_tokens, paged_impl=paged_impl,
         )
@@ -1753,6 +2197,15 @@ def serving_builder(params, config):
     predict.make_slot_decoder = make_slot_decoder
     predict.max_new_tokens = max_new
     predict.eos_id = eos_id
+    # the continuous engine admits through a PrefillWorker when set; the
+    # handoff is a block-table exchange, so it needs the paged layout
+    disagg = bool(config.get("disaggregate", False))
+    if disagg and kv_layout != "paged":
+        raise ValueError(
+            "disaggregate=true needs kv_layout='paged' (the "
+            "prefill→decode handoff is a block-table exchange)"
+        )
+    predict.disaggregate = disagg
     if config.get("profile_dir"):
         # the serving engine starts the trace and counts decode chunks
         # as its steps
@@ -1760,6 +2213,32 @@ def serving_builder(params, config):
             "dir": str(config["profile_dir"]),
             "steps": int(config.get("profile_steps", 0)) or None,
         }
+    return predict
+
+
+def _speculative_predictor(model, input_name, max_new, draft_len, ngram,
+                           draft_model):
+    """The static ``predict`` of ``speculative=True``: one
+    :func:`generate_speculative` call per batch of uniform-length rows
+    (no ``column_padding``: ragged rows fail at stacking with a named
+    error).  With a draft model each row also gets the batch's
+    ``"accept_rate"``; ``predict.last_spec_stats`` holds the last
+    call's counters."""
+
+    def predict(batch):
+        tokens = torch.from_numpy(np.asarray(batch[input_name], np.int64))
+        st = {}
+        toks, _rounds = generate_speculative(
+            model, None, tokens, max_new, draft_len=draft_len, ngram=ngram,
+            draft_model=draft_model, return_stats=True, stats=st)
+        out = {"generated": toks.cpu().numpy().astype(np.int32)}
+        if draft_model is not None:
+            out["accept_rate"] = np.full((tokens.shape[0],),
+                                         st["accept_rate"], np.float32)
+        predict.last_spec_stats = st
+        return out
+
+    predict.last_spec_stats = {}
     return predict
 
 

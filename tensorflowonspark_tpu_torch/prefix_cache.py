@@ -24,17 +24,25 @@ page indices of a :class:`PagePool` on the paged layout, where
 ``release_fn``/``on_insert`` keep the pool's refcounts in step with the
 nodes' lives.  All bookkeeping is on the host.
 
+The pool's handoff leases serve the disaggregated engine
+(:mod:`..serving_disagg`): a prefill worker tags the page row it wrote
+as in flight (:meth:`PagePool.begin_handoff`, with an owner and a
+deadline) until the decoder adopts it (:meth:`PagePool.end_handoff`);
+:meth:`PagePool.reap_orphans` reclaims the leases of a worker that died
+or wedged, one reference per page.
+
 The cache's counters have registry twins (``prefix_cache.hits``,
 ``misses``, ``tokens_saved``, ``evictions``, the ``bytes_used`` gauge).
-
-Not ported (ROADMAP queue A, disaggregation): the pool's handoff leases
-(``begin_handoff``, ``end_handoff``, ``reap_orphans``, ``clock=``).
 """
 
 import hashlib
 import itertools
+import logging
+import time
 
 import numpy as np
+
+logger = logging.getLogger(__name__)
 
 
 class PoolExhausted(RuntimeError):
@@ -54,9 +62,12 @@ class PagePool(object):
     The ``reserved`` leading pages (page 0 by default) are never handed
     out: idle slots' block tables point at them, so dead-lane decode
     writes land in a trash page instead of a live one.
+
+    ``clock`` (default ``time.monotonic``) stamps handoff leases; tests
+    pass a fake one to age them.
     """
 
-    def __init__(self, num_pages, reserved=1):
+    def __init__(self, num_pages, reserved=1, clock=None):
         if int(num_pages) <= int(reserved):
             raise ValueError(
                 "num_pages ({0}) must exceed the {1} reserved "
@@ -64,9 +75,16 @@ class PagePool(object):
             )
         self.num_pages = int(num_pages)
         self.reserved = int(reserved)
+        self._clock = clock if clock is not None else time.monotonic
         self._refs = np.zeros((self.num_pages,), np.int64)
         # LIFO free list: recently freed pages are handed out first
         self._free = list(range(self.num_pages - 1, self.reserved - 1, -1))
+        # pages a disaggregated prefill wrote and no slot adopted yet (the
+        # refcounts keep them alive; this set makes them observable)
+        self._handoff = set()
+        # lease id -> {"owner", "pages" (set), "t0", "deadline_sec"}
+        self._leases = {}
+        self._lease_seq = itertools.count(1)
 
     def available(self):
         return len(self._free)
@@ -77,7 +95,8 @@ class PagePool(object):
         if n > len(self._free):
             raise PoolExhausted(
                 "page pool exhausted: need {0} pages, {1} free of "
-                "{2}".format(n, len(self._free), self.num_pages)
+                "{2} ({3})".format(n, len(self._free), self.num_pages,
+                                   self.lease_table())
             )
         out = [self._free.pop() for _ in range(n)]
         for p in out:
@@ -109,6 +128,98 @@ class PagePool(object):
         return {int(p): int(self._refs[p])
                 for p in np.nonzero(self._refs)[0]}
 
+    # -- handoff leases (serving_disagg) ---------------------------------
+
+    def begin_handoff(self, pages, owner=None, deadline_sec=None):
+        """Tag live ``pages`` as in flight between a prefill worker and
+        the decoder, under a new lease (returned): ``owner`` names the
+        holder (the request's trace id), ``deadline_sec`` how long it may
+        stay in flight before :meth:`reap_orphans` takes it as orphaned
+        (None: reaped by owner only)."""
+        pages = [int(p) for p in pages]
+        for p in pages:
+            if self._refs[p] <= 0:
+                raise ValueError("begin_handoff() on free page {0} "
+                                 "({1})".format(p, self.lease_table()))
+        self._handoff.update(pages)
+        lease = next(self._lease_seq)
+        self._leases[lease] = {
+            "owner": owner, "pages": set(pages), "t0": self._clock(),
+            "deadline_sec": (None if deadline_sec is None
+                             else float(deadline_sec)),
+        }
+        return lease
+
+    def end_handoff(self, pages):
+        """Clear the in-flight tag of ``pages`` (adopted into a slot's
+        table, or abandoned and released); a lease whose pages have all
+        ended is settled and removed."""
+        pages = {int(p) for p in pages}
+        self._handoff -= pages
+        for lease in [k for k, rec in self._leases.items()
+                      if rec["pages"] & pages]:
+            rec = self._leases[lease]
+            rec["pages"] -= pages
+            if not rec["pages"]:
+                del self._leases[lease]
+
+    def handoff_leases(self, now=None):
+        """The live leases, oldest first, as dicts of ``lease``,
+        ``owner``, ``age_sec``, ``pages`` (a count), ``deadline_sec`` and
+        ``expired``."""
+        now = self._clock() if now is None else float(now)
+        out = []
+        for lease, rec in sorted(self._leases.items(),
+                                 key=lambda kv: kv[1]["t0"]):
+            age = max(0.0, now - rec["t0"])
+            dl = rec["deadline_sec"]
+            out.append({"lease": lease, "owner": rec["owner"],
+                        "age_sec": age, "pages": len(rec["pages"]),
+                        "deadline_sec": dl,
+                        "expired": dl is not None and age > dl})
+        return out
+
+    def lease_table(self, now=None):
+        """One line naming every live lease (owner, pages, age), for
+        pool-exhaustion and handoff errors."""
+        rows = self.handoff_leases(now=now)
+        if not rows:
+            return "no handoff leases"
+        return "leases: " + "; ".join(
+            "#{0} owner={1} pages={2} age={3:.1f}s{4}".format(
+                r["lease"], r["owner"] or "?", r["pages"], r["age_sec"],
+                " EXPIRED" if r["expired"] else "")
+            for r in rows)
+
+    def reap_orphans(self, owner=None, now=None):
+        """Reclaim orphaned leases: every lease of ``owner`` when given,
+        else every lease past its deadline.  Each reaped lease clears its
+        pages' in-flight tag and releases exactly one reference per page
+        (what :meth:`..serving_disagg.PrefillWorker.abandon` does: a
+        worker's handoff holds one reference to each page of its row).
+        Returns the reaped leases' summaries."""
+        now = self._clock() if now is None else float(now)
+        reaped = []
+        for lease in list(self._leases):
+            rec = self._leases[lease]
+            age = max(0.0, now - rec["t0"])
+            dl = rec["deadline_sec"]
+            if owner is not None:
+                if rec["owner"] != owner:
+                    continue
+            elif dl is None or age <= dl:
+                continue
+            pages = sorted(rec["pages"])
+            del self._leases[lease]
+            self._handoff.difference_update(pages)
+            self.release(pages)
+            reaped.append({"lease": lease, "owner": rec["owner"],
+                           "age_sec": age, "pages": len(pages)})
+            logger.warning("page pool reaped orphaned handoff lease #%d "
+                           "(owner=%s, %d pages, age %.1fs)", lease,
+                           rec["owner"], len(pages), age)
+        return reaped
+
     def stats(self):
         return {
             "pool_pages": self.num_pages,
@@ -116,6 +227,10 @@ class PagePool(object):
             "pool_pages_used": self.num_pages - self.reserved - len(self._free),
             # pages referenced by two or more holders
             "pool_pages_shared": int((self._refs >= 2).sum()),
+            # pages in flight between a prefill worker and the decoder,
+            # and the leases holding them
+            "pool_pages_handoff": len(self._handoff),
+            "pool_leases": len(self._leases),
         }
 
 

@@ -58,7 +58,8 @@ logger = logging.getLogger(__name__)
 def _stack_column(values, column=None):
     """Stack uniform rows into one batch array; ragged rows raise a
     ``ValueError`` naming the offending rows (a predictor without
-    ``column_padding`` for this input takes uniform rows only)."""
+    ``column_padding`` for this input takes uniform rows only: the
+    speculative generation predictor is the usual case)."""
     arrs = [np.asarray(v) for v in values]
     shapes = {a.shape for a in arrs}
     if len(shapes) > 1:
@@ -73,7 +74,8 @@ def _stack_column(values, column=None):
             "cannot stack ragged rows for input {0}: batch majority "
             "shape is {1} but row(s) {2} differ.  This predictor "
             "declares no padding for this input — uniform-length rows "
-            "only".format(
+            "only (speculative generation serving is the usual "
+            "case)".format(
                 repr(column) if column else "batch", majority, ragged
             )
         )
@@ -308,8 +310,12 @@ def predict_rows(
     filled with ``latency_sec`` (per request, input index keys) and, on
     the continuous schedule, ``ttft_sec`` / ``admitted`` / ``chunks`` /
     ``completed`` / ``tokens_out``, the robustness, reuse and swap
-    counters and the page-pool gauges.  ``on_error="record"`` turns a bad
-    row into a typed error record at its position.  ``queue_depth`` /
+    counters, the page-pool gauges, ``spec_accepted`` /
+    ``spec_proposed`` / ``spec_accept_rate`` when a draft model drives
+    speculative chunks, and the disaggregation counters
+    (``disaggregated``, ``prefill_worker_deaths``, ``leases_reaped``,
+    ...).  ``on_error="record"`` turns a bad row into a typed error
+    record at its position.  ``queue_depth`` /
     ``policy`` / ``watchdog_timeout`` / ``default_deadline`` and
     ``checkpoint_dir`` / ``watcher`` / ``rollback_window`` (live weight
     hot swap, see :mod:`.hot_swap`) are continuous-schedule knobs of the
@@ -619,15 +625,15 @@ def main(argv=None):
     p.add_argument("--tp", type=int, default=None,
                    help="tensor-parallel degree of the serving mesh")
     p.add_argument("--disaggregate", action="store_true",
-                   help="split prefill and decode into separate programs")
+                   help="split prefill and decode: admits run through a "
+                        "prefill worker that hands its KV pages to the "
+                        "decoder (needs kv_layout='paged')")
     args = p.parse_args(argv)
 
     if args.replicas > 1:
         raise _not_ported("--replicas {0}".format(args.replicas), "fleet")
     if args.tp:
         raise _not_ported("--tp", "TP")
-    if args.disaggregate:
-        raise _not_ported("--disaggregate", "disaggregation")
 
     from tensorflowonspark_tpu_torch.data import interchange
     from tensorflowonspark_tpu_torch.utils import fs as fs_utils
@@ -636,7 +642,10 @@ def main(argv=None):
                                               schema=args.schema_hint)
     logger.info("loaded %d rows (schema: %s)", len(rows),
                 interchange.format_schema(schema))
-    predict = load_predictor(args.export_dir)
+    predict = load_predictor(
+        args.export_dir,
+        config_overrides={"disaggregate": True} if args.disaggregate
+        else None)
     input_mapping = _parse_mapping(args.input_mapping)
     output_mapping = (_parse_mapping(args.output_mapping)
                       if args.output_mapping else None)

@@ -33,6 +33,14 @@ input order, a failed request as a typed record at its position.
   back.  :meth:`ServingEngine.drain` stops admissions for a graceful
   shutdown; :meth:`ServingEngine.request_retune` changes
   :attr:`ServingEngine.RETUNABLE` knobs between chunks.
+- **Disaggregation** (``disaggregate``, or the predictor's flag): each
+  admit runs through a :class:`.serving_disagg.PrefillWorker` (under
+  its own abandonable watchdog when ``watchdog_timeout`` is set), whose
+  page row the decoder adopts (:meth:`SlotDecoder.adopt`) under a
+  ``handoff`` span.  A dead or wedged prefill is contained: its lease
+  is reaped by owner, the request re-prefills through the unified
+  admit, and the worker is rebuilt; every scheduling pass also reaps
+  leases past their deadline (``lease_reaped`` marks).
 - **Telemetry** (:mod:`.telemetry`): the ``serving.*`` counters, the
   latency, TTFT and queue-wait histograms (shared with the static
   schedule: :func:`latency_summary`), a span trace per request
@@ -47,9 +55,8 @@ input order, a failed request as a typed record at its position.
   chunks.  None of it synchronises with the device: chunk times are host
   intervals that end where the chunk's tokens reach the host anyway.
 
-Not ported yet (ROADMAP queue A): prefill/decode disaggregation.  Faults
-for tests come from :mod:`.testing.chaos` (``wedge_dispatch`` through
-``TFOS_CHAOS_PLAN``).
+Faults for tests come from :mod:`.testing.chaos` (``wedge_dispatch`` and
+the prefill faults through ``TFOS_CHAOS_PLAN``).
 """
 
 import contextlib
@@ -63,8 +70,11 @@ import numpy as np
 
 from tensorflowonspark_tpu_torch import telemetry
 from tensorflowonspark_tpu_torch.prefix_cache import pages_for_tokens
+from tensorflowonspark_tpu_torch.serving_disagg import (
+    PrefillWorker,
+    PrefillWorkerDead,
+)
 from tensorflowonspark_tpu_torch.telemetry import catalog as _catalog
-from tensorflowonspark_tpu_torch.utils import not_ported as _not_ported
 
 logger = logging.getLogger(__name__)
 
@@ -325,6 +335,8 @@ class ServingEngine(object):
       rollback_window: clean completions that commit a swap.
       swap_canary: run the decoder's canary right after a swap; a
         failure rolls back and quarantines the step.
+      disaggregate: admit through a prefill worker (None: the
+        predictor's ``disaggregate``); needs a paged decoder.
     """
 
     def __init__(self, predict, input_mapping, output_mapping=None,
@@ -346,9 +358,6 @@ class ServingEngine(object):
                     ON_ERROR, on_error
                 )
             )
-        if disaggregate or getattr(predict, "disaggregate", False):
-            raise _not_ported("prefill/decode disaggregation",
-                              "disaggregation")
         factory = getattr(predict, "make_slot_decoder", None)
         if factory is None:
             raise ValueError(
@@ -403,6 +412,26 @@ class ServingEngine(object):
             factory(self.num_slots) if chunk is None
             else factory(self.num_slots, chunk)
         )
+        if disaggregate is None:
+            disaggregate = bool(getattr(predict, "disaggregate", False))
+        self.disaggregate = bool(disaggregate)
+        self._prefill_worker = None
+        self._prefill_watchdog = None
+        if self.disaggregate:
+            from tensorflowonspark_tpu_torch.testing import chaos
+
+            # one worker per engine (per job): the chaos plan's prefill
+            # indices count from this job's first prefill.  The lease
+            # deadline is generous against the dispatch timeout: the
+            # deadline reaper fires only on leases whose supervised owner
+            # vanished too
+            self._prefill_worker = PrefillWorker(
+                self.decoder, fault_fn=chaos.prefill_fault_fn(),
+                lease_deadline_sec=(
+                    None if self.watchdog_timeout is None
+                    else 4.0 * self.watchdog_timeout))
+            if self.watchdog_timeout is not None:
+                self._prefill_watchdog = self._new_watchdog()
         self.max_new = self.decoder.max_new_tokens
         self.eos_id = self.decoder.eos_id
         self._fill = self.eos_id if self.eos_id is not None else 0
@@ -466,6 +495,7 @@ class ServingEngine(object):
             # cumulative counters (the decoder outlives the job)
             "prefix_hits": 0, "prefix_tokens_saved": 0, "evictions": 0,
             "pressure_evictions": 0, "prefix_hit_admits": 0,
+            "spec_accepted": 0, "spec_proposed": 0, "spec_accept_rate": 0.0,
             # the swap lifecycle
             "swaps": 0, "swap_commits": 0, "rollbacks": 0,
             "swap_requeued": 0, "swap_latency_sec": [], "drained": 0,
@@ -475,6 +505,10 @@ class ServingEngine(object):
             "kv_layout": getattr(self.decoder, "kv_layout", "contiguous"),
             "decode_wall_sec": 0.0, "prefill_wall_sec": 0.0,
             "tokens_out": 0,
+            # the disaggregation plane and its fault containment
+            "disaggregated": self.disaggregate,
+            "prefill_watchdog_fires": 0, "prefill_worker_deaths": 0,
+            "prefill_restarts": 0, "leases_reaped": 0,
         })
         self._reuse_base = dict(self._decoder_reuse_stats())
         self._pending = []      # validated, waiting for a slot
@@ -601,13 +635,17 @@ class ServingEngine(object):
         deltas, and the pool gauges as their current values."""
         cur = self._decoder_reuse_stats()
         base = self._reuse_base
-        for key in ("prefix_hits", "prefix_tokens_saved", "evictions"):
+        for key in ("prefix_hits", "prefix_tokens_saved", "evictions",
+                    "spec_accepted", "spec_proposed"):
             if key in cur:
                 self.stats[key] = int(cur[key]) - int(base.get(key, 0))
         for key in ("pool_pages", "pool_pages_used", "pool_pages_shared",
                     "pool_pages_free"):
             if key in cur:
                 self.stats[key] = int(cur[key])
+        prop = self.stats["spec_proposed"]
+        self.stats["spec_accept_rate"] = (
+            self.stats["spec_accepted"] / float(prop) if prop else 0.0)
 
     # -- admission ------------------------------------------------------
 
@@ -885,15 +923,18 @@ class ServingEngine(object):
                                  wait, trace=rid)
             t_admit0 = time.perf_counter()
             try:
-                with self._tracer.span("prefill", trace=rid) as sp:
-                    # the first token comes back as an unsynchronised
-                    # device scalar, resolved at the next chunk boundary
-                    first = self.decoder.admit(slot, prompt, **kw)
-                    cached = int(getattr(self.decoder,
-                                         "last_admit_cached_tokens", 0))
-                    sp.set("prefix_hit", cached > 0)
-                    if cached:
-                        sp.set("prefix_tokens", cached)
+                # the first token comes back as an unsynchronised device
+                # scalar, resolved at the next chunk boundary
+                if self._prefill_worker is not None:
+                    first, cached = self._admit_split(slot, prompt, rid, kw)
+                else:
+                    with self._tracer.span("prefill", trace=rid) as sp:
+                        first = self.decoder.admit(slot, prompt, **kw)
+                        cached = int(getattr(self.decoder,
+                                             "last_admit_cached_tokens", 0))
+                        sp.set("prefix_hit", cached > 0)
+                        if cached:
+                            sp.set("prefix_tokens", cached)
             except Exception as e:  # noqa: BLE001 - per-request capture
                 if self.on_error == "raise":
                     raise RequestError(
@@ -936,6 +977,113 @@ class ServingEngine(object):
                                                     0.0) + wait
             self._slot_req[slot] = req
         return progressed
+
+    # -- disaggregated admits and their fault containment --------------
+
+    def _admit_split(self, slot, prompt, rid, kw):
+        """The disaggregated admit: the worker's prefill under the
+        ``prefill`` span, then the decoder's adopt under ``handoff``, both
+        on the request's trace.  A contained fault (dead worker, wedged
+        prefill) re-prefills through the unified admit inside the same
+        span.  Returns ``(first, cached tokens)``."""
+        handoff = None
+        with self._tracer.span("prefill", trace=rid) as sp:
+            sp.set("disaggregated", True)
+            try:
+                handoff = self._prefill_dispatch(prompt, rid, kw)
+            except (WatchdogTimeout, PrefillWorkerDead) as e:
+                # the contained faults: a dead worker, or a prefill its
+                # watchdog abandoned
+                # the faulted prefill drew nothing from the generator and
+                # wrote no pool, so the re-prefill is token-identical
+                self._contain_prefill_fault(e, rid)
+                first = self.decoder.admit(slot, prompt, **kw)
+                cached = int(getattr(self.decoder,
+                                     "last_admit_cached_tokens", 0))
+                sp.set("prefill_recovered", True)
+            else:
+                cached = int(handoff.cached_tokens)
+            sp.set("prefix_hit", cached > 0)
+            if cached:
+                sp.set("prefix_tokens", cached)
+        if handoff is not None:
+            try:
+                with self._tracer.span("handoff", trace=rid):
+                    first = self.decoder.adopt(slot, handoff)
+            except Exception:
+                # an un-adopted handoff never leaks its pool pages
+                self._prefill_worker.abandon(handoff)
+                raise
+        return first, cached
+
+    def _prefill_dispatch(self, prompt, rid, kw):
+        """The worker's prefill, under the prefill watchdog when one is
+        armed; ``rid`` owns the pool lease.  A wedged prefill that wakes
+        after its watchdog gave up stops itself (``abandoned_fn``)."""
+        worker = self._prefill_worker
+        wd = self._prefill_watchdog
+        if wd is None:
+            return worker.prefill(prompt, owner=rid, **kw)
+        return wd.call(
+            lambda: worker.prefill(prompt, owner=rid,
+                                   abandoned_fn=lambda: wd.abandoned, **kw),
+            self.watchdog_timeout,
+        )
+
+    def _contain_prefill_fault(self, exc, rid):
+        """A prefill died or wedged mid-handoff: reap its lease by owner
+        (one reference per page), mark the fault at page severity (the
+        flight recorder dumps), and rebuild the worker."""
+        dead = not isinstance(exc, WatchdogTimeout)
+        kind = "prefill_worker_dead" if dead else "prefill_watchdog_fire"
+        self.stats["prefill_worker_deaths" if dead
+                   else "prefill_watchdog_fires"] += 1
+        reaped = self.decoder.page_pool.reap_orphans(owner=rid)
+        self.stats["leases_reaped"] += len(reaped)
+        pages = sum(r["pages"] for r in reaped)
+        logger.warning(
+            "prefill containment (%s) for request %s: %s — reaped %d "
+            "lease(s) / %d page(s); re-prefilling through the unified "
+            "path", kind, rid, exc, len(reaped), pages)
+        self._tracer.mark(kind, trace=rid, severity="page", error=str(exc),
+                          leases_reaped=len(reaped), pages_reclaimed=pages)
+        self.restart_prefill_worker(reason=kind)
+
+    def restart_prefill_worker(self, reason="operator"):
+        """Rebuild the prefill worker (and its watchdog) in place: the
+        containment path's actuator.  The chaos hook and the prefill
+        count carry over, so that spent faults do not fire again."""
+        old = self._prefill_worker
+        if old is None:
+            return None
+        worker = PrefillWorker(self.decoder, fault_fn=old._fault,
+                               lease_deadline_sec=old.lease_deadline_sec)
+        worker._prefills = old._prefills
+        self._prefill_worker = worker
+        if self.watchdog_timeout is not None:
+            # never reuse a possibly abandoned watchdog
+            if self._prefill_watchdog is not None:
+                self._prefill_watchdog.close()
+            self._prefill_watchdog = self._new_watchdog()
+        self.stats["prefill_restarts"] += 1
+        self._tracer.mark("prefill_restart", trace="serve", severity="warn",
+                          reason=reason)
+        return worker
+
+    def _maybe_reap(self):
+        """Once per scheduling pass: reclaim the pool's handoff leases
+        past their deadline (an owner that vanished unnoticed, e.g. the
+        chaos ``leak_lease``), one page-severity ``lease_reaped`` mark
+        each."""
+        pool = getattr(self.decoder, "page_pool", None)
+        if pool is None:
+            return
+        for r in pool.reap_orphans():
+            self.stats["leases_reaped"] += 1
+            self._tracer.mark(
+                "lease_reaped", trace="serve", severity="page",
+                owner=r["owner"], lease=r["lease"], pages=r["pages"],
+                age_sec=round(r["age_sec"], 3))
 
     # -- decode + recovery ---------------------------------------------
 
@@ -1103,6 +1251,10 @@ class ServingEngine(object):
                 if self._watchdog is not None:
                     self._watchdog.close()
                 self._watchdog = self._new_watchdog()
+                if self._prefill_worker is not None:
+                    if self._prefill_watchdog is not None:
+                        self._prefill_watchdog.close()
+                    self._prefill_watchdog = self._new_watchdog()
             applied[name] = {"old": old, "new": value}
         self._tracer.mark("engine_retune", trace="planner", severity="info",
                           knobs=applied)
@@ -1377,6 +1529,7 @@ class ServingEngine(object):
                 # rollback, at most one swap, queued retunes
                 self._maybe_swap()
                 self._maybe_retune()
+                self._maybe_reap()
                 self._refill(it)
                 self._expire_pending()
                 if self._draining:
@@ -1422,5 +1575,7 @@ class ServingEngine(object):
                 self._profile.stop()
             if self._watchdog is not None:
                 self._watchdog.close()
+            if self._prefill_watchdog is not None:
+                self._prefill_watchdog.close()
             if self._own_watcher and self.watcher is not None:
                 self.watcher.close()

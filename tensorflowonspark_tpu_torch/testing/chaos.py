@@ -1,6 +1,6 @@
 """Deterministic chaos injection for fault-tolerance tests (port of the
 JAX package's ``testing/chaos.py``, cut to the kill-worker and
-slow-executor faults and the serving faults).
+slow-executor faults, the serving faults and the prefill faults).
 
 A :class:`ChaosPlan` is written to a JSON file and advertised through
 the ``TFOS_CHAOS_PLAN`` env var.  Training: the user fn under test
@@ -12,7 +12,9 @@ like to the rest of the system.  A ``slow_executor`` fault stalls one
 executor's feed pulls (:func:`slow_feed_fn` wrapped around its feed by
 :class:`SlowFeed`): the straggler the health plane is to name.
 Serving: the engine reads the plan's
-``wedge_dispatch`` faults (:func:`serving_wedge_fn`), the checkpoint
+``wedge_dispatch`` faults (:func:`serving_wedge_fn`), a disaggregated
+engine's prefill worker its ``kill_prefill`` / ``wedge_prefill`` /
+``leak_lease`` faults (:func:`prefill_fault_fn`), the checkpoint
 watcher its ``slow_ingest`` (:func:`ingest_delay`), and a harness its
 ``swap_during_wedge`` chunk (:func:`swap_chunk_from_plan`);
 :func:`corrupt_checkpoint`, :func:`shape_mismatched_params`,
@@ -25,8 +27,8 @@ runs unless a test opts in: with ``TFOS_CHAOS_PLAN`` unset every hook is
 a no-op.
 
 Not ported (ROADMAP queue A, item 14): the other faults of the
-reference's plan (heartbeat drops, leader kills, replica and prefill
-faults) and ``TcpGremlin``.
+reference's plan (heartbeat drops, leader kills, replica faults) and
+``TcpGremlin``.
 """
 
 import json
@@ -99,6 +101,39 @@ class ChaosPlan(object):
         self.faults.append({"kind": "wedge_dispatch",
                             "at_chunk": int(at_chunk),
                             "hang_sec": float(hang_sec)})
+        return self
+
+    def kill_prefill(self, at_admit):
+        """Kill the disaggregated prefill worker the first time its
+        prefill count reaches ``at_admit``: it raises
+        ``serving_disagg.PrefillWorkerDead`` with its pool lease open,
+        as a prefill-side device death would.  The engine is to reap the
+        lease, re-prefill the request through the unified admit with the
+        same tokens, and rebuild the worker.  Fires once per entry."""
+        self.faults.append({"kind": "kill_prefill",
+                            "at_admit": int(at_admit)})
+        return self
+
+    def wedge_prefill(self, at_admit, hang_sec=30.0):
+        """Wedge the prefill whose count reaches ``at_admit`` for
+        ``hang_sec`` with its pool lease open (a hung prefill).  The
+        engine's prefill watchdog is to abandon it, reap the lease and
+        recover through the unified admit; the wedged thread stops when
+        it wakes (``PrefillAbandoned``).  Fires once per entry."""
+        self.faults.append({"kind": "wedge_prefill",
+                            "at_admit": int(at_admit),
+                            "hang_sec": float(hang_sec)})
+        return self
+
+    def leak_lease(self, at_admit, deadline_sec=0.5):
+        """At prefill ``at_admit`` the worker opens an extra one-page
+        lease (owner ``chaos:leak_lease``, deadline ``deadline_sec``) and
+        drops it: a worker that lost track of a handoff.  The engine's
+        deadline reaper is to reclaim it (a ``lease_reaped`` mark) with
+        the refcounts balanced."""
+        self.faults.append({"kind": "leak_lease",
+                            "at_admit": int(at_admit),
+                            "deadline_sec": float(deadline_sec)})
         return self
 
     def save(self, path):
@@ -229,6 +264,60 @@ def serving_wedge_fn():
                 return
 
     return maybe_wedge
+
+
+def prefill_fault_fn():
+    """The prefill worker's fault hook from the plan, or None when the
+    plan orders no prefill fault.  ``fault(prefill_index, worker)`` runs
+    once per prefill with the handoff lease open and the generator
+    untouched: ``leak_lease`` opens an extra one-page lease (owner
+    ``chaos:leak_lease``) and lets the prefill go on, ``wedge_prefill``
+    sleeps ``hang_sec``, ``kill_prefill`` marks the worker dead and
+    raises ``PrefillWorkerDead``.  Each entry fires once, in plan order;
+    a leak runs before a wedge before a kill due at the same index."""
+    plan = load_plan()
+    if plan is None:
+        return None
+    kills = [f for f in plan.faults if f["kind"] == "kill_prefill"]
+    wedges = [f for f in plan.faults if f["kind"] == "wedge_prefill"]
+    leaks = [f for f in plan.faults if f["kind"] == "leak_lease"]
+    if not kills and not wedges and not leaks:
+        return None
+    spent = set()
+
+    def fault(prefill_index, worker):
+        for i, f in enumerate(leaks):
+            if ("leak", i) not in spent and prefill_index >= f["at_admit"]:
+                spent.add(("leak", i))
+                page = worker.decoder._alloc_pages(1)
+                worker.decoder.page_pool.begin_handoff(
+                    page, owner="chaos:leak_lease",
+                    deadline_sec=f["deadline_sec"])
+                logger.warning("chaos: leaked handoff lease (page %s, "
+                               "deadline %.2fs) at prefill %d per plan",
+                               page, f["deadline_sec"], prefill_index)
+        for i, f in enumerate(wedges):
+            if ("wedge", i) not in spent and prefill_index >= f["at_admit"]:
+                spent.add(("wedge", i))
+                logger.warning("chaos: wedging prefill dispatch at prefill "
+                               "%d for %.1fs per plan", prefill_index,
+                               f["hang_sec"])
+                time.sleep(f["hang_sec"])
+        for i, f in enumerate(kills):
+            if ("kill", i) not in spent and prefill_index >= f["at_admit"]:
+                spent.add(("kill", i))
+                from tensorflowonspark_tpu_torch.serving_disagg import (
+                    PrefillWorkerDead,
+                )
+
+                worker.dead = True
+                logger.warning("chaos: killing prefill worker at prefill "
+                               "%d per plan", prefill_index)
+                raise PrefillWorkerDead(
+                    "chaos kill_prefill at prefill {0}".format(
+                        prefill_index))
+
+    return fault
 
 
 def ingest_delay():

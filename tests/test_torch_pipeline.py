@@ -431,10 +431,19 @@ def test_serving_cli_in_process_and_refusals(fitted, transformed, tmp_path):
         assert [json.loads(line)["generated"] for line in f] == \
             _tokens(transformed)
     for extra, item in ((["--replicas", "2"], "fleet"),
-                        (["--tp", "2"], "TP"),
-                        (["--disaggregate"], "disaggregation")):
+                        (["--tp", "2"], "TP")):
         with pytest.raises(NotImplementedError, match=item):
             serving.main(argv + extra + ["--schedule", "continuous"])
+    # --disaggregate (once refused) splits prefill from decode and writes
+    # the same tokens
+    out4 = str(tmp_path / "out-disagg")
+    argv4 = argv[:argv.index("--output")] + ["--output", out4] + \
+        argv[argv.index("--output") + 2:]
+    assert serving.main(argv4 + ["--disaggregate", "--schedule",
+                                 "continuous"]) == 7
+    with open(os.path.join(out4, "part-00000.jsonl")) as f:
+        assert [json.loads(line)["generated"] for line in f] == \
+            _tokens(transformed)
     # --checkpoint_dir (once refused) watches a root of published steps;
     # the export's own weights published there serve the same tokens
     # whether or not the swap lands during the job

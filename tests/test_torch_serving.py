@@ -126,9 +126,7 @@ def test_output_mapping_and_missing_column(tree):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("ngram", 3),
-    ("speculative", True), ("draft_config", {"num_layers": 1}),
-    ("tp", 2), ("mesh_shape", {"model": 2}), ("disaggregate", True),
+    ("tp", 2), ("mesh_shape", {"model": 2}),
     ("auto", True),
 ])
 def test_unported_builder_knobs_raise(tree, knob, value):
@@ -141,18 +139,39 @@ def test_unported_builder_knobs_raise(tree, knob, value):
     ("weights", "int8"), ("quantize", "int4"),
     ("kv_layout", "contiguous"), ("mode", "logits"),
     ("prefix_cache", True), ("prefix_mem_mb", 1.0),
+    ("ngram", 3), ("speculative", True),
+    ("draft_config", {"num_layers": 1}), ("disaggregate", True),
 ])
 def test_ported_builder_knobs_serve_like_jax(tree, knob, value):
     """Once refused: int8/int4 weights, the contiguous layout, logits
-    serving (``mode`` other than ``"generate"``) and the prefix cache
-    now build, and serve what the JAX package serves."""
+    serving (``mode`` other than ``"generate"``), the prefix cache,
+    speculation (``ngram``, the static ``speculative`` predictor over
+    uniform rows, a ``draft_config`` with the model's first block as its
+    weights) and disaggregation now build, and serve what the JAX
+    package serves."""
     cfg = dict(TINY, **dict(GEN, **{knob: value}))
     if knob.startswith("prefix"):
         # the radix block is the page (GEN's kv_page_tokens)
         cfg.update(prefix_cache=True, prefix_block=GEN["kv_page_tokens"])
+    if knob == "speculative":
+        # the JAX package's static speculative path runs its model's own
+        # layout, contiguous only
+        cfg["kv_layout"] = "contiguous"
+    if knob == "draft_config":
+        cfg.update(draft_config=dict(TINY, num_layers=1), draft_params={
+            k: tree[k] for k in ("embedding", "block_0", "ln_f",
+                                 "lm_head")})
     jax_cfg = dict(cfg, paged_impl="gather")
     port = ttr.serving_builder(tree, dict(cfg, device="cpu"))
     ref = jtr.serving_builder(tree, jax_cfg)
+    if knob == "speculative":
+        rows = [{"prompt": r["prompt"][:1].repeat(9)} for r in _rows()]
+        got = list(serving.predict_rows(port, rows, {"prompt": "tokens"},
+                                        batch_size=3))
+        want = list(jserving.predict_rows(ref, rows, {"prompt": "tokens"},
+                                          batch_size=3))
+        _assert_same(got, want)
+        return
     if knob == "mode":
         tokens = np.random.RandomState(1).randint(0, 256, (2, 12))
         got, want = port({"tokens": tokens}), ref({"tokens": tokens})
@@ -186,21 +205,34 @@ def test_unknown_key_raises_like_the_registry(tree):
 @pytest.mark.parametrize("kw", [
     {"replicas": 2}, {"replica_policy": "prefix_affinity"},
     {"fleet_queue_depth": 4},
-    {"disaggregate": True},
 ])
 def test_unported_predict_rows_knobs_raise(tree, kw):
-    """Fleet replicas and a disaggregated predictor (the robustness knobs
-    are ported: see test_torch_serving_robustness.py; the reserved
-    ``tenant`` and ``trace_id`` inputs: the test below)."""
+    """Fleet replicas (the robustness knobs are ported: see
+    test_torch_serving_robustness.py; the reserved ``tenant`` and
+    ``trace_id`` inputs: the test below; a disaggregated predictor: the
+    test after it)."""
     kw = dict({"schedule": "continuous"}, **kw)
     mapping = kw.pop("input_mapping", {"prompt": "tokens"})
     predict = _port(tree)
-    if kw.pop("disaggregate", False):
-        predict.disaggregate = True
     rows = [dict(r, t="x") for r in _rows(1)]
     with pytest.raises(NotImplementedError):
         list(serving.predict_rows(predict, rows, mapping, batch_size=2,
                                   **kw))
+
+
+@pytest.mark.parametrize("impl", ["kernel", "gather"])
+def test_disaggregated_predictor_serves_like_jax(tree, impl):
+    """Once refused: a predictor whose ``disaggregate`` is set admits
+    through a prefill worker and serves the JAX package's tokens."""
+    predict = _port(tree, impl)
+    predict.disaggregate = True
+    ref = _jax(tree)
+    ref.disaggregate = True
+    got, stats = _serve(serving, predict, _rows())
+    want, _ = _serve(jserving, ref, _rows())
+    _assert_same(got, want)
+    assert stats["disaggregated"] is True
+    assert stats["pool_pages_used"] == 0
 
 
 @pytest.mark.parametrize("schedule", ["continuous", "static"])
@@ -281,8 +313,8 @@ def test_import_loads_no_jax():
         "import sys\n"
         "import tensorflowonspark_tpu_torch\n"
         "from tensorflowonspark_tpu_torch import checkpoint, compat, "
-        "convert, hot_swap, optim, prefix_cache, quantize, serving, "
-        "serving_engine\n"
+        "convert, forensics, hot_swap, optim, prefix_cache, quantize, "
+        "serving, serving_disagg, serving_engine\n"
         "from tensorflowonspark_tpu_torch.testing import chaos\n"
         "from tensorflowonspark_tpu_torch.models import base, layers, "
         "linear, mlp, moe, resnet, transformer, unet\n"

@@ -221,13 +221,40 @@ class TestSlotBookkeeping:
             _port_decoder(kv_pages=4)
 
     @pytest.mark.parametrize("kw,item", [
-        ({"draft_params": object()}, "speculation"),
-        ({"draft_model": object()}, "speculation"),
         ({"mesh": object()}, "TP"),
     ])
     def test_unported_decoder_planes_raise(self, kw, item):
         with pytest.raises(NotImplementedError, match=item):
             _port_decoder(**kw)
+
+    @pytest.mark.parametrize("knob", ["draft_params", "draft_model"])
+    def test_ported_decoder_planes_match_jax(self, knob):
+        """Once refused: ``draft_params`` alone is ignored (no draft
+        model), ``draft_model`` with its weights makes chunks speculative
+        rounds; both decode what the JAX package's decoder decodes."""
+        jmodel, tree = _jax_params(TINY)
+        prompts = _prompts(TINY["vocab_size"], [5, 17, 9, 30, 2, 12])
+        jkw, kw = {"draft_params": tree}, {"draft_params": tree}
+        if knob == "draft_model":
+            jkw["draft_model"] = jmodel
+            kw["draft_model"] = ttr.Transformer(
+                ttr.TransformerConfig(**TINY), device="meta")
+        jdec = jtr.SlotDecoder(jmodel, tree, 3, MAX_NEW, paged_impl="gather",
+                               draft_len=2, **jkw, **DEC)
+        dec = ttr.SlotDecoder(
+            convert.params_from_flax(tree, ttr.TransformerConfig(**TINY),
+                                     device="cpu"),
+            None, 3, MAX_NEW, draft_len=2, **kw, **DEC)
+        assert dec._spec == jdec._spec == (knob == "draft_model")
+        got, want = [], []
+        for d, log in ((dec, got), (jdec, want)):
+            for slot in range(3):
+                log.append(int(np.asarray(d.admit(slot, prompts[slot]))))
+            for _ in range(2):
+                toks, valid = d.step_chunk()
+                log.append([np.asarray(toks)[s, :int(valid[s])].tolist()
+                            for s in range(3)])
+        assert got == want
 
 
 class TestForwardPieces:
