@@ -384,6 +384,37 @@ caught):
     static greedy ``generate`` (near ties apart), by prompt lookup
     (``speculative=True``, ``ngram`` 2) and with the model as its own
     draft, which must accept drafts: rounds and tokens per round.
+34. ``ps_mnist_flagship``: ``examples/mnist/mnist_ps.py``'s flow on the
+    port with an evaluator and the managed TensorBoard in one cluster:
+    ``cluster.run(LocalEngine(4), num_ps=1, eval_node=True,
+    tensorboard=True, log_dir=, InputMode.TENSORFLOW)``, four processes
+    on the card (``num_chips_per_node=None``).  ps:0 runs
+    ``parallel.ps.run_server``; each worker 60 steps of ``MNISTNet(128)``
+    on its own ``synthetic_mnist(2048)`` rows under
+    ``AsyncTrainer(adam(1e-3))``; the evaluator pulls the PS's params and
+    scores 256 held-out rows until both workers stopped, then once more.
+    TensorBoard is a stub on the executors' ``PATH`` (the card's machine
+    has none).  Gates: the roles; each worker's loss falls; the evaluator
+    scored at least twice and its last loss equals the driver's on the
+    PS's params (1e-6); the TensorBoard URL answers 200 and its pid is
+    gone after ``shutdown``; the ps process holds no CUDA context; both
+    service nodes stopped.  Prints steps/s, push-pull ms p50/p99 and
+    bytes a step each way per worker, the startup, and
+    ``mnist_spark_flagship``'s steps/s.
+35. ``ps_lm_flagship``: ``bench.py``'s ``ps_tpu_bench`` at the flagship's
+    width (2 layers, B=4, S=2048, ``sgd(0.01)``): ``AsyncTrainer``
+    here against two shards in spawned CPU processes, pipelined,
+    unpipelined and compressed (overlap, int8 pushes, int8 delta
+    replies), then ``SyncTrainer``.  Gates: K2-K4 = 2 x 7 launches in
+    each variant, the unpipelined loss falls, the compressed pushes at
+    most 0.27 of the dense bytes a step, and one overlapped step's
+    pushed gradients equal a blocking readback bit for bit.  Prints
+    steps/s and KB a step each way per variant, readback ms, the reply's
+    copy onto the card (ms), round trip p50/p99 and ``async_vs_sync``.
+
+Phases 27-33 (``prefix_serve_flagship`` through ``spec_serve_flagship``)
+and ``elastic_flagship`` run the flagship cut to :data:`CUT_LAYERS`
+layers (its first blocks) in :func:`main`.
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit
 line, and as the last line ``{"ok": true, "device": {...}}``.  Without a
@@ -7677,6 +7708,523 @@ def phase_spec_serve_flagship(tree, config=FLAGSHIP, device=None,
     return line
 
 
+# ----------------------------------------------------------------------
+# slice 20: the source system's own cluster roles (ps, evaluator,
+# TensorBoard) and async-PS training
+# ----------------------------------------------------------------------
+
+#: ``examples/mnist/mnist_ps.py``'s flow: rows per worker, hidden width,
+#: steps of this batch, the held-out rows the evaluator scores, the loss
+#: windows compared (first vs last) and the optimizer
+PS_MNIST_ROWS, PS_MNIST_HIDDEN, PS_MNIST_STEPS, PS_MNIST_BATCH = \
+    2048, 128, 60, 64
+PS_MNIST_EVAL_ROWS, PS_MNIST_WINDOW = 256, 10
+PS_MNIST_OPT = ("adam", {"learning_rate": 1e-3})
+#: a stand-in ``tensorboard`` (the card's machine has none, and nothing
+#: may be installed): serves HTTP 200 on the ``--port`` it is given
+TB_STUB = '''#!{python}
+import http.server, sys
+port = int([a for a in sys.argv if a.startswith("--port=")][0][7:])
+
+
+class H(http.server.BaseHTTPRequestHandler):
+    def do_GET(self):
+        self.send_response(200)
+        self.end_headers()
+        self.wfile.write(b"tensorboard stub")
+
+    def log_message(self, *a):
+        pass
+
+
+http.server.HTTPServer(("", port), H).serve_forever()
+'''
+#: the depth :func:`main` runs the serving engine's phases at
+#: (``prefix_serve_flagship`` through ``spec_serve_flagship``: the radix,
+#: the watchdog, hot swap, fused QKV, telemetry, the split and
+#: speculation) and ``elastic_flagship``, the flagship's first blocks
+#: (:func:`draft_tree`): they check the engine and the supervisor, not
+#: the model's depth, and were cut from 16 layers to keep
+#: ``phase_times`` in its budget when the async-PS phases came
+CUT_LAYERS = 4
+#: ``bench.py:3020`` ``ps_tpu_bench`` at the flagship's width: depth, the
+#: one seeded batch, the optimizer, warm-up and timed steps, the PS
+#: shards (spawned CPU processes) and the variants (``bench.py:3088-3106``)
+PS_LM_LAYERS, PS_LM_B, PS_LM_S = 2, 4, 2048
+PS_LM_OPT = ("sgd", {"learning_rate": 0.01})
+PS_LM_TIMED, PS_LM_SHARDS = 6, 2
+PS_LM_VARIANTS = {
+    "async_pipelined": dict(pipeline=True),
+    "async_unpipelined": dict(pipeline=False),
+    "async_compressed": dict(overlap=True, codec="int8", reply_codec="same"),
+}
+#: ``async_compressed``'s pushed bytes per step over ``async_pipelined``'s
+PS_LM_PUSH_RATIO = 0.27
+
+
+def mnist_loss(model, batch, params=None):
+    """``mnist_ps.py``'s loss: the mean NLL of ``model``'s logits on
+    ``batch["image"]``, with ``params`` swapped in when given."""
+    from tensorflowonspark_tpu_torch.models import layers
+
+    logits = (model(batch["image"]) if params is None else
+              torch.func.functional_call(model, params, (batch["image"],)))
+    return layers.cross_entropy(logits, batch["label"])[0]
+
+
+def ps_mnist_fn(args, ctx):
+    """``examples/mnist/mnist_ps.py``'s ``main_fun`` on the port, with an
+    evaluator.  ps: ``run_server`` (a thread writes whether this process
+    initialised CUDA); worker: ``AsyncTrainer`` on ``MNISTNet`` over its
+    own synthetic rows, then a ``stop`` file; evaluator: pulls the PS's
+    params with a ``PSClient`` and scores the held-out rows until both
+    workers stopped, then once more."""
+    from tensorflowonspark_tpu_torch import compat, telemetry
+    from tensorflowonspark_tpu_torch.models import mlp
+    from tensorflowonspark_tpu_torch.parallel import ps
+
+    tmp = args["tmp"]
+    if ctx.job_name == "ps":
+        def report():
+            while True:
+                with open(os.path.join(tmp, "ps_cuda.json.tmp"), "w") as f:
+                    json.dump({"pid": os.getpid(), "cuda_initialized":
+                               torch.cuda.is_initialized()}, f)
+                os.replace(os.path.join(tmp, "ps_cuda.json.tmp"),
+                           os.path.join(tmp, "ps_cuda.json"))
+                time.sleep(0.5)
+
+        threading.Thread(target=report, daemon=True).start()
+        ps.run_server(ctx)
+        return
+    device = compat.resolve_device(args.get("device"))
+    torch.manual_seed(0)
+    model = mlp.MNISTNet(hidden=PS_MNIST_HIDDEN, device=device)
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    if ctx.job_name == "evaluator":
+        held_out = mnist_held_out(device)
+        client = ps.PSClient(ctx.cluster_spec["ps"])
+        client.init(params, PS_MNIST_OPT)
+        stops = [os.path.join(tmp, "stop.%d" % i) for i in range(2)]
+        scores = []
+        while True:
+            done = all(os.path.exists(s) for s in stops)
+            with torch.no_grad():
+                pulled = client.pull()
+                for k, v in pulled.items():
+                    model.get_parameter(k).copy_(torch.from_numpy(
+                        np.array(v)))
+                scores.append(float(mnist_loss(model, held_out)))
+            if done:
+                break
+            time.sleep(0.2)
+        client.close()
+        with open(os.path.join(tmp, "eval.json"), "w") as f:
+            json.dump({"scores": scores, "pid": os.getpid()}, f)
+        return
+    x, y = synthetic_mnist(PS_MNIST_ROWS, seed=ctx.task_index)
+    x, y = torch.from_numpy(x), torch.from_numpy(y)
+    steps, batch = args["steps"], PS_MNIST_BATCH
+    reg = telemetry.get_registry()
+    base = reg.snapshot()
+    trainer = ps.AsyncTrainer(
+        lambda p, b: mnist_loss(model, b, p), ctx.cluster_spec["ps"],
+        optimizer=PS_MNIST_OPT, device=device)
+    live = trainer.init(params)
+    losses, t_first = [], None
+    for i in range(steps):
+        lo = (i * batch) % (len(x) - batch)
+        b = {"image": x[lo:lo + batch].to(device, non_blocking=True),
+             "label": y[lo:lo + batch].to(device, non_blocking=True)}
+        live = trainer.step(live, b)
+        losses.append(trainer.last_loss)
+        if i == 0:
+            sync(device)
+            t_first = time.perf_counter()
+    trainer.drain()
+    sync(device)
+    train_sec = time.perf_counter() - t_first
+    sent, recv = trainer.client.bytes_sent, trainer.client.bytes_recv
+    trainer.stop()
+    rt = telemetry.snapshot_delta(reg.snapshot(), base)["histograms"].get(
+        "ps.round_trip_sec", {})
+    with open(os.path.join(tmp, "worker%d.json" % ctx.task_index), "w") as f:
+        json.dump({
+            "losses": torch.stack(losses).float().cpu().tolist(),
+            "steps_per_sec": (steps - 1) / train_sec,
+            "round_trip_ms_p50": 1e3 * telemetry.histogram_percentile(rt, 50),
+            "round_trip_ms_p99": 1e3 * telemetry.histogram_percentile(rt, 99),
+            "round_trips": rt.get("count", 0),
+            "sent_bytes_per_step": sent / steps,
+            "recv_bytes_per_step": recv / steps, "pid": os.getpid(),
+            "device": device_name(device)}, f)
+    open(os.path.join(tmp, "stop.%d" % ctx.task_index), "w").close()
+
+
+def mnist_held_out(device):
+    """The rows the evaluator scores, on ``device``."""
+    x, y = synthetic_mnist(PS_MNIST_EVAL_ROWS, seed=99)
+    return {"image": torch.from_numpy(x).to(device),
+            "label": torch.from_numpy(y).to(device)}
+
+
+def cuda_pids():
+    """The pids ``nvidia-smi`` lists as holding a compute context."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return sorted(int(s) for s in out.split() if s.strip().isdigit())
+
+
+def phase_ps_mnist_flagship(device=None, steps=PS_MNIST_STEPS,
+                            spark_line=None):
+    """``mnist_ps.py``'s flow with an evaluator and TensorBoard in one
+    cluster: ``cluster.run(LocalEngine(4), ps_mnist_fn, num_ps=1,
+    eval_node=True, tensorboard=True, log_dir=, InputMode.TENSORFLOW)``
+    with ``num_chips_per_node=None`` (four processes share the card).
+    The card's machine has no TensorBoard, so a stub ``tensorboard``
+    (:data:`TB_STUB`, a few lines serving HTTP 200 on ``--port``) goes
+    first on the executors' ``PATH``.  Gates: the roles; each worker's
+    loss falls (mean of its last :data:`PS_MNIST_WINDOW` steps under its
+    first); the evaluator scored at least twice, its last loss within
+    1e-6 of the driver's on params pulled from the PS; the TensorBoard
+    URL answers 200 and its pid is gone after ``shutdown``; the ps
+    process holds no CUDA context; both service nodes stopped, no error.
+    ``device="cpu"`` rehearses it without a card."""
+    import importlib
+    import tempfile
+
+    from tensorflowonspark_tpu_torch import compat
+    from tensorflowonspark_tpu_torch.cluster import cluster, manager, node
+    from tensorflowonspark_tpu_torch.engine import LocalEngine
+    from tensorflowonspark_tpu_torch.models import mlp
+    from tensorflowonspark_tpu_torch.parallel import ps
+
+    t_phase = time.perf_counter()
+    on_card = device is None
+    dev = compat.resolve_device(device)
+    smoke = importlib.import_module("chip_smoke")
+    tmp = tempfile.mkdtemp(prefix="ps_mnist_")
+    bindir = os.path.join(tmp, "bin")
+    os.makedirs(bindir)
+    stub = os.path.join(bindir, "tensorboard")
+    with open(stub, "w") as f:
+        f.write(TB_STUB.format(python=sys.executable))
+    os.chmod(stub, 0o755)
+    env = {"PATH": bindir + os.pathsep + os.environ.get("PATH", "")}
+    args = {"tmp": tmp, "steps": steps, "device": device}
+    engine = LocalEngine(4, env=env)
+    try:
+        t0 = time.perf_counter()
+        engine_sec = t0 - t_phase
+        c = cluster.run(engine, smoke.ps_mnist_fn, args, num_executors=4,
+                        num_ps=1, eval_node=True, tensorboard=True,
+                        log_dir=os.path.join(tmp, "logs"),
+                        num_chips_per_node=None, reservation_timeout=120,
+                        input_mode=cluster.InputMode.TENSORFLOW)
+        startup = time.perf_counter() - t0
+        roles = sorted(n["job_name"] for n in c.cluster_info)
+        url = c.tensorboard_url()
+        tb_status, deadline = None, time.time() + 60
+        while tb_status is None:
+            try:
+                tb_status = _http_get(url)[0]
+            except OSError:
+                if time.time() > deadline:
+                    raise
+                time.sleep(0.2)
+        tb_pid = next(n["tb_pid"] for n in c.cluster_info if n["tb_pid"])
+        t_wait = time.perf_counter()
+        eval_path = os.path.join(tmp, "eval.json")
+        deadline = time.time() + 600
+        while not os.path.exists(eval_path):
+            if time.time() > deadline:
+                raise AssertionError("the evaluator wrote no scores")
+            time.sleep(0.2)
+        eval_wait = time.perf_counter() - t_wait
+        with open(eval_path) as f:
+            ev = json.load(f)
+        # the driver's loss on the PS's params, on the card
+        spec = node.build_cluster_spec(c.cluster_info)[0]
+        torch.manual_seed(0)
+        model = mlp.MNISTNet(hidden=PS_MNIST_HIDDEN, device=dev)
+        client = ps.PSClient(spec["ps"])
+        client.init({k: v.detach() for k, v in model.named_parameters()},
+                    PS_MNIST_OPT)
+        with torch.no_grad():
+            for k, v in client.pull().items():
+                model.get_parameter(k).copy_(torch.from_numpy(np.array(v)))
+            driver_loss = float(mnist_loss(model, mnist_held_out(dev)))
+        client.close()
+        with open(os.path.join(tmp, "ps_cuda.json")) as f:
+            ps_cuda = json.load(f)
+        apps = cuda_pids() if on_card else []
+        services = [n for n in c.cluster_info
+                    if n["job_name"] in node.SERVICE_JOBS]
+        t0 = time.perf_counter()
+        c.shutdown(timeout=600)
+        shutdown_sec = time.perf_counter() - t0
+        states = {n["job_name"]: str(manager.connect(
+            tuple(n["addr"]), bytes.fromhex(n["authkey"])).get(
+                "state")._getvalue()) for n in services}
+        deadline = time.time() + 10
+        while _pid_alive(tb_pid) and time.time() < deadline:
+            time.sleep(0.1)
+        tb_gone = not _pid_alive(tb_pid)
+    finally:
+        engine.stop()
+    workers = []
+    for i in range(2):
+        with open(os.path.join(tmp, "worker%d.json" % i)) as f:
+            workers.append(json.load(f))
+    shutil.rmtree(tmp, ignore_errors=True)
+    k = max(1, min(PS_MNIST_WINDOW, steps // 2))
+    line = dict(
+        roles=roles, steps=steps, batch=PS_MNIST_BATCH,
+        steps_per_sec=[w["steps_per_sec"] for w in workers],
+        round_trip_ms_p50=[w["round_trip_ms_p50"] for w in workers],
+        round_trip_ms_p99=[w["round_trip_ms_p99"] for w in workers],
+        sent_bytes_per_step=[w["sent_bytes_per_step"] for w in workers],
+        recv_bytes_per_step=[w["recv_bytes_per_step"] for w in workers],
+        loss_first=[float(np.mean(w["losses"][:k])) for w in workers],
+        loss_last=[float(np.mean(w["losses"][-k:])) for w in workers],
+        eval_scores=len(ev["scores"]), eval_last_loss=ev["scores"][-1],
+        driver_loss=driver_loss, cluster_startup_sec=startup,
+        shutdown_sec=shutdown_sec, tensorboard_status=tb_status,
+        tensorboard_gone=tb_gone, service_states=states,
+        ps_pid=ps_cuda["pid"], ps_cuda_initialized=ps_cuda[
+            "cuda_initialized"], cuda_pids=apps,
+        worker_pids_listed=sorted(set(apps) & {w["pid"] for w in workers}),
+        mnist_spark_steps_per_sec=(spark_line or {}).get("steps_per_sec"),
+        engine_start_sec=engine_sec, eval_wait_sec=eval_wait,
+        phase_sec=time.perf_counter() - t_phase,
+        compute_device=workers[0]["device"],
+        nvidia_smi=nvidia_smi_or_cpu(dev))
+    emit("ps_mnist_flagship", **line)
+    if roles != ["evaluator", "ps", "worker", "worker"]:
+        raise AssertionError("roles {0}".format(roles))
+    for w, first, last in zip(workers, line["loss_first"], line["loss_last"]):
+        if not np.isfinite(w["losses"]).all() or not last < first:
+            raise AssertionError("a worker's loss did not fall: {0}".format(
+                w["losses"]))
+    if len(ev["scores"]) < 2:
+        raise AssertionError("the evaluator scored {0} times".format(
+            len(ev["scores"])))
+    if abs(ev["scores"][-1] - driver_loss) > 1e-6:
+        raise AssertionError("evaluator loss {0} != driver's {1}".format(
+            ev["scores"][-1], driver_loss))
+    if tb_status != 200 or not tb_gone:
+        raise AssertionError("tensorboard status {0}, pid gone {1}".format(
+            tb_status, tb_gone))
+    if ps_cuda["cuda_initialized"] or ps_cuda["pid"] in apps:
+        raise AssertionError("the ps process holds a CUDA context: "
+                             "{0}".format(ps_cuda))
+    if states != {"ps": "stopped", "evaluator": "stopped"}:
+        raise AssertionError("service nodes {0}".format(states))
+    return line
+
+
+def _pid_alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+#: a PS shard in a CPU process of its own (``bench.py:2781``
+#: ``_ps_shard_proc``): it imports the port's ``parallel/ps.py`` (numpy,
+#: no ``torch``), prints its port and serves until it is stopped
+PS_SHARD_CMD = ("from tensorflowonspark_tpu_torch.parallel import ps; "
+                "s = ps.ParamServerShard(); "
+                "print(s.start('127.0.0.1', 0)[1], flush=True); s.join()")
+
+
+def start_ps_shards(n):
+    """``n`` shard processes and their ``host:port`` addresses."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    procs = [subprocess.Popen([sys.executable, "-c", PS_SHARD_CMD],
+                              stdout=subprocess.PIPE, text=True, cwd=root,
+                              env=env) for _ in range(n)]
+    return procs, ["127.0.0.1:" + p.stdout.readline().strip() for p in procs]
+
+
+def ps_lm_model(config, device):
+    """The flagship's layout at ``config``'s depth from seed 0: f32 masters
+    under bf16 compute with flash attention, its loss, and the seeded
+    [B, S] batch every step trains on."""
+    from tensorflowonspark_tpu_torch import convert
+    from tensorflowonspark_tpu_torch.models import transformer
+
+    cfg = transformer.TransformerConfig(**dict(config,
+                                               attention_impl="flash"))
+    tree = convert.init_params_tree(transformer.TransformerConfig(**config),
+                                    seed=0)
+    model = convert.params_from_flax(tree, cfg, device=device,
+                                     param_dtype=torch.float32)
+    tokens = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (PS_LM_B, min(PS_LM_S, cfg.max_seq_len)))
+    batch = {"tokens": torch.from_numpy(tokens.astype(np.int32)).to(device)}
+    lossf = transformer.loss_fn(model)
+    return model, (lambda p, b: lossf(p, b, None)), batch
+
+
+def phase_ps_lm_flagship(config=None, device=None, timed=PS_LM_TIMED):
+    """``bench.py:3020`` ``ps_tpu_bench`` at the flagship's width, depth cut
+    to :data:`PS_LM_LAYERS`: ``AsyncTrainer`` in this process (gradients
+    on the card) against :data:`PS_LM_SHARDS` shards in spawned CPU
+    processes, each variant of :data:`PS_LM_VARIANTS` on fresh shards (a
+    warm-up step and ``drain``, then ``timed`` steps and ``drain``), then
+    ``SyncTrainer(sgd)`` on the same model and batch.  Gates: K2-K4
+    launches of each variant equal layers x (timed + 1) steps on the card
+    (the CPU runs their plain versions: 0); ``async_unpipelined``'s loss
+    falls; ``async_compressed`` pushes at most :data:`PS_LM_PUSH_RATIO`
+    of ``async_pipelined``'s bytes a step; one extra overlapped step's
+    pushed gradients equal a blocking readback of them, bit for bit.
+    ``device="cpu"`` with a small ``config`` rehearses it."""
+    from tensorflowonspark_tpu_torch import compat, optim, telemetry
+    from tensorflowonspark_tpu_torch.ops.flash_attention import (
+        flash_attention,
+    )
+    from tensorflowonspark_tpu_torch.parallel import dp, ps
+
+    config = dict(FLAGSHIP, num_layers=PS_LM_LAYERS) if config is None \
+        else config
+    on_card = device is None
+    dev = compat.resolve_device(device)
+    t_phase = time.perf_counter()
+    procs, flat = start_ps_shards(PS_LM_SHARDS * len(PS_LM_VARIANTS))
+    addrs = {name: flat[i * PS_LM_SHARDS:(i + 1) * PS_LM_SHARDS]
+             for i, name in enumerate(PS_LM_VARIANTS)}
+    try:
+        model, loss, batch = ps_lm_model(config, dev)
+        setup_sec = time.perf_counter() - t_phase
+        params = {k: v.detach() for k, v in model.named_parameters()}
+        n_params = sum(v.numel() for v in params.values())
+        want = config["num_layers"] * (timed + 1) if on_card else 0
+        reg = telemetry.get_registry()
+        res, extra = {}, None
+        for name, kw in PS_LM_VARIANTS.items():
+            t_variant = time.perf_counter()
+            tr = ps.AsyncTrainer(loss, addrs[name], optimizer=PS_LM_OPT,
+                                 device=dev, **kw)
+            flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
+            live = tr.init(params)
+            live = tr.step(live, batch)
+            first_loss = float(tr.last_loss)
+            live = tr.drain() or live
+            sync(dev)
+            sent0, recv0 = tr.client.bytes_sent, tr.client.bytes_recv
+            nread, nh2d = len(tr.readback_sec), len(tr.h2d_ms())
+            base = reg.snapshot()
+            t0 = time.perf_counter()
+            for _ in range(timed):
+                live = tr.step(live, batch)
+            live = tr.drain() or live
+            sync(dev)
+            wall = time.perf_counter() - t0
+            launches = dict(flash_attention.launches)
+            rt = telemetry.snapshot_delta(reg.snapshot(), base)[
+                "histograms"].get("ps.round_trip_sec", {})
+            with torch.no_grad():
+                final_loss = float(loss(live, batch))
+            res[name] = dict(
+                steps_per_sec=timed / wall,
+                sent_kb_per_step=(tr.client.bytes_sent - sent0) / timed / 1e3,
+                recv_kb_per_step=(tr.client.bytes_recv - recv0) / timed / 1e3,
+                readback_ms=[1e3 * s for s in tr.readback_sec[nread:]],
+                h2d_ms=tr.h2d_ms()[nh2d:],
+                round_trip_ms_p50=1e3 * telemetry.histogram_percentile(rt, 50),
+                round_trip_ms_p99=1e3 * telemetry.histogram_percentile(rt, 99),
+                first_loss=first_loss, final_loss=final_loss,
+                launches=launches)
+            if name == "async_compressed":
+                extra = overlap_readback_check(tr, live, batch)
+            tr.stop(stop_servers=True)
+            del tr, live
+            res[name]["variant_sec"] = time.perf_counter() - t_variant
+        # the synchronous trainer on the same model and batch
+        t_sync = time.perf_counter()
+        sgd = dp.SyncTrainer(lambda p, b, r: loss(p, b),
+                             optim.sgd(PS_LM_OPT[1]["learning_rate"]))
+        state = sgd.create_state(dict(model.named_parameters()))
+        state, _ = sgd.step_on_device(state, batch)
+        sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            state, _ = sgd.step_on_device(state, batch)
+        sync(dev)
+        sync_steps_per_sec = timed / (time.perf_counter() - t0)
+        sync_sec = time.perf_counter() - t_sync
+    finally:
+        for p in procs:
+            p.terminate()
+            p.wait(timeout=10)
+    line = dict(
+        model="L{0} H{1} Dh{2} Dm{3} Dff{4} V{5}, {6} over f32 masters, "
+              "flash".format(config["num_layers"], config["num_heads"],
+                             config["head_dim"], config["embed_dim"],
+                             config["mlp_dim"], config["vocab_size"],
+                             config["dtype"]),
+        params=n_params, batch=[PS_LM_B, int(batch["tokens"].shape[1])],
+        shards=PS_LM_SHARDS, timed_steps=timed, variants=res,
+        sync_steps_per_sec=sync_steps_per_sec,
+        async_vs_sync=res["async_pipelined"]["steps_per_sec"]
+        / sync_steps_per_sec,
+        push_ratio=res["async_compressed"]["sent_kb_per_step"]
+        / res["async_pipelined"]["sent_kb_per_step"],
+        overlap_readback=extra, setup_sec=setup_sec, sync_sec=sync_sec,
+        phase_sec=time.perf_counter() - t_phase,
+        nvidia_smi=nvidia_smi_or_cpu(dev))
+    emit("ps_lm_flagship", **line)
+    for name, r in res.items():
+        if r["launches"] != {"fwd": want, "dq": want, "dkv": want}:
+            raise AssertionError("{0}: flash launches {1}, want {2} each"
+                                 .format(name, r["launches"], want))
+    un = res["async_unpipelined"]
+    if not np.isfinite(un["final_loss"]) or \
+            not un["final_loss"] < un["first_loss"]:
+        raise AssertionError("async_unpipelined's loss did not fall: "
+                             "{0}".format(un))
+    if not line["push_ratio"] <= PS_LM_PUSH_RATIO:
+        raise AssertionError("compressed pushes {0:.3f} of dense".format(
+            line["push_ratio"]))
+    if not extra["equal"]:
+        raise AssertionError("the overlap drain's readback differs from a "
+                             "blocking one: {0}".format(extra))
+    return line
+
+
+def overlap_readback_check(tr, live, batch):
+    """One extra step through the overlap drain while the next step's
+    gradients are already dispatched: the host arrays the drain hands to
+    the push must equal a blocking readback of the same device
+    gradients, bit for bit."""
+    pushed = []
+    orig = tr.client.push_pull_async
+
+    def capture(host):
+        pushed.append([np.array(h, copy=True) for h in host])
+        return orig(host)
+
+    tr.client.push_pull_async = capture
+    window = tr._grads(live, batch)
+    tr._drain.submit(window)
+    tr._grads(live, batch)  # the next step's work queued behind it
+    tr.drain()
+    tr.client.push_pull_async = orig
+    blocking = [w.cpu() for w in window]
+    from tensorflowonspark_tpu_torch import compress
+
+    same = len(pushed) == 1 and all(
+        compress.to_numpy(b).tobytes() == p.tobytes()
+        for b, p in zip(blocking, pushed[0]))
+    return {"equal": bool(same), "leaves": len(window),
+            "bytes": int(sum(w.numel() * w.element_size() for w in window))}
+
+
 def kernel_entry(name, kernel, replaces, launches, timing,
                  source="tensorflowonspark_tpu_torch/csrc/flash_attention.cu",
                  **extra):
@@ -7721,20 +8269,24 @@ def main():
     static = phase_static_serve_flagship(tree, flagship["tokens"],
                                          flagship["decode_step_ms"])
     lap("static_serve_flagship")
-    prefix = phase_prefix_serve_flagship(tree)
+    # the engine's phases and the elastic one at a cut depth
+    cut = dict(FLAGSHIP, num_layers=CUT_LAYERS)
+    cut_tree = draft_tree(tree, CUT_LAYERS)
+    prefix = phase_prefix_serve_flagship(cut_tree, config=cut)
     lap("prefix_serve_flagship")
-    recovery = phase_serve_recovery_flagship(tree)
+    recovery = phase_serve_recovery_flagship(cut_tree, config=cut)
     lap("serve_recovery_flagship")
-    swap = phase_hot_swap_flagship(tree)
+    swap = phase_hot_swap_flagship(cut_tree, config=cut)
     lap("hot_swap_flagship")
-    fused = phase_fused_qkv_flagship(tree, prefix)
+    fused = phase_fused_qkv_flagship(cut_tree, prefix, config=cut)
     del prefix["rows"], prefix["f32_paged_tokens"]
     lap("fused_qkv_flagship")
-    tele = phase_telemetry_serve_flagship(tree)
+    tele = phase_telemetry_serve_flagship(cut_tree, config=cut)
     lap("telemetry_serve_flagship")
-    disagg = phase_disagg_serve_flagship(tree)
+    disagg = phase_disagg_serve_flagship(cut_tree, config=cut)
     lap("disagg_serve_flagship")
-    phase_spec_serve_flagship(tree)
+    phase_spec_serve_flagship(cut_tree, config=cut)
+    del cut_tree
     lap("spec_serve_flagship")
     phase_flash_cases()
     phase_flash_repeat()
@@ -7765,14 +8317,18 @@ def main():
     lap("feed_inference_flagship")
     resumed = phase_checkpoint_resume_serve(train)
     lap("checkpoint_resume_serve")
-    elastic = phase_elastic_flagship()
+    elastic = phase_elastic_flagship(config=cut)
     lap("elastic_flagship")
     pipeline = phase_pipeline_flagship(fed)
     lap("pipeline_flagship")
-    phase_mnist_spark_flagship()
+    mnist = phase_mnist_spark_flagship()
     phase_resnet_train_flagship()
     phase_segmentation_flagship()
     lap("vision")
+    phase_ps_mnist_flagship(spark_line=mnist)
+    lap("ps_mnist_flagship")
+    ps_lm = phase_ps_lm_flagship()
+    lap("ps_lm_flagship")
     emit("phase_times", total_sec=time.perf_counter() - t_start, **laps)
     jax_flash = "tensorflowonspark_tpu/ops/flash_attention.py:"
     jax_gmm = "tensorflowonspark_tpu/ops/gmm.py:"
@@ -7810,6 +8366,8 @@ def main():
                      ring_attention_launches=ring_hops["launches"][name],
                      pipeline_launches=pipeline["fit_launches"][name],
                      fused_qkv_launches=fused["train"]["launches"][name],
+                     ps_lm_launches={v: r["launches"][name] for v, r in
+                                     ps_lm["variants"].items()},
                      **{"offset_" + k: offset[name][k] for k in (
                          "ms", "plain_ms", "bound_ms", "bound_by",
                          "library_ms", "max_abs_err")})

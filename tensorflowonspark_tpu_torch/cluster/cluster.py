@@ -23,10 +23,14 @@ straggler diagnosis over them, with its HTTP surface.
 ``run(profile_dir=, profile_steps=)`` captures a ``torch.profiler``
 trace in each compute process of that cluster.
 
+The source system's own roles: ``num_ps`` parameter-server nodes (or,
+with ``driver_ps_nodes``, shards in the driver process), an
+``eval_node``, and a managed TensorBoard (``tensorboard``, ``log_dir``)
+whose URL ``tensorboard_url()`` gives.  ``shutdown`` stops TensorBoard
+and releases the service nodes' control loops after its error check.
+
 Not ported (ROADMAP queue A): remediation holds (``hold_executor``,
-``release_executor``), parameter-server and evaluator nodes (``num_ps``,
-``driver_ps_nodes``, ``eval_node``), the planner (``plan``) and
-tensorboard.
+``release_executor``) and the planner (``plan``, ``plan_hint``).
 """
 
 import functools
@@ -75,8 +79,12 @@ class ClusterMonitor(object):
     Journal marks: ``executor_restart`` for each generation step (with
     the ``cluster.restart_events`` counter), ``executor_dead`` (page) for
     a permanent failure, and, under ``elastic``, ``executor_dead`` (warn,
-    ``recoverable``) when a recovery window opens: the driver's sight of
-    the death.
+    ``recoverable``) once per death: the driver's sight of it.  A death
+    stays open until the executor has been seen alive for longer than
+    the liveness deadline, so the rebirth's liveness prime (alive at the
+    new generation while the node parks, then dead again until the
+    respawn) reopens the recovery window, as the reference's does, but
+    marks nothing new.
     """
 
     def __init__(self, server, cluster_info, elastic=False,
@@ -93,6 +101,9 @@ class ClusterMonitor(object):
         self.health_hints = {}
         self._by_id = {n["executor_id"]: n for n in cluster_info}
         self._first_dead = {}
+        #: executor -> when its open death was last seen alive (None
+        #: while dead): one recoverable mark per death
+        self._open_deaths = {}
         self._known_gen = {}
         self._error_peek = error_peek  # fn(node_meta) -> str | None
         self._stop = threading.Event()
@@ -140,12 +151,20 @@ class ClusterMonitor(object):
             if eid not in dead:
                 logger.info("monitor: executor %d recovered", eid)
                 self._first_dead.pop(eid)
+        for eid, alive_since in list(self._open_deaths.items()):
+            if eid in dead:
+                self._open_deaths[eid] = None
+            elif alive_since is None:
+                self._open_deaths[eid] = now
+            elif now - alive_since > self.server.liveness.deadline:
+                self._open_deaths.pop(eid)
         for eid, diag in sorted(dead.items()):
             if not self.elastic:
                 self._fail(eid, diag)
                 return
-            if eid not in self._first_dead:
-                # the recovery window opens: the driver's sight of it
+            if eid not in self._open_deaths:
+                # a new death: the driver's sight of it
+                self._open_deaths[eid] = None
                 telemetry.get_tracer().mark(
                     "executor_dead", trace="executor%d" % eid,
                     severity="warn", executor_id=eid,
@@ -269,7 +288,7 @@ class TPUCluster(object):
 
     def __init__(self, engine, cluster_meta, cluster_info, server,
                  job_handle, input_mode, queues, owns_engine=False,
-                 monitor=None):
+                 monitor=None, driver_ps=None):
         self.engine = engine
         self.cluster_meta = cluster_meta
         self.cluster_info = cluster_info
@@ -288,6 +307,8 @@ class TPUCluster(object):
         #: the health plane (:meth:`start_health_plane`)
         self.health = None
         self._profile_seq = itertools.count(1)
+        #: parameter-server shards hosted in this process (driver_ps_nodes)
+        self._driver_ps = list(driver_ps or [])
 
     # -- data plane ----------------------------------------------------
 
@@ -570,6 +591,8 @@ class TPUCluster(object):
             self.monitor.stop()
         workers = [n for n in self.cluster_info
                    if n["job_name"] in node.COMPUTE_JOBS]
+        services = [n for n in self.cluster_info
+                    if n["job_name"] in node.SERVICE_JOBS]
         if self.input_mode == InputMode.TENSORFLOW:
             # foreground fns set their node 'stopped' on return
             self._await_worker_states(workers, deadline)
@@ -600,6 +623,17 @@ class TPUCluster(object):
             if err:
                 errors.append((n["executor_id"], err))
 
+        self._stop_tensorboard()
+        # release the ps/evaluator control loops
+        for n in services:
+            try:
+                self._connect(n).get_queue("control").put(None, block=True)
+            except Exception:  # noqa: BLE001 - node may be gone already
+                logger.warning("unable to post shutdown to %s:%d "
+                               "(executor %d)", n["job_name"],
+                               n["task_index"], n["executor_id"],
+                               exc_info=True)
+
         # the start job completes once every foreground task returns
         if self.job_handle is not None:
             remaining = max(5.0, deadline - time.monotonic())
@@ -622,6 +656,8 @@ class TPUCluster(object):
         end = time.monotonic() + 3 * self.server.liveness.interval
         while self.server.liveness.tracked() and time.monotonic() < end:
             time.sleep(0.1)
+        for shard in self._driver_ps:
+            shard.stop()
         self.server.stop()
         if self._owns_engine:
             self.engine.stop()
@@ -631,6 +667,33 @@ class TPUCluster(object):
                     "executor {0}: {1}".format(eid, err)
                     for eid, err in errors))
         logger.info("cluster shutdown complete")
+
+    def _stop_tensorboard(self):
+        """SIGTERM the cluster's TensorBoard when it runs on this host
+        (elsewhere it exits with its executor)."""
+        import signal
+
+        from ..utils.net import get_ip_address
+
+        me = get_ip_address()
+        for n in self.cluster_info:
+            if not n.get("tb_pid"):
+                continue
+            if n["host"] == me:
+                try:
+                    os.kill(n["tb_pid"], signal.SIGTERM)
+                except OSError:
+                    pass
+            else:
+                logger.info("tensorboard on %s pid %d exits with its "
+                            "executor", n["host"], n["tb_pid"])
+
+    def tensorboard_url(self):
+        """The URL of the cluster's TensorBoard, or None."""
+        for n in self.cluster_info:
+            if n.get("tb_port"):
+                return "http://{0}:{1}".format(n["host"], n["tb_port"])
+        return None
 
     # -- observability ---------------------------------------------------
 
@@ -901,19 +964,15 @@ def _marked_rows(pid, partition):
 
 
 _UNPORTED_RUN_ARGS = {
-    "num_ps": (0, "the rest: parameter-server nodes"),
-    "driver_ps_nodes": (False, "the rest: parameter-server nodes"),
-    "eval_node": (False, "the rest: evaluator nodes"),
-    "tensorboard": (False, "the rest: tensorboard"),
-    "log_dir": (None, "the rest: tensorboard"),
     "plan": (None, "the rest: the planner"),
     "plan_hint": (None, "the rest: the planner"),
 }
 
 
-def run(engine, map_fun, args=None, num_executors=None,
-        input_mode=InputMode.SPARK, master_node=None,
-        reservation_timeout=600, queues=("input", "output", "error"),
+def run(engine, map_fun, args=None, num_executors=None, num_ps=0,
+        tensorboard=False, input_mode=InputMode.SPARK, log_dir=None,
+        driver_ps_nodes=False, master_node=None, reservation_timeout=600,
+        queues=("input", "output", "error"), eval_node=False,
         num_chips_per_node=None, name="tpucluster", heartbeat_interval=None,
         elastic=False, max_restarts=3, recovery_timeout=120.0,
         profile_dir=None, profile_steps=None, **unported):
@@ -927,10 +986,20 @@ def run(engine, map_fun, args=None, num_executors=None,
         it travels by ``pickle`` (by reference).
       args: opaque user args handed through to ``map_fun``.
       num_executors: total nodes; defaults to ``engine.num_executors``.
+      num_ps: parameter-server nodes (their fn runs
+        ``parallel.ps.run_server(ctx)``).
+      tensorboard: start TensorBoard on the chief, else on ``worker:0``
+        (:meth:`TPUCluster.tensorboard_url`).
       input_mode: :class:`InputMode`.
+      log_dir: TensorBoard's log directory.
+      driver_ps_nodes: host the ``num_ps`` shards in this process
+        instead of on executors; ``ctx.cluster_spec["ps"]`` names their
+        addresses and every executor runs a worker.
       master_node: job name for a dedicated chief (e.g. ``'chief'``).
       reservation_timeout: startup barrier timeout, seconds.
-      queues: data queues created on each node.
+      queues: data queues created on each compute node.
+      eval_node: dedicate one node as ``'evaluator'`` (a service node,
+        like a ps node).
       num_chips_per_node: GPUs visible per node (``CUDA_VISIBLE_DEVICES``
         set by host-local rank; raises when they cannot be found).
         ``None`` leaves visibility alone.
@@ -956,10 +1025,8 @@ def run(engine, map_fun, args=None, num_executors=None,
       profile_steps: stop each capture after this many train steps
         (None: when the compute process ends).
 
-    The reference's other arguments (``num_ps``, ``driver_ps_nodes``,
-    ``eval_node``, ``tensorboard``, ``log_dir``, ``plan``,
-    ``plan_hint``) are accepted at their defaults and raise
-    ``NotImplementedError`` otherwise.
+    The reference's ``plan`` and ``plan_hint`` are accepted at their
+    defaults and raise ``NotImplementedError`` otherwise.
     """
     from ..engine import Engine, LocalEngine, SparkEngine
 
@@ -997,13 +1064,38 @@ def run(engine, map_fun, args=None, num_executors=None,
         if engine.num_executors_exact:
             raise ValueError(msg)
         logger.warning("%s; proceeding anyway", msg)
-    num_workers = num_executors - (1 if master_node else 0)
+    # driver-hosted shards take no executor; they start only after the
+    # checks, so a failed run() leaks no socket
+    use_driver_ps = driver_ps_nodes and num_ps > 0
+    num_ps_exec = 0 if use_driver_ps else num_ps
+    num_special = (num_ps_exec + (1 if master_node else 0)
+                   + (1 if eval_node else 0))
+    num_workers = num_executors - num_special
     if num_workers < 0 or (num_workers == 0 and master_node is None):
-        raise ValueError("num_executors ({0}) must cover the master node and "
-                         "at least one worker".format(num_executors))
+        if owns_engine:
+            engine.stop()
+        raise ValueError(
+            "num_executors ({0}) must cover {1} ps + {2} master + {3} "
+            "evaluator nodes and at least one worker".format(
+                num_executors, num_ps, 1 if master_node else 0,
+                1 if eval_node else 0))
 
-    template = node._cluster_template(num_executors, master_node=master_node)
+    template = node._cluster_template(num_executors, num_ps_exec,
+                                      master_node=master_node,
+                                      eval_node=eval_node)
     logger.info("cluster template: %s", template)
+    driver_ps, driver_ps_addrs = [], []
+    if use_driver_ps:
+        from ..parallel.ps import ParamServerShard
+        from ..utils.net import get_ip_address
+
+        host = get_ip_address()
+        for _ in range(num_ps):
+            shard = ParamServerShard()
+            _, port = shard.start("")
+            driver_ps.append(shard)
+            driver_ps_addrs.append("{0}:{1}".format(host, port))
+        logger.info("driver-hosted ps shards at %s", driver_ps_addrs)
     server = reservation.Server(num_executors,
                                 heartbeat_interval=heartbeat_interval)
     server_addr = server.start()
@@ -1019,6 +1111,7 @@ def run(engine, map_fun, args=None, num_executors=None,
         "reservation_timeout": reservation_timeout,
         "queues": list(queues),
         "num_chips_per_node": num_chips_per_node,
+        "driver_ps_addrs": driver_ps_addrs,
         "elastic": bool(elastic),
         "max_restarts": int(max_restarts),
         "heartbeat_interval": heartbeat_interval,
@@ -1026,12 +1119,15 @@ def run(engine, map_fun, args=None, num_executors=None,
                      "steps": int(profile_steps) if profile_steps else None}
                     if profile_dir else None),
     }
-    mapfn = node.run(map_fun, args, cluster_meta, input_mode)
+    mapfn = node.run(map_fun, args, cluster_meta, input_mode,
+                     log_dir=log_dir, tensorboard=tensorboard)
     handle = engine.run_job_async(mapfn, [[i] for i in range(num_executors)])
     try:
         cluster_info = server.await_reservations(
             status=_HandleStatus(handle), timeout=reservation_timeout)
     except Exception:
+        for shard in driver_ps:
+            shard.stop()
         server.stop()
         if owns_engine:
             engine.stop()
@@ -1040,9 +1136,14 @@ def run(engine, map_fun, args=None, num_executors=None,
         logger.info("node: executor_id=%d %s:%d on %s", n["executor_id"],
                     n["job_name"], n["task_index"], n["host"])
     cluster = TPUCluster(engine, cluster_meta, cluster_info, server, handle,
-                         input_mode, list(queues), owns_engine=owns_engine)
+                         input_mode, list(queues), owns_engine=owns_engine,
+                         driver_ps=driver_ps)
     cluster.monitor = ClusterMonitor(
         server, cluster_info, elastic=elastic,
         recovery_timeout=recovery_timeout,
         error_peek=cluster._peek_error).start()
+    if tensorboard:
+        url = cluster.tensorboard_url()
+        if url:
+            logger.info("TensorBoard running at: %s", url)
     return cluster

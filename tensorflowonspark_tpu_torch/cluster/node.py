@@ -7,9 +7,11 @@ It
 
 1. claims its executor id (from the start-partition payload),
 2. derives its role (job_name, task_index) from the cluster template,
-3. starts the per-node :mod:`.manager` with the node's queues,
-4. registers with the rendezvous server and blocks on the startup
-   barrier,
+3. starts the per-node :mod:`.manager` with the node's queues (a ps or
+   evaluator node gets only ``control`` and ``error``),
+4. starts TensorBoard when it is the cluster's TensorBoard node (the
+   chief, else ``worker:0``), registers with the rendezvous server and
+   blocks on the startup barrier,
 5. assembles the cluster spec and the ``torch.distributed`` plan (a
    coordinator address and a dense rank per compute node),
 6. allocates GPUs by host-local rank and sets ``CUDA_VISIBLE_DEVICES``
@@ -18,7 +20,11 @@ It
    process under a :class:`~.supervisor.Supervisor` for
    ``InputMode.SPARK`` (with ``elastic=True`` the supervisor respawns it
    under a new generation after a death), or in the foreground for
-   ``InputMode.TENSORFLOW``.
+   ``InputMode.TENSORFLOW``.  A ps or evaluator node runs it in a
+   spawned process with no supervisor in either mode, and its start
+   task blocks on the ``control`` queue until the driver posts ``None``
+   (pinning the executor, so no feed task lands there), then checks the
+   error queue and terminates the process.
 
 The feed map function (:func:`feed_partition`) reconnects to the node's
 manager from whatever executor the feed task landed on, ships the rows
@@ -47,9 +53,8 @@ cluster's ``profile_dir``/``profile_steps`` reach only that cluster's
 compute processes, as ``TFOS_PROFILE_DIR``/``TFOS_PROFILE_STEPS`` set in
 their own environment.
 
-Not ported (ROADMAP queue A): ps/evaluator service nodes, tensorboard,
-the heartbeat chaos hook and the feeders' routing around a remediation
-hold.
+Not ported (ROADMAP queue A): the heartbeat chaos hook and the feeders'
+routing around a remediation hold.
 """
 
 import collections
@@ -84,6 +89,9 @@ FEED_PIPELINE_WORKERS, FEED_PIPELINE_DEPTH = 2, 4
 
 #: job names whose nodes run the training loop
 COMPUTE_JOBS = ("chief", "master", "worker")
+
+#: job names of the service nodes (no feed queues, no supervisor)
+SERVICE_JOBS = ("ps", "evaluator")
 
 
 class NodeContext(object):
@@ -180,13 +188,20 @@ class NodeContext(object):
                          "multi-GPU DP over torch.distributed")
 
 
-def _cluster_template(num_executors, master_node=None):
-    """Map job names to executor-id lists: an optional master/chief
-    first, then workers."""
+def _cluster_template(num_executors, num_ps, master_node=None,
+                      eval_node=False):
+    """Map job names to executor-id lists: ps nodes first, then an
+    optional master/chief, then an optional evaluator, then workers."""
     template = {}
     idx = 0
+    if num_ps > 0:
+        template["ps"] = list(range(idx, idx + num_ps))
+        idx += num_ps
     if master_node:
         template[master_node] = [idx]
+        idx += 1
+    if eval_node:
+        template["evaluator"] = [idx]
         idx += 1
     if idx < num_executors:
         template["worker"] = list(range(idx, num_executors))
@@ -401,7 +416,8 @@ def _compute_process_main(fn_bytes, args, ctx, profile=None):
         logger.exception("unable to report completion to manager")
 
 
-def run(fn, args, cluster_meta, input_mode):
+def run(fn, args, cluster_meta, input_mode, log_dir=None,
+        tensorboard=False):
     """The start-job map function executed once per executor: a
     ``functools.partial`` of :func:`start_node` (picklable by reference).
 
@@ -411,16 +427,33 @@ def run(fn, args, cluster_meta, input_mode):
       cluster_meta: dict from the driver: ``id``, ``cluster_template``,
         ``num_executors``, ``default_fs``, ``server_addr``,
         ``reservation_timeout``, ``queues``, ``num_chips_per_node``,
-        ``heartbeat_interval``.
+        ``heartbeat_interval``, ``driver_ps_addrs``.
       input_mode: ``InputMode.SPARK`` feeds data through the engine and
         runs ``fn`` in a spawned compute process; ``InputMode.TENSORFLOW``
         runs it in the foreground, reading its own data.
+      log_dir: TensorBoard's log directory.
+      tensorboard: start TensorBoard on the chief, else on ``worker:0``.
     """
     return functools.partial(start_node, pickle.dumps(fn), args,
-                             cluster_meta, input_mode)
+                             cluster_meta, input_mode, log_dir, tensorboard)
 
 
-def start_node(fn_bytes, args, cluster_meta, input_mode, iterator):
+def _start_tensorboard_here(log_dir):
+    """Start TensorBoard from this executor; returns ``(pid, port)``, or
+    ``(0, 0)`` when there is none.  A thread reaps the process once the
+    driver's shutdown has stopped it, so its pid is gone then."""
+    from ..tensorboard import start_tensorboard
+
+    proc, port = start_tensorboard(log_dir)
+    if proc is None:
+        return 0, 0
+    threading.Thread(target=proc.wait, daemon=True,
+                     name="tensorboard-reaper").start()
+    return proc.pid, port
+
+
+def start_node(fn_bytes, args, cluster_meta, input_mode, log_dir,
+               tensorboard, iterator):
     """Body of :func:`run` (see the module docstring's steps)."""
     from ..utils.env import write_executor_id
     from .cluster import InputMode
@@ -456,17 +489,23 @@ def start_node(fn_bytes, args, cluster_meta, input_mode, iterator):
             raise RuntimeError("TFOS node already running on executor {0}; "
                                "duplicate start task".format(executor_id))
 
-    # 3. the per-node queue manager, reachable by the driver ('remote')
+    # 3. the per-node queue manager, reachable by the driver ('remote');
+    # a service node gets only its control and error queues
     authkey = uuid.uuid4().bytes
-    queues = list(cluster_meta.get("queues", ["input", "output", "error"]))
-    if "error" not in queues:
-        queues.append("error")
+    is_service_node = job_name in SERVICE_JOBS
+    if is_service_node:
+        queues = ["control", "error"]
+    else:
+        queues = list(cluster_meta.get("queues",
+                                       ["input", "output", "error"]))
+        if "error" not in queues:
+            queues.append("error")
     mgr, addr = manager.start(authkey, queues, mode="remote")
     _LOCAL_MANAGERS.append(mgr)  # keepalive for the executor lifetime
     mgr.set("state", "running")
     # the shared-memory feed ring: created here so it lives as long as
     # the executor; feeders and the compute process attach by name
-    if (input_mode == InputMode.SPARK
+    if (not is_service_node and input_mode == InputMode.SPARK
             and os.environ.get("TFOS_SHM_FEED") in ("1", "force")):
         _create_feed_ring(mgr, cluster_meta["id"], executor_id)
     host = get_ip_address()
@@ -482,6 +521,15 @@ def start_node(fn_bytes, args, cluster_meta, input_mode, iterator):
     coord_sock.bind(("", 0))
     coord_port = coord_sock.getsockname()[1]
 
+    # TensorBoard on exactly one node: the chief when the cluster has
+    # one, else worker:0
+    tb_pid, tb_port = 0, 0
+    has_chief = any(j in template for j in ("chief", "master"))
+    is_tb_node = (job_name in ("chief", "master") if has_chief
+                  else (job_name == "worker" and task_index == 0))
+    if tensorboard and is_tb_node:
+        tb_pid, tb_port = _start_tensorboard_here(log_dir)
+
     # rendezvous registration + startup barrier
     node_meta = {
         "executor_id": executor_id,
@@ -491,6 +539,8 @@ def start_node(fn_bytes, args, cluster_meta, input_mode, iterator):
         "addr": list(adv_addr),
         "authkey": authkey.hex(),
         "port": coord_port,
+        "tb_pid": tb_pid,
+        "tb_port": tb_port,
         "device_info": _safe_device_info(),
     }
     client = reservation.Client(cluster_meta["server_addr"])
@@ -501,6 +551,9 @@ def start_node(fn_bytes, args, cluster_meta, input_mode, iterator):
 
     # 5. cluster spec sorted by executor id
     spec, coordinator, process_ranks = build_cluster_spec(cluster_info)
+    # shards hosted by the driver join the spec by address
+    if cluster_meta.get("driver_ps_addrs"):
+        spec = dict(spec, ps=list(cluster_meta["driver_ps_addrs"]))
 
     # 6. GPUs, set visible before the compute process spawns
     allocate_gpus(cluster_meta.get("num_chips_per_node"), cluster_info,
@@ -519,7 +572,9 @@ def start_node(fn_bytes, args, cluster_meta, input_mode, iterator):
     )
 
     # 7. launch the user fn
-    if input_mode == InputMode.SPARK:
+    if is_service_node:
+        _run_service_node(fn_bytes, args, ctx, mgr, cluster_meta)
+    elif input_mode == InputMode.SPARK:
         from . import supervisor as _supervisor
 
         compute_eids = [n["executor_id"] for n in cluster_info
@@ -570,6 +625,32 @@ def start_node(fn_bytes, args, cluster_meta, input_mode, iterator):
             hb.stop()
         mgr.set("state", "stopped")
     return []
+
+
+def _run_service_node(fn_bytes, args, ctx, mgr, cluster_meta):
+    """A ps or evaluator node: its fn in a spawned process with no
+    supervisor (a lost shard is not recovered by a checkpoint resume),
+    while this start task blocks on the ``control`` queue until the
+    driver posts ``None``; then the error check, and the process is
+    terminated."""
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_compute_process_main,
+        args=(fn_bytes, args, ctx, cluster_meta.get("profile")),
+        daemon=True, name="compute-%s-%d" % (ctx.job_name, ctx.task_index))
+    proc.start()
+    mgr.set("compute_pid", proc.pid)
+    control = mgr.get_queue("control")
+    try:
+        while True:
+            msg = control.get(block=True)
+            control.task_done()
+            if msg is None:
+                break
+        _check_error_queue(mgr, executor_id=ctx.executor_id)
+    finally:
+        proc.terminate()
+        proc.join(timeout=10)
+        mgr.set("state", "stopped")
 
 
 def allocate_gpus(num_gpus, cluster_info, host, executor_id):

@@ -84,6 +84,14 @@ METRICS = tuple(
          ("train.feed_wait_sec", "feed-starvation wait per step"),
          ("train.h2d_sec", "host→device transfer (straggler phase series)"),
          ("train.dispatch_sec", "step dispatch (straggler phase series)"))
+    # --- parameter-server wire (parallel/ps.py) ---
+    + _m(_C, "PSClient",
+         ("ps.bytes_sent", "exact frame bytes onto the wire"),
+         ("ps.bytes_recv", "exact frame bytes off the wire (delta replies)"),
+         ("ps.round_trips", "push/pull round trips"))
+    + _m(_H, "PSClient / AsyncTrainer drain",
+         ("ps.round_trip_sec", "wire round-trip latency"),
+         ("ps.grad_readback_sec", "device→host gradient readback"))
     # --- data plane (data/feed.py, data/shm_ring.py) ---
     + _m(_C, "DataFeed",
          ("feed.wire_bytes", "feed payload bytes (twin of wire_stats())"),

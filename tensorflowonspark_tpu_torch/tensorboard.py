@@ -1,6 +1,13 @@
-"""On-demand device profiling with ``torch.profiler`` (port of the
-profiling hooks of the JAX package's ``tensorboard.py``; managed
-TensorBoard processes are not ported yet).
+"""Managed TensorBoard processes and on-demand device profiling with
+``torch.profiler`` (port of the JAX package's ``tensorboard.py``;
+original: tensorflowonspark/TFSparkNode.py:260-297, TFCluster.py:207-212).
+
+:func:`start_tensorboard` launches TensorBoard over a log directory on a
+port from :data:`TENSORBOARD_PORT` or an ephemeral one;
+``cluster.run(tensorboard=True, log_dir=)`` starts it on one node, which
+publishes its port, and ``TPUCluster.shutdown`` stops it with SIGTERM.
+Without a TensorBoard (none on ``PATH`` and none importable) it logs a
+warning and returns ``(None, 0)``: the cluster comes up without it.
 
 :func:`start_profile` starts a trace of the CPU and, where a card is
 present, of CUDA; its :class:`ProfileSession` counts work units (the
@@ -25,11 +32,18 @@ most one live session: a second start returns None.
 
 import logging
 import os
+import shutil
 import socket
+import subprocess
+import sys
 import threading
 import time
 
 logger = logging.getLogger(__name__)
+
+#: The environment variable naming TensorBoard's port (0 or unset: an
+#: ephemeral one).
+TENSORBOARD_PORT = "TENSORBOARD_PORT"
 
 #: The environment of a compute process that should capture a trace
 #: into ``$TFOS_PROFILE_DIR/<pid>`` (for ``$TFOS_PROFILE_STEPS`` steps).
@@ -188,3 +202,40 @@ def maybe_start_profile_from_env():
         raise RuntimeError("the profile capture into {0} that {1} asks for "
                            "did not start".format(sub, PROFILE_DIR_ENV))
     return sess
+
+
+def find_tensorboard():
+    """The command that runs TensorBoard: the ``tensorboard`` executable
+    on ``PATH``, else this interpreter's ``-m tensorboard.main`` when the
+    package imports, else None."""
+    tb = shutil.which("tensorboard")
+    if tb:
+        return [tb]
+    try:
+        import tensorboard  # noqa: F401
+    except ImportError:
+        return None
+    return [sys.executable, "-m", "tensorboard.main"]
+
+
+def start_tensorboard(log_dir, port=None):
+    """Launch TensorBoard over ``log_dir``; returns ``(proc, port)``, or
+    ``(None, 0)`` (with a warning) when there is no TensorBoard or no
+    ``log_dir``."""
+    cmd = find_tensorboard()
+    if cmd is None or not log_dir:
+        logger.warning("tensorboard unavailable or no log_dir; skipping")
+        return None, 0
+    if port is None:
+        port = int(os.environ.get(TENSORBOARD_PORT, 0))
+    if not port:
+        from .utils.net import free_port
+
+        port = free_port()
+    proc = subprocess.Popen(
+        cmd + ["--logdir=%s" % log_dir, "--port=%d" % port, "--bind_all"],
+        stdout=subprocess.DEVNULL,
+        stderr=subprocess.DEVNULL,
+    )
+    logger.info("started tensorboard pid=%d port=%d", proc.pid, port)
+    return proc, port

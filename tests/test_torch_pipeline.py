@@ -176,23 +176,45 @@ def test_output_types_and_values_match_jax(i):
     assert got == want and type(got) is type(want)
 
 
-# --- what is not ported ------------------------------------------------------
+# --- once refused, now ported --------------------------------------------
 
 
-@pytest.mark.parametrize("call,item", [
-    (lambda: tpl.TFEstimator(_fn, {"num_ps": 1}).fit([]),
-     "the rest: parameter-server nodes"),
-    (lambda: tpl.TFEstimator(_fn).setNumPS(1).fit([]),
-     "the rest: parameter-server nodes"),
-    (lambda: tpl.TFEstimator(_fn).setTensorboard(True).fit([]),
-     "the rest: tensorboard"),
-    (lambda: tpl.TFEstimator(_fn).setModelDir("/logs").fit([]),
-     "the rest: tensorboard"),
+class _RunCalled(Exception):
+    pass
+
+
+@pytest.mark.parametrize("call,key,value", [
+    (lambda pl: pl.TFEstimator(_fn, {"num_ps": 1}).fit([]), "num_ps", 1),
+    (lambda pl: pl.TFEstimator(_fn).setNumPS(1).fit([]), "num_ps", 1),
+    (lambda pl: pl.TFEstimator(_fn).setTensorboard(True).fit([]),
+     "tensorboard", True),
+    (lambda pl: pl.TFEstimator(_fn).setModelDir("/logs").fit([]),
+     "log_dir", "/logs"),
 ], ids=["num_ps_arg", "num_ps", "tensorboard", "model_dir"])
-def test_pipeline_refuses_what_is_not_ported(call, item):
-    # raised before any process starts
-    with pytest.raises(NotImplementedError, match=item):
-        call()
+def test_pipeline_refuses_what_is_not_ported(call, key, value, monkeypatch):
+    """Once refused, now ported (the parameter server and TensorBoard):
+    ``fit`` hands ``cluster.run`` the same arguments as the JAX
+    package's, the knob's value among them.  ``cluster.run`` is replaced
+    by a recorder that stops the fit before any process starts; the
+    roles themselves run in ``tests/test_torch_cluster_roles.py``."""
+    from tensorflowonspark_tpu.cluster import cluster as jcluster
+    from tensorflowonspark_tpu_torch.cluster import cluster as tcluster
+
+    seen = {}
+
+    def recorder(name):
+        def run(engine, map_fun, args=None, **kw):
+            seen[name] = kw
+            raise _RunCalled()
+        return run
+
+    monkeypatch.setattr(jcluster, "run", recorder("jax"))
+    monkeypatch.setattr(tcluster, "run", recorder("torch"))
+    for name, pl in (("jax", jpl), ("torch", tpl)):
+        with pytest.raises(_RunCalled):
+            call(pl)
+    assert seen["torch"] == seen["jax"]
+    assert seen["torch"][key] == value
 
 
 def _served_model_args(pkg, export, tenant_col):
