@@ -40,9 +40,10 @@ caught):
    16 requests, 8 rows a batch.  (1) Static generate (contiguous KV, dot
    attention): tokens/s, latency p50/p99, each batch's prefill and decode
    ms, the share of requests equal to ``slice_flagship``'s paged
-   continuous tokens; in f32 every request must equal the contiguous
-   continuous schedule's or differ first at a near tie (a top-2 logit
-   gap under :data:`NEAR_TIE` of the step's logit spread).  (2) Logits
+   continuous tokens; in f32 (at :data:`CUT_LAYERS`, both schedules)
+   every request must equal the contiguous continuous schedule's or
+   differ first at a near tie (a top-2 logit gap under :data:`NEAR_TIE`
+   of the step's logit spread).  (2) Logits
    serving on 8 x 2048 tokens against the flagship model's own bf16
    forward on the same weights (the :data:`FLASH_TOL` bf16 row rule,
    ``next_token`` equal), rows/s; in f32 on two rows against the f32
@@ -53,15 +54,17 @@ caught):
    dequantized copies and KV a decode step reads, agreement with bf16;
    K1 16 launches per decode step in every paged run (on int8 pools in
    the int8 KV one), on the first :data:`QUANT_REQUESTS` requests.  In
-   f32 each variant's static tokens must equal its contiguous continuous
+   f32, at :data:`CUT_LAYERS` (both sides; since the fleet phase came),
+   each variant's static tokens must equal its contiguous continuous
    schedule's, and int4's paged tokens its contiguous ones, near ties
    apart (the int8 KV cache's on rows of one bucket, to
    :data:`NEAR_TIE_INT8_KV`).  Prints each part's seconds.  (4) The MoE
    flagship (``MOE_FLAGSHIP``) through static generate and logits
    serving, K5 counted exactly (3 per layer per forward).  (5)
    ``TFModel.transform`` at its default schedule and the CLI with
-   ``--schedule static`` on an export of the same weights: tokens equal
-   to (1)'s.
+   ``--schedule static`` on an export of the same weights' first
+   :data:`CUT_LAYERS` blocks (since the fleet phase came): tokens equal
+   to the static schedule's at that depth in the driver.
 7. ``flash_case``: the flash kernels (forward, dQ, dK/dV) against their
    plain versions on the card (bf16 flagship geometry, bf16 D=64 GQA, and
    in both types a window across tiles, non-causal, a ragged S=1000 with
@@ -175,9 +178,11 @@ caught):
     row order within :data:`INFER_RTOL` of the driver's own scores of
     the same batches, with 128 K2 launches and none of K3/K4, on the
     card ``gpu_info`` chose.
-21. ``checkpoint_resume_serve``: restartable training and the export.
+21. ``checkpoint_resume_serve``: restartable training and the export,
+    at the flagship's width cut to :data:`CUT_LAYERS` layers (since the
+    fleet phase came; its reference trains at the same depth).
     Run 1: a one-executor cluster (as ``feed_train_flagship``) trains the
-    flagship from the seed-0 tree on the rows of batches 1-6 through
+    model from its seed-0 tree on the rows of batches 1-6 through
     ``train_on_feed(checkpointer=Checkpointer(d, max_to_keep=2),
     checkpoint_every=6, max_steps=6)`` (K=3), and its compute process
     exits.  Run 2: a new cluster, fed batches 7-12, resumes at step 6
@@ -186,8 +191,9 @@ caught):
     builder) and serves 16 requests from them in memory.  The driver
     then loads the export with ``serving.load_predictor`` and serves the
     same requests.  Checks: ``all_steps() == [6, 12]``; both runs'
-    losses within :data:`FEED_LOSS_RTOL` of ``train_flagship``'s steps
-    1-6 and 7-12; 96 launches of each of K2-K4 in run 2; the export
+    losses within :data:`FEED_LOSS_RTOL` of steps 1-6 and 7-12 of
+    ``train_flagship``'s loop at that depth (:func:`reference_losses`);
+    layers x 6 launches of each of K2-K4 in run 2; the export
     listed as step 12; greedy tokens from the export equal to the
     in-memory ones, with K1 launched on every decode step.  Prints the
     save, restore, export and load seconds and GB/s, bytes on disk, the
@@ -228,24 +234,25 @@ caught):
     pipeline_train_fn).setInputMapping({"tokens": "tokens"})
     .setClusterSize(1).setBatchSize(8).fit(rows)`` on its default
     ``LocalEngine(1)``: the compute process, on the card ``gpu_info``
-    chose, trains as ``feed_train_flagship`` does from the feed of
-    sorted-column tuples and exports with ``save_for_serving`` (the
+    chose, trains the flagship cut to :data:`CUT_LAYERS` layers (since
+    the fleet phase came) as ``feed_train_flagship`` does from the feed
+    of sorted-column tuples and exports with ``save_for_serving`` (the
     port's ``model_ref``, the generation ``model_config``, the schema of
     ``serving.infer_output_schema``).  Checks: the 12 losses within
-    :data:`FEED_LOSS_RTOL` of ``feed_train_flagship``'s, 192 launches of
-    each of K2-K4.  The returned ``TFModel``, continuous schedule on 8
-    slots, transforms ``slice_flagship``'s 16 requests on a
+    :data:`FEED_LOSS_RTOL` of :func:`reference_losses` at that depth, 48
+    launches of each of K2-K4.  The returned ``TFModel``, continuous
+    schedule on 8 slots, transforms ``slice_flagship``'s 16 requests on a
     ``LocalEngine(1)``: its greedy tokens must equal the export served in
     the driver (``load_predictor`` -> ``predict_rows``), K1 must launch
-    16 times per decode step in the executor, and its columns and types
-    must be the export's ``output_schema``.  ``python -m
+    once per layer per decode step in the executor, and its columns and
+    types must be the export's ``output_schema``.  ``python -m
     tensorflowonspark_tpu_torch.serving`` on the requests written with
     ``interchange`` must write the transform's tokens.  Last,
     ``Dataset.from_tfrecords(shards).batch(8).prefetch(sharding=card)``
-    feeds the flagship trainer in the driver for 12 steps, whose losses
-    must be within :data:`FEED_LOSS_RTOL` of the fit's.  Prints the
-    interchange's seconds and bytes, the fed tokens/s beside
-    ``feed_train_flagship``'s and the feed wait, and the transform split
+    feeds the same model's trainer in the driver for 12 steps, whose
+    losses must be within :data:`FEED_LOSS_RTOL` of the fit's.  Prints
+    the interchange's seconds and bytes, the fed tokens/s beside the
+    reference loop's and the feed wait, and the transform split
     into the executor's start, the predictor's load and the serving.
 24. ``mnist_spark_flagship``: ``examples/mnist/mnist_spark.py``'s flow on
     the port.  ``cluster.run(LocalEngine(1), mnist_spark_fn,
@@ -392,7 +399,8 @@ caught):
     ``parallel.ps.run_server``; each worker 60 steps of ``MNISTNet(128)``
     on its own ``synthetic_mnist(2048)`` rows under
     ``AsyncTrainer(adam(1e-3))``; the evaluator pulls the PS's params and
-    scores 256 held-out rows until both workers stopped, then once more.
+    scores 256 held-out rows until both workers stopped, then once more
+    (the workers start after its first score).
     TensorBoard is a stub on the executors' ``PATH`` (the card's machine
     has none).  Gates: the roles; each worker's loss falls; the evaluator
     scored at least twice and its last loss equals the driver's on the
@@ -412,9 +420,45 @@ caught):
     steps/s and KB a step each way per variant, readback ms, the reply's
     copy onto the card (ms), round trip p50/p99 and ``async_vs_sync``.
 
-Phases 27-33 (``prefix_serve_flagship`` through ``spec_serve_flagship``)
-and ``elastic_flagship`` run the flagship cut to :data:`CUT_LAYERS`
-layers (its first blocks) in :func:`main`.
+36. ``fleet_serve_flagship``: the LM server's fleet.  (1) The slice's
+    path at the flagship's full size: ``predict_rows(..., batch_size=8,
+    replicas=3)`` (each replica its own ``make_replica()`` predictor,
+    thread and CUDA stream) beside one engine (8 slots) on 24 requests
+    (the slice phase's 16 and 8 more from another seed).  Gates: every
+    row back in input order with one engine's tokens, near ties apart
+    (:func:`tie_gate`); each replica took work; K1 = 16 layers x the
+    replicas' summed decode steps.  Prints both jobs' tokens/s (from
+    the engine's or router's construction to the last completion) and
+    their ratio, TTFT p50/p99, and each replica's decode steps and ms a
+    step.  (2) At :data:`CUT_LAYERS` in f32, 12 requests (32 new tokens)
+    over 3 replicas against the fault-free fleet's tokens (near ties
+    apart):
+    ``kill_replica(2, at_chunk=1)`` (one death, re-dispatches, the
+    journal's ``replica_dead`` and ``fleet_redispatch``, and
+    ``forensics.explain`` naming ``kill_replica``);
+    ``device_error(1, at_chunk=1)`` (quarantined, rebuilt and
+    re-admitted, never dead, no replica evicted); ``slow_replica(0, 3 s,
+    2 chunks)`` (routed around, then re-admitted: the journal's
+    ``replica_evicted`` and ``replica_readmitted`` name replica 0 and no
+    other), the last two over as many streams as re-admission takes (at
+    most :data:`FLEET_MAX_STREAMS`), their straggler floor set from the
+    fault-free stream (:data:`FLEET_STRAGGLER`).
+    (3) At :data:`CUT_LAYERS` in bf16, a rolling deploy from the seed-0
+    to seed-1 weights under paced traffic (16-64 prompt tokens, 16 new
+    tokens): nothing dropped, every
+    replica on generation 1, and the 8 requests admitted after it ended
+    equal to one engine's on the seed-1 weights (tie rule); then a
+    deploy of a published step that ``corrupt_checkpoint`` mis-shaped:
+    the canary halts it (``shape_mismatch``, quarantined), every replica
+    stays on generation 1.  (4) At :data:`CUT_LAYERS` in f32 with the
+    radix cache, 32 family requests (:func:`family_requests`) in a fixed
+    order under ``prefix_affinity`` and ``random``: affinity's prefix
+    hits exceed random's and the tokens are equal (tie rule).  Prints
+    each part's seconds.
+
+Phases 27-33 (``prefix_serve_flagship`` through ``spec_serve_flagship``),
+parts (2)-(4) of phase 36 and ``elastic_flagship`` run the flagship cut
+to :data:`CUT_LAYERS` layers (its first blocks) in :func:`main`.
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit
 line, and as the last line ``{"ok": true, "device": {...}}``.  Without a
@@ -1862,15 +1906,16 @@ def flagship_tree():
     return tree, time.perf_counter() - t0
 
 
-def flagship_trainer(tree):
-    """The bench flagship for training at full width: f32 master weights,
-    bf16 compute, flash attention, ``SyncTrainer(loss_fn(model),
-    adamw(1e-4))``, and one stacked [4, 8, 2048] token batch on the card."""
+def flagship_trainer(tree, config=FLAGSHIP):
+    """The bench flagship for training at full width (or ``config``): f32
+    master weights, bf16 compute, flash attention,
+    ``SyncTrainer(loss_fn(model), adamw(1e-4))``, and one stacked
+    [4, 8, 2048] token batch on the card."""
     from tensorflowonspark_tpu_torch import convert, optim
     from tensorflowonspark_tpu_torch.models import transformer
     from tensorflowonspark_tpu_torch.parallel import dp
 
-    cfg = transformer.TransformerConfig(**dict(FLAGSHIP,
+    cfg = transformer.TransformerConfig(**dict(config,
                                                attention_impl="flash"))
     model = convert.params_from_flax(tree, cfg, param_dtype=torch.float32)
     trainer = dp.SyncTrainer(transformer.loss_fn(model), optim.adamw(1e-4))
@@ -2994,10 +3039,11 @@ def feed_train_fn(args, ctx):
 
 
 def train_from_feed(args, ctx, feed):
-    """The flagship from the seed-0 tree, trained from ``feed`` by two
-    ``train_on_feed`` calls of ``args["k"]`` and ``2 * args["k"]`` steps
-    of ``args["batch"]`` rows (with ``args["preprocess"]`` as the
-    trainer's ``device_preprocess`` when given).  Returns ``(result,
+    """The flagship (or the model of ``args["config"]``) from the seed-0
+    tree, trained from ``feed`` by two ``train_on_feed`` calls of
+    ``args["k"]`` and ``2 * args["k"]`` steps of ``args["batch"]`` rows
+    (with ``args["preprocess"]`` as the trainer's ``device_preprocess``
+    when given).  Returns ``(result,
     model)``: the losses, launches and timings as a JSON-able dict, and
     the trained model.
 
@@ -3023,9 +3069,10 @@ def train_from_feed(args, ctx, feed):
     device = compat.resolve_device()
     build_s = _build.build(["flash_attention"])["flash_attention"]
     ctx.initialize_distributed()
+    config = args.get("config") or FLAGSHIP
     tree = convert.init_params_tree(
-        transformer.TransformerConfig(**FLAGSHIP), seed=0)  # as flagship_tree
-    cfg = transformer.TransformerConfig(**dict(FLAGSHIP,
+        transformer.TransformerConfig(**config), seed=0)  # as flagship_tree
+    cfg = transformer.TransformerConfig(**dict(config,
                                                attention_impl="flash"))
     model = convert.params_from_flax(tree, cfg, device=device,
                                      param_dtype=torch.float32)
@@ -3718,8 +3765,9 @@ def tree_bytes(path):
 
 def ckpt_train_fn(args, ctx):
     """The user fn of ``checkpoint_resume_serve``, run in the compute
-    process: the flagship from the seed-0 tree (f32 masters, adamw(1e-4),
-    flash), trained from the node's feed by ``train_on_feed`` with a
+    process: the model of ``args["config"]`` from its seed-0 tree (f32
+    masters, adamw(1e-4), flash), trained from the node's feed by
+    ``train_on_feed`` with a
     ``Checkpointer`` (restoring its latest step first, when it holds one)
     up to ``args["max_steps"]``.  With ``args["export"]`` it then
     publishes the trained weights for serving and serves
@@ -3738,9 +3786,10 @@ def ckpt_train_fn(args, ctx):
     _build.build(["flash_attention"])
     ctx.initialize_distributed()
     feed = ctx.get_data_feed()
-    tree = convert.init_params_tree(
-        transformer.TransformerConfig(**FLAGSHIP), seed=0)  # as flagship_tree
-    cfg = transformer.TransformerConfig(**dict(FLAGSHIP,
+    config = args["config"]
+    tree = convert.init_params_tree(  # as reference_losses
+        transformer.TransformerConfig(**config), seed=0)
+    cfg = transformer.TransformerConfig(**dict(config,
                                                attention_impl="flash"))
     model = convert.params_from_flax(tree, cfg, device=device,
                                      param_dtype=torch.float32)
@@ -3823,12 +3872,12 @@ def ckpt_train_fn(args, ctx):
         checkpoint.publish_for_serving(
             args["export"], int(result["steps"]), tree, extra_metadata={
                 "model_ref": CKPT_MODEL_REF,
-                "model_config": dict(FLAGSHIP, **SERVING)})
+                "model_config": dict(config, **SERVING)})
         t3 = time.perf_counter()
         marks.append(("exported", t3))
         del model
         gc_collect()
-        out, _, _, _ = serve(FLAGSHIP, SERVING, tree, args["requests"])
+        out, _, _, _ = serve(config, SERVING, tree, args["requests"])
         marks.append(("served", time.perf_counter()))
         result.update(
             tree_from_model_sec=t2 - t1, export_sec=t3 - t2,
@@ -3849,9 +3898,35 @@ def gc_collect():
     torch.cuda.empty_cache()
 
 
-def phase_checkpoint_resume_serve(train):
+def reference_losses(config):
+    """``(losses, tokens/s)`` of :func:`phase_train_flagship`'s loop (a
+    warm-up and two ``multi_step`` of K=4 on the stacked batch) for the
+    model of ``config`` from its seed-0 tree: what a restartable run of
+    that model must reproduce."""
+    from tensorflowonspark_tpu_torch import convert
+    from tensorflowonspark_tpu_torch.models import transformer
+
+    tree = convert.init_params_tree(transformer.TransformerConfig(**config),
+                                    seed=0)
+    _, model, trainer, state, stacked = flagship_trainer(tree, config)
+    del tree
+    losses, walls = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state, metrics = trainer.multi_step_on_device(state, stacked)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"])
+    losses = torch.cat(losses).float().cpu().numpy().tolist()
+    del model, trainer, state, stacked
+    gc_collect()
+    return losses, TRAIN_K * TRAIN_B * TRAIN_S / min(walls[1:])
+
+
+def phase_checkpoint_resume_serve(config=None):
     """Checkpoints and serving exports: see the module docstring, phase
-    21.  ``train`` is :func:`phase_train_flagship`'s result."""
+    21.  ``config`` defaults to the flagship cut to :data:`CUT_LAYERS`
+    layers."""
     import importlib
     import tempfile
 
@@ -3860,8 +3935,11 @@ def phase_checkpoint_resume_serve(train):
         paged_attention,
     )
 
+    config = config or dict(FLAGSHIP, num_layers=CUT_LAYERS)
+    layers = config["num_layers"]
     t_phase = time.perf_counter()
     gc_collect()
+    want, ref_tokens_per_sec = reference_losses(config)
     smoke = importlib.import_module("chip_smoke")
     tmp = tempfile.mkdtemp(prefix="ckpt_resume_")
     try:
@@ -3882,7 +3960,7 @@ def phase_checkpoint_resume_serve(train):
             rows = [{"tokens": r} for b in batches[first:last] for r in b]
             args = {"out": out, "dir": ckpt_dir, "batch": TRAIN_B,
                     "max_steps": last, "export": export,
-                    "requests": requests}
+                    "requests": requests, "config": config}
             t_run = time.perf_counter()
             startup, call_sec, error = feed_cluster(
                 smoke.ckpt_train_fn, args, rows, epochs=1)
@@ -3906,7 +3984,7 @@ def phase_checkpoint_resume_serve(train):
         gc_collect()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    want = np.asarray(train["losses"])
+    want = np.asarray(want)
     rel1 = max_rel_diff(np.asarray(run1["losses"]), want[:CKPT_RUN1_STEPS])
     rel2 = max_rel_diff(np.asarray(run2["losses"]),
                         want[CKPT_RUN1_STEPS:CKPT_STEPS])
@@ -3915,12 +3993,13 @@ def phase_checkpoint_resume_serve(train):
     steady = run2["groups"][-1]  # the last group: no warm-up, no save
     steady_tokens = (steady[2] - steady[0]) * TRAIN_B * TRAIN_S
     line = dict(
-        model=train["model"], steps=[CKPT_RUN1_STEPS, CKPT_STEPS],
+        model="L{0} H8 Dh128 Dm1024 V32000 bf16 compute, f32 masters".format(
+            layers), steps=[CKPT_RUN1_STEPS, CKPT_STEPS],
         checkpoint_every=CKPT_EVERY, steps_per_execution=CKPT_K,
         latest_step=on_disk.latest_step(), all_steps=on_disk.all_steps(),
         resumed_losses=run2["losses"], max_rel_loss_diff=rel2,
-        losses_equal_to_the_bit=run2["losses"] == train["losses"][
-            CKPT_RUN1_STEPS:CKPT_STEPS],
+        losses_equal_to_the_bit=run2["losses"] == want[
+            CKPT_RUN1_STEPS:CKPT_STEPS].tolist(),
         run1_max_rel_loss_diff=rel1, resume_launches=run2["launches"],
         run1_launches=run1["launches"], run2_steps=run2["steps"],
         state_bytes=run2["state_bytes"],
@@ -3940,7 +4019,7 @@ def phase_checkpoint_resume_serve(train):
         run2_tokens_per_sec=(CKPT_STEPS - CKPT_RUN1_STEPS) * TRAIN_B
         * TRAIN_S / run2["wall_sec"],
         run2_steady_tokens_per_sec=steady_tokens / (steady[3] - steady[1]),
-        train_flagship_tokens_per_sec=train["tokens_per_sec"],
+        reference_tokens_per_sec=ref_tokens_per_sec,
         cluster_startup_sec=[r["cluster_startup_sec"] for r in runs],
         train_call_sec=[r["train_call_sec"] for r in runs],
         run_sec=[r["run_sec"] for r in runs],
@@ -3955,14 +4034,14 @@ def phase_checkpoint_resume_serve(train):
     )
     emit("checkpoint_resume_serve", **line)
     if not rel2 <= FEED_LOSS_RTOL or not rel1 <= FEED_LOSS_RTOL:
-        raise AssertionError("losses differ from train_flagship's by {0} "
+        raise AssertionError("losses differ from the reference's by {0} "
                              "(run 1) and {1} (resumed)".format(rel1, rel2))
     if run2["steps"] != CKPT_STEPS or line["latest_step"] != CKPT_STEPS \
             or line["all_steps"] != [CKPT_RUN1_STEPS, CKPT_STEPS]:
         raise AssertionError("checkpoint steps {0}, latest {1}, trained to "
                              "{2}".format(line["all_steps"],
                                           line["latest_step"], run2["steps"]))
-    want_launches = FLAGSHIP["num_layers"] * (CKPT_STEPS - CKPT_RUN1_STEPS)
+    want_launches = layers * (CKPT_STEPS - CKPT_RUN1_STEPS)
     if run2["launches"] != {n: want_launches for n in ("fwd", "dq", "dkv")}:
         raise AssertionError("resumed flash launches {0}, want {1} "
                              "each".format(run2["launches"], want_launches))
@@ -3974,11 +4053,10 @@ def phase_checkpoint_resume_serve(train):
     if not line["tokens_equal_to_memory"] or len(got) != REQUESTS:
         raise AssertionError("tokens served from the export differ from the "
                              "in-memory hand-off")
-    if not (decode_steps > 0
-            and k1 == FLAGSHIP["num_layers"] * decode_steps):
+    if not (decode_steps > 0 and k1 == layers * decode_steps):
         raise AssertionError("paged_attention launches {0} != {1} layers x "
-                             "{2} decode steps".format(
-                                 k1, FLAGSHIP["num_layers"], decode_steps))
+                             "{2} decode steps".format(k1, layers,
+                                                       decode_steps))
     return line
 
 
@@ -5049,14 +5127,15 @@ def pipeline_train_fn(args, ctx):
         1, worker_index=ctx.task_index))
     feed = ctx.get_data_feed(input_mapping=args.input_mapping)
     result, model = train_from_feed(
-        {"k": args.k, "batch": args.batch_size}, ctx, feed)
+        {"k": args.k, "batch": args.batch_size, "config": args.config},
+        ctx, feed)
     if ctx.job_name == "worker" and ctx.task_index == 0:
         gc_collect()
         t0 = time.perf_counter()
         tree = convert.tree_from_model(model)
         del model
         gc_collect()
-        config = dict(FLAGSHIP, **SERVING)
+        config = dict(args.config, **SERVING)
         predict = transformer.serving_builder(tree, config)
         t1 = time.perf_counter()
         schema = serving.infer_output_schema(
@@ -5130,25 +5209,30 @@ def _call_ignoring_rows(fn, rows):
     return [fn()]
 
 
-def phase_pipeline_flagship(fed):
+def phase_pipeline_flagship(config=None):
     """The ML Pipeline API at the flagship's width: see the module
-    docstring, phase 23.  ``fed`` is :func:`phase_feed_train_flagship`'s
-    result."""
+    docstring, phase 23.  ``config`` defaults to the flagship cut to
+    :data:`CUT_LAYERS` layers; the fit is held to
+    :func:`reference_losses` at that depth."""
     import importlib
     import tempfile
 
-    from tensorflowonspark_tpu_torch import serving
+    from tensorflowonspark_tpu_torch import convert, serving
     from tensorflowonspark_tpu_torch.data import interchange
     from tensorflowonspark_tpu_torch.data.dataset import Dataset
     from tensorflowonspark_tpu_torch.engine import LocalEngine
+    from tensorflowonspark_tpu_torch.models import transformer
     from tensorflowonspark_tpu_torch.pipeline import (
         TFEstimator,
         TFModel,
         _infer_output_type,
     )
 
+    config = config or dict(FLAGSHIP, num_layers=CUT_LAYERS)
+    layers = config["num_layers"]
     t_phase = time.perf_counter()
     gc_collect()
+    want, ref_tokens_per_sec = reference_losses(config)
     smoke = importlib.import_module("chip_smoke")
     chosen, chosen_uuid = gpu_choice()
     tmp = tempfile.mkdtemp(prefix="pipeline_")
@@ -5185,7 +5269,8 @@ def phase_pipeline_flagship(fed):
                                  FLAGSHIP["vocab_size"], 16,
                                  SERVING["max_prompt_len"])
         est = (TFEstimator(smoke.pipeline_train_fn, {
-            "out": out, "k": TRAIN_K, "sample": requests[0]})
+            "out": out, "k": TRAIN_K, "sample": requests[0],
+            "config": config})
             .setInputMapping(SERVE_MAPPING).setClusterSize(1).setEpochs(1)
             .setBatchSize(TRAIN_B).setExportDir(export).setGraceSecs(600)
             .setFeedTimeout(600).setReservationTimeout(120))
@@ -5249,8 +5334,9 @@ def phase_pipeline_flagship(fed):
             flash_attention,
         )
 
-        tree, _ = flagship_tree()
-        _, _, trainer, state, _ = flagship_trainer(tree)
+        tree = convert.init_params_tree(
+            transformer.TransformerConfig(**config), seed=0)
+        _, _, trainer, state, _ = flagship_trainer(tree, config)
         del tree
         ds = Dataset.from_tfrecords(shards, {"tokens": ("int32", TRAIN_S)})
         flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
@@ -5275,7 +5361,7 @@ def phase_pipeline_flagship(fed):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    want = np.asarray(fed["losses"])
+    want = np.asarray(want)
     rel = max_rel_diff(np.asarray(res["losses"]), want)
     ds_rel = max_rel_diff(np.asarray(ds_losses), np.asarray(res["losses"]))
     steps = res["timed_steps"]
@@ -5288,7 +5374,8 @@ def phase_pipeline_flagship(fed):
         (k, _infer_output_type(v)) for k, v in r.items()))
         for r in transformed})
     line = dict(
-        model=fed["model"], rows=len(rows), shards=PIPELINE_SHARDS,
+        model="L{0} H8 Dh128 Dm1024 V32000 bf16 compute, f32 masters".format(
+            layers), rows=len(rows), shards=PIPELINE_SHARDS,
         interchange_write_sec=t1 - t0, interchange_read_sec=t2 - t1,
         interchange_rows=n_written, interchange_bytes=shard_bytes,
         interchange_schema=interchange.format_schema(schema),
@@ -5296,8 +5383,8 @@ def phase_pipeline_flagship(fed):
         fit_sec=fit_sec, fit_losses=res["losses"], max_rel_loss_diff=rel,
         fit_launches=res["launches"], fit_steps=len(res["losses"]),
         timed_steps=steps, tokens_per_sec=tokens_per_sec,
-        feed_train_flagship_tokens_per_sec=fed["tokens_per_sec"],
-        fed_over_feed_train=tokens_per_sec / fed["tokens_per_sec"],
+        reference_tokens_per_sec=ref_tokens_per_sec,
+        fit_over_reference=tokens_per_sec / ref_tokens_per_sec,
         feed_wait_ms=[1e3 * w for w in res["feed_wait_sec"]],
         feed_wait_share=sum(res["feed_wait_sec"]) / res["wall_sec"],
         fit_startup_sec=res["startup_sec"],
@@ -5329,9 +5416,9 @@ def phase_pipeline_flagship(fed):
     if not rows_equal or n_written != len(rows):
         raise AssertionError("interchange rows differ after a round trip")
     if not rel <= FEED_LOSS_RTOL:
-        raise AssertionError("pipeline losses differ from feed_train_"
-                             "flagship's by {0} relative".format(rel))
-    want_launches = FLAGSHIP["num_layers"] * len(want)
+        raise AssertionError("pipeline losses differ from the reference "
+                             "loop's by {0} relative".format(rel))
+    want_launches = layers * len(want)
     if res["launches"] != {n: want_launches for n in ("fwd", "dq", "dkv")}:
         raise AssertionError("fit flash launches {0}, want {1} each".format(
             res["launches"], want_launches))
@@ -5351,12 +5438,11 @@ def phase_pipeline_flagship(fed):
         raise AssertionError("transformed tokens differ from the export "
                              "served in the driver")
     if not (decode_steps > 0
-            and k1 == FLAGSHIP["num_layers"] * decode_steps
+            and k1 == layers * decode_steps
             and executor["k1"] == k1):
         raise AssertionError("paged_attention launches: transform {0}, "
                              "driver {1}, want {2} layers x {3} decode "
-                             "steps".format(executor["k1"], k1,
-                                            FLAGSHIP["num_layers"],
+                             "steps".format(executor["k1"], k1, layers,
                                             decode_steps))
     if not line["cli_tokens_equal"]:
         raise AssertionError("the serving CLI's tokens differ from the "
@@ -5636,14 +5722,17 @@ def phase_static_serve_flagship(tree, slice_tokens, slice_step_ms=None):
     line["static_bf16"] = bf16
     del predict
     gc_collect()
-    f32_cfg = dict(static_cfg, dtype="float32")
-    predict, f32, f32_static = static_run(tree, f32_cfg, rows)
-    _, f32_cont, f32_tokens = continuous_run(tree, f32_cfg, rows)
+    # the f32 token checks hold two schedules of one model to each other:
+    # they run the flagship's first CUT_LAYERS blocks, both sides
+    cut_tree = draft_tree(tree, CUT_LAYERS)
+    f32_cfg = dict(static_cfg, num_layers=CUT_LAYERS, dtype="float32")
+    predict, f32, f32_static = static_run(cut_tree, f32_cfg, rows)
+    _, f32_cont, f32_tokens = continuous_run(cut_tree, f32_cfg, rows)
     ok, ties = near_tie_check(predict.make_slot_decoder(SLOTS).model, rows,
                               f32_static, f32_tokens)
     share, firsts = agreement(f32_static, f32_tokens)
     line["static_f32"] = dict(
-        f32, agree_with_contiguous_continuous=share,
+        f32, layers=CUT_LAYERS, agree_with_contiguous_continuous=share,
         first_differing_steps=firsts, near_ties=ties,
         continuous=f32_cont)
     if not ok:
@@ -5781,14 +5870,16 @@ def phase_static_serve_flagship(tree, slice_tokens, slice_step_ms=None):
         vrows = (bucket_rows if name == "int8_kv"
                  else qrows)
         tie = NEAR_TIE_INT8_KV if name == "int8_kv" else NEAR_TIE
-        predict, _, q_static = static_run(tree, dict(f32_cfg, **knobs),
+        predict, _, q_static = static_run(cut_tree, dict(f32_cfg, **knobs),
                                           vrows)
-        _, _, q_contig = continuous_run(tree, dict(f32_cfg, **knobs), vrows)
+        _, _, q_contig = continuous_run(cut_tree, dict(f32_cfg, **knobs),
+                                        vrows)
         ok, ties = near_tie_check(predict.make_slot_decoder(SLOTS).model,
                                   vrows, q_static, q_contig, tie)
         share, firsts = agreement(q_static, q_contig)
         rec = dict(rows="one bucket" if vrows is bucket_rows else "ragged",
-                   static_vs_contiguous=share, first_differing_steps=firsts,
+                   layers=CUT_LAYERS, static_vs_contiguous=share,
+                   first_differing_steps=firsts,
                    near_tie=tie, near_ties=ties)
         if not ok:
             problems.append("{0}: f32 static tokens differ from the "
@@ -5796,8 +5887,8 @@ def phase_static_serve_flagship(tree, slice_tokens, slice_step_ms=None):
                             "tie: {1}".format(name, ties))
         if name == "int4_weights":
             _, _, i4_paged = continuous_run(
-                tree, dict(FLAGSHIP, dtype="float32", **SERVING, **knobs),
-                vrows)
+                cut_tree, dict(FLAGSHIP, num_layers=CUT_LAYERS,
+                               dtype="float32", **SERVING, **knobs), vrows)
             ok, ties = near_tie_check(predict.make_slot_decoder(SLOTS).model,
                                       vrows, i4_paged, q_contig)
             share, firsts = agreement(i4_paged, q_contig)
@@ -5859,16 +5950,22 @@ def phase_static_serve_flagship(tree, slice_tokens, slice_step_ms=None):
     gc_collect()
     part("moe")
 
-    # 5. the pipeline at its default schedule, and the CLI's static one
+    # 5. the pipeline at its default schedule, and the CLI's static one,
+    # on an export of the flagship's first CUT_LAYERS blocks: against the
+    # static schedule in the driver at that depth
     from tensorflowonspark_tpu_torch.engine import LocalEngine
     from tensorflowonspark_tpu_torch.pipeline import TFModel
 
+    cut_cfg = dict(static_cfg, num_layers=CUT_LAYERS)
+    predict, _, cut_tokens = static_run(cut_tree, cut_cfg, rows)
+    del predict
+    gc_collect()
     tmp = tempfile.mkdtemp(prefix="static_serve_")
     try:
         export = os.path.join(tmp, "export")
         t0 = time.perf_counter()
-        checkpoint.save_for_serving(export, tree, extra_metadata={
-            "model_ref": PIPELINE_MODEL_REF, "model_config": static_cfg})
+        checkpoint.save_for_serving(export, cut_tree, extra_metadata={
+            "model_ref": PIPELINE_MODEL_REF, "model_config": cut_cfg})
         export_sec = time.perf_counter() - t0
         model = (TFModel().setExportDir(export).setInputMapping(
             SERVE_MAPPING).setBatchSize(SLOTS))
@@ -5903,11 +6000,12 @@ def phase_static_serve_flagship(tree, slice_tokens, slice_step_ms=None):
             cli_tokens = [json.loads(line_)["generated"] for line_ in f]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    del cut_tree
     line["pipeline"] = dict(
-        schedule=schedule, export_sec=export_sec,
+        schedule=schedule, layers=CUT_LAYERS, export_sec=export_sec,
         transform_sec=transform_sec, cli_sec=cli_sec,
-        transform_equal=tokens_of(transformed) == static_tokens,
-        cli_equal=cli_tokens == static_tokens)
+        transform_equal=tokens_of(transformed) == cut_tokens,
+        cli_equal=cli_tokens == cut_tokens)
     if schedule != "static" or not line["pipeline"]["transform_equal"] \
             or not line["pipeline"]["cli_equal"]:
         problems.append("pipeline at its default schedule: {0}".format(
@@ -7719,6 +7817,9 @@ def phase_spec_serve_flagship(tree, config=FLAGSHIP, device=None,
 PS_MNIST_ROWS, PS_MNIST_HIDDEN, PS_MNIST_STEPS, PS_MNIST_BATCH = \
     2048, 128, 60, 64
 PS_MNIST_EVAL_ROWS, PS_MNIST_WINDOW = 256, 10
+#: seconds a worker waits for the evaluator's first score before its
+#: first step
+PS_MNIST_EVAL_WAIT = 300
 PS_MNIST_OPT = ("adam", {"learning_rate": 1e-3})
 #: a stand-in ``tensorboard`` (the card's machine has none, and nothing
 #: may be installed): serves HTTP 200 on the ``--port`` it is given
@@ -7745,7 +7846,10 @@ http.server.HTTPServer(("", port), H).serve_forever()
 #: speculation) and ``elastic_flagship``, the flagship's first blocks
 #: (:func:`draft_tree`): they check the engine and the supervisor, not
 #: the model's depth, and were cut from 16 layers to keep
-#: ``phase_times`` in its budget when the async-PS phases came
+#: ``phase_times`` in its budget when the async-PS phases came.  The
+#: fleet phase's fault, deploy and affinity parts run at it too, and,
+#: since the fleet phase came, ``static_serve_flagship``'s f32 token
+#: checks (two schedules of one model held to each other, both cut)
 CUT_LAYERS = 4
 #: ``bench.py:3020`` ``ps_tpu_bench`` at the flagship's width: depth, the
 #: one seeded batch, the optimizer, warm-up and timed steps, the PS
@@ -7778,7 +7882,10 @@ def ps_mnist_fn(args, ctx):
     initialised CUDA); worker: ``AsyncTrainer`` on ``MNISTNet`` over its
     own synthetic rows, then a ``stop`` file; evaluator: pulls the PS's
     params with a ``PSClient`` and scores the held-out rows until both
-    workers stopped, then once more."""
+    workers stopped, then once more.  The workers take their first step
+    only after the evaluator's first score (``eval.first``, waited on for
+    at most :data:`PS_MNIST_EVAL_WAIT` s): an evaluator whose process
+    starts after short workers finished would otherwise score once."""
     from tensorflowonspark_tpu_torch import compat, telemetry
     from tensorflowonspark_tpu_torch.models import mlp
     from tensorflowonspark_tpu_torch.parallel import ps
@@ -7815,6 +7922,10 @@ def ps_mnist_fn(args, ctx):
                     model.get_parameter(k).copy_(torch.from_numpy(
                         np.array(v)))
                 scores.append(float(mnist_loss(model, held_out)))
+            if len(scores) == 1:
+                first = os.path.join(tmp, "eval.first")
+                open(first + ".tmp", "w").close()
+                os.replace(first + ".tmp", first)
             if done:
                 break
             time.sleep(0.2)
@@ -7831,6 +7942,10 @@ def ps_mnist_fn(args, ctx):
         lambda p, b: mnist_loss(model, b, p), ctx.cluster_spec["ps"],
         optimizer=PS_MNIST_OPT, device=device)
     live = trainer.init(params)
+    deadline = time.time() + PS_MNIST_EVAL_WAIT
+    while not os.path.exists(os.path.join(tmp, "eval.first")) \
+            and time.time() < deadline:
+        time.sleep(0.05)
     losses, t_first = [], None
     for i in range(steps):
         lo = (i * batch) % (len(x) - batch)
@@ -8225,6 +8340,529 @@ def overlap_readback_check(tr, live, batch):
             "bytes": int(sum(w.numel() * w.element_size() for w in window))}
 
 
+# ----------------------------------------------------------------------
+# slice 21: the LM server's fleet
+# ----------------------------------------------------------------------
+
+#: the fleet phase: its replicas, the seed of the 8 requests it adds to
+#: the slice phase's 16, and the fault jobs' 12 requests and their budget
+#: (two chunks: a fault at chunk 1 strikes mid-decode)
+FLEET_REPLICAS, FLEET_SEED, FLEET_EXTRA = 3, 7, 8
+FLEET_FAULT_REQUESTS, FLEET_FAULT_BUDGET = 12, 32
+#: the slow replica's stall (chaos ``slow_replica``): 3 s a chunk for
+#: its first 2 chunks.  A fleet request's chunk on the card takes about
+#: 0.75 s (the replicas' host work serialises on one interpreter), so a
+#: 0.2 s stall (+27%) stays under the straggler bar and inside a healthy
+#: replica's spread (see PERF.md); 6 s stays above the bar on a slow
+#: host, whose fault-free requests take up to about 5.4 s
+FLEET_SLOW = dict(per_chunk_sec=3.0, chunks=2)
+#: the straggler knobs of the fault jobs' routers (the reference test's,
+#: with a 1.5x factor: the card's requests take about the same time).
+#: Their ``min_slow_sec`` is set from the fault-free stream: its slowest
+#: request plus half the planted stall, so that no healthy replica's
+#: request counts as slow (a re-admitted replica's latency restarts from
+#: one light probe and would pull the fleet median, and with it the
+#: 1.5x bar, under a healthy sibling's)
+FLEET_STRAGGLER = dict(suspect_rounds=1, probe_every=2, readmit_rounds=2,
+                       slow_factor=1.5)
+#: streams a fault job may serve before its replica must be re-admitted
+FLEET_MAX_STREAMS = 6
+#: the rolling deploy's traffic pool (seed), the requests admitted after
+#: it ended that are held to one engine on the new weights, and the
+#: affinity jobs' family requests (seed)
+FLEET_DEPLOY_SEED, FLEET_AFTER_DEPLOY = 5, 8
+#: the deploy's requests: 16-64 prompt tokens, 16 new tokens each (one
+#: chunk, through the budget column), one every 0.1 s, below what three
+#: replicas serve, so that each drain and commit gate waits for one short
+#: request
+FLEET_DEPLOY_PROMPT, FLEET_DEPLOY_BUDGET, FLEET_DEPLOY_PACE_SEC = 64, 16, 0.1
+FLEET_AFFINITY_SEED = 13
+
+
+def fleet_rows(vocab, extra=FLEET_EXTRA):
+    """The slice phase's 16 requests and ``extra`` more from another
+    seed, 16-448 prompt tokens."""
+    hi = SERVING["max_prompt_len"]
+    return (make_requests(np.random.default_rng(2), REQUESTS, vocab, 16, hi)
+            + make_requests(np.random.default_rng(FLEET_SEED), extra, vocab,
+                            16, hi))
+
+
+def fleet_router(predicts, mapping=SERVE_MAPPING, **router_kw):
+    """A :class:`FleetRouter` with one replica per predictor in
+    ``predicts`` (:data:`SLOTS` slots each)."""
+    from tensorflowonspark_tpu_torch.fleet.router import FleetRouter
+
+    it = iter(predicts)
+    return FleetRouter(None, mapping, replicas=len(predicts),
+                       num_slots=SLOTS, predict_factory=lambda: next(it),
+                       poll_sec=0.01, **router_kw)
+
+
+def fleet_stream(rt, rows, device):
+    """``(outputs, wall seconds)`` of one stream over a warm router."""
+    sync(device)
+    t0 = time.perf_counter()
+    out = list(rt.serve([dict(r) for r in rows]))
+    sync(device)
+    return out, time.perf_counter() - t0
+
+
+def fleet_ttfts(stats):
+    """Every replica's TTFTs of a fleet job (each from its engine's
+    submit: the router dispatched at once, its queue never filled)."""
+    return [t for s in stats["per_replica"].values()
+            for t in s["ttft_sec"].values()]
+
+
+def fleet_flagship(tree, config, device, problems):
+    """Part 1 of phase 36: the slice's path through ``predict_rows(...,
+    replicas=3)`` beside one engine on the same rows."""
+    from tensorflowonspark_tpu_torch import serving
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        serving_builder,
+    )
+    from tensorflowonspark_tpu_torch.ops.paged_attention import (
+        paged_attention,
+    )
+
+    dev = torch.device(device or "cuda")
+    over = {} if device is None else {"device": device}
+    layers, chunk = config["num_layers"], SERVING["chunk_size"]
+    predict = serving_builder(tree, dict(config, **SERVING, **over))
+    rows = fleet_rows(config["vocab_size"])
+    jobs = {}
+    for name, kw in (("single", {}), ("fleet", {"replicas": FLEET_REPLICAS})):
+        stats = {}
+        sync(dev)
+        paged_attention.launches = 0
+        t0 = time.perf_counter()
+        out = list(serving.predict_rows(
+            predict, [dict(r) for r in rows], SERVE_MAPPING,
+            batch_size=SLOTS, schedule="continuous", stats=stats, **kw))
+        sync(dev)
+        wall = time.perf_counter() - t0
+        k1 = paged_attention.launches
+        # serving seconds: from the engine's (the router's) construction,
+        # after the replicas were built, to the last completion
+        serve_sec = max(stats["done_at"].values())
+        ttft = (stats["ttft_sec"].values() if name == "single"
+                else fleet_ttfts(stats))
+        jobs[name] = dict(
+            out=out, stats=stats, launches=k1, wall_sec=wall,
+            serve_sec=serve_sec, tokens_out=stats["tokens_out"],
+            tokens_per_sec=stats["tokens_out"] / serve_sec,
+            ttft_p50_ms=1e3 * pct(ttft, 50), ttft_p99_ms=1e3 * pct(ttft, 99))
+    single, fleet = jobs["single"], jobs["fleet"]
+    per = fleet["stats"]["per_replica"]
+    steps = {rid: s["chunks"] * chunk for rid, s in per.items()}
+    on_card = dev.type == "cuda"
+    want_k1 = layers * sum(steps.values()) if on_card else 0
+    if len(fleet["out"]) != len(rows) or any("error" in r
+                                             for r in fleet["out"]):
+        problems.append("flagship: {0} outputs for {1} rows, errors "
+                        "{2}".format(len(fleet["out"]), len(rows), [
+                            r["error"] for r in fleet["out"]
+                            if "error" in r]))
+    ok, ties = tie_gate(lambda: predict.make_slot_decoder(SLOTS).model,
+                        rows, tokens_of(fleet["out"]), tokens_of(
+                            single["out"]))
+    share, firsts = agreement(tokens_of(fleet["out"]),
+                              tokens_of(single["out"]))
+    if not ok:
+        problems.append("flagship: fleet tokens differ from one engine's "
+                        "beyond a near tie: {0}".format(ties))
+    if sorted(per) != list(range(FLEET_REPLICAS)) or not all(
+            s["admitted"] > 0 for s in per.values()):
+        problems.append("flagship: a replica took no work: {0}".format(
+            {r: s["admitted"] for r, s in per.items()}))
+    if fleet["launches"] != want_k1 or (on_card and not want_k1):
+        problems.append("flagship: K1 launches {0} != {1} layers x the "
+                        "replicas' {2} decode steps".format(
+                            fleet["launches"], layers, steps))
+    line = dict(
+        model="L{0} H{1} Dh{2} Dm{3} {4}".format(
+            layers, config["num_heads"], config["head_dim"],
+            config["embed_dim"], config["dtype"]),
+        requests=len(rows), replicas=FLEET_REPLICAS, slots=SLOTS,
+        launches=fleet["launches"], equal_share=share,
+        first_differing_steps=firsts, near_ties=ties,
+        fleet_over_single_tokens_per_sec=fleet["tokens_per_sec"]
+        / single["tokens_per_sec"],
+        per_replica={rid: dict(
+            requests=s["admitted"], decode_steps=steps[rid],
+            decode_step_ms=1e3 * s["decode_wall_sec"] / max(steps[rid], 1),
+            decode_wall_sec=s["decode_wall_sec"])
+            for rid, s in per.items()})
+    for name in ("single", "fleet"):
+        line[name] = {k: jobs[name][k] for k in (
+            "tokens_per_sec", "tokens_out", "serve_sec", "wall_sec",
+            "ttft_p50_ms", "ttft_p99_ms", "launches")}
+    line["single"]["decode_steps"] = single["stats"]["chunks"] * chunk
+    del predict, jobs
+    gc_collect()
+    return line
+
+
+def fleet_faults(tree, config, device, problems, tmp,
+                 max_streams=FLEET_MAX_STREAMS):
+    """Part 2 of phase 36: ``kill_replica``, ``device_error`` and
+    ``slow_replica`` against the fault-free f32 fleet's tokens."""
+    from tensorflowonspark_tpu_torch import forensics, telemetry
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        serving_builder,
+    )
+    from tensorflowonspark_tpu_torch.testing import chaos
+
+    dev = torch.device(device or "cuda")
+    over = {} if device is None else {"device": device}
+    p0 = serving_builder(tree, dict(config, **SERVING, dtype="float32",
+                                    **over))
+    preds = [p0] + [p0.make_replica() for _ in range(FLEET_REPLICAS - 1)]
+    rows = make_requests(np.random.default_rng(2), FLEET_FAULT_REQUESTS,
+                         config["vocab_size"], 16, SERVING["max_prompt_len"])
+    for r in rows:
+        r["max_new"] = FLEET_FAULT_BUDGET
+    mapping = dict(SERVE_MAPPING, max_new="max_new")
+    rt = fleet_router(preds, mapping)
+    try:
+        ref, ref_wall = fleet_stream(rt, rows, dev)
+    finally:
+        rt.close()
+    want = tokens_of(ref)
+    slowest = max(rt.stats["latency_sec"].values())
+    straggler = dict(FLEET_STRAGGLER, min_slow_sec=slowest + 0.5 * (
+        FLEET_SLOW["per_chunk_sec"] * FLEET_SLOW["chunks"]))
+
+    def held(out, what):
+        ok, ties = tie_gate(lambda: p0.make_slot_decoder(SLOTS).model, rows,
+                            tokens_of(out), want)
+        if not ok or any("error" in r for r in out) or len(out) != len(rows):
+            problems.append("{0}: tokens differ from the fault-free "
+                            "fleet's beyond a near tie, or a request was "
+                            "lost: {1}".format(what, ties))
+        return ties
+
+    line = dict(requests=len(rows), fault_free_wall_sec=ref_wall,
+                min_slow_sec=straggler["min_slow_sec"])
+    journal = telemetry.get_journal()
+
+    def named(kind):
+        # the replicas that the journal's ``kind`` events name
+        return sorted(e.attrs.get("replica") for e in journal.events()
+                      if e.kind == kind)
+    plan_path = os.path.join(tmp, "plan.json")
+    try:
+        # kill_replica: a death mid-decode, re-dispatched from the
+        # committed tokens
+        journal.clear()
+        os.environ[chaos.TFOS_CHAOS_PLAN] = chaos.ChaosPlan().kill_replica(
+            2, at_chunk=1).save(plan_path)
+        rt = fleet_router(preds, mapping)
+        try:
+            out, wall = fleet_stream(rt, rows, dev)
+        finally:
+            rt.close()
+        export = os.path.join(tmp, "fleet_journal.json")
+        with open(export, "w") as f:
+            json.dump({"events": [e.to_dict() for e in journal.events()]}, f)
+        kinds = {e.kind for e in journal.events()}
+        report = forensics.explain([export])
+        st = rt.stats
+        line["kill_replica"] = dict(
+            wall_sec=wall, replica_deaths=st["replica_deaths"],
+            redispatched=st["redispatched"],
+            journal=sorted(k for k in kinds if k.startswith(
+                ("replica_", "fleet_"))),
+            fault_kind=(report["incident"] or {}).get("fault_kind"),
+            near_ties=held(out, "kill_replica"))
+        if not (st["replica_deaths"] == 1 and st["redispatched"] >= 1
+                and {"replica_dead", "fleet_redispatch"} <= kinds
+                and line["kill_replica"]["fault_kind"] == "kill_replica"):
+            problems.append("kill_replica: {0}".format(line["kill_replica"]))
+
+        # device_error: quarantined, rebuilt, probed and re-admitted
+        journal.clear()
+        os.environ[chaos.TFOS_CHAOS_PLAN] = chaos.ChaosPlan().device_error(
+            1, at_chunk=1).save(plan_path)
+        rt = fleet_router(preds, mapping, **straggler)
+        walls, ties = [], []
+        try:
+            for _ in range(max_streams):
+                out, wall = fleet_stream(rt, rows, dev)
+                walls.append(wall)
+                ties.append(held(out, "device_error"))
+                if rt.stats["readmitted"] and rt.replicas[1].state == "live":
+                    break
+        finally:
+            rt.close()
+        st = rt.stats
+        line["device_error"] = dict(
+            streams=len(walls), wall_sec=walls,
+            quarantined=st["quarantined"], readmitted=st["readmitted"],
+            replica_deaths=st["replica_deaths"],
+            redispatched=st["redispatched"], state=rt.replicas[1].state,
+            quarantined_ids=named("replica_quarantined"),
+            evicted_ids=named("replica_evicted"),
+            readmitted_ids=named("replica_readmitted"), near_ties=ties)
+        if not (st["quarantined"] == 1 and st["replica_deaths"] == 0
+                and st["readmitted"] >= 1 and rt.replicas[1].alive
+                and line["device_error"]["quarantined_ids"] == [1]
+                and not line["device_error"]["evicted_ids"]
+                and set(line["device_error"]["readmitted_ids"]) == {1}):
+            problems.append("device_error: {0}".format(line["device_error"]))
+
+        # slow_replica: routed around while slow, re-admitted after; the
+        # planted straggler, replica 0, is the only one evicted
+        journal.clear()
+        os.environ[chaos.TFOS_CHAOS_PLAN] = chaos.ChaosPlan().slow_replica(
+            0, **FLEET_SLOW).save(plan_path)
+        rt = fleet_router(preds, mapping, **straggler)
+        walls, ties = [], []
+        try:
+            for _ in range(max_streams):
+                out, wall = fleet_stream(rt, rows, dev)
+                walls.append(wall)
+                ties.append(held(out, "slow_replica"))
+                if (rt.stats["evicted"] and rt.stats["readmitted"]
+                        and rt.replicas[0].state == "live"):
+                    break
+        finally:
+            rt.close()
+        st = rt.stats
+        line["slow_replica"] = dict(
+            streams=len(walls), wall_sec=walls, evictions=st["evicted"],
+            readmissions=st["readmitted"], state=rt.replicas[0].state,
+            evicted_ids=named("replica_evicted"),
+            readmitted_ids=named("replica_readmitted"), near_ties=ties)
+        if not (st["evicted"] >= 1 and st["readmitted"] >= 1
+                and set(line["slow_replica"]["evicted_ids"]) == {0}
+                and set(line["slow_replica"]["readmitted_ids"]) == {0}):
+            problems.append("slow_replica: {0}".format(line["slow_replica"]))
+    finally:
+        os.environ.pop(chaos.TFOS_CHAOS_PLAN, None)
+    del preds, p0, rt
+    gc_collect()
+    return line
+
+
+def fleet_deploy(tree, config, device, problems, tmp):
+    """Part 3 of phase 36: a rolling deploy from the seed-0 to seed-1
+    weights under live traffic, then a corrupted published step that the
+    canary halts."""
+    from tensorflowonspark_tpu_torch import (
+        checkpoint,
+        convert,
+        hot_swap,
+        serving,
+    )
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        TransformerConfig,
+        serving_builder,
+    )
+    from tensorflowonspark_tpu_torch.testing import chaos
+
+    over = {} if device is None else {"device": device}
+    cfg = dict(config, **SERVING, **over)
+    p0 = serving_builder(tree, cfg)
+    preds = [p0] + [p0.make_replica() for _ in range(FLEET_REPLICAS - 1)]
+    t0 = time.perf_counter()
+    seed1 = _bf16_tree(convert.init_params_tree(TransformerConfig(**config),
+                                                seed=1))
+    seed1_sec = time.perf_counter() - t0
+    pool = make_requests(np.random.default_rng(FLEET_DEPLOY_SEED), REQUESTS,
+                         config["vocab_size"], 16, FLEET_DEPLOY_PROMPT)
+    for r in pool:
+        r["max_new"] = FLEET_DEPLOY_BUDGET
+    mapping = dict(SERVE_MAPPING, max_new="max_new")
+    rt = fleet_router(preds, mapping, engine_opts={"rollback_window": 1})
+    hold, sent, out, steps = {}, [], [], []
+
+    def traffic():
+        for i in range(100000):
+            d = hold.get("dep")
+            if d is not None:
+                # the step machine's phases as the traffic saw them
+                now = (d.status["phase"], d.status["replica"])
+                if not steps or steps[-1][1:] != now:
+                    steps.append((time.perf_counter() - hold["t0"],) + now)
+            if d is not None and d.finished:
+                hold.setdefault("after", i)
+                if i >= hold["after"] + FLEET_AFTER_DEPLOY:
+                    return
+            time.sleep(FLEET_DEPLOY_PACE_SEC)
+            sent.append(pool[i % len(pool)])
+            yield dict(sent[-1])
+
+    line = dict(seed1_tree_sec=seed1_sec)
+    try:
+        t0 = time.perf_counter()
+        for i, r in enumerate(rt.serve(traffic())):
+            out.append(r)
+            if i == 0 and "dep" not in hold:
+                hold["t0"] = time.perf_counter()
+                hold["dep"] = rt.start_rolling_deploy(params=seed1,
+                                                      phase_timeout=60.0)
+        wall = time.perf_counter() - t0
+        dep = hold["dep"]
+        after = list(range(hold.get("after", len(out)), len(out)))
+        fresh = serving_builder(seed1, cfg)
+        want = list(serving.predict_rows(
+            fresh, [dict(sent[i]) for i in after], mapping,
+            batch_size=SLOTS, schedule="continuous"))
+        ok, ties = tie_gate(lambda: fresh.make_slot_decoder(SLOTS).model,
+                            [sent[i] for i in after],
+                            [tokens_of(out)[i] for i in after],
+                            tokens_of(want))
+        gens = [r.stats["weight_generation"] for r in rt.replicas]
+        line["deploy"] = dict(
+            state=dep.status["state"], halted=dep.status["halted"],
+            replicas_done=dep.status["replicas_done"], generations=gens,
+            requests=len(out), sent=len(sent),
+            errors=sum("error" in r for r in out), wall_sec=wall,
+            swaps=rt.stats["swaps"], swap_commits=rt.stats["swap_commits"],
+            swap_ms=[1e3 * t for r in rt.replicas
+                     for t in r.stats["swap_latency_sec"]],
+            steps=steps, admitted_after=len(after), near_ties=ties)
+        if not (dep.status["state"] == "done" and len(out) == len(sent)
+                and line["deploy"]["errors"] == 0
+                and gens == [1] * FLEET_REPLICAS
+                and len(after) == FLEET_AFTER_DEPLOY and ok):
+            problems.append("rolling deploy: {0}".format(line["deploy"]))
+        del fresh
+        gc_collect()
+
+        # a corrupted published step: the canary's validation halts it
+        t0 = time.perf_counter()
+        step_dir = checkpoint.publish_for_serving(
+            os.path.join(tmp, "steps"), 2, seed1)
+        chaos.corrupt_checkpoint(step_dir, "shape_mismatch")
+        publish_sec = time.perf_counter() - t0
+        rows = pool[:FLEET_FAULT_REQUESTS]
+        swaps0 = [r.stats["swaps"] for r in rt.replicas]
+        dep, out = None, []
+        for i, r in enumerate(rt.serve([dict(x) for x in rows])):
+            out.append(r)
+            if i == 2 and dep is None:
+                dep = rt.start_rolling_deploy(step_dir=step_dir)
+        gens = [r.stats["weight_generation"] for r in rt.replicas]
+        line["corrupt_deploy"] = dict(
+            state=dep.status["state"], halted=dep.status["halted"],
+            replicas_done=dep.status["replicas_done"], generations=gens,
+            publish_and_corrupt_sec=publish_sec,
+            quarantine=hot_swap.read_quarantine(step_dir),
+            errors=sum("error" in r for r in out), requests=len(out))
+        halted = dep.status["halted"] or {}
+        if not (dep.status["state"] == "halted"
+                and halted.get("kind") == "shape_mismatch"
+                and halted.get("replica") == 0
+                and not dep.status["replicas_done"]
+                and gens == [1] * FLEET_REPLICAS
+                and [r.stats["swaps"] for r in rt.replicas] == swaps0
+                and line["corrupt_deploy"]["quarantine"]
+                and line["corrupt_deploy"]["errors"] == 0
+                and len(out) == len(rows)):
+            problems.append("corrupt deploy: {0}".format(
+                line["corrupt_deploy"]))
+    finally:
+        rt.close()
+    del preds, p0, rt, seed1
+    gc_collect()
+    return line
+
+
+def fleet_affinity(tree, config, device, problems):
+    """Part 4 of phase 36: ``prefix_affinity`` against ``random`` on
+    family requests in a fixed order, the radix cache on, in f32."""
+    from tensorflowonspark_tpu_torch.models.transformer import (
+        serving_builder,
+    )
+
+    dev = torch.device(device or "cuda")
+    over = {} if device is None else {"device": device}
+    p0 = serving_builder(tree, dict(config, **SERVING, **PREFIX,
+                                    dtype="float32", **over))
+    preds = [p0] + [p0.make_replica() for _ in range(FLEET_REPLICAS - 1)]
+    rows = family_requests(FLEET_AFFINITY_SEED, PREFIX_REQUESTS,
+                           config["vocab_size"])
+    jobs = {}
+    for name in ("prefix_affinity", "random"):
+        # room for every request on any replica: the policy alone picks
+        rt = fleet_router(preds, dispatch=name,
+                          replica_queue_depth=PREFIX_REQUESTS)
+        try:
+            out, wall = fleet_stream(rt, rows, dev)
+        finally:
+            rt.close()
+        st = rt.stats
+        jobs[name] = dict(
+            tokens=tokens_of(out), wall_sec=wall,
+            tokens_per_sec=st["tokens_out"] / wall,
+            prefix_hits=st["prefix_hits"], admitted=st["admitted"],
+            prefix_tokens_saved=st["prefix_tokens_saved"],
+            affinity_hits=st["affinity_hits"],
+            affinity_spills=st["affinity_spills"],
+            per_replica={r: s["admitted"]
+                         for r, s in st["per_replica"].items()},
+            errors=sum("error" in r for r in out))
+        for p in preds:  # cold caches for the next policy
+            p.make_slot_decoder(SLOTS).prefix_cache.clear()
+    aff, rnd = jobs["prefix_affinity"], jobs["random"]
+    ok, ties = tie_gate(lambda: p0.make_slot_decoder(SLOTS).model, rows,
+                        aff["tokens"], rnd["tokens"])
+    for j in jobs.values():
+        del j["tokens"]
+    line = dict(requests=len(rows), near_ties=ties, **jobs)
+    if not (aff["prefix_hits"] > rnd["prefix_hits"] and ok
+            and aff["errors"] == rnd["errors"] == 0):
+        problems.append("affinity: {0}".format(line))
+    del preds, p0
+    gc_collect()
+    return line
+
+
+def phase_fleet_serve_flagship(tree, cut_tree, config=FLAGSHIP,
+                               cut_config=None, device=None,
+                               max_streams=FLEET_MAX_STREAMS):
+    """The LM server's fleet: see the module docstring, phase 36.  Part 1
+    runs ``tree`` at ``config``; the fault, deploy and affinity parts run
+    ``cut_tree`` at ``cut_config`` (default ``config`` cut to
+    :data:`CUT_LAYERS` layers).  ``device="cpu"`` rehearses it without a
+    card (K1's plain version runs there: its launch gate wants 0)."""
+    import tempfile
+
+    cut_config = cut_config or dict(config, num_layers=CUT_LAYERS)
+    dev = torch.device(device or "cuda")
+    t_phase = time.perf_counter()
+    problems, laps = [], {}
+    tmp = tempfile.mkdtemp(prefix="fleet_")
+    try:
+        t0 = time.perf_counter()
+        line = fleet_flagship(tree, config, device, problems)
+        laps["flagship"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        line["faults"] = fleet_faults(cut_tree, cut_config, device,
+                                      problems, tmp, max_streams)
+        laps["faults"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        line["rolling_deploy"] = fleet_deploy(cut_tree, cut_config, device,
+                                              problems, tmp)
+        laps["deploy"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        line["affinity"] = fleet_affinity(cut_tree, cut_config, device,
+                                          problems)
+        laps["affinity"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    line.update(part_sec=laps, phase_sec=time.perf_counter() - t_phase,
+                device=device_name(dev), nvidia_smi=nvidia_smi_or_cpu(dev),
+                ok=not problems, problems=problems)
+    emit("fleet_serve_flagship", **line)
+    if problems:
+        raise AssertionError("fleet_serve_flagship: " + "; ".join(problems))
+    return line
+
+
 def kernel_entry(name, kernel, replaces, launches, timing,
                  source="tensorflowonspark_tpu_torch/csrc/flash_attention.cu",
                  **extra):
@@ -8286,8 +8924,10 @@ def main():
     disagg = phase_disagg_serve_flagship(cut_tree, config=cut)
     lap("disagg_serve_flagship")
     phase_spec_serve_flagship(cut_tree, config=cut)
-    del cut_tree
     lap("spec_serve_flagship")
+    fleet = phase_fleet_serve_flagship(tree, cut_tree, cut_config=cut)
+    del cut_tree
+    lap("fleet_serve_flagship")
     phase_flash_cases()
     phase_flash_repeat()
     flash = phase_flash_timing()
@@ -8315,11 +8955,11 @@ def main():
     lap("feed_ring_train_flagship")
     inference = phase_feed_inference_flagship()
     lap("feed_inference_flagship")
-    resumed = phase_checkpoint_resume_serve(train)
+    resumed = phase_checkpoint_resume_serve()
     lap("checkpoint_resume_serve")
     elastic = phase_elastic_flagship(config=cut)
     lap("elastic_flagship")
-    pipeline = phase_pipeline_flagship(fed)
+    pipeline = phase_pipeline_flagship(config=cut)
     lap("pipeline_flagship")
     mnist = phase_mnist_spark_flagship()
     phase_resnet_train_flagship()
@@ -8353,6 +8993,7 @@ def main():
             "paged_attention_launches"],
         telemetry_launches=tele["launches"],
         disagg_launches=disagg["launches"],
+        fleet_launches=fleet["launches"],
     )] + [
         kernel_entry("flash_" + name, kernel, jax_flash + line,
                      train["launches"][name], flash[name],

@@ -2036,7 +2036,14 @@ def serving_builder(params, config):
       schedule (no ``make_slot_decoder``), as in the reference.
     - ``disaggregate=True`` (paged layout only) has the continuous
       engine admit through a :class:`..serving_disagg.PrefillWorker`.
+    - ``predict.make_replica()`` builds a fresh generation predictor from
+      the caller's ``params`` and ``config``: its own weights on the
+      device, its own slot decoders, KV pools and radix caches (one per
+      fleet replica, :mod:`..fleet.replica`).
     """
+    # a fleet replica is built from the caller's params and config, before
+    # the draft pop and the quantization below rebind them
+    _raw_params, _raw_config = params, dict(config)
     cfg_fields = {f.name for f in dataclasses.fields(TransformerConfig)}
     knob_registry.validate_keys(config, cfg_fields | {"device"})
     _check_unported(config)
@@ -2197,6 +2204,7 @@ def serving_builder(params, config):
     predict.make_slot_decoder = make_slot_decoder
     predict.max_new_tokens = max_new
     predict.eos_id = eos_id
+    predict.device = device
     # the continuous engine admits through a PrefillWorker when set; the
     # handoff is a block-table exchange, so it needs the paged layout
     disagg = bool(config.get("disaggregate", False))
@@ -2206,6 +2214,11 @@ def serving_builder(params, config):
             "prefill→decode handoff is a block-table exchange)"
         )
     predict.disaggregate = disagg
+    # each fleet replica owns its decoder (slot state is single-threaded)
+    # and its radix cache (prefix affinity routes a prefix to the replica
+    # whose cache holds it)
+    predict.make_replica = lambda: serving_builder(_raw_params,
+                                                   dict(_raw_config))
     if config.get("profile_dir"):
         # the serving engine starts the trace and counts decode chunks
         # as its steps

@@ -24,6 +24,7 @@ Two entry points, as in the reference:
 """
 
 import functools
+import threading
 
 import torch
 
@@ -224,8 +225,15 @@ def paged_attention(q, k_pool, v_pool, block_tables, lengths, *,
 
 
 #: kernel launches since the count was last reset (the CPU path and the
-#: plain version never touch it)
+#: plain version never touch it); the fleet's replicas launch from
+#: threads of their own, so the count is taken under a lock
 paged_attention.launches = 0
+_LAUNCHES_LOCK = threading.Lock()
+
+
+def _count_launch():
+    with _LAUNCHES_LOCK:
+        paged_attention.launches += 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -305,7 +313,7 @@ def _launch(q, k_pool, v_pool, block_tables, lengths, scale, window,
             "paged_attention kernel launch failed with CUDA error "
             "{0}".format(err)
         )
-    paged_attention.launches += 1
+    _count_launch()
     return out
 
 

@@ -320,6 +320,18 @@ def predict_rows(
     ``checkpoint_dir`` / ``watcher`` / ``rollback_window`` (live weight
     hot swap, see :mod:`.hot_swap`) are continuous-schedule knobs of the
     :class:`ServingEngine`.
+
+    ``replicas > 1`` (continuous only) serves the job through a
+    :class:`~.fleet.router.FleetRouter` over N engine replicas, each with
+    its own slot decoder and radix cache and ``batch_size`` slots:
+    ``replica_policy`` is the dispatch policy (``least_loaded`` /
+    ``prefix_affinity`` / ``weighted_rr`` / ``random``), ``policy`` the
+    fleet's admission policy (pressure spills to a sibling before any
+    engine sheds), and ``fleet_queue_depth`` bounds the fleet's admission
+    queue.  Outputs come in input order with the single engine's tokens;
+    a replica's death re-dispatches its requests from their committed
+    tokens.  Weight changes go through rolling deploys
+    (``FleetRouter.start_rolling_deploy``), not ``checkpoint_dir``.
     """
     if batch_size == "auto":
         raise _not_ported("batch_size='auto'", "the engine planes")
@@ -336,9 +348,32 @@ def predict_rows(
             "on_error must be one of %s, got %r"
             % (serving_engine.ON_ERROR, on_error)
         )
-    if int(replicas or 1) > 1 or replica_policy != "least_loaded" \
-            or fleet_queue_depth is not None:
-        raise _not_ported("fleet replicas", "fleet")
+    if int(replicas or 1) > 1:
+        if schedule != "continuous":
+            raise ValueError(
+                "replicas > 1 needs schedule='continuous': the fleet "
+                "router dispatches over slot-scheduler engines"
+            )
+        if checkpoint_dir is not None or watcher is not None:
+            raise ValueError(
+                "checkpoint_dir/watcher are single-engine lifecycle knobs; "
+                "fleet weight changes go through rolling deploys "
+                "(FleetRouter.start_rolling_deploy)"
+            )
+        from tensorflowonspark_tpu_torch.fleet.router import (
+            predict_rows_fleet,
+        )
+
+        yield from predict_rows_fleet(
+            predict, rows, input_mapping, output_mapping, batch_size,
+            replicas=int(replicas), stats=stats, on_error=on_error,
+            queue_depth=queue_depth, policy=policy,
+            watchdog_timeout=watchdog_timeout,
+            default_deadline=default_deadline,
+            replica_policy=replica_policy,
+            fleet_queue_depth=fleet_queue_depth,
+        )
+        return
     if schedule == "static":
         if (policy != "block" or queue_depth is not None
                 or watchdog_timeout is not None
@@ -615,13 +650,19 @@ def main(argv=None):
                    help="clean requests a swapped-in generation must serve "
                         "before the previous weights are released")
     p.add_argument("--replicas", type=int, default=1,
-                   help="serve through a fleet of N engine replicas")
+                   help="serve through a fleet of N engine replicas behind "
+                        "the router (continuous schedule only; batch_size "
+                        "slots per replica)")
     p.add_argument("--replica_policy", default="least_loaded",
                    choices=("least_loaded", "prefix_affinity",
                             "weighted_rr", "random"),
-                   help="fleet dispatch policy")
+                   help="fleet dispatch policy: least_loaded, "
+                        "prefix_affinity (a shared prompt prefix lands on "
+                        "the replica whose radix cache holds it), "
+                        "weighted_rr, random")
     p.add_argument("--fleet_queue_depth", type=int, default=None,
-                   help="fleet admission-queue bound")
+                   help="fleet admission-queue bound (default: the summed "
+                        "replica capacity)")
     p.add_argument("--tp", type=int, default=None,
                    help="tensor-parallel degree of the serving mesh")
     p.add_argument("--disaggregate", action="store_true",
@@ -630,8 +671,6 @@ def main(argv=None):
                         "decoder (needs kv_layout='paged')")
     args = p.parse_args(argv)
 
-    if args.replicas > 1:
-        raise _not_ported("--replicas {0}".format(args.replicas), "fleet")
     if args.tp:
         raise _not_ported("--tp", "TP")
 
@@ -662,6 +701,10 @@ def main(argv=None):
             default_deadline=args.deadline,
             rollback_window=args.rollback_window,
         )
+        if args.replicas > 1:
+            kwargs.update(replicas=args.replicas,
+                          replica_policy=args.replica_policy,
+                          fleet_queue_depth=args.fleet_queue_depth)
         if args.checkpoint_dir:
             from tensorflowonspark_tpu_torch import hot_swap
 

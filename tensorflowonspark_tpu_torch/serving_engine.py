@@ -247,10 +247,33 @@ def device_scope(device):
     return contextlib.nullcontext()
 
 
+def stream_scope(stream):
+    """The context that makes ``stream`` (a CUDA stream, or None) the
+    calling thread's current stream: the current stream is per thread
+    too."""
+    if stream is None:
+        return contextlib.nullcontext()
+    import torch
+
+    return torch.cuda.stream(stream)
+
+
+def current_stream(device):
+    """The calling thread's current CUDA stream on ``device``, or None
+    off the card: a worker thread the caller starts runs on it (a fleet
+    replica's engine keeps all of its work on its replica's stream)."""
+    if device is not None and getattr(device, "type", None) == "cuda":
+        import torch
+
+        return torch.cuda.current_stream(device)
+    return None
+
+
 class _DispatchWatchdog(object):
     """Runs the engine's decode chunk on a worker thread (inside
-    :func:`device_scope` of ``device``) so that a wedged chunk can be
-    timed out instead of hanging the scheduler.
+    :func:`device_scope` of ``device``, on the engine's ``stream``) so
+    that a wedged chunk can be timed out instead of hanging the
+    scheduler.
 
     On a timeout the watchdog is *abandoned*: the dispatched callable
     checks :attr:`abandoned` after its fault gate and returns before it
@@ -258,18 +281,19 @@ class _DispatchWatchdog(object):
     the replacement's (a launch cannot be taken back).  A chunk wedged
     inside the runtime keeps its daemon thread parked."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, stream=None):
         self._in = queue_mod.Queue()
         self._out = queue_mod.Queue()
         self.abandoned = False
         self._device = device
+        self._stream = stream
         self._thread = threading.Thread(
             target=self._run, daemon=True, name="serving-watchdog"
         )
         self._thread.start()
 
     def _run(self):
-        with device_scope(self._device):
+        with device_scope(self._device), stream_scope(self._stream):
             while True:
                 fn = self._in.get()
                 if fn is None:
@@ -518,6 +542,7 @@ class ServingEngine(object):
         self._emit_next = 0
         self._n_in = 0
         self._exhausted = False
+        self._idle_source = False
         self._chunk_index = 0
         self._t0 = self._clock()
         self._init_telemetry(predict)
@@ -583,6 +608,25 @@ class ServingEngine(object):
 
         health.register_status_provider("serving", _serving_status)
 
+    def load(self):
+        """The fleet router's placement signal: plain host ints read off
+        the scheduler's state, with no lock, no device sync and no
+        telemetry-registry traffic (the router polls it at dispatch
+        rate).  :meth:`health_status` carries the same fields."""
+        in_flight = len(self._slot_req)
+        slots = int(getattr(self.decoder, "num_slots", self.num_slots))
+        pc = getattr(self.decoder, "prefix_cache", None)
+        return {
+            "slots": slots,
+            "free_slots": max(0, slots - in_flight),
+            "in_flight": in_flight,
+            "queued": len(self._pending),
+            "queue_depth": self.queue_depth,
+            "prefix_blocks": len(pc) if pc is not None else 0,
+            "weight_generation": self.stats["weight_generation"],
+            "draining": self._draining,
+        }
+
     def health_status(self):
         """The engine's compact ``/status`` summary: load, the shed,
         deadline and watchdog counts, the swap lifecycle, and its cost
@@ -622,7 +666,8 @@ class ServingEngine(object):
     def _new_watchdog(self):
         if self.watchdog_timeout is None:
             return None
-        return _DispatchWatchdog(getattr(self.decoder, "device", None))
+        device = getattr(self.decoder, "device", None)
+        return _DispatchWatchdog(device, current_stream(device))
 
     # -- cross-request reuse accounting --------------------------------
 
@@ -704,7 +749,12 @@ class ServingEngine(object):
                 kind="empty_prompt", request_index=idx,
             )
         n = int(prompt.shape[0])
-        if n + self.max_new > self.decoder.cache_len:
+        if n + self.max_new > self.decoder.cache_len and not (
+                n + self._row_budget(row) <= self.decoder.cache_len):
+            # a row needs room for its own budget only: a fleet router
+            # re-dispatches a request with its committed tokens in the
+            # prompt and the rest of its budget (the reference asks for
+            # max_new_tokens, and refuses a long prompt)
             raise RequestValidationError(
                 "request {0}: prompt ({1} tokens) + max_new_tokens "
                 "({2}) exceeds the engine cache_len={3}".format(
@@ -758,15 +808,34 @@ class ServingEngine(object):
             "deadline_at": None if deadline is None else now + deadline,
         }
 
+    def _row_budget(self, row):
+        """The row's budget as validation will read it, or
+        ``max_new`` when it has none or a malformed one (validation names
+        that)."""
+        if self.budget_col is None:
+            return self.max_new
+        try:
+            return max(1, min(int(row[self.budget_col]), self.max_new))
+        except (KeyError, TypeError, ValueError):
+            return self.max_new
+
     def _record(self, idx, kind, message, tokens_done=0, partial=None):
         self._finished[idx] = error_record(
             kind, idx, message, tokens_done=tokens_done, partial=partial
         )
 
     def _ledger_close(self, req, tokens_out, latency_sec=None):
+        self._ledger_settle(req, tokens_out=tokens_out,
+                            latency_sec=latency_sec)
+
+    def _ledger_settle(self, req, tokens_out=None, latency_sec=None,
+                       close=True):
         """The request's one ledger crossing, at its terminal point: the
         admission fields and the decode cost accrued on its record
-        (:meth:`_admit_free`, :meth:`_run_chunk`) settle together."""
+        (:meth:`_admit_free`, :meth:`_run_chunk`) settle together.
+        ``close=False`` is a fleet replica's wreckage flush: a dead
+        replica's spend stays on the row, which the surviving replica
+        goes on with (:mod:`..fleet.replica`)."""
         self._ledger.settle(
             req["rid"], tenant=req.get(TENANT_INPUT),
             tokens_in=len(req["prompt"]),
@@ -776,18 +845,28 @@ class ServingEngine(object):
             chip_sec=req.pop("chip_sec", 0.0),
             prefill_chip_sec=req.pop("prefill_chip_sec", 0.0),
             page_sec=req.pop("page_sec", 0.0),
-            tokens_out=tokens_out, latency_sec=latency_sec,
+            tokens_out=tokens_out, latency_sec=latency_sec, close=close,
         )
 
     def _pull_one(self, it):
         """Pull + validate ONE row from the source; returns a request,
         or None when the source is exhausted.  Invalid rows become
-        records (``on_error="record"``) and pulling continues."""
+        records (``on_error="record"``) and pulling continues.
+
+        A source may yield ``None`` as a heartbeat (no request right now:
+        a fleet replica's feed between arrivals, :mod:`.fleet.replica`):
+        the pull returns None without marking the source exhausted, and
+        the scheduler goes on to its next chunk or lifecycle pass.  Such
+        a source paces itself (blocks until a row arrives) whenever the
+        engine is otherwise idle."""
         while not self._exhausted:
             try:
                 row = next(it)
             except StopIteration:
                 self._exhausted = True
+                return None
+            if row is None:
+                self._idle_source = True
                 return None
             idx = self._n_in
             self._n_in += 1
@@ -914,6 +993,10 @@ class ServingEngine(object):
             # for the whole budget again, and fails a long prompt)
             kw = {} if "resume_prompt" not in req else {
                 "new_tokens": req["budget"] - len(req["out"] or ())}
+            if not kw and req["budget"] < self.max_new:
+                # a row whose own budget is what fits (a fleet
+                # re-dispatch: its committed tokens are in its prompt)
+                kw = {"new_tokens": req["budget"]}
             rid = req["rid"]
             wait = self._clock() - req["submit"]
             self._m_queue_wait.observe(wait)
@@ -1544,6 +1627,13 @@ class ServingEngine(object):
                         if progressed:
                             # every admit this pass failed into records;
                             # requests are still being consumed
+                            continue
+                        if self._idle_source:
+                            # the source is alive but dry for now (a None
+                            # heartbeat); it paces itself by blocking, so
+                            # looping back to the lifecycle pass is no
+                            # spin
+                            self._idle_source = False
                             continue
                         raise RuntimeError(
                             "continuous scheduler cannot make progress "

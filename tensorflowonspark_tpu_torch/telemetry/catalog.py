@@ -68,6 +68,21 @@ METRICS = tuple(
     + _m(_C, "hot_swap.CheckpointWatcher",
          ("serving.checkpoints_quarantined",
           "serving exports rejected by the validation pipeline"))
+    # --- fleet router (fleet/router.py) ---
+    + _m(_C, "fleet.FleetRouter",
+         ("fleet.dispatched", "requests handed to a replica"),
+         ("fleet.redispatched", "in-flight work re-dispatched off a dead replica"),
+         ("fleet.completed", "requests emitted fleet-wide"),
+         ("fleet.shed", "fleet-level admission sheds (spill-before-shed)"),
+         ("fleet.affinity_hits", "prefix-affinity dispatches that hit their replica"),
+         ("fleet.replica_deaths", "replica worker deaths observed"),
+         ("fleet.evictions", "slow replicas routed around"),
+         ("fleet.readmissions", "probed replicas re-admitted"))
+    + _m(_C, "fleet.FleetRouter remediation verbs",
+         ("fleet.replicas_spawned", "replicas added by scale_up"),
+         ("fleet.replicas_retired", "replicas drained away by scale_down"))
+    + _m(_G, "fleet.FleetRouter",
+         ("fleet.live_replicas", "replicas currently taking dispatch"))
     # --- radix prefix cache (prefix_cache.py) ---
     + _m(_C, "radix prefix cache",
          ("prefix_cache.hits", "cached-prefix admit hits"),

@@ -875,6 +875,59 @@ class StragglerDetector(object):
         return out
 
 
+class CleanRoundsSensor(object):
+    """Quality gate over the health plane: ready after ``rounds``
+    CONSECUTIVE clean health rounds (no straggler hints, no firing SLO
+    alerts), not after a timer.
+
+    A round is one plane scrape (keyed off ``plane.store.scrapes``, which
+    advances only when the scrape loop appends frames), so callers may
+    :meth:`poll` as often as they like: polls between scrapes fold into
+    the same round, and the streak advances at most once a round.  Any
+    dirty round resets the streak to zero.
+
+    The fleet router's ``readmit_gate`` reads it: a slow replica with
+    enough clean probe rounds still waits for the plane, and the router
+    journals ``readmit_gated`` / ``readmit_cleared`` transitions.
+    """
+
+    def __init__(self, plane, rounds=3):
+        self.plane = plane
+        self.rounds = max(1, int(rounds))
+        self.streak = 0
+        self._last_round = None
+
+    def dirty(self):
+        """Is the CURRENT plane state unhealthy?  (straggler hints or
+        firing SLO alerts, the signals ``/status`` surfaces)"""
+        if getattr(self.plane, "hints", None):
+            return True
+        slo = getattr(self.plane, "slo", None)
+        return slo is not None and bool(slo.active())
+
+    def poll(self):
+        """Score the current health round; returns :meth:`ready`.
+        Idempotent within a round; a dirty observation resets the streak
+        even mid-round (unhealth is never smoothed away)."""
+        round_id = getattr(getattr(self.plane, "store", None), "scrapes",
+                           None)
+        if self.dirty():
+            self.streak = 0
+            self._last_round = round_id
+            return False
+        if round_id is None or round_id != self._last_round:
+            self.streak += 1
+            self._last_round = round_id
+        return self.ready()
+
+    def ready(self):
+        return self.streak >= self.rounds
+
+    def reset(self):
+        self.streak = 0
+        self._last_round = None
+
+
 # ----------------------------------------------------------------------
 # /status providers (serving engine, cluster ledger, ...)
 # ----------------------------------------------------------------------

@@ -316,6 +316,14 @@ class UsageLedger(object):
             self._apply(row, "chip_sec", float(chip_sec))
             self._apply(row, "page_sec", float(page_sec))
 
+    def redispatch(self, rid):
+        """Count a fleet re-dispatch against the row (a replica's death:
+        the row keeps accruing on the surviving replica)."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self._get_or_create(rid)["redispatches"] += 1
+
     def close(self, rid, tokens_out=None, latency_sec=None,
               chip_sec=0.0, page_sec=0.0):
         """Close (or re-close) ``rid``.  ``tokens_out`` uses

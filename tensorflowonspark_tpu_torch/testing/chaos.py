@@ -1,6 +1,7 @@
 """Deterministic chaos injection for fault-tolerance tests (port of the
 JAX package's ``testing/chaos.py``, cut to the kill-worker and
-slow-executor faults, the serving faults and the prefill faults).
+slow-executor faults, the serving faults, the prefill faults and the
+fleet replicas' faults).
 
 A :class:`ChaosPlan` is written to a JSON file and advertised through
 the ``TFOS_CHAOS_PLAN`` env var.  Training: the user fn under test
@@ -26,8 +27,11 @@ Nothing here imports ``torch``: executors load the plan too.  Nothing
 runs unless a test opts in: with ``TFOS_CHAOS_PLAN`` unset every hook is
 a no-op.
 
+The fleet's replicas read their ``kill_replica`` / ``slow_replica`` /
+``device_error`` faults (:func:`replica_fault_fn`).
+
 Not ported (ROADMAP queue A, item 14): the other faults of the
-reference's plan (heartbeat drops, leader kills, replica faults) and
+reference's plan (heartbeat drops, leader kills), ``combined`` and
 ``TcpGremlin``.
 """
 
@@ -75,6 +79,44 @@ class ChaosPlan(object):
             {"kind": "slow_executor", "executor_id": int(executor_id),
              "per_batch_sec": float(per_batch_sec),
              "batches": int(batches)})
+        return self
+
+    def kill_replica(self, replica_id, at_chunk):
+        """Kill serving replica ``replica_id``'s engine the first time its
+        decode-chunk count reaches ``at_chunk``: the fault raises
+        ``fleet.replica.ReplicaKilled`` inside the engine's chunk
+        dispatch, as a replica's death mid-decode would.  The fleet
+        router is to re-dispatch the replica's in-flight requests from
+        their committed tokens onto a sibling, dropping none.  Each entry
+        fires once, in plan order."""
+        self.faults.append({"kind": "kill_replica",
+                            "replica_id": int(replica_id),
+                            "at_chunk": int(at_chunk)})
+        return self
+
+    def slow_replica(self, replica_id, per_chunk_sec, chunks=0):
+        """Make serving replica ``replica_id`` a straggler: stall each of
+        its decode-chunk dispatches by ``per_chunk_sec`` (a throttled or
+        shared card).  ``chunks=0`` stalls every chunk, else only the
+        first ``chunks``; after them the replica runs at full speed, and
+        the router is to route around it while slow, then re-admit it
+        after clean probe rounds."""
+        self.faults.append({"kind": "slow_replica",
+                            "replica_id": int(replica_id),
+                            "per_chunk_sec": float(per_chunk_sec),
+                            "chunks": int(chunks)})
+        return self
+
+    def device_error(self, replica_id, at_chunk):
+        """Raise a device error (``fleet.replica.ReplicaDeviceError``)
+        inside replica ``replica_id``'s chunk dispatch at ``at_chunk``.
+        Unlike ``kill_replica`` the replica quarantines: it posts its
+        wreckage, rebuilds its engine and serves probe traffic while
+        routed around; the router re-dispatches its work from the
+        committed tokens onto a survivor.  Fires once per entry."""
+        self.faults.append({"kind": "device_error",
+                            "replica_id": int(replica_id),
+                            "at_chunk": int(at_chunk)})
         return self
 
     def slow_ingest(self, sec):
@@ -316,6 +358,68 @@ def prefill_fault_fn():
                 raise PrefillWorkerDead(
                     "chaos kill_prefill at prefill {0}".format(
                         prefill_index))
+
+    return fault
+
+
+def replica_fault_fn(replica_id):
+    """The fleet replica's chunk-dispatch fault hook from the plan, or
+    None when no ``kill_replica`` / ``device_error`` / ``slow_replica``
+    fault targets it.
+
+    ``fault(chunk_index)`` is installed as the replica engine's
+    ``wedge_fn`` (it runs right before every chunk dispatch): a due
+    ``kill_replica`` raises ``fleet.replica.ReplicaKilled`` (each entry
+    fires once, in plan order); a ``device_error`` raises
+    ``fleet.replica.ReplicaDeviceError`` (the replica quarantines instead
+    of dying); a ``slow_replica`` sleeps ``per_chunk_sec`` while its
+    chunk budget lasts.  The hook outlives a quarantine's engine rebuild,
+    so a fired fault stays spent."""
+    plan = load_plan()
+    if plan is None:
+        return None
+    rid = int(replica_id)
+    kills = [f for f in plan.faults
+             if f["kind"] == "kill_replica" and f["replica_id"] == rid]
+    devs = [f for f in plan.faults
+            if f["kind"] == "device_error" and f["replica_id"] == rid]
+    slows = [f for f in plan.faults
+             if f["kind"] == "slow_replica" and f["replica_id"] == rid]
+    if not kills and not devs and not slows:
+        return None
+    spent = set()
+    slowed = {"chunks": 0}
+
+    def fault(chunk_index):
+        for i, f in enumerate(kills):
+            if i not in spent and chunk_index >= f["at_chunk"]:
+                spent.add(i)
+                from tensorflowonspark_tpu_torch.fleet.replica import (
+                    ReplicaKilled,
+                )
+
+                logger.warning("chaos: killing serving replica %d at chunk "
+                               "%d per plan", rid, chunk_index)
+                raise ReplicaKilled("chaos kill_replica {0} at chunk "
+                                    "{1}".format(rid, chunk_index))
+        for i, f in enumerate(devs):
+            if ("dev", i) not in spent and chunk_index >= f["at_chunk"]:
+                spent.add(("dev", i))
+                from tensorflowonspark_tpu_torch.fleet.replica import (
+                    ReplicaDeviceError,
+                )
+
+                logger.warning("chaos: device error on serving replica %d "
+                               "at chunk %d per plan", rid, chunk_index)
+                raise ReplicaDeviceError(
+                    "chaos device_error on replica {0} at chunk "
+                    "{1}".format(rid, chunk_index))
+        for f in slows:
+            if f["chunks"] and slowed["chunks"] >= f["chunks"]:
+                continue
+            slowed["chunks"] += 1
+            time.sleep(f["per_chunk_sec"])
+            return
 
     return fault
 

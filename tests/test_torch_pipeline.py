@@ -452,10 +452,19 @@ def test_serving_cli_in_process_and_refusals(fitted, transformed, tmp_path):
     with open(os.path.join(out2, "part-00000.jsonl")) as f:
         assert [json.loads(line)["generated"] for line in f] == \
             _tokens(transformed)
-    for extra, item in ((["--replicas", "2"], "fleet"),
-                        (["--tp", "2"], "TP")):
-        with pytest.raises(NotImplementedError, match=item):
-            serving.main(argv + extra + ["--schedule", "continuous"])
+    # --replicas (once refused) serves through a two-replica fleet and
+    # writes the single engine's tokens
+    out3 = str(tmp_path / "out-fleet")
+    argv3 = argv[:argv.index("--output")] + ["--output", out3] + \
+        argv[argv.index("--output") + 2:]
+    assert serving.main(argv3 + ["--replicas", "2", "--replica_policy",
+                                 "prefix_affinity", "--schedule",
+                                 "continuous"]) == 7
+    with open(os.path.join(out3, "part-00000.jsonl")) as f:
+        assert [json.loads(line)["generated"] for line in f] == \
+            _tokens(transformed)
+    with pytest.raises(NotImplementedError, match="TP"):
+        serving.main(argv + ["--tp", "2", "--schedule", "continuous"])
     # --disaggregate (once refused) splits prefill from decode and writes
     # the same tokens
     out4 = str(tmp_path / "out-disagg")

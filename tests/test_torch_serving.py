@@ -207,17 +207,29 @@ def test_unknown_key_raises_like_the_registry(tree):
     {"fleet_queue_depth": 4},
 ])
 def test_unported_predict_rows_knobs_raise(tree, kw):
-    """Fleet replicas (the robustness knobs are ported: see
-    test_torch_serving_robustness.py; the reserved ``tenant`` and
-    ``trace_id`` inputs: the test below; a disaggregated predictor: the
-    test after it)."""
-    kw = dict({"schedule": "continuous"}, **kw)
-    mapping = kw.pop("input_mapping", {"prompt": "tokens"})
-    predict = _port(tree)
-    rows = [dict(r, t="x") for r in _rows(1)]
-    with pytest.raises(NotImplementedError):
-        list(serving.predict_rows(predict, rows, mapping, batch_size=2,
-                                  **kw))
+    """The fleet knobs, once refused, serve through two replicas like the
+    JAX package's fleet: its tokens (and one JAX engine's) in input
+    order, and under ``fleet_queue_depth`` with the ``reject`` policy the
+    same shed records at the same positions, past the fleet's bound (its
+    queue and the replicas' room)."""
+    kw = dict({"replicas": 2}, **kw)
+    rows = _rows(30 if "fleet_queue_depth" in kw else 9, seed=12)
+    if "fleet_queue_depth" in kw:
+        kw.update(policy="reject", on_error="record")
+    got, stats = _serve(serving, _port(tree), rows, **kw)
+    want, jstats = _serve(jserving, _jax(tree), rows, **kw)
+    _assert_same(got, want)
+    assert stats["replicas"] == 2
+    if "fleet_queue_depth" in kw:
+        shed = [i for i, r in enumerate(got) if "error" in r]
+        # slots 3 + an engine queue of 6 on each of two replicas
+        assert len(shed) == stats["shed"] == jstats["shed"] == \
+            len(rows) - (4 + 2 * (3 + 6))
+        assert all(got[i]["error"]["kind"] == "shed" for i in shed)
+        return
+    single, _ = _serve(jserving, _jax(tree), rows)
+    _assert_same(got, single)
+    assert stats["completed"] == len(rows)
 
 
 @pytest.mark.parametrize("impl", ["kernel", "gather"])
@@ -315,6 +327,9 @@ def test_import_loads_no_jax():
         "from tensorflowonspark_tpu_torch import checkpoint, compat, "
         "convert, forensics, hot_swap, optim, prefix_cache, quantize, "
         "serving, serving_disagg, serving_engine\n"
+        "from tensorflowonspark_tpu_torch import fleet\n"
+        "from tensorflowonspark_tpu_torch.fleet import deploy, replica, "
+        "router\n"
         "from tensorflowonspark_tpu_torch.testing import chaos\n"
         "from tensorflowonspark_tpu_torch.models import base, layers, "
         "linear, mlp, moe, resnet, transformer, unet\n"
