@@ -454,11 +454,36 @@ caught):
     radix cache, 32 family requests (:func:`family_requests`) in a fixed
     order under ``prefix_affinity`` and ``random``: affinity's prefix
     hits exceed random's and the tokens are equal (tie rule).  Prints
-    each part's seconds.
+    each part's seconds.  Part (2) ends with ``remediation_serve_flagship``
+    (:func:`fleet_remediation`), the self-healing loop: two of its
+    replicas serve the fault rows under ``kill_replica(1, at_chunk=2)``
+    with ``remediation.wire(router=...)`` running; the engine's
+    ``spawn_replica`` decision builds a fresh ``make_replica()``
+    predictor, and a second stream runs over the healed fleet.  Gates:
+    the fault-free tokens (tie rule), one executed ``spawn_replica`` by
+    ``fault-response`` naming replica 1, two live replicas again, the
+    decision in the journal, the spawned replica admitted requests and
+    the healed stream's K1 = layers x the replicas' decode steps.
+37. ``elastic_hold_flagship``: the remediation engine's elastic shrink
+    and grow, ``TPUCluster.hold_executor`` / ``release_executor``, mid
+    training: two compute processes sharing the card each train the
+    flagship cut to :data:`CUT_LAYERS` (bf16, flash) from their feed
+    under ``elastic=True``; executor 1 is held after 2 steps and released
+    after 4 steps of the survivor (keyed on steps).  Gates: both verbs
+    delivered, ``executor_held`` / ``executor_released`` in the fleet
+    journal, the monitor saw 2 or more generation steps, no restart
+    charged, both executors at generation 2 or more, every partition
+    committed, losses finite and falling per executor, K2-K4 launched
+    ``layers`` times a step by the survivor during the hold and by
+    executor 1 after its release.
 
 Phases 27-33 (``prefix_serve_flagship`` through ``spec_serve_flagship``),
-parts (2)-(4) of phase 36 and ``elastic_flagship`` run the flagship cut
-to :data:`CUT_LAYERS` layers (its first blocks) in :func:`main`.
+parts (2)-(4) of phase 36, ``elastic_flagship``, phase 37 and the fed
+phases 18-20 (``feed_train_flagship``, ``feed_ring_train_flagship``,
+``feed_inference_flagship``: against the stacked run of the cut model,
+:func:`cut_train`, and the driver's own scores at that depth) run the
+flagship cut to :data:`CUT_LAYERS` layers (its first blocks) in
+:func:`main`.
 
 Then a ``kernels`` summary line, the ``nvidia-smi`` name/power-limit
 line, and as the last line ``{"ok": true, "device": {...}}``.  Without a
@@ -3303,9 +3328,10 @@ def trace_kernel_counts(trace_path, names):
     return {n: sum(1 for k in kernels if n in k) for n in names}, len(text)
 
 
-def phase_feed_train_flagship(train):
+def phase_feed_train_flagship(train, config=FLAGSHIP):
     """The feed path: see the module docstring, phase 18.  ``train`` is
-    :func:`phase_train_flagship`'s result."""
+    the stacked run of ``config`` (:func:`phase_train_flagship`'s result
+    at the flagship's depth, or :func:`cut_train` at a cut one)."""
     import gc
     import importlib
     import tempfile
@@ -3331,7 +3357,7 @@ def phase_feed_train_flagship(train):
     try:
         startup, train_sec, error = feed_cluster(
             smoke.feed_train_fn, {"out": out, "k": TRAIN_K,
-                                  "batch": TRAIN_B},
+                                  "batch": TRAIN_B, "config": config},
             rows, epochs=3, plane=plane,
             env={"TFOS_TELEMETRY_PUBLISH_INTERVAL": str(FLEET_SCRAPE_SEC)},
             profile_dir=profile_dir, profile_steps=TRAIN_K)
@@ -3408,7 +3434,7 @@ def phase_feed_train_flagship(train):
     if not rel <= FEED_LOSS_RTOL:
         raise AssertionError("fed losses differ from train_flagship's by "
                              "{0} relative".format(rel))
-    want_launches = FLAGSHIP["num_layers"] * len(want)
+    want_launches = config["num_layers"] * len(want)
     if res["launches"] != {n: want_launches for n in ("fwd", "dq", "dkv")}:
         raise AssertionError("fed flash launches {0}, want {1} each".format(
             res["launches"], want_launches))
@@ -3426,7 +3452,7 @@ def phase_feed_train_flagship(train):
                              "naming the executor: {0!r}".format(failure))
     check_fleet_plane(plane.result, res)
     # the capture covered the warm-up call: K2-K4 once a layer a step
-    want_events = FLAGSHIP["num_layers"] * TRAIN_K
+    want_events = config["num_layers"] * TRAIN_K
     if trace_counts != {n: want_events for n in trace_counts} \
             or res["profile"]["steps_left"] != 0:
         raise AssertionError("the cluster's capture holds {0} kernel events "
@@ -3480,9 +3506,10 @@ def shm_segments():
     return sorted(f for f in os.listdir("/dev/shm") if f.startswith("tfos_"))
 
 
-def phase_feed_ring_train_flagship(train):
+def phase_feed_ring_train_flagship(train, config=FLAGSHIP):
     """The shm ring and ``device_preprocess``: see the module docstring,
-    phase 19.  ``train`` is :func:`phase_train_flagship`'s result."""
+    phase 19.  ``train`` is the stacked run of ``config``, as for
+    :func:`phase_feed_train_flagship`."""
     import gc
     import importlib
     import tempfile
@@ -3513,7 +3540,7 @@ def phase_feed_ring_train_flagship(train):
     before = shm_segments()
     startup, train_sec, error = feed_cluster(
         smoke.feed_train_fn,
-        {"out": out, "k": TRAIN_K, "batch": TRAIN_B,
+        {"out": out, "k": TRAIN_K, "batch": TRAIN_B, "config": config,
          "preprocess": {"columns": ["tokens"], "dtype": "int32"}},
         rows, epochs=epochs, env={"TFOS_SHM_FEED": "1"})
     left = [f for f in shm_segments() if f not in before]
@@ -3549,7 +3576,7 @@ def phase_feed_ring_train_flagship(train):
     if not rel <= FEED_LOSS_RTOL:
         raise AssertionError("ring-fed losses differ from train_flagship's "
                              "by {0} relative".format(rel))
-    want_launches = FLAGSHIP["num_layers"] * len(want)
+    want_launches = config["num_layers"] * len(want)
     if res["launches"] != {n: want_launches for n in ("fwd", "dq", "dkv")}:
         raise AssertionError("ring-fed flash launches {0}, want {1} "
                              "each".format(res["launches"], want_launches))
@@ -3573,14 +3600,15 @@ INFER_ROWS, INFER_BATCH = 64, 8
 INFER_RTOL = 1e-6
 
 
-def inference_model(device):
-    """The flagship for scoring: the seed-0 tree, bf16, flash attention."""
+def inference_model(device, config=FLAGSHIP):
+    """The flagship (or ``config``) for scoring: the seed-0 tree, bf16,
+    flash attention."""
     from tensorflowonspark_tpu_torch import convert
     from tensorflowonspark_tpu_torch.models import transformer
 
     tree = convert.init_params_tree(
-        transformer.TransformerConfig(**FLAGSHIP), seed=0)  # as flagship_tree
-    cfg = transformer.TransformerConfig(**dict(FLAGSHIP,
+        transformer.TransformerConfig(**config), seed=0)  # as flagship_tree
+    cfg = transformer.TransformerConfig(**dict(config,
                                                attention_impl="flash"))
     return convert.params_from_flax(tree, cfg, device=device)
 
@@ -3613,7 +3641,7 @@ def feed_inference_fn(args, ctx):
     _build.build(["flash_attention"])
     feed = ctx.get_data_feed(train_mode=False,
                              input_mapping={"tokens": "tokens"})
-    model = inference_model(device)
+    model = inference_model(device, args.get("config", FLAGSHIP))
     flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
     batches = prefetch_to_device(
         feed.batches(INFER_BATCH, pad_to_batch=True), size=2,
@@ -3647,8 +3675,9 @@ def feed_inference_fn(args, ctx):
         json.dump(result, f)
 
 
-def phase_feed_inference_flagship():
-    """Batch inference: see the module docstring, phase 20."""
+def phase_feed_inference_flagship(config=FLAGSHIP):
+    """Batch inference: see the module docstring, phase 20, for the model
+    of ``config`` (the flagship, or its first blocks)."""
     import gc
     import importlib
     import tempfile
@@ -3690,7 +3719,8 @@ def phase_feed_inference_flagship():
     engine = LocalEngine(1, env={"TFOS_SHM_FEED": "1"})
     try:
         t3 = time.perf_counter()
-        c = cluster.run(engine, smoke.feed_inference_fn, {"out": out},
+        c = cluster.run(engine, smoke.feed_inference_fn,
+                        {"out": out, "config": config},
                         num_executors=1, num_chips_per_node=1,
                         input_mode=cluster.InputMode.SPARK,
                         reservation_timeout=120)
@@ -3703,7 +3733,7 @@ def phase_feed_inference_flagship():
     with open(out) as f:
         res = json.load(f)
     # the driver's own scores, same model and batches of 8 on this card
-    model = inference_model(compat.resolve_device())
+    model = inference_model(compat.resolve_device(), config)
     want = []
     with torch.no_grad():
         for i in range(0, INFER_ROWS, INFER_BATCH):
@@ -3715,7 +3745,8 @@ def phase_feed_inference_flagship():
     rel = max_rel_diff(got, want)
     n_tokens = INFER_ROWS * TRAIN_S
     line = dict(
-        model="L16 H8 Dh128 Dm1024 V32000 bf16, flash attention",
+        model="L{0} H8 Dh128 Dm1024 V32000 bf16, flash attention".format(
+            config["num_layers"]),
         rows=INFER_ROWS, batch=INFER_BATCH, results=len(got),
         max_rel_score_diff=rel, scores_first=got[:4].tolist(),
         tokens_per_sec_call=n_tokens / (t5 - t4),
@@ -3736,7 +3767,7 @@ def phase_feed_inference_flagship():
     if not rel <= INFER_RTOL:
         raise AssertionError("inference scores differ from the driver's by "
                              "{0} relative".format(rel))
-    want_launches = {"fwd": FLAGSHIP["num_layers"] * INFER_ROWS //
+    want_launches = {"fwd": config["num_layers"] * INFER_ROWS //
                      INFER_BATCH, "dq": 0, "dkv": 0}
     if res["launches"] != want_launches:
         raise AssertionError("inference flash launches {0}, want {1}".format(
@@ -3787,16 +3818,22 @@ def ckpt_train_fn(args, ctx):
     ctx.initialize_distributed()
     feed = ctx.get_data_feed()
     config = args["config"]
-    tree = convert.init_params_tree(  # as reference_losses
-        transformer.TransformerConfig(**config), seed=0)
     cfg = transformer.TransformerConfig(**dict(config,
                                                attention_impl="flash"))
-    model = convert.params_from_flax(tree, cfg, device=device,
-                                     param_dtype=torch.float32)
-    del tree
+    ckptr = checkpoint.Checkpointer(args["dir"], max_to_keep=2)
+    if ckptr.latest_step() is None:
+        tree = convert.init_params_tree(  # as reference_losses
+            transformer.TransformerConfig(**config), seed=0)
+        model = convert.params_from_flax(tree, cfg, device=device,
+                                         param_dtype=torch.float32)
+        del tree
+    else:
+        # the restore below overwrites every tensor: torch's own init
+        # spares a numpy init of the seed-0 tree
+        model = transformer.Transformer(cfg, device=device,
+                                        param_dtype=torch.float32)
     trainer = dp.SyncTrainer(transformer.loss_fn(model), optim.adamw(1e-4))
     state = trainer.create_state(dict(model.named_parameters()))
-    ckptr = checkpoint.Checkpointer(args["dir"], max_to_keep=2)
     timed = {"save": [], "save_copy": [], "restore": []}
     save, restore = ckptr.save, ckptr.restore
 
@@ -3898,11 +3935,23 @@ def gc_collect():
     torch.cuda.empty_cache()
 
 
+#: :func:`reference_losses` by config: the fed, restartable and pipeline
+#: phases of one run compare against one stacked run of the cut model
+_REFERENCE_RUNS = {}
+
+
 def reference_losses(config):
     """``(losses, tokens/s)`` of :func:`phase_train_flagship`'s loop (a
     warm-up and two ``multi_step`` of K=4 on the stacked batch) for the
     model of ``config`` from its seed-0 tree: what a restartable run of
-    that model must reproduce."""
+    that model must reproduce.  Run once per config in a process."""
+    key = json.dumps(config, sort_keys=True)
+    if key not in _REFERENCE_RUNS:
+        _REFERENCE_RUNS[key] = _reference_run(config)
+    return _REFERENCE_RUNS[key]
+
+
+def _reference_run(config):
     from tensorflowonspark_tpu_torch import convert
     from tensorflowonspark_tpu_torch.models import transformer
 
@@ -3921,6 +3970,16 @@ def reference_losses(config):
     del model, trainer, state, stacked
     gc_collect()
     return losses, TRAIN_K * TRAIN_B * TRAIN_S / min(walls[1:])
+
+
+def cut_train(config):
+    """The stacked run of ``config`` (:func:`reference_losses`) in the
+    shape of :func:`phase_train_flagship`'s result that the fed phases
+    compare against (losses, tokens/s, the model's name)."""
+    losses, tokens_per_sec = reference_losses(config)
+    return dict(losses=losses, tokens_per_sec=tokens_per_sec,
+                model="L{0} H8 Dh128 Dm1024 V32000 bf16 compute, f32 "
+                      "masters".format(config["num_layers"]))
 
 
 def phase_checkpoint_resume_serve(config=None):
@@ -4156,7 +4215,11 @@ def elastic_flagship_fn(args, ctx):
             torch.cuda.synchronize()
 
     feed = ctx.get_data_feed()
-    trainer, state = elastic_model(args["config"], device)
+    # a reborn incarnation restores every tensor from the checkpoint, as
+    # the driver's replay does: it starts from torch's init, not the
+    # seed-0 tree (a numpy init that takes seconds)
+    trainer, state = elastic_model(args["config"], device,
+                                   seeded=ctx.generation == 0)
     sync()
     log("model", device=(torch.cuda.get_device_name(device)
                          if device.type == "cuda" else "cpu"),
@@ -4458,6 +4521,267 @@ def phase_elastic_flagship(config=FLAGSHIP, chips=1, device=None):
             or line["end_launches"] != want_launches[-1]:
         raise AssertionError("flash launches {0}, want {1}".format(
             line["launches"], want_launches))
+    return line
+
+
+#: the hold phase: executor 1 is held once it trained this many steps,
+#: and released once the survivor trained this many at reduced width;
+#: a checkpoint every 16 steps (a save of the 4-layer state takes ~4 s);
+#: partitions of 4 batches (a feed task costs about a second); two
+#: epochs, so that each executor trains enough steps after the release
+#: for its loss to fall below its first
+HOLD_AT_STEP, HOLD_RELEASE_STEPS, HOLD_CKPT_EVERY = 2, 4, 16
+HOLD_PARTS, HOLD_PART_BATCHES, HOLD_EPOCHS, HOLD_WAIT_SEC = 4, 4, 2, 300
+
+
+def hold_flagship_fn(args, ctx):
+    """The user fn of ``elastic_hold_flagship``, run in each compute
+    process of each executor: :func:`elastic_model` trained from the
+    node's feed by ``train_on_feed`` with a ``Checkpointer`` of its own
+    executor (every :data:`HOLD_CKPT_EVERY` steps, one kept), under no
+    process group (the executors train independently, as the reference's
+    hold e2e does), from torch's own init under seed 0 (a numpy init of
+    the flagship's tree takes seconds a process).  Each step publishes
+    ``hold_progress`` (this
+    process's generation and steps) into the node's kv, which the driver
+    keys the hold and the release on, and logs to
+    ``<log>/e<executor>.gen<g>.jsonl``: ``start``, ``model``, ``step``
+    (loss, this process's flash launch counts) and ``end``."""
+    log = StepLog(os.path.join(args["log"], "e{0}.gen{1}.jsonl".format(
+        ctx.executor_id, ctx.generation)))
+    log("start", pid=os.getpid())
+    from tensorflowonspark_tpu_torch import checkpoint, compat
+    from tensorflowonspark_tpu_torch.ops import _build
+    from tensorflowonspark_tpu_torch.ops.flash_attention import (
+        flash_attention,
+    )
+
+    device = compat.resolve_device(args["device"])
+    if device.type == "cuda":
+        _build.build(["flash_attention"])
+    feed = ctx.get_data_feed()
+    torch.manual_seed(0)
+    trainer, state = elastic_model(args["config"], device, seeded=False)
+    log("model")
+    ckptr = checkpoint.Checkpointer(
+        os.path.join(args["ckpt"], "w%d" % ctx.executor_id), max_to_keep=1)
+    trained = [0]
+
+    def after(step, metrics):
+        trained[0] += 1
+        log("step", step=step, loss=float(metrics["loss"]),
+            launches=dict(flash_attention.launches))
+        ctx.mgr.set("hold_progress", {"generation": ctx.generation,
+                                      "steps": trained[0]})
+
+    flash_attention.launches = {"fwd": 0, "dq": 0, "dkv": 0}
+    state = trainer.train_on_feed(
+        state, feed, batch_size=args["batch"], columnar=True,
+        checkpointer=ckptr, checkpoint_every=HOLD_CKPT_EVERY,
+        metrics_callback=after)
+    ckptr.close()
+    log("end", steps=int(state.step), launches=dict(flash_attention.launches))
+
+
+def phase_elastic_hold_flagship(config=None, device=None):
+    """An elastic hold mid-training: the reference's hold e2e on the card.
+    ``cluster.run(LocalEngine(2), hold_flagship_fn, num_executors=2,
+    num_chips_per_node=None, elastic=True, max_restarts=2,
+    InputMode.SPARK)``: the two compute processes share the card and each
+    trains ``config`` (default the flagship cut to :data:`CUT_LAYERS`,
+    bf16 over f32 masters, flash attention) from its feed.  A driver
+    thread holds executor 1 (``TPUCluster.hold_executor``) once its kv
+    shows :data:`HOLD_AT_STEP` steps, and releases it once executor 0 has
+    trained :data:`HOLD_RELEASE_STEPS` steps at the reduced width: keyed
+    on steps, not wall time.  Gates: both verbs delivered;
+    ``executor_held`` and ``executor_released`` in ``cluster.journal()``
+    and no ``executor_dead`` of executor 1;
+    the monitor saw at least 2 generation steps; no supervisor charged a
+    restart; both executors ended at generation 2 or more; every
+    partition committed; each executor's losses finite and its last under
+    its first; K2-K4 launched ``layers`` times a step in the survivor's
+    process during the hold and in executor 1's after the release (0 on
+    the CPU).  Prints the seconds from the hold's delivery to the first
+    reduced-width step and from the release to executor 1's first step.
+    ``device="cpu"`` with a small ``config`` rehearses it on the CPU."""
+    import importlib
+    import tempfile
+
+    from tensorflowonspark_tpu_torch.cluster import cluster, manager
+    from tensorflowonspark_tpu_torch.engine import LocalEngine
+
+    t_phase = time.perf_counter()
+    config = config or dict(FLAGSHIP, num_layers=CUT_LAYERS)
+    on_card = device is None
+    if on_card:
+        gc_collect()
+    smoke = importlib.import_module("chip_smoke")
+    rng = np.random.default_rng(11)
+    tokens = rng.integers(0, config["vocab_size"],
+                          (HOLD_PARTS, HOLD_PART_BATCHES * TRAIN_B,
+                           config["max_seq_len"])).astype(np.int32)
+    parts = [[{"tokens": r} for r in t] for t in tokens]
+    tmp = tempfile.mkdtemp(prefix="elastic_hold_")
+    log_dir = os.path.join(tmp, "log")
+    os.makedirs(log_dir)
+    args = {"log": log_dir, "ckpt": os.path.join(tmp, "ckpt"),
+            "batch": TRAIN_B, "config": config, "device": device}
+    marks, errors = {}, []
+    engine = LocalEngine(2, env={"TFOS_TELEMETRY_PUBLISH_INTERVAL": "0.5"},
+                         deterministic=True)
+    try:
+        t0 = time.perf_counter()
+        c = cluster.run(engine, smoke.hold_flagship_fn, args,
+                        num_executors=2, num_chips_per_node=None,
+                        elastic=True, max_restarts=2, heartbeat_interval=0.5,
+                        reservation_timeout=120,
+                        input_mode=cluster.InputMode.SPARK)
+        startup = time.perf_counter() - t0
+        kv = {n["executor_id"]: manager.connect(
+            tuple(n["addr"]), bytes.fromhex(n["authkey"]))
+            for n in c.cluster_info}
+
+        def progress(eid):
+            return kv[eid].get("hold_progress")._getvalue() or {}
+
+        def until(name, cond):
+            deadline = time.monotonic() + HOLD_WAIT_SEC
+            while time.monotonic() < deadline:
+                if cond():
+                    marks[name] = time.time()
+                    return
+                time.sleep(0.05)
+            raise AssertionError("elastic_hold_flagship: no " + name)
+
+        def remediate():
+            try:
+                until("first_steps", lambda: progress(1).get(
+                    "steps", 0) >= HOLD_AT_STEP)
+                marks["hold"] = time.time()
+                marks["held"] = c.hold_executor(1, reason="straggler")
+                until("survivor_steps", lambda: progress(0).get(
+                    "generation", 0) >= 1 and progress(0).get(
+                        "steps", 0) >= HOLD_RELEASE_STEPS)
+                marks["release"] = time.time()
+                marks["released"] = c.release_executor(1)
+                until("regrown", lambda: progress(1).get(
+                    "generation", 0) >= 2)
+            except Exception as e:  # noqa: BLE001 - gated below
+                errors.append(repr(e))
+
+        driver = threading.Thread(target=remediate, daemon=True)
+        driver.start()
+        t1 = time.perf_counter()
+        c.train(parts, num_epochs=HOLD_EPOCHS, feed_timeout=600)
+        train_sec = time.perf_counter() - t1
+        driver.join(timeout=HOLD_WAIT_SEC)
+        events = c.journal()["events"]
+        t2 = time.perf_counter()
+        c.shutdown(timeout=600)
+        shutdown_sec = time.perf_counter() - t2
+        restart_events = c.monitor.restart_events
+        restarts = [kv[e].get("restarts")._getvalue() for e in (0, 1)]
+        ledgers = [kv[e].ledger("snapshot")._getvalue() for e in (0, 1)]
+    finally:
+        engine.stop()
+    logs = {}
+    for name in sorted(os.listdir(log_dir)):
+        eid, gen = name[1:-len(".jsonl")].split(".gen")
+        logs[(int(eid), int(gen))] = read_log(os.path.join(log_dir, name))
+    shutil.rmtree(tmp, ignore_errors=True)
+    layers = config["num_layers"]
+    steps = {k: [r for r in v if r["event"] == "step"]
+             for k, v in sorted(logs.items())}
+    launches = {k: (v[-1]["launches"] if v else None)
+                for k, v in steps.items()}
+
+    def first_step(eid, gen_at_least):
+        ts = [s[0]["t"] for (e, g), s in steps.items()
+              if e == eid and g >= gen_at_least and s]
+        return min(ts) if ts else None
+
+    reduced, regrown = first_step(0, 1), first_step(1, 2)
+    survivor = [k for k in steps if k[0] == 0 and k[1] >= 1 and steps[k]
+                and (marks.get("release") is None
+                     or steps[k][0]["t"] < marks["release"])]
+    released = [k for k in steps if k[0] == 1 and k[1] >= 2 and steps[k]]
+
+    def sum_launches(keys, name):
+        return sum(launches[k][name] for k in keys)
+
+    pids = {"e{0}p{1}".format(e, i) for e in range(HOLD_EPOCHS)
+            for i in range(HOLD_PARTS)}
+    committed = set()
+    for ledger in ledgers:
+        committed |= {p for p, st in ledger.items() if st == "committed"}
+    kinds = [e["kind"] for e in events]
+    line = dict(
+        model=dict(config), parts=HOLD_PARTS, epochs=HOLD_EPOCHS,
+        hold_at_step=HOLD_AT_STEP, release_after_steps=HOLD_RELEASE_STEPS,
+        held=marks.get("held"), released=marks.get("released"),
+        errors=errors, journal=sorted(set(k for k in kinds if k.startswith(
+            ("executor_", "remediation_hold")))),
+        # the survivor's compute is down while it re-rendezvouses; the
+        # held executor's supervisor reports its compute alive throughout
+        marked_dead=sorted({e["attrs"].get("executor_id") for e in events
+                            if e["kind"] == "executor_dead"}),
+        restart_events=restart_events, restarts=restarts,
+        generations={e: max(g for (x, g) in logs if x == e) for e in (0, 1)},
+        steps={"e{0}.gen{1}".format(*k): len(v) for k, v in steps.items()},
+        losses={"e{0}.gen{1}".format(*k): [r["loss"] for r in v]
+                for k, v in steps.items()},
+        launches={"e{0}.gen{1}".format(*k): v for k, v in launches.items()},
+        hold_launches={n: {"survivor": sum_launches(survivor, n),
+                           "released": sum_launches(released, n)}
+                       for n in ("fwd", "dq", "dkv")},
+        uncommitted=sorted(pids - committed),
+        # the hold's delivery to the survivor's first reduced-width step,
+        # and the release to executor 1's first step, on the host's clock
+        hold_to_reduced_sec=(reduced - marks["hold"]
+                             if reduced and "hold" in marks else None),
+        release_to_regrown_sec=(regrown - marks["release"]
+                                if regrown and "release" in marks
+                                else None),
+        startup_sec=startup, train_sec=train_sec, shutdown_sec=shutdown_sec,
+        phase_sec=time.perf_counter() - t_phase,
+        nvidia_smi=nvidia_smi() if on_card else None)
+    emit("elastic_hold_flagship", **line)
+    problems = list(errors)
+    if not (marks.get("held") is True and marks.get("released") is True):
+        problems.append("verbs delivered: hold {0}, release {1}".format(
+            marks.get("held"), marks.get("released")))
+    if not {"executor_held", "executor_released"} <= set(kinds):
+        problems.append("journal kinds {0}".format(line["journal"]))
+    if 1 in line["marked_dead"]:
+        problems.append("the held executor was marked dead")
+    if restart_events < 2 or any(restarts):
+        problems.append("restart events {0}, restarts charged {1}".format(
+            restart_events, restarts))
+    if not all(g >= 2 for g in line["generations"].values()) or not all(
+            any(r["event"] == "end" for r in logs[(e, g)])
+            for e, g in line["generations"].items()):
+        problems.append("final generations {0} (each must end)".format(
+            line["generations"]))
+    if line["uncommitted"]:
+        problems.append("uncommitted partitions {0}".format(
+            line["uncommitted"]))
+    for eid in (0, 1):
+        seq = [r["loss"] for k in sorted(steps) if k[0] == eid
+               for r in steps[k]]
+        if not seq or not all(np.isfinite(seq)) or not seq[-1] < seq[0]:
+            problems.append("executor {0} losses {1}".format(eid, seq))
+    if not survivor or not released:
+        problems.append("no survivor steps during the hold ({0}) or none "
+                        "of executor 1 after the release ({1})".format(
+                            survivor, released))
+    for k in survivor + released:
+        want = layers * len(steps[k]) if on_card else 0
+        if launches[k] != {n: want for n in ("fwd", "dq", "dkv")}:
+            problems.append("flash launches of {0}: {1}, want {2} "
+                            "each".format(k, launches[k], want))
+    if problems:
+        raise AssertionError("elastic_hold_flagship: " + "; ".join(
+            map(str, problems)))
     return line
 
 
@@ -8639,11 +8963,157 @@ def fleet_faults(tree, config, device, problems, tmp,
                 and set(line["slow_replica"]["evicted_ids"]) == {0}
                 and set(line["slow_replica"]["readmitted_ids"]) == {0}):
             problems.append("slow_replica: {0}".format(line["slow_replica"]))
+
+        # the self-healing loop: kill_replica under the remediation engine
+        line["remediation"] = fleet_remediation(
+            p0, preds, rows, want, mapping, dev, straggler, problems,
+            plan_path, config["num_layers"])
     finally:
         os.environ.pop(chaos.TFOS_CHAOS_PLAN, None)
     del preds, p0, rt
     gc_collect()
     return line
+
+
+#: the self-healing job's replicas, the chunk its kill lands on, and how
+#: long the driver waits for the engine's spawn decision
+REMEDIATION_REPLICAS, REMEDIATION_KILL_CHUNK, REMEDIATION_WAIT_SEC = 2, 2, 60
+
+
+def fleet_remediation(p0, preds, rows, want, mapping, dev, straggler,
+                      problems, plan_path, layers):
+    """Part 2's last job (``remediation_serve_flagship``): the reference's
+    self-healing e2e on the card.  Two of the fault jobs' replicas serve
+    the fault rows twice over (a request takes two chunks, so the second
+    wave's are the replicas' chunks 2 and 3) under
+    ``kill_replica(1, at_chunk=2)`` with
+    ``remediation.wire(router=...)`` running (fault response only, a 5 s
+    cooldown, a budget of 5); the engine's ``spawn_replica`` decision
+    builds a fresh ``p0.make_replica()`` predictor as replica 2.  Then one
+    more stream over the healed fleet, in which the spawned replica takes
+    work.  Gates: every request served with the fault-free fleet's tokens
+    (near ties apart), exactly one executed ``spawn_replica`` decision by
+    ``fault-response`` naming replica 1, two live replicas again, the
+    decision in the journal, and the spawned replica served requests and
+    launched K1 (on the card: the healed stream's K1 launches are
+    ``layers`` x the replicas' decode steps, and the spawned replica's
+    steps are more than 0)."""
+    from tensorflowonspark_tpu_torch import remediation, telemetry
+    from tensorflowonspark_tpu_torch.fleet.router import FleetRouter
+    from tensorflowonspark_tpu_torch.ops.paged_attention import (
+        paged_attention,
+    )
+    from tensorflowonspark_tpu_torch.testing import chaos
+
+    journal = telemetry.get_journal()
+    journal.clear()
+    os.environ[chaos.TFOS_CHAOS_PLAN] = chaos.ChaosPlan().kill_replica(
+        1, at_chunk=REMEDIATION_KILL_CHUNK).save(plan_path)
+    pool = iter(preds[:REMEDIATION_REPLICAS])
+    spawned = []
+
+    def factory():
+        # the fault jobs' warm replicas first, then a fresh predictor
+        p = next(pool, None)
+        if p is None:
+            p = p0.make_replica()
+            spawned.append(p)
+        return p
+
+    rt = FleetRouter(None, mapping, replicas=REMEDIATION_REPLICAS,
+                     num_slots=SLOTS, predict_factory=factory, poll_sec=0.01,
+                     **straggler)
+    eng = remediation.wire(
+        router=rt, interval=0.05,
+        guardrails=remediation.Guardrails(cooldown_sec=5, budget=5),
+        straggler=None, autoscale=None, page=None,
+        slo_rollback=None).start()
+    on_card = dev.type == "cuda"
+    twice = rows + rows
+    try:
+        sync(dev)
+        paged_attention.launches = 0
+        out, wall = fleet_stream(rt, twice, dev)
+        t0 = time.perf_counter()
+        decided = []
+        while time.perf_counter() - t0 < REMEDIATION_WAIT_SEC:
+            decided = [d for d in eng.decisions
+                       if d["action"] == "spawn_replica" and d["executed"]]
+            if decided and len(rt.replicas) > REMEDIATION_REPLICAS:
+                break
+            time.sleep(0.05)
+        decide_wait = time.perf_counter() - t0
+        eng.stop()
+        live = sum(1 for r in rt.replicas if r.alive and r.state == "live")
+        chunks0 = [r.stats.get("chunks", 0) for r in rt.replicas]
+        admitted0 = [r.stats.get("admitted", 0) for r in rt.replicas]
+        k1_fault = paged_attention.launches
+        healed, healed_wall = fleet_stream(rt, rows, dev)
+        k1_healed = paged_attention.launches - k1_fault
+        steps = [(r.stats.get("chunks", 0) - c) * SERVING["chunk_size"]
+                 for r, c in zip(rt.replicas, chunks0)]
+        admitted = [r.stats.get("admitted", 0) - a
+                    for r, a in zip(rt.replicas, admitted0)]
+    finally:
+        eng.stop()
+        rt.close()
+        os.environ.pop(chaos.TFOS_CHAOS_PLAN, None)
+    events = journal.events()
+    at = {e.kind: e.ts for e in reversed(events)}
+    logged = [e.attrs for e in events if e.kind == "remediation_decision"]
+    res = dict(
+        requests=[len(twice), len(rows)], replicas=REMEDIATION_REPLICAS,
+        fault_wall_sec=wall, healed_wall_sec=healed_wall,
+        decide_wait_sec=decide_wait,
+        replica_deaths=rt.stats["replica_deaths"],
+        redispatched=rt.stats["redispatched"], live=live,
+        replicas_after=len(rt.replicas), spawned_predictors=len(spawned),
+        decisions=[{k: d.get(k) for k in ("action", "policy", "target",
+                                          "evidence", "executed", "error")}
+                   for d in eng.decisions],
+        journaled=[d.get("action") for d in logged],
+        # the spawn's time to restore capacity: the death's journal event
+        # to the spawned replica's, on this process's clock
+        restore_sec=(at["replica_spawned"] - at["replica_dead"]
+                     if "replica_spawned" in at and "replica_dead" in at
+                     else None),
+        healed_steps=steps, healed_admitted=admitted,
+        launches=paged_attention.launches, fault_launches=k1_fault,
+        healed_launches=k1_healed,
+        spawned_launches=layers * steps[-1] if on_card else 0,
+        device=device_name(dev), nvidia_smi=nvidia_smi_or_cpu(dev))
+    for name, got, rs, w in (("fault", out, twice, want + want),
+                             ("healed", healed, rows, want)):
+        ok, ties = tie_gate(lambda: p0.make_slot_decoder(SLOTS).model, rs,
+                            tokens_of(got), w)
+        res[name + "_near_ties"] = ties
+        if not ok or len(got) != len(rs) or any("error" in r for r in got):
+            problems.append("remediation, {0} stream: tokens differ from "
+                            "the fault-free fleet's beyond a near tie, or a "
+                            "request was lost: {1}".format(name, ties))
+    emit("remediation_serve_flagship", **res)
+    spawns = [d for d in eng.decisions if d["action"] == "spawn_replica"
+              and d["executed"]]
+    if not (len(spawns) == 1 and spawns[0]["policy"] == "fault-response"
+            and spawns[0]["evidence"].get("lost_replica") == 1):
+        problems.append("remediation: executed spawns {0}".format(spawns))
+    if not (rt.stats["replica_deaths"] == 1
+            and live == REMEDIATION_REPLICAS and len(spawned) == 1
+            and len(rt.replicas) == REMEDIATION_REPLICAS + 1):
+        problems.append("remediation: {0} deaths, {1} live of {2}, {3} "
+                        "spawned".format(rt.stats["replica_deaths"], live,
+                                         len(rt.replicas), len(spawned)))
+    if "spawn_replica" not in res["journaled"]:
+        problems.append("remediation: no spawn_replica decision in the "
+                        "journal: {0}".format(res["journaled"]))
+    want_k1 = layers * sum(steps) if on_card else 0
+    if not (admitted[-1] >= 1 and steps[-1] > 0 and k1_healed == want_k1
+            and (k1_healed > 0 or not on_card)):
+        problems.append("remediation: the spawned replica admitted {0}, "
+                        "stepped {1}; K1 {2} over the healed stream, want "
+                        "{3}".format(admitted[-1], steps[-1], k1_healed,
+                                     want_k1))
+    return res
 
 
 def fleet_deploy(tree, config, device, problems, tmp):
@@ -8949,16 +9419,20 @@ def main():
     phase_moe_train_to_serve(moe_model)
     del moe_model
     lap("moe")
-    fed = phase_feed_train_flagship(train)
+    # the fed phases at the cut depth, against the stacked run there
+    cut_stacked = cut_train(cut)
+    fed = phase_feed_train_flagship(cut_stacked, config=cut)
     lap("feed_train_flagship")
-    ring = phase_feed_ring_train_flagship(train)
+    ring = phase_feed_ring_train_flagship(cut_stacked, config=cut)
     lap("feed_ring_train_flagship")
-    inference = phase_feed_inference_flagship()
+    inference = phase_feed_inference_flagship(config=cut)
     lap("feed_inference_flagship")
     resumed = phase_checkpoint_resume_serve()
     lap("checkpoint_resume_serve")
     elastic = phase_elastic_flagship(config=cut)
     lap("elastic_flagship")
+    hold = phase_elastic_hold_flagship(config=cut)
+    lap("elastic_hold_flagship")
     pipeline = phase_pipeline_flagship(config=cut)
     lap("pipeline_flagship")
     mnist = phase_mnist_spark_flagship()
@@ -8994,6 +9468,7 @@ def main():
         telemetry_launches=tele["launches"],
         disagg_launches=disagg["launches"],
         fleet_launches=fleet["launches"],
+        remediation_launches=fleet["faults"]["remediation"]["launches"],
     )] + [
         kernel_entry("flash_" + name, kernel, jax_flash + line,
                      train["launches"][name], flash[name],
@@ -9004,6 +9479,7 @@ def main():
                      inference_launches=inference["launches"][name],
                      resume_launches=resumed["resume_launches"][name],
                      elastic_launches=[g[name] for g in elastic["launches"]],
+                     hold_launches=hold["hold_launches"][name],
                      ring_attention_launches=ring_hops["launches"][name],
                      pipeline_launches=pipeline["fit_launches"][name],
                      fused_qkv_launches=fused["train"]["launches"][name],

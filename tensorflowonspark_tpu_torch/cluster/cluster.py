@@ -20,6 +20,11 @@ events with the clock offsets that align them (the driver's own events
 included), ``collect_dumps()`` the flight recorders' dump indexes, and
 ``start_health_plane()`` runs the windowed time series, SLO rules and
 straggler diagnosis over them, with its HTTP surface.
+``start_remediation()`` wires the audited remediation engine over that
+plane; its elastic shrink and grow are ``hold_executor`` and
+``release_executor``, which park one executor's compute (its supervisor
+re-rendezvouses the survivors at reduced width, and the feeders route
+its partitions to them) and bring it back.
 ``run(profile_dir=, profile_steps=)`` captures a ``torch.profiler``
 trace in each compute process of that cluster.
 
@@ -29,8 +34,7 @@ with ``driver_ps_nodes``, shards in the driver process), an
 whose URL ``tensorboard_url()`` gives.  ``shutdown`` stops TensorBoard
 and releases the service nodes' control loops after its error check.
 
-Not ported (ROADMAP queue A): remediation holds (``hold_executor``,
-``release_executor``) and the planner (``plan``, ``plan_hint``).
+Not ported (ROADMAP queue A): the planner (``plan``, ``plan_hint``).
 """
 
 import functools
@@ -71,10 +75,10 @@ class ClusterMonitor(object):
       with the node's error-queue traceback when one is reachable.
     - ``elastic=True``: a death opens a recovery window of
       ``recovery_timeout`` seconds.  A raised generation or resumed
-      beats close it (each generation step counts in
-      ``restart_events``, the feed loop's cue to requeue uncommitted
-      partitions); an executor still dead past the window is a
-      permanent failure.
+      beats close it (each executor's generation step counts in
+      ``restart_events``; the feed loop requeues on the server's
+      generation instead, once a step); an executor still dead past the
+      window is a permanent failure.
 
     Journal marks: ``executor_restart`` for each generation step (with
     the ``cluster.restart_events`` counter), ``executor_dead`` (page) for
@@ -306,6 +310,13 @@ class TPUCluster(object):
         self._uncommitted = {}
         #: the health plane (:meth:`start_health_plane`)
         self.health = None
+        #: the remediation engine (:meth:`start_remediation`)
+        self.remediation = None
+        #: holds and releases delivered: each is a generation step that
+        #: charges no restart, so it adds a round to the requeue budget
+        self._hold_steps = 0
+        #: the generation the newest feed round started at
+        self._fed_gen = 0
         self._profile_seq = itertools.count(1)
         #: parameter-server shards hosted in this process (driver_ps_nodes)
         self._driver_ps = list(driver_ps or [])
@@ -438,23 +449,27 @@ class TPUCluster(object):
 
     def _feed_epoch_elastic(self, feed_fn, partitions, epoch):
         """Feed one epoch with partition requeue: every partition leads
-        with a PartitionStart marker feeding the node's ledger; after a
-        restart event, the partitions no checkpoint committed are fed
-        again, for at most ``max_restarts`` rounds.  Those include
-        partitions of earlier epochs: a feeder may deliver a partition
-        just after the checkpoint that holds its rows was committed, and
-        a rebirth discards every partition not committed."""
+        with a PartitionStart marker feeding the node's ledger; after each
+        generation step of the cluster, the partitions no checkpoint
+        committed are fed again, for at most ``max_restarts`` rounds plus
+        one for each hold or release delivered meanwhile (a remediation
+        hold charges no restart).  Those include partitions of earlier
+        epochs: a feeder may deliver a partition just after the checkpoint
+        that holds its rows was committed, and a rebirth discards every
+        partition not committed, also one between two epochs (the first
+        round's signal counts from the generation they were fed at)."""
         pending = {"e{0}p{1}".format(epoch, i): p
                    for i, p in enumerate(partitions)}
-        seen_restarts = (self.monitor.restart_events
-                         if self.monitor is not None else 0)
-        max_rounds = 1 + int(self.cluster_meta["max_restarts"])
-        for round_no in range(max_rounds):
+        seen_gen = self._fed_gen
+        holds = self._hold_steps
+        round_no = 0
+        while True:
             if round_no:
-                self._await_respawn()
+                seen_gen = self._await_respawn()
                 logger.warning("elastic requeue round %d: re-feeding %d "
                                "uncommitted partition(s): %s", round_no,
                                len(pending), sorted(pending))
+            self._fed_gen = self.server.generation
             self._uncommitted.update(pending)
             wrapped = [_with_partition_marker(pid, p)
                        for pid, p in sorted(pending.items())]
@@ -468,7 +483,7 @@ class TPUCluster(object):
                 # a feed task failed mid-restart (it saw the dead
                 # incarnation's error queue): the requeue below re-feeds
                 # if a rebirth explains it, otherwise the failure is real
-                if not self._await_restart_signal(seen_restarts):
+                if not self._await_restart_signal(seen_gen):
                     raise
                 logger.warning("feed job failed during an elastic restart; "
                                "requeuing uncommitted partitions",
@@ -480,24 +495,28 @@ class TPUCluster(object):
             pending = dict(self._uncommitted)
             if not pending:
                 return
-            # a rebirth releases blocked feeders before it re-registers
-            # under the new generation, so a round can end a beat ahead
-            # of the restart signal: settle before concluding that
-            # nothing happened (which would skip the requeue)
-            if not self._await_restart_signal(seen_restarts):
+            # a hold releases blocked feeders before it claims the new
+            # generation, so a round can end a beat ahead of the restart
+            # signal: settle before concluding that nothing happened
+            # (which would skip the requeue)
+            if not self._await_restart_signal(seen_gen):
                 logger.info("epoch %d: %d partition(s) fed but not yet "
                             "committed by a checkpoint (no restart "
                             "occurred)", epoch, len(pending))
                 return
-            seen_restarts = self.monitor.restart_events
+            round_no += 1
+            if round_no > int(self.cluster_meta["max_restarts"]) + \
+                    self._hold_steps - holds:
+                break
         logger.warning("elastic requeue budget exhausted with %d "
                        "partition(s) still uncommitted: %s", len(pending),
                        sorted(pending))
 
-    def _await_restart_signal(self, seen_restarts, window=None):
-        """True if a restart event beyond ``seen_restarts`` surfaces
-        within the settle window; raises through ``check()`` if the
-        monitor declared a permanent failure meanwhile."""
+    def _await_restart_signal(self, seen_gen, window=None):
+        """True if the cluster's generation rises beyond ``seen_gen``
+        within the settle window (one signal per generation step, however
+        many executors re-rendezvous in it); raises through ``check()`` if
+        the monitor declared a permanent failure meanwhile."""
         if self.monitor is None:
             return False
         window = (max(2.0, 4.0 * self.monitor.interval) if window is None
@@ -505,7 +524,7 @@ class TPUCluster(object):
         deadline = time.monotonic() + window
         while True:
             self.monitor.check()
-            if self.monitor.restart_events > seen_restarts:
+            if self.server.generation > seen_gen:
                 return True
             if time.monotonic() >= deadline:
                 return False
@@ -517,8 +536,10 @@ class TPUCluster(object):
         node's queues twice and drains its error queue before it
         respawns: a requeue round fed earlier would have its rows thrown
         away by the second reset, or fail on the dead incarnation's
-        error.  Bounded by the monitor's recovery window (the monitor
-        raises for a node that stays dead)."""
+        error.  A node parked by a remediation hold respawns only at its
+        release, and its feeders route around it: it is not waited for.
+        Bounded by the monitor's recovery window (the monitor raises for
+        a node that stays dead).  Returns the generation waited for."""
         workers = [n for n in self.cluster_info
                    if n["job_name"] in node.COMPUTE_JOBS]
         deadline = time.monotonic() + self.monitor.recovery_timeout
@@ -528,18 +549,21 @@ class TPUCluster(object):
             behind = []
             for n in workers:
                 try:
-                    gen = self._connect(n).get("generation")._getvalue()
+                    kv = self._connect(n)
+                    gen = kv.get("generation")._getvalue()
+                    if kv.get("compute_state")._getvalue() == "held":
+                        continue
                 except Exception:  # noqa: BLE001 - node mid-restart
                     gen = None
                 if gen is None or gen < want:
                     behind.append(n["executor_id"])
             if not behind:
-                return
+                return want
             if time.monotonic() >= deadline:
                 logger.warning("executors %s did not respawn at generation "
                                "%d within the recovery window; requeuing "
                                "anyway", behind, want)
-                return
+                return want
             time.sleep(0.1)
 
     def _ledger_committed(self):
@@ -581,6 +605,9 @@ class TPUCluster(object):
           timeout: overall watchdog, seconds.
         """
         deadline = time.monotonic() + timeout
+        if self.remediation is not None:
+            self.remediation.stop()
+            self.remediation = None
         if self.health is not None:
             from ..telemetry import health as _health
 
@@ -887,6 +914,93 @@ class TPUCluster(object):
             logger.warning(  # clears at its next rebirth
                 "unable to clear health hint on executor %s", executor_id,
                 exc_info=True)
+
+    # -- remediation verbs -----------------------------------------------
+
+    def _compute_node(self, executor_id):
+        return next((n for n in self.cluster_info
+                     if n["executor_id"] == int(executor_id)
+                     and n["job_name"] in node.COMPUTE_JOBS), None)
+
+    def hold_executor(self, executor_id, reason=None):
+        """Elastic shrink (the remediation engine's straggler actuator):
+        write a ``remediation_hold`` into the node's kv.  Its supervisor
+        quiesces the compute process, claims the next gang generation so
+        the survivors re-rendezvous at reduced width, and parks
+        (heartbeating, registered, not training) until
+        :meth:`release_executor`; feeders route its partitions to a live
+        peer meanwhile.  Needs ``elastic=True``.  Returns True when the
+        hold was delivered."""
+        if not self.elastic:
+            raise RuntimeError("hold_executor needs an elastic cluster (the "
+                               "shrink is a supervised re-rendezvous)")
+        node_meta = self._compute_node(executor_id)
+        if node_meta is None:
+            logger.warning("hold request for unknown executor %s",
+                           executor_id)
+            return False
+        try:
+            self._connect(node_meta).set("remediation_hold", {
+                "reason": str(reason or "remediation"), "t": time.time()})
+        except Exception:  # noqa: BLE001 - node mid-restart
+            logger.warning("unable to deliver hold to executor %s",
+                           executor_id, exc_info=True)
+            return False
+        self._hold_steps += 1
+        from .. import telemetry
+
+        telemetry.get_tracer().mark(
+            "remediation_hold_set", trace="cluster", severity="warn",
+            executor_id=int(executor_id), reason=reason)
+        if self.monitor is not None:
+            # a held node reports compute_alive (state 'held'); its
+            # straggler hint no longer applies
+            self.monitor.clear_straggler(int(executor_id))
+        return True
+
+    def release_executor(self, executor_id):
+        """Elastic grow: clear the node's ``remediation_hold``; its
+        supervisor claims the next generation and respawns, and the gang
+        re-rendezvouses at full width.  Returns True when the release was
+        delivered."""
+        node_meta = self._compute_node(executor_id)
+        if node_meta is None:
+            return False
+        try:
+            self._connect(node_meta).set("remediation_hold", None)
+        except Exception:  # noqa: BLE001 - node mid-restart
+            logger.warning("unable to deliver release to executor %s",
+                           executor_id, exc_info=True)
+            return False
+        self._hold_steps += 1
+        from .. import telemetry
+
+        telemetry.get_tracer().mark(
+            "remediation_hold_cleared", trace="cluster",
+            executor_id=int(executor_id))
+        return True
+
+    def start_remediation(self, router=None, policies=None, guardrails=None,
+                          interval=None, **overrides):
+        """Wire and start the audited remediation engine over this
+        cluster's live planes (after :meth:`start_health_plane`: the
+        engine reads its SLO cursor and straggler hints).  ``router``
+        adds a fleet's serving verbs.  Returns the running
+        :class:`~..remediation.engine.RemediationEngine`, also kept on
+        ``self.remediation``; :meth:`shutdown` stops it."""
+        if self.health is None:
+            raise RuntimeError("start_remediation needs the health plane: "
+                               "call start_health_plane(...) first")
+        from .. import remediation as _remediation
+
+        eng = _remediation.wire(
+            self.health, router=router, cluster=self, policies=policies,
+            guardrails=guardrails,
+            interval=(self.health.interval if interval is None
+                      else float(interval)),
+            **overrides)
+        self.remediation = eng
+        return eng.start()
 
     def _await_compute_done(self, workers, deadline):
         pending = {w["executor_id"]: w for w in workers}

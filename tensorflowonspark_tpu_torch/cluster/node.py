@@ -53,8 +53,13 @@ cluster's ``profile_dir``/``profile_steps`` reach only that cluster's
 compute processes, as ``TFOS_PROFILE_DIR``/``TFOS_PROFILE_STEPS`` set in
 their own environment.
 
-Not ported (ROADMAP queue A): the heartbeat chaos hook and the feeders'
-routing around a remediation hold.
+A feed task whose node is held by remediation (its ``compute_state`` is
+``held``: the supervisor parked the compute on purpose) ships the
+partition to a live, un-held compute peer instead
+(:func:`_route_around_hold`), and a drain wait whose node becomes held
+fails fast, so the elastic requeue re-feeds the partition.
+
+Not ported (ROADMAP queue A): the heartbeat chaos hook.
 """
 
 import collections
@@ -343,6 +348,32 @@ def _manager_first_call(cluster_info, executor_id, call):
                                    None)
         mgr = _get_manager(cluster_info, executor_id)
         return mgr, call(mgr)
+
+
+def _route_around_hold(cluster_info, executor_id, mgr, state, probe):
+    """``(manager, state, executor_id)`` of a live, un-held compute peer
+    for a feed task whose own node is held by remediation: a held node
+    keeps its heartbeats and registrations but drains nothing, so its share
+    of the feed flows to the survivors of the elastic shrink.  Falls back
+    to the local manager when every peer is held, terminating or
+    unreachable (the feed timeout and the elastic requeue then apply)."""
+    for peer_node in sorted(cluster_info, key=lambda n: n["executor_id"]):
+        peer = peer_node["executor_id"]
+        if peer == executor_id or peer_node.get("job_name") not in \
+                COMPUTE_JOBS:
+            continue
+        try:
+            m2, (st2, cs2) = _manager_first_call(cluster_info, peer, probe)
+        except Exception:  # noqa: BLE001 - peer mid-restart: the next one
+            continue
+        if cs2 != "held" and st2 != "terminating":
+            logger.info("executor %d is held by remediation; forwarding "
+                        "this partition to executor %d", executor_id, peer)
+            return m2, st2, peer
+    logger.warning("executor %d is held and no live peer accepts its feed; "
+                   "feeding locally (the elastic requeue will recover it)",
+                   executor_id)
+    return mgr, state, executor_id
 
 
 def _local_executor_workdir():
@@ -897,7 +928,11 @@ def feed_partition(cluster_info, cluster_meta, feed_timeout, qname,
     takes the ring for every block."""
 
     def _probe(m):
-        return str(m.get("state")._getvalue())
+        try:
+            cstate = m.get("compute_state")._getvalue()
+        except Exception:  # noqa: BLE001 - the kv is best effort
+            cstate = None
+        return str(m.get("state")._getvalue()), cstate
 
     iterator = iter(iterator)
     first = next(iterator, None)
@@ -907,7 +942,16 @@ def feed_partition(cluster_info, cluster_meta, feed_timeout, qname,
     elif first is not None:
         iterator = itertools.chain([first], iterator)
     local_eid = _local_executor_id()
-    mgr, state = _manager_first_call(cluster_info, local_eid, _probe)
+    mgr, (state, cstate) = _manager_first_call(cluster_info, local_eid,
+                                               _probe)
+    routed = False
+    if cstate == "held" and state != "terminating":
+        # the node's compute is parked by a remediation hold: nothing
+        # will drain its queue, so the partition goes to a live peer
+        own_eid = local_eid
+        mgr, state, local_eid = _route_around_hold(
+            cluster_info, local_eid, mgr, state, _probe)
+        routed = local_eid != own_eid
     if pid is not None and state != "terminating":
         mgr.ledger("begin", pid)
     queue = mgr.get_queue(qname)
@@ -924,7 +968,10 @@ def feed_partition(cluster_info, cluster_meta, feed_timeout, qname,
             logger.debug("unable to reach reservation server: %s", e)
         return []
     err_q = mgr.get_queue("error")
-    ring = _attach_feed_ring(mgr)
+    # a partition routed to a peer takes the peer's queue only: the
+    # peer's ring has a single producer (its own feeder), and it may lie
+    # on another host
+    ring = None if routed else _attach_feed_ring(mgr)
     # the largest record one ring frame can carry (u32 frame length)
     wire_cap = min(ring.capacity, (1 << 32) - 4) if ring else 0
     ring_min_row = int(os.environ.get("TFOS_SHM_RING_MIN_ROW_BYTES", "4096"))
@@ -983,10 +1030,24 @@ def feed_partition(cluster_info, cluster_meta, feed_timeout, qname,
     deadline = time.monotonic() + feed_timeout
     next_err_poll = 0.0
 
+    def _check_held():
+        # a hold that lands while rows are in flight parks the compute
+        # process that was to drain them: fail fast, so the elastic
+        # requeue re-feeds this partition to a live peer
+        try:
+            cstate = mgr.get("compute_state")._getvalue()
+        except Exception:  # noqa: BLE001 - the kv is best effort
+            return
+        if cstate == "held":
+            raise RuntimeError("executor {0} held by remediation while "
+                               "batches were in flight; failing fast so "
+                               "the partition requeues".format(local_eid))
+
     def _poll():
         nonlocal next_err_poll
         if time.monotonic() >= next_err_poll:
             _check_error_queue(mgr, err_q, local_eid)
+            _check_held()
             next_err_poll = time.monotonic() + 1.0
         if time.monotonic() >= deadline:
             raise RuntimeError("timed out waiting for consumption of all "

@@ -27,12 +27,27 @@ With ``elastic=True`` a death is a recoverable event:
   stay uncommitted in the node's :class:`~.manager.PartitionLedger`,
   and the driver requeues them (at-least-once delivery).
 
+A **remediation hold** (``TPUCluster.hold_executor``, the elastic
+shrink) writes ``remediation_hold`` into the node's kv: the supervisor
+stops the compute process, resets the data plane, marks the node's
+``compute_state`` ``held`` (feeders route its partitions to a live peer),
+claims the next generation so the survivors re-rendezvous at reduced
+width, and parks: heartbeating and registered at every newer generation,
+so peer barriers never stall on it, but running no compute.  Clearing
+the kv (``release_executor``, the elastic grow) claims the next
+generation again and respawns.  A hold charges no restart, and a held
+node's beats report its compute alive from the moment the hold is
+entered, so the driver's monitor never reads a hold as a death.
+
 State machine::
 
     RUNNING --proc dies, elastic, budget left--> REBIRTH
     RUNNING --peer generation raised-----------> PARK
+    RUNNING --remediation_hold set-------------> HELD
     REBIRTH --new generation from server-------> PARK
     PARK    --all peers at generation G--------> RESPAWN --> RUNNING
+    HELD    --peer generation raised-----------> HELD (re-registered)
+    HELD    --remediation_hold cleared---------> PARK
     RUNNING --proc dies, budget exhausted------> FAILED (error queued)
     RUNNING --proc exits, state stopped--------> DONE
 
@@ -45,8 +60,9 @@ into the node's kv) with the supervisor's restart count, generation and
 straggler flag folded in, and this process's own journal events (the
 ``restart`` and ``restart_budget_exhausted`` marks).
 
-Not ported (ROADMAP queue A, item 14): remediation holds and the
-pod-leader election of the hierarchical parameter server.
+Not ported (ROADMAP queue A): the pod-leader election of the
+hierarchical parameter server, which the reference's hold also runs when
+it registers a held node.
 """
 
 import logging
@@ -145,6 +161,9 @@ class Supervisor(object):
         self.restarts = 0
         self.proc = None
         self.heartbeater = None
+        #: True while a remediation hold parks this node: it keeps its
+        #: heartbeats and registrations but spawns no compute
+        self._held = False
         self._thread = None
         self._hint_logged = False
         #: (pid, seq) of the newest compute-process event shipped
@@ -284,11 +303,12 @@ class Supervisor(object):
         """What the heartbeat's ``compute_alive`` flag reports.  A process
         that exited after marking itself 'finished' is a clean completion,
         not a death (it marks before it exits, so a clean finish never
-        reads as dead)."""
-        if self.proc is not None and self.proc.is_alive():
+        reads as dead).  A held node is quiesced on purpose: alive too."""
+        if self._held or (self.proc is not None and self.proc.is_alive()):
             return True
         try:
-            return self.mgr.get("compute_state")._getvalue() == "finished"
+            return self.mgr.get("compute_state")._getvalue() in ("finished",
+                                                                 "held")
         except Exception:  # noqa: BLE001 - manager gone = node dying
             return False
 
@@ -329,6 +349,8 @@ class Supervisor(object):
     def _watch(self):
         while True:
             self.proc.join(timeout=self.interval / 2.0)
+            if self.elastic and self._hold_step(self._node_state()):
+                continue
             if not self.proc.is_alive():
                 if self._node_state() in ("terminating", "stopped",
                                           "unknown"):
@@ -361,6 +383,119 @@ class Supervisor(object):
         # heartbeats stay up until the node is told to stop, so the
         # driver can still tell 'compute done' from 'node gone'
         self._await_stop_then_quiesce()
+
+    # -- remediation hold (elastic shrink and grow) ---------------------
+
+    def _hold_request(self):
+        """The driver-written ``remediation_hold`` kv (a dict) or None."""
+        rec = self._kv("remediation_hold")
+        return rec if isinstance(rec, dict) else None
+
+    def _hold_step(self, state):
+        """One watch-loop round of hold handling; True when the round was
+        spent on it (enter, stay parked, or exit)."""
+        if state in ("terminating", "stopped", "unknown"):
+            # node teardown outranks a hold; the normal path breaks
+            self._held = False
+            return False
+        hold = self._hold_request()
+        if hold is not None and not self._held:
+            self._enter_hold(hold)
+            return True
+        if not self._held:
+            return False
+        if hold is None:
+            self._exit_hold()
+            return True
+        # stay parked, registering at every newer generation so the
+        # survivors' re-rendezvous barriers never stall on this node
+        peer_gen = self.heartbeater.cluster_generation
+        if peer_gen > self.generation:
+            self._register_held(peer_gen)
+        # the dead process makes join() return at once: pace the loop
+        time.sleep(self.interval / 2.0)
+        return True
+
+    def _enter_hold(self, hold):
+        """Elastic shrink: quiesce compute, claim the next generation so
+        the survivors re-rendezvous at reduced width, and park without
+        respawning.  Deliberate: no restart is charged."""
+        self._held = True
+        from .. import telemetry
+
+        telemetry.get_tracer().mark(
+            "executor_held", trace="executor%d" % self.ctx.executor_id,
+            severity="warn", executor_id=self.ctx.executor_id,
+            reason=hold.get("reason"))
+        logger.warning("executor %d entering remediation hold (%s): "
+                       "quiescing compute and shrinking the gang",
+                       self.ctx.executor_id, hold.get("reason"))
+        if self.proc.is_alive():
+            self.proc.terminate()
+            self.proc.join(timeout=10)
+            if self.proc.is_alive():
+                self.proc.kill()
+                self.proc.join(timeout=10)
+        self._reset_data_plane()
+        # after the reset, which clears compute_state as its last act:
+        # 'held' is what feeders route around for the life of the hold
+        try:
+            self.mgr.set("compute_state", "held")
+        except Exception:  # noqa: BLE001 - kv is best effort
+            pass
+        try:
+            client = reservation.Client(self.server_addr)
+            new_gen = client.rebirth(self.ctx.executor_id, self.generation)
+            client.close()
+        except Exception:  # noqa: BLE001 - server gone: stay parked
+            logger.warning("executor %d could not claim a shrink generation",
+                           self.ctx.executor_id, exc_info=True)
+            return
+        self._register_held(new_gen)
+
+    def _register_held(self, generation):
+        """Register this (quiesced) node at ``generation`` and stand at the
+        barrier, so the peers rendezvous at the reduced width with this
+        node present but parked."""
+        self.generation = int(generation)
+        try:
+            client = reservation.Client(self.server_addr)
+            client.register(dict(self.node_meta, generation=self.generation))
+            self._await_generation(client, self.generation)
+            client.close()
+        except Exception:  # noqa: BLE001 - the barrier is best effort
+            logger.warning("executor %d held re-registration at generation "
+                           "%d was incomplete", self.ctx.executor_id,
+                           self.generation, exc_info=True)
+
+    def _exit_hold(self):
+        """Elastic grow: the hold cleared.  Claim the next generation (the
+        peers re-rendezvous at full width) and respawn.  The node reports
+        its compute alive until the respawn."""
+        from .. import telemetry
+
+        telemetry.get_tracer().mark(
+            "executor_released", trace="executor%d" % self.ctx.executor_id,
+            executor_id=self.ctx.executor_id)
+        logger.info("executor %d remediation hold cleared: rejoining the "
+                    "gang", self.ctx.executor_id)
+        try:
+            self.mgr.set("compute_state", None)
+        except Exception:  # noqa: BLE001 - kv is best effort
+            pass
+        try:
+            client = reservation.Client(self.server_addr)
+            new_gen = client.rebirth(self.ctx.executor_id, self.generation)
+            client.close()
+        except Exception:  # noqa: BLE001 - server gone: no cluster left
+            self._held = False
+            logger.error("executor %d could not claim a re-grow generation",
+                         self.ctx.executor_id, exc_info=True)
+            return
+        try:
+            self._park_and_respawn(new_gen)
+        finally:
+            self._held = False
 
     def _final_beat(self):
         """One immediate compute_alive=False beat: the monitor learns of

@@ -143,6 +143,17 @@ METRICS = tuple(
     + _m(_C, "blackbox.FlightRecorder",
          ("blackbox.dumps", "dump bundles frozen to disk"),
          ("blackbox.dumps_suppressed", "triggers rate-limited away"))
+    # --- remediation engine (remediation/engine.py) ---
+    + _m(_C, "remediation.RemediationEngine",
+         ("remediation.decisions", "policy intents that reached the audit log"),
+         ("remediation.actions_executed", "actuator verbs actually invoked"),
+         ("remediation.actions_suppressed",
+          "intents stopped by a cooldown or rate limit"),
+         ("remediation.actions_deferred",
+          "intents parked by the deploy-conflict rule"))
+    + _m(_G, "remediation.RemediationEngine",
+         ("remediation.budget_remaining",
+          "global action budget left before hands-off"))
 )
 
 #: families whose full names are minted at run time: a name under one of

@@ -173,14 +173,18 @@ class EventJournal(object):
         merged = dict(attrs) if attrs else {}
         if extra:
             merged.update(extra)
-        ev = Event(
-            kind, ts=self._clock() if ts is None else ts,
-            seq=next(self._seq),
-            executor=self.executor if executor is None else executor,
-            severity=severity, trace=trace, attrs=merged or None,
-        )
-        ring = self._info if ev.severity == "info" else self._fault
         with self._lock:
+            # the seq is drawn under the lock that appends: events enter
+            # the rings in seq order, so a cursor reader (``events_since``,
+            # ``drain_unshipped``) never passes a seq whose event is not
+            # appended yet
+            ev = Event(
+                kind, ts=self._clock() if ts is None else ts,
+                seq=next(self._seq),
+                executor=self.executor if executor is None else executor,
+                severity=severity, trace=trace, attrs=merged or None,
+            )
+            ring = self._info if ev.severity == "info" else self._fault
             if len(ring) == ring.maxlen:
                 self.dropped_events += 1
                 if self._m_dropped is None:

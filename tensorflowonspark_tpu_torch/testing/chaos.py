@@ -30,8 +30,14 @@ a no-op.
 The fleet's replicas read their ``kill_replica`` / ``slow_replica`` /
 ``device_error`` faults (:func:`replica_fault_fn`).
 
+:meth:`ChaosPlan.combined` builds the combined fault storm (slow
+executor, leader kill, replica kill, corrupt checkpoint) as one plan,
+and :meth:`ChaosPlan.schedule` gives a harness its wall-clock order.
+A ``kill_leader`` entry is a plan record only: the hierarchical
+parameter server that reads it is not ported.
+
 Not ported (ROADMAP queue A, item 14): the other faults of the
-reference's plan (heartbeat drops, leader kills), ``combined`` and
+reference's plan (heartbeat drops, the leader kill's in-band hook) and
 ``TcpGremlin``.
 """
 
@@ -66,6 +72,16 @@ class ChaosPlan(object):
         (see :func:`step_fault_fn`)."""
         self.faults.append({"kind": "kill", "executor_id": int(executor_id),
                             "at_step": int(at_step)})
+        return self
+
+    def kill_leader(self, at_window):
+        """Kill the hierarchical gradient plane's pod leader the first
+        time its push window sequence reaches ``at_window``.  Each entry
+        fires once, in plan order.  The port records the fault in the
+        plan (for :meth:`combined` and :meth:`schedule`); no hook of the
+        port reads it yet."""
+        self.faults.append({"kind": "kill_leader",
+                            "at_window": int(at_window)})
         return self
 
     def slow_executor(self, executor_id, per_batch_sec, batches=0):
@@ -177,6 +193,70 @@ class ChaosPlan(object):
                             "at_admit": int(at_admit),
                             "deadline_sec": float(deadline_sec)})
         return self
+
+    @classmethod
+    def combined(cls, slow_executor=None, kill_leader=None,
+                 kill_replica=None, corrupt_checkpoint=None):
+        """The combined fault storm as one plan: ``slow_executor +
+        kill_leader + kill_replica + corrupt_checkpoint``, each argument
+        a dict of that builder's kwargs plus an optional ``at_sec``
+        wall-clock offset (seconds from harness start) that the driving
+        harness schedules by; the in-band triggers (``at_window``,
+        ``at_chunk``, feed pulls) still gate when each fault lands inside
+        its subsystem.
+
+        ``corrupt_checkpoint`` has no in-band hook (it is the driver-side
+        :func:`corrupt_checkpoint` applied to a published export), so its
+        record carries only ``corrupt_kind`` and ``at_sec``; executors
+        ignore it.  Example::
+
+            plan = ChaosPlan.combined(
+                slow_executor={"executor_id": 1,
+                               "per_batch_sec": 0.4, "at_sec": 2},
+                kill_leader={"at_window": 3, "at_sec": 5},
+                kill_replica={"replica_id": 1, "at_chunk": 4,
+                              "at_sec": 8},
+                corrupt_checkpoint={"corrupt_kind": "truncate_array",
+                                    "at_sec": 11},
+            )
+        """
+        plan = cls()
+
+        def _take(spec, builder):
+            spec = dict(spec)
+            at_sec = spec.pop("at_sec", None)
+            builder(**spec)
+            if at_sec is not None:
+                plan.faults[-1]["at_sec"] = float(at_sec)
+
+        if slow_executor is not None:
+            _take(slow_executor, plan.slow_executor)
+        if kill_leader is not None:
+            _take(kill_leader, plan.kill_leader)
+        if kill_replica is not None:
+            _take(kill_replica, plan.kill_replica)
+        if corrupt_checkpoint is not None:
+            spec = dict(corrupt_checkpoint)
+            kind = spec.pop("corrupt_kind", spec.pop("kind", None))
+            if kind not in CORRUPT_KINDS:
+                raise ValueError(
+                    "corrupt_checkpoint needs corrupt_kind in {0}, "
+                    "got {1!r}".format(CORRUPT_KINDS, kind))
+            fault = {"kind": "corrupt_checkpoint", "corrupt_kind": kind}
+            if "at_sec" in spec:
+                fault["at_sec"] = float(spec.pop("at_sec"))
+            if spec:
+                raise ValueError("unknown corrupt_checkpoint keys "
+                                 "{0}".format(sorted(spec)))
+            plan.faults.append(fault)
+        return plan
+
+    def schedule(self):
+        """``(at_sec, fault)`` pairs sorted by trigger time (faults with
+        no ``at_sec`` sort first, at 0.0): the harness's view of a
+        :meth:`combined` plan."""
+        return sorted(((float(f.get("at_sec", 0.0)), f)
+                       for f in self.faults), key=lambda p: p[0])
 
     def save(self, path):
         path = os.fspath(path)

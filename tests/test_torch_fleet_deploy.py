@@ -28,9 +28,15 @@ from tensorflowonspark_tpu_torch.fleet import deploy, router  # noqa: E402
 from tensorflowonspark_tpu_torch.telemetry import journal  # noqa: E402
 from tensorflowonspark_tpu_torch.testing import chaos  # noqa: E402
 
-#: the status fields that do not depend on timing
-_STATUS = ("state", "replicas_done", "halted", "generations", "gate",
-           "target_step")
+#: the status fields that do not depend on timing.  The status's
+#: ``generations`` is not one of them: the deploy snapshots it from the
+#: replicas' stats when it halts or finishes, while each replica's engine
+#: thread sets its ``weight_generation`` on its own schedule (a canary
+#: rollback counts the rollback before it quarantines the step and sets
+#: the generation), so the snapshot may read the old or the new value in
+#: either package.  :func:`_settled` reads the generations once the fleet
+#: is closed instead.
+_STATUS = ("state", "replicas_done", "halted", "gate", "target_step")
 
 
 def _status(dep):
@@ -38,6 +44,12 @@ def _status(dep):
     if st["halted"]:
         st["halted"] = {k: st["halted"][k] for k in ("replica", "kind")}
     return st
+
+
+def _settled(rt):
+    """Every replica engine's ``weight_generation`` after ``rt.close()``
+    (its engine thread has exited, so the value is final)."""
+    return [int(r.engine.stats["weight_generation"]) for r in rt.replicas]
 
 
 def _deploy_during(rt, rows, at=4, **deploy_kw):
@@ -74,11 +86,14 @@ def test_rolling_deploy_over_every_replica_drops_nothing_like_jax():
         assert len(out) == 120 and all("error" not in r for r in out)
         assert rt.stats["swaps"] == rt.stats["swap_commits"] == 3
         assert all(r.engine.decoder.params == "v1" for r in rt.replicas)
-        res.append(_status(dep))
+        # the commit gate waits for clean completions after each install,
+        # so the snapshot at the end of the rollout is settled
+        assert all(g >= 1 for g in dep.status["generations"].values())
+        res.append(dict(_status(dep), settled=_settled(rt)))
     assert res[0] == res[1]
     assert res[0]["state"] == "done"
     assert sorted(res[0]["replicas_done"]) == [0, 1, 2]
-    assert all(g >= 1 for g in res[0]["generations"].values())
+    assert res[0]["settled"] == [1, 1, 1]
     assert journal.get_journal().events(kind="deploy_done")
 
 
@@ -95,10 +110,13 @@ def test_canary_burn_halts_the_fleet_on_the_old_generation():
         assert len(out) == 30 and all("error" not in r for r in out)
         assert rt.replicas[0].engine.decoder.params == "v0"
         assert [r.stats["swaps"] for r in rt.replicas] == [0, 0, 0]
-        res.append(_status(dep))
+        res.append(dict(_status(dep), settled=_settled(rt)))
     assert res[0] == res[1]
     assert res[0]["state"] == "halted" and res[0]["replicas_done"] == []
     assert res[0]["halted"] == {"replica": 0, "kind": "canary_failed"}
+    # the canary installed and restored (the fake decoder counts each),
+    # and its siblings never swapped
+    assert res[0]["settled"] == [2, 0, 0]
     ev = journal.get_journal().events(kind="deploy_halted")
     assert len(ev) > j0 and ev[-1].severity == "page"
     assert ev[-1].attrs["canary"] is True
@@ -113,9 +131,10 @@ def test_install_refusal_halts_like_jax():
                                   phase_timeout=20.0)
         assert len(out) == 20 and all("error" not in r for r in out)
         assert rt.replicas[1].stats["swaps"] == 0
-        res.append(_status(dep))
+        res.append(dict(_status(dep), settled=_settled(rt)))
     assert res[0] == res[1]
     assert res[0]["halted"] == {"replica": 0, "kind": "install_refused"}
+    assert res[0]["settled"] == [0, 0]
     with pytest.raises(deploy.DeployHalted, match="install_refused"):
         dep_port = deploy.RollingDeploy(params="x")
         dep_port.status.update(state="halted",
@@ -143,9 +162,10 @@ def test_phase_timeout_halts_on_the_injected_clock():
                                   at=1, params="v1", step=2,
                                   phase_timeout=30.0, clock=_Clock())
         assert len(out) == 8
-        res.append(_status(dep))
+        res.append(dict(_status(dep), settled=_settled(rt)))
     assert res[0] == res[1]
     assert res[0]["halted"] == {"replica": 0, "kind": "timeout"}
+    assert res[0]["settled"] == [1, 0]
 
 
 def test_applied_gate_finishes_against_an_idle_fleet():
@@ -160,8 +180,9 @@ def test_applied_gate_finishes_against_an_idle_fleet():
         assert len(out) == 6 and dep.finished
         assert [r.engine.decoder.params for r in rt.replicas] == ["v2"] * 3
         assert rt.health_status()["deploy"]["state"] == "done"
-        res.append(_status(dep))
+        res.append(dict(_status(dep), settled=_settled(rt)))
     assert res[0] == res[1] and res[0]["replicas_done"] == [0, 1, 2]
+    assert res[0]["settled"] == [1, 1, 1]
 
 
 def test_exactly_one_deploy_and_one_weight_source():

@@ -2,7 +2,8 @@
 rehearsed on the CPU, so that a phase that cannot run (a ``NameError``, a
 wrong key) fails here and not on the card: a two-layer narrow model for
 the flagship part and its first layer for the fault, deploy and affinity
-parts, at ``device="cpu"``, with every gate of the phase applied (the CPU
+parts (the self-healing job under the remediation engine among the
+faults), at ``device="cpu"``, with every gate of the phase applied (the CPU
 runs K1's plain version, so its launch gate wants 0 there).  The phase's
 own traffic (24 requests of 16-448 prompt tokens, 64 new tokens, 8 slots
 a replica) runs unchanged.
@@ -40,3 +41,10 @@ def test_fleet_phase_rehearses_on_the_cpu(monkeypatch, tmp_path):
         "shape_mismatch"
     assert line["affinity"]["prefix_affinity"]["prefix_hits"] > \
         line["affinity"]["random"]["prefix_hits"]
+    # the self-healing job: one executed spawn by fault-response, two live
+    # replicas again, the spawned one served the healed stream
+    heal = line["faults"]["remediation"]
+    assert [d["action"] for d in heal["decisions"] if d["executed"]] == [
+        "spawn_replica"]
+    assert heal["live"] == 2 and heal["replicas_after"] == 3
+    assert heal["healed_admitted"][-1] >= 1 and heal["launches"] == 0

@@ -331,6 +331,9 @@ def test_import_loads_no_jax():
         "from tensorflowonspark_tpu_torch.fleet import deploy, replica, "
         "router\n"
         "from tensorflowonspark_tpu_torch.testing import chaos\n"
+        "from tensorflowonspark_tpu_torch import remediation\n"
+        "from tensorflowonspark_tpu_torch.remediation import actuators, "
+        "engine, policy\n"
         "from tensorflowonspark_tpu_torch.models import base, layers, "
         "linear, mlp, moe, resnet, transformer, unet\n"
         "from tensorflowonspark_tpu_torch.ops import _build, attention, "
@@ -375,6 +378,9 @@ def test_cluster_plane_imports_no_torch():
         "from tensorflowonspark_tpu_torch.data import _native, columnar, "
         "example, feed, preprocess, shm_ring, tfrecord\n"
         "from tensorflowonspark_tpu_torch.utils import tree\n"
+        "from tensorflowonspark_tpu_torch import remediation\n"
+        "from tensorflowonspark_tpu_torch.remediation import actuators, "
+        "engine, policy\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('torch', 'jax', 'tensorflowonspark_tpu'))\n"
         "assert not bad, bad\n"
